@@ -7,13 +7,16 @@ Run from the repository root. Phases, each printing its own lines:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from coslam_torch/csrc with nvcc;
-3. kernels: each kernel against its plain PyTorch version at the room0
-   spec and at every shape the slice gives it (main_path_cases), with the
-   tolerances below, and both timed with CUDA events;
-4. slice: the sequential SLAM loop (CoSLAM.run) at room0's model width and
-   recipe on a 15-frame 480x640 analytic synthetic scene, checked for
-   finite losses, 3 keyframes, ATE RMSE < 10 cm, a mesh, and launches of
-   both kernels on the path.
+3. kernels: the hash-grid kernels A and B at the room0 spec and the
+   TensoVM kernels C and D at the room0_vm spec, each against its plain
+   PyTorch version at every shape its slice gives it (main_path_cases),
+   with the tolerances below, and both timed with CUDA events;
+4. slices: the sequential SLAM loop (CoSLAM.run) at room0's model width
+   and recipe (hash grid), then at room0_vm's (TensoVM), on one 15-frame
+   480x640 analytic synthetic scene, each checked for finite losses,
+   keyframes 0, 5 and 10, ATE RMSE < 10 cm, a mesh, and launches of its
+   two kernels on the path (every count set to 0 just before the slice
+   and read just after it).
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, the kernels' JSON record and
@@ -33,20 +36,22 @@ import time
 
 import numpy as np
 
-from coslam_torch.data.synth import SyntheticFrames, room0_config
+from coslam_torch.data.synth import (SyntheticFrames, room0_config,
+                                     room0_vm_config)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Tolerances against the plain version. Forward: the same products in
 # the same order (FMA contraction moves the last bit). Backward: f32
-# atomics add in an order that changes from run to run, so each entry
-# carries the sum-order error of its many contributions. A dx entry sums
-# 16 levels x 4 corners x 2 features of terms scaled by the resolution
-# (up to 399) with unit-normal table and cotangent, so its terms reach
-# hundreds and an entry near zero keeps an absolute error near 1e-4:
-# hence atol 1e-3 on dx.
+# atomics add in an order that changes from run to run, so each table
+# entry (dtable, dplanes, dlines) carries the sum-order error of its many
+# contributions. A dx entry sums 16 levels x 4 corners x 2 features
+# (TensoVM: 3 levels x 3 sections x 2 features, plane and line terms) of
+# terms scaled by the resolution (up to 399) with unit-normal cotangent,
+# so its terms reach hundreds and an entry near zero keeps an absolute
+# error near 1e-4: hence atol 1e-3 on dx.
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
-DTABLE_TOL = dict(rtol=1e-4, atol=1e-5)
+TABLE_TOL = dict(rtol=1e-4, atol=1e-5)
 DX_TOL = dict(rtol=1e-4, atol=1e-3)
 
 N_FRAMES = 15
@@ -81,13 +86,16 @@ def _time_ms(fn, batches: int = 5, per_batch: int = 20,
 
 
 def main_path_cases(cfg: dict, frames: int) -> list:
-    """(label, points, need_dtable, need_dx) of every encode call the
+    """(label, points, need_table, need_dx) of every encode call the
     slice makes, from its config: points are rays x samples per ray.
     Only a BA call with >= 2 keyframes optimizes poses, so only it and
     tracking ask for dx; a BA call's current-frame quota is
     max(sample // kf_count, min_pixels_cur), with the keyframe count
-    before that frame's keyframe is added; the mesh only queries."""
+    before that frame's keyframe is added; the hash grid's smoothness
+    lattice is encoded as constant points (TensoVM's analytic TV encodes
+    none); the mesh only queries."""
     from coslam_torch.mesh.extract import CHUNK
+    from coslam_torch.models.scene_rep import is_tensovm
 
     tr, mc = cfg["training"], cfg["mapping"]
     z = tr["n_samples_d"] + tr["n_range_d"]
@@ -99,97 +107,162 @@ def main_path_cases(cfg: dict, frames: int) -> list:
     for kf in kf_counts:
         quota = min(max(S // kf, mc["min_pixels_cur"]), S)
         cases.append((f"BA {kf} kf", (S + quota) * z, True, kf >= 2))
-    cases += [("lattice", (tr["smooth_pts"] - 1) ** 3, True, False),
-              ("mesh chunk", CHUNK, False, False)]
+    if not is_tensovm(cfg):
+        cases.append(("lattice", (tr["smooth_pts"] - 1) ** 3, True, False))
+    cases.append(("mesh chunk", CHUNK, False, False))
     return cases
 
 
-def check_kernels(device, cases: list) -> dict:
-    """Kernels A and B against the plain versions at the room0 spec, on
-    each case of `cases`. Returns {kernel: {"max_abs_err", "ms",
-    "plain_ms"}}, the times at the case with the most points that runs
-    the backward."""
+def _tensor(device, a):
     import torch
 
-    from coslam_torch.ops import hash_packed as HP
+    return torch.from_numpy(a.astype(np.float32)).to(device)
 
-    spec = HP.make_packed_spec(400, 16)
-    rng = np.random.default_rng(0)
-    table = torch.from_numpy(rng.standard_normal(
-        (spec.total_entries, spec.n_features)).astype(np.float32)).to(device)
-    out = {"grid_encode_fwd": {"max_abs_err": 0.0},
-           "grid_encode_bwd": {"max_abs_err": 0.0}}
+
+class HashKernels:
+    """Kernels A and B at the room0 spec: unit-normal table."""
+
+    source = "coslam_torch/csrc/grid_encode.cu"
+    # The pallas_call of each TPU kernel a kernel replaces; the backward
+    # replaces two (the hashed and the dense table gradient).
+    record = {"grid_encode_fwd": {
+                  "replaces": "coslam_tpu/ops/hash_packed.py:323"},
+              "grid_encode_bwd": {
+                  "replaces": "coslam_tpu/ops/hash_packed.py:411",
+                  "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]}}
+
+    def __init__(self, device, rng):
+        from coslam_torch.ops import hash_packed as HP
+
+        self.m = HP
+        self.fwd_fn, self.bwd_fn = HP.grid_encode_fwd, HP.grid_encode_bwd
+        self.spec = HP.make_packed_spec(400, 16)
+        self.table = _tensor(device, rng.standard_normal(
+            (self.spec.total_entries, self.spec.n_features)))
+
+    def fwd(self, x, plain=False):
+        fn = self.m.grid_encode_fwd_ref if plain else self.m.grid_encode_fwd
+        return fn(self.spec, self.table, x)
+
+    def bwd(self, x, g, need_table, need_dx, plain=False):
+        fn = self.m.grid_encode_bwd_ref if plain else self.m.grid_encode_bwd
+        return dict(zip(("dtable", "dx"), fn(self.spec, self.table, x, g,
+                                             need_table, need_dx)))
+
+
+class TensoVMKernels:
+    """Kernels C and D at the room0_vm spec: planes 0.1 x noise, lines
+    1 + 0.1 x noise; mapping asks for dplanes and dlines together."""
+
+    source = "coslam_torch/csrc/tensovm_encode.cu"
+    # Kernel C has no pallas_call to replace: it computes what XLA
+    # computed on the TPU, tensovm_encode_fwd_only (gather_quads, the
+    # forward of make_line_eval, _vm_combine). Kernel D's plane-table
+    # gradient replaces K3 for its caller plane_quad.cell_scatter_grad.
+    record = {"tensovm_encode_fwd": {
+                  "replaces": "coslam_tpu/ops/tensovm.py:321",
+                  "pallas_call": False,
+                  "computes": ["coslam_tpu/ops/plane_quad.py:108",
+                               "coslam_tpu/ops/tensovm.py:136",
+                               "coslam_tpu/ops/tensovm.py:287"]},
+              "tensovm_encode_bwd": {
+                  "replaces": "coslam_tpu/ops/serial_scatter.py:77",
+                  "caller": "coslam_tpu/ops/plane_quad.py:160"}}
+
+    def __init__(self, device, rng):
+        from coslam_torch.ops import tensovm as VM
+
+        self.m = VM
+        self.fwd_fn, self.bwd_fn = VM.tensovm_encode_fwd, VM.tensovm_encode_bwd
+        self.spec = VM.make_tensovm_spec(400, 3)
+        F = self.spec.n_features
+        self.planes = _tensor(device, 0.1 * rng.standard_normal(
+            (self.spec.total_entries, F)))
+        self.lines = _tensor(device, 1.0 + 0.1 * rng.standard_normal(
+            (VM.line_total_rows(self.spec), F)))
+
+    def fwd(self, x, plain=False):
+        fn = (self.m.tensovm_encode_fwd_ref if plain
+              else self.m.tensovm_encode_fwd)
+        return fn(self.spec, self.planes, self.lines, x)
+
+    def bwd(self, x, g, need_table, need_dx, plain=False):
+        fn = (self.m.tensovm_encode_bwd_ref if plain
+              else self.m.tensovm_encode_bwd)
+        return dict(zip(("dplanes", "dlines", "dx"),
+                        fn(self.spec, self.planes, self.lines, x, g,
+                           need_table, need_table, need_dx)))
+
+
+def check_kernels(device, kernels, cases: list) -> dict:
+    """The forward and backward kernel of `kernels` against their plain
+    versions on each case of `cases`. Returns {kernel name:
+    {"max_abs_err", "ms", "plain_ms"}}, the times at the case with the
+    most points that runs the backward."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    fwd, bwd = kernels.fwd_fn.__name__, kernels.bwd_fn.__name__
+    out = {fwd: {"max_abs_err": 0.0}, bwd: {"max_abs_err": 0.0}}
 
     def err(name, a, b, tol, what):
         torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{what}: {m}")
         e = float((a - b).abs().max())
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
-        return e
+        return f"{what} err {e:.3g}"
 
     timed = max((c for c in cases if c[2] or c[3]), key=lambda c: c[1])
-    for label, n, need_dtable, need_dx in cases:
-        x = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)
-                             ).to(device)
-        g = torch.from_numpy(rng.standard_normal((n, spec.out_dim)).astype(
-            np.float32)).to(device)
-        fwd = HP.grid_encode_fwd(spec, table, x)
-        fwd_ref = HP.grid_encode_fwd_ref(spec, table, x)
-        d_t, d_x = HP.grid_encode_bwd(spec, table, x, g, need_dtable, need_dx)
-        r_t, r_x = HP.grid_encode_bwd_ref(spec, table, x, g, need_dtable,
-                                          need_dx)
-        torch.cuda.synchronize()
+    for label, n, need_table, need_dx in cases:
+        x = _tensor(device, rng.uniform(0, 1, (n, 3)))
+        g = _tensor(device, rng.standard_normal((n, kernels.spec.out_dim)))
         line = [f"{label} N={n}",
-                f"fwd err {err('grid_encode_fwd', fwd, fwd_ref, FWD_TOL, 'fwd'):.3g}"]
-        if need_dtable:
-            line.append("dtable err "
-                        f"{err('grid_encode_bwd', d_t, r_t, DTABLE_TOL, 'dtable'):.3g}")
-        if need_dx:
-            line.append("dx err "
-                        f"{err('grid_encode_bwd', d_x, r_x, DX_TOL, 'dx'):.3g}")
-        times = {
-            "fwd": _time_ms(lambda: HP.grid_encode_fwd(spec, table, x)),
-            "fwd_plain": _time_ms(lambda: HP.grid_encode_fwd_ref(spec, table,
-                                                                 x)),
-        }
-        if need_dtable or need_dx:
+                err(fwd, kernels.fwd(x), kernels.fwd(x, plain=True), FWD_TOL,
+                    "fwd")]
+        times = {"fwd": _time_ms(lambda: kernels.fwd(x)),
+                 "fwd_plain": _time_ms(lambda: kernels.fwd(x, plain=True))}
+        if need_table or need_dx:
+            got = kernels.bwd(x, g, need_table, need_dx)
+            ref = kernels.bwd(x, g, need_table, need_dx, plain=True)
+            torch.cuda.synchronize()
+            for what, a in got.items():
+                assert (a is None) == (ref[what] is None), what
+                if a is not None:
+                    line.append(err(bwd, a, ref[what],
+                                    DX_TOL if what == "dx" else TABLE_TOL,
+                                    what))
             times.update(
-                bwd=_time_ms(lambda: HP.grid_encode_bwd(
-                    spec, table, x, g, need_dtable, need_dx)),
-                bwd_plain=_time_ms(lambda: HP.grid_encode_bwd_ref(
-                    spec, table, x, g, need_dtable, need_dx)))
+                bwd=_time_ms(lambda: kernels.bwd(x, g, need_table, need_dx)),
+                bwd_plain=_time_ms(lambda: kernels.bwd(
+                    x, g, need_table, need_dx, plain=True)))
         line += [f"{k} {v:.4f} ms" for k, v in times.items()]
         print("  " + ", ".join(line), flush=True)
         if label == timed[0]:
-            out["grid_encode_fwd"].update(ms=times["fwd"],
-                                          plain_ms=times["fwd_plain"])
-            out["grid_encode_bwd"].update(ms=times["bwd"],
-                                          plain_ms=times["bwd_plain"])
+            out[fwd].update(ms=times["fwd"], plain_ms=times["fwd_plain"])
+            out[bwd].update(ms=times["bwd"], plain_ms=times["bwd_plain"])
     return out
 
 
-def run_slice(device, cfg: dict, frames: int) -> dict:
-    """CoSLAM.run on the synthetic scene; returns the launch counts of
-    the run, after checking what it produced and printing its summary."""
+def run_slice(device, cfg: dict, data, wrappers, own) -> dict:
+    """CoSLAM.run on the synthetic frames `data`; returns the launch
+    counts of every kernel wrapper in `wrappers` over the run (each set
+    to 0 just before it), after checking what the run produced, that the
+    slice's own kernels `own` were launched on the path, and printing its
+    summary."""
     import torch
 
-    from coslam_torch.ops import hash_packed as HP
     from coslam_torch.runtime.slam import CoSLAM
 
-    t0 = time.perf_counter()
-    data = SyntheticFrames(cfg, frames)
-    print(f"  rendered {frames} frames {cfg['cam']['H']}x{cfg['cam']['W']} "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    frames = data.num_frames
     slam = CoSLAM(cfg, data, device=device)
 
-    HP.grid_encode_fwd.launches = 0
-    HP.grid_encode_bwd.launches = 0
+    for fn in wrappers:
+        fn.launches = 0
     t0 = time.perf_counter()
     res = slam.run(verbose=False)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"grid_encode_fwd": HP.grid_encode_fwd.launches,
-                "grid_encode_bwd": HP.grid_encode_bwd.launches}
+    launches = {fn.__name__: fn.launches for fn in wrappers}
 
     losses = [v for vals in slam.losses.values() for v in vals]
     assert losses and all(math.isfinite(v) for v in losses), slam.losses
@@ -203,8 +276,9 @@ def run_slice(device, cfg: dict, frames: int) -> dict:
     n_track = (frames - 1) * tcfg["iter"]
     n_ba = len(slam.timings["mapping"]) * mcfg["iters"]
     if device.type == "cuda":
-        for name, n in launches.items():
-            assert n >= n_track + n_ba, (name, n, n_track + n_ba)
+        for fn in own:
+            n = launches[fn.__name__]
+            assert n >= n_track + n_ba, (fn.__name__, n, n_track + n_ba)
     t = slam.timings
     summary = {
         "wall_s": wall,
@@ -217,6 +291,7 @@ def run_slice(device, cfg: dict, frames: int) -> dict:
         "keyframes": slam.kf_db.count,
         "tracking_steps": n_track,
         "ba_iterations": n_ba,
+        "launches": launches,
     }
     print("  " + json.dumps(summary), flush=True)
     return launches
@@ -248,30 +323,40 @@ def main() -> int:
     _kernels.library()
     print(f"  build {time.perf_counter() - t:.1f} s", flush=True)
 
-    cfg = room0_config(os.path.join(REPO, "output"), H, W, N_FRAMES,
-                       exp_name="chip_smoke")
-    _phase("kernels against the plain versions")
-    kernels = check_kernels(device, main_path_cases(cfg, N_FRAMES))
+    out = os.path.join(REPO, "output")
+    slices = [(room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke"),
+               HashKernels(device, np.random.default_rng(0))),
+              (room0_vm_config(out, H, W, N_FRAMES, exp_name="chip_smoke_vm"),
+               TensoVMKernels(device, np.random.default_rng(0)))]
+    wrappers = [fn for _, k in slices for fn in (k.fwd_fn, k.bwd_fn)]
 
-    t = _phase("slice: CoSLAM.run at room0 width")
-    launches = run_slice(device, cfg, N_FRAMES)
-    print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
+    kernels = {}
+    for cfg, k in slices:
+        _phase(f"kernels against the plain versions: {k.source}")
+        kernels.update(check_kernels(device, k,
+                                     main_path_cases(cfg, N_FRAMES)))
 
-    # The pallas_call of each TPU kernel a kernel replaces; the backward
-    # replaces two (the hashed and the dense table gradient).
-    replaces = {"grid_encode_fwd": ["coslam_tpu/ops/hash_packed.py:323"],
-                "grid_encode_bwd": ["coslam_tpu/ops/hash_packed.py:411",
-                                    "coslam_tpu/ops/serial_scatter.py:77"]}
-    record = {"kernels": [
-        {"name": k, "route": "cuda",
-         "source": "coslam_torch/csrc/grid_encode.cu",
-         "replaces": replaces[k][0], "launches": launches[k],
-         "max_abs_err": v["max_abs_err"], "ms": v["ms"],
-         "plain_ms": v["plain_ms"],
-         **({"also_replaces": replaces[k][1:]} if replaces[k][1:] else {})}
-        for k, v in kernels.items()]}
+    t = time.perf_counter()
+    data = SyntheticFrames(slices[0][0], N_FRAMES)
+    print(f"  rendered {N_FRAMES} frames {H}x{W} in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    records = []
+    for cfg, k in slices:
+        t = _phase(f"slice: CoSLAM.run at {cfg['data']['exp_name']} "
+                   f"({cfg['grid']['enc']})")
+        own = [k.fwd_fn, k.bwd_fn]
+        counts = run_slice(device, cfg, data, wrappers, own)
+        print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
+        for fn in own:
+            kname = fn.__name__
+            records.append({
+                "name": kname, "route": "cuda", "source": k.source,
+                "replaces": k.record[kname]["replaces"],
+                "launches": counts[kname], **kernels[kname],
+                **{key: v for key, v in k.record[kname].items()
+                   if key != "replaces"}})
     print(smi)
-    print(json.dumps(record))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

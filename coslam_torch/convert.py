@@ -1,10 +1,11 @@
 """Parameters between the JAX package and the port.
 
-The JAX parameter dict ``{"grid": [T, F], "decoder": {"sdf_net": [w...],
-"color_net": [w...]}}`` (coslam_tpu/models/scene_rep.py:init_params)
-becomes the port's dict of tensors with the same structure and layouts
-(weights stay [in, out]), and back. Both directions go through numpy, so
-neither side needs the other framework.
+The JAX parameter dict ``{"grid": ..., "decoder": {"sdf_net": [w...],
+"color_net": [w...]}}`` (coslam_tpu/models/scene_rep.py:init_params),
+whose grid is one table [T, F] or a dict of tables (TensoVM's
+``{"planes", "lines"}``), becomes the port's dict of tensors with the
+same structure and layouts (weights stay [in, out]), and back. Both
+directions go through numpy, so neither side needs the other framework.
 """
 
 from __future__ import annotations
@@ -15,12 +16,19 @@ import numpy as np
 import torch
 
 
+def _map_grid(fn, grid):
+    """fn over the grid's tables, keeping a dict grid's keys."""
+    if isinstance(grid, dict):
+        return {k: fn(v) for k, v in grid.items()}
+    return fn(grid)
+
+
 def params_from_numpy(params: Dict, device="cpu") -> Dict:
     """JAX params as numpy arrays (np.asarray of each leaf) -> tensors."""
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
-    return {"grid": t(params["grid"]),
+    return {"grid": _map_grid(t, params["grid"]),
             "decoder": {k: [t(w) for w in params["decoder"][k]]
                         for k in ("sdf_net", "color_net")}}
 
@@ -30,6 +38,6 @@ def params_to_numpy(params: Dict) -> Dict:
     def a(x):
         return x.detach().cpu().numpy()
 
-    return {"grid": a(params["grid"]),
+    return {"grid": _map_grid(a, params["grid"]),
             "decoder": {k: [a(w) for w in params["decoder"][k]]
                         for k in ("sdf_net", "color_net")}}

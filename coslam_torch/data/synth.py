@@ -3,7 +3,8 @@
 The frames come from coslam_tpu/data/synth.py's analytic scene and scan
 trajectory (numpy only); nothing is written to disk, so no image codec
 is needed. :func:`room0_config` carries the model widths and recipe of
-configs/Replica/room0.yaml (with replica.yaml) onto that scene.
+configs/Replica/room0.yaml (with replica.yaml) onto that scene, and
+:func:`room0_vm_config` those of configs/Replica/room0_vm.yaml.
 """
 
 from __future__ import annotations
@@ -28,6 +29,18 @@ def room0_config(output: str, H: int = 480, W: int = 640,
     cfg["mapping"].update(sample=2048, min_pixels_cur=100, first_iters=200)
     cfg["tracking"].update(sample=1024, ignore_edge_W=20, ignore_edge_H=20)
     cfg["mesh"].update(voxel_final=0.02)
+    return cfg
+
+
+def room0_vm_config(output: str, H: int = 480, W: int = 640,
+                    n_frames: int = 15,
+                    exp_name: str = "room0_vm_synth") -> Dict:
+    """room0_config with what configs/Replica/room0_vm.yaml changes: the
+    TensoVM grid with a 3-level pyramid (resolutions 32/100/311 at
+    voxel_sdf 400) and 16 uniform + 11 depth-guided samples per ray."""
+    cfg = room0_config(output, H, W, n_frames, exp_name)
+    cfg["grid"].update(enc="TensoVM", triplane_levels=3)
+    cfg["training"].update(n_samples_d=16, n_range_d=11)
     return cfg
 
 

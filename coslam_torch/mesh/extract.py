@@ -2,7 +2,7 @@
 
 Counterpart of coslam_tpu/mesh/extract.py: the voxel grid of the
 marching-cubes bound is queried in fixed-size chunks through the port's
-model (hash-grid encode kernel on the card), and the volume goes to the
+model (the grid's encode kernel on the card), and the volume goes to the
 JAX package's framework-neutral native marching cubes.
 """
 

@@ -1,13 +1,14 @@
-"""Joint scene representation: hash grid + OneBlob -> SDF / color.
+"""Joint scene representation: hash grid or TensoVM + OneBlob -> SDF / color.
 
 Counterpart of coslam_tpu/models/scene_rep.py:JointEncoding for the
-HashGrid + OneBlob, ``oneGrid: true`` model. As in the JAX package the
-class holds only static configuration; the learnable state is an
-explicit parameter dict ``{"grid": [T, F], "decoder": {"sdf_net": [...],
-"color_net": [...]}}`` of tensors, and every method is a function of
-(params, inputs). Random draws come in as arguments (the stratified
-perturbation ``t``, the smoothness lattice points) or from an explicit
-``torch.Generator``.
+HashGrid + OneBlob and TensoVM + OneBlob, ``oneGrid: true`` models. As in
+the JAX package the class holds only static configuration; the learnable
+state is an explicit parameter dict ``{"grid": ..., "decoder":
+{"sdf_net": [...], "color_net": [...]}}`` of tensors, where the grid is
+the hash table [T, F] or TensoVM's ``{"planes", "lines"}``, and every
+method is a function of (params, inputs). Random draws come in as
+arguments (the stratified perturbation ``t``, the smoothness sample) or
+from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -20,15 +21,24 @@ import torch
 from ..ops import encodings as enc
 from ..ops import losses as L
 from ..ops import render as R
+from ..ops import tensovm as VM
 from .decoder import ColorSDFDecoder
 
 
+def is_tensovm(config: Dict) -> bool:
+    """Whether the grid is TensoVM (its smoothness term is the analytic
+    TV over lattice axes, which encodes no points)."""
+    return "vm" in str(config["grid"]["enc"]).lower()
+
+
 def check_supported(config: Dict) -> None:
-    """Raise for the configuration options this slice does not port."""
+    """Raise for the configuration options the port does not run yet."""
+    enc_name = str(config["grid"]["enc"]).lower()
+    is_hash = "hash" in enc_name
     unsupported = {
-        "grid.enc other than HashGrid":
-            "hash" not in str(config["grid"]["enc"]).lower(),
-        "grid.grad_impl other than packed":
+        "grid.enc other than HashGrid or TensoVM":
+            not (is_hash or is_tensovm(config)),
+        "grid.grad_impl other than packed": is_hash and
             config["grid"].get("grad_impl", "auto") not in ("auto", "packed"),
         "grid.oneGrid: false": not config["grid"]["oneGrid"],
         "pos.enc other than OneBlob":
@@ -56,10 +66,21 @@ class JointEncoding:
         (self._pos_init, self._pos_apply, self.input_ch_pos, _
          ) = enc.make_encoder(config["pos"]["enc"],
                               n_bins=config["pos"]["n_bins"])
+        vm = is_tensovm(config)
+        grid_kw = {}
+        if vm:
+            # Pyramid depth and features per level (no reference
+            # counterpart; the JAX package's defaults).
+            grid_kw = dict(
+                n_levels=int(config["grid"].get("triplane_levels", 4)),
+                level_dim=int(config["grid"].get("triplane_features", 2)))
         (self._grid_init, self._grid_apply, self.input_ch, self.grid_spec
          ) = enc.make_encoder(config["grid"]["enc"],
                               log2_hashmap_size=config["grid"]["hash_size"],
-                              desired_resolution=self.resolution_sdf)
+                              desired_resolution=self.resolution_sdf,
+                              **grid_kw)
+        self._grid_tv = (VM.make_tensovm_lattice_tv(self.grid_spec) if vm
+                         else None)
         self.decoder = ColorSDFDecoder(config, self.input_ch,
                                        self.input_ch_pos)
 
@@ -172,6 +193,17 @@ class JointEncoding:
 
     # -- smoothness regularizer ----------------------------------------------
 
+    def _smoothness_draw(self, generator: torch.Generator,
+                         sample_points: int, voxel_size: float,
+                         margin: float):
+        """The lattice's six uniform draws: (offset [3] inside the bounds,
+        sub-voxel jitter [3] shared by all points)."""
+        lo, hi = self.bounding_box[:, 0], self.bounding_box[:, 1]
+        offset_max = hi - lo - (sample_points - 1) * voxel_size - 2 * margin
+        u = torch.rand(6, generator=generator, device=generator.device
+                       ).to(self.device)
+        return u[:3] * offset_max + margin, u[3:]
+
     def smoothness_points(self, generator: torch.Generator,
                           sample_points: int = 256, voxel_size: float = 0.1,
                           margin: float = 0.05) -> torch.Tensor:
@@ -179,20 +211,44 @@ class JointEncoding:
         flat [g^3, 3]: a random offset inside the bounds and one random
         sub-voxel jitter shared by all points."""
         lo, hi = self.bounding_box[:, 0], self.bounding_box[:, 1]
-        offset_max = hi - lo - (sample_points - 1) * voxel_size - 2 * margin
-        u = torch.rand(6, generator=generator, device=generator.device
-                       ).to(self.device)
-        offset = u[:3] * offset_max + margin
+        offset, jitter = self._smoothness_draw(generator, sample_points,
+                                               voxel_size, margin)
         g = sample_points - 1
         ax = torch.arange(g, dtype=torch.float32, device=self.device)
         coords = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1)
-        pts = (coords + u[3:]) * voxel_size + lo + offset
+        pts = (coords + jitter) * voxel_size + lo + offset
         return ((pts - lo) / (hi - lo)).reshape(-1, 3)
 
-    def smoothness(self, params: Dict, pts_norm: torch.Tensor,
+    def smoothness_axes(self, generator: torch.Generator,
+                        sample_points: int = 256, voxel_size: float = 0.1,
+                        margin: float = 0.05) -> torch.Tensor:
+        """Per-axis normalized coordinates [3, g] of the lattice
+        smoothness_points builds from the same draws."""
+        lo, hi = self.bounding_box[:, 0], self.bounding_box[:, 1]
+        offset, jitter = self._smoothness_draw(generator, sample_points,
+                                               voxel_size, margin)
+        ax = torch.arange(sample_points - 1, dtype=torch.float32,
+                          device=self.device)
+        pts = (ax[None, :] + jitter[:, None]) * voxel_size + offset[:, None]
+        return pts / (hi - lo)[:, None]
+
+    def smoothness_sample(self, generator: torch.Generator,
+                          sample_points: int, voxel_size: float,
+                          margin: float) -> torch.Tensor:
+        """What :meth:`smoothness` takes: the lattice's axes for TensoVM,
+        its points otherwise."""
+        draw = (self.smoothness_axes if self._grid_tv is not None
+                else self.smoothness_points)
+        return draw(generator, sample_points, voxel_size, margin)
+
+    def smoothness(self, params: Dict, sample: torch.Tensor,
                    sample_points: int) -> torch.Tensor:
-        """TV of the grid features on the lattice ``pts_norm`` [g^3, 3]
-        (constant points, so the encode backward computes no dx)."""
+        """TV of the grid features on the lattice. TensoVM: ``sample`` is
+        the axes [3, g] and the TV is the analytic separable sum (no point
+        is encoded). Hash grid: ``sample`` is the points [g^3, 3], encoded
+        as constants (the encode backward computes no dx)."""
+        if self._grid_tv is not None:
+            return self._grid_tv(params["grid"], sample, sample_points)
         g = sample_points - 1
-        emb = self.query_sdf(params, pts_norm.reshape(g, g, g, 3), embed=True)
+        emb = self.query_sdf(params, sample.reshape(g, g, g, 3), embed=True)
         return L.smoothness_tv(emb, sample_points)

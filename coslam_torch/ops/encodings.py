@@ -1,8 +1,8 @@
-"""Input encodings of the port: the packed hash grid and OneBlob.
+"""Input encodings of the port: the packed hash grid, TensoVM and OneBlob.
 
-Counterpart of coslam_tpu/ops/encodings.py for the two names the main
-path uses (``HashGrid`` for the grid, ``OneBlob`` for coordinates). The
-other encodings wait for later slices and raise here.
+Counterpart of coslam_tpu/ops/encodings.py for the names the ported
+paths use (``HashGrid`` or ``TensoVM`` for the grid, ``OneBlob`` for
+coordinates). The other encodings wait for later slices and raise here.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import hash_packed as HP
+from . import tensovm as VM
 
 
 def _quartic_cdf(u: torch.Tensor) -> torch.Tensor:
@@ -37,8 +38,10 @@ def make_encoder(encoding: str, input_dim: int = 3, n_bins: int = 16,
                  base_resolution: int = 16, log2_hashmap_size: int = 19,
                  desired_resolution: int = 512):
     """(init_fn(generator, device) -> params | None, apply_fn(params, x),
-    out_dim, spec) for 'HashGrid' (the packed layout) or 'OneBlob'
-    (coslam_tpu.ops.encodings.make_encoder for those names)."""
+    out_dim, spec) for 'HashGrid' (the packed layout), 'TensoVM' (params
+    {'planes', 'lines'}, at most 8 pyramid levels of ``level_dim``
+    features) or 'OneBlob' (coslam_tpu.ops.encodings.make_encoder for
+    those names)."""
     name = encoding.lower()
     if "hash" in name or "tiled" in name:
         spec = HP.make_packed_spec(
@@ -46,9 +49,16 @@ def make_encoder(encoding: str, input_dim: int = 3, n_bins: int = 16,
             n_features=level_dim, base_resolution=base_resolution)
         return (lambda gen, device: HP.init_packed(spec, gen, device),
                 lambda p, x: HP.encode(spec, p, x), spec.out_dim, spec)
+    if "vm" in name:
+        spec = VM.make_tensovm_spec(desired_resolution,
+                                    n_levels=min(n_levels, 8),
+                                    n_features=level_dim)
+        return (lambda gen, device: VM.init_tensovm(spec, gen, device),
+                lambda p, x: VM.encode(spec, p, x), spec.out_dim, spec)
     if "blob" in name:
         return (lambda gen, device: None,
                 lambda p, x: oneblob_encode(x, n_bins),
                 input_dim * n_bins, None)
     raise NotImplementedError(
-        f"encoding {encoding!r} is not ported yet (HashGrid and OneBlob are)")
+        f"encoding {encoding!r} is not ported yet (HashGrid, TensoVM and "
+        "OneBlob are)")

@@ -230,22 +230,10 @@ def _level_table(spec: PackedGridSpec, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
 def _check_cuda(spec: PackedGridSpec, table: torch.Tensor, x: torch.Tensor,
                 *more: torch.Tensor) -> None:
-    for name, t in (("table", table), ("x", x)) + tuple(
-            (f"arg{i}", m) for i, m in enumerate(more)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"grid encode: {name} is on {t.device}; the "
-                             f"kernel needs every tensor on {x.device} "
-                             "(CPU tensors take the plain version only "
-                             "when all of them are on the CPU)")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"grid encode: {name} must be contiguous "
-                             f"float32, got {t.dtype}")
+    _kernels.check_tensors("grid encode", x.device, table=table, x=x,
+                           **{f"arg{i}": m for i, m in enumerate(more)})
     if x.dim() != 2 or x.shape[1] != 3:
         raise ValueError(f"grid encode: x must be [N, 3], got {tuple(x.shape)}")
     if tuple(table.shape) != (spec.total_entries, spec.n_features):
@@ -257,7 +245,7 @@ def _check_cuda(spec: PackedGridSpec, table: torch.Tensor, x: torch.Tensor,
 def grid_encode_fwd(spec: PackedGridSpec, table: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """Encode forward: x [N, 3] (normalized) -> [N, L*F]."""
-    if _on_cpu(table, x):
+    if _kernels.on_cpu(table, x):
         return grid_encode_fwd_ref(spec, table, x)
     _check_cuda(spec, table, x)
     out = torch.empty((x.shape[0], spec.out_dim), device=x.device,
@@ -276,7 +264,7 @@ def grid_encode_bwd(spec: PackedGridSpec, table: torch.Tensor,
                     x: torch.Tensor, g: torch.Tensor, need_dtable: bool,
                     need_dx: bool):
     """Encode backward: (dtable [T, F] or None, dx [N, 3] or None)."""
-    if _on_cpu(table, x, g):
+    if _kernels.on_cpu(table, x, g):
         return grid_encode_bwd_ref(spec, table, x, g, need_dtable, need_dx)
     if not (need_dtable or need_dx):
         return None, None

@@ -5,7 +5,7 @@ make_ba_step). The JAX scans become Python loops of eager steps; the map
 optimizer is a persistent ``torch.optim.Adam`` (its moments live across
 frames, like the reference's map optimizer), the pose optimizer is fresh
 for each BA call. Random draws (ray indices, the stratified
-perturbation, the smoothness lattice) come from an explicit generator.
+perturbation, the smoothness sample) come from an explicit generator.
 """
 
 from __future__ import annotations
@@ -96,17 +96,18 @@ class BundleAdjust:
             P.get_pose_representation(config["training"]["rot_rep"])
 
     def loss(self, params: Dict, poses: torch.Tensor, ray_data: torch.Tensor,
-             ray_ids: torch.Tensor, smooth_pts: Optional[torch.Tensor],
+             ray_ids: torch.Tensor, smooth_sample: Optional[torch.Tensor],
              t: Optional[torch.Tensor]) -> torch.Tensor:
         """BA loss of rays ray_data [N, 7] seen from poses[ray_ids], plus
-        the smoothness TV on the lattice smooth_pts."""
+        the smoothness TV on the lattice smooth_sample (the model's
+        smoothness_sample: points for the hash grid, axes for TensoVM)."""
         pose_rows = poses[ray_ids]                          # [N, 4, 4]
         rays_d = (pose_rows[:, :3, :3] @ ray_data[:, :3, None])[..., 0]
         ret = self.model.forward(params, pose_rows[:, :3, 3], rays_d,
                                  ray_data[:, 3:6], ray_data[:, 6:7], t=t)
         smooth = None
-        if smooth_pts is not None:
-            smooth = self.model.smoothness(params, smooth_pts,
+        if smooth_sample is not None:
+            smooth = self.model.smoothness(params, smooth_sample,
                                            self.weights["smooth_pts"])
         return L.total_loss(ret, self.weights, smooth_loss=smooth,
                             smooth_weight=self.smooth_weight)
@@ -145,7 +146,7 @@ class BundleAdjust:
                                     generator=generator, device=dev)
             ray_data = torch.cat([kf_ray, cur_rays[cur_idx]])
             ray_ids = torch.cat([kf_ids, cur_ids])
-            smooth_pts = (self.model.smoothness_points(
+            smooth = (self.model.smoothness_sample(
                 generator, g["smooth_pts"], g["smooth_vox"],
                 g["smooth_margin"]) if self.smooth_weight > 0 else None)
             t = (torch.rand((ray_data.shape[0], self.model.n_z_samples),
@@ -153,7 +154,7 @@ class BundleAdjust:
                  if self.perturb else None)
             poses = build_poses(rot, trans, poses0, frozen,
                                 self.mat_from_tensor)
-            loss = self.loss(params, poses, ray_data, ray_ids, smooth_pts, t)
+            loss = self.loss(params, poses, ray_data, ray_ids, smooth, t)
             loss.backward()
             if (i + 1) % self.map_accum == 0 and (i + 1) > self.map_wait:
                 self.map_opt.step()

@@ -13,21 +13,33 @@ from typing import Dict, List
 import torch
 
 
+def grid_leaves(grid) -> List[torch.Tensor]:
+    """The grid's tensors: the hash table, or a dict grid's values
+    (TensoVM's lines and planes) in sorted-key order, the order of JAX's
+    tree leaves."""
+    if isinstance(grid, dict):
+        return [grid[k] for k in sorted(grid)]
+    return [grid]
+
+
 def map_param_list(params: Dict) -> List[torch.Tensor]:
-    return [params["grid"], *params["decoder"]["sdf_net"],
+    return [*grid_leaves(params["grid"]), *params["decoder"]["sdf_net"],
             *params["decoder"]["color_net"]]
 
 
 def detached(params: Dict) -> Dict:
     """The same tensors without autograd (a frozen map for tracking: the
     encode backward then computes dx only)."""
-    return {"grid": params["grid"].detach(),
+    grid = params["grid"]
+    return {"grid": ({k: v.detach() for k, v in grid.items()}
+                     if isinstance(grid, dict) else grid.detach()),
             "decoder": {k: [w.detach() for w in v]
                         for k, v in params["decoder"].items()}}
 
 
 def make_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:
-    """Grid: betas (0.9, 0.99), eps 1e-15; decoder: betas (0.9, 0.99),
+    """Grid (every grid tensor, TensoVM's planes and lines alike, at
+    lr_embed): betas (0.9, 0.99), eps 1e-15; decoder: betas (0.9, 0.99),
     eps 1e-8, weight_decay 1e-6. The grid's eps matters: with the default
     1e-8 the first steps on near-zero table rows differ. Marks the
     parameters trainable."""
@@ -36,7 +48,8 @@ def make_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:
         p.requires_grad_(True)
     dec = [*params["decoder"]["sdf_net"], *params["decoder"]["color_net"]]
     return torch.optim.Adam([
-        {"params": [params["grid"]], "lr": m["lr_embed"], "eps": 1e-15},
+        {"params": grid_leaves(params["grid"]), "lr": m["lr_embed"],
+         "eps": 1e-15},
         {"params": dec, "lr": m["lr_decoder"], "eps": 1e-8,
          "weight_decay": 1e-6},
     ], betas=(0.9, 0.99))

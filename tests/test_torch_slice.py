@@ -35,9 +35,11 @@ from coslam_tpu.runtime.optim import make_map_optimizer as j_map_optimizer
 from coslam_tpu.runtime.tracking import make_tracking_step as j_tracking
 from coslam_torch import convert
 from coslam_torch.models.scene_rep import JointEncoding as TModel
+from coslam_torch.models.scene_rep import is_tensovm
 from coslam_torch.ops import pose as TP
 from coslam_torch.runtime.mapping import BundleAdjust, build_poses
-from coslam_torch.runtime.optim import make_map_optimizer, make_pose_optimizer
+from coslam_torch.runtime.optim import (grid_leaves, make_map_optimizer,
+                                        make_pose_optimizer, map_param_list)
 from coslam_torch.runtime.tracking import make_tracking_step
 
 torch.set_num_threads(1)
@@ -62,8 +64,14 @@ def _models(cfg):
     return jm, tm, jparams, jax.tree_util.tree_map(np.asarray, jparams)
 
 
-def test_tracking_step_matches_jax():
-    cfg = make_synthetic_config("", "/tmp/unused", H=40, W=52)
+def _vm(cfg):
+    """The TensoVM twin of a synthetic config (room0_vm's grid: a 3-level
+    pyramid of 2 features)."""
+    cfg["grid"].update(enc="TensoVM", triplane_levels=3)
+    return cfg
+
+
+def _check_tracking_step(cfg):
     cfg["training"]["perturb"] = 0
     cfg["tracking"]["sample"] = 128
     jm, tm, jparams, np_params = _models(cfg)
@@ -97,11 +105,19 @@ def test_tracking_step_matches_jax():
     np.testing.assert_allclose(ref[1][0], init, atol=1e-6)
 
 
-def test_ba_iteration_matches_jax():
-    """One BA iteration on the rays, pose table and lattice points the
+def test_tracking_step_matches_jax():
+    _check_tracking_step(make_synthetic_config("", "/tmp/unused", H=40, W=52))
+
+
+def test_tracking_step_matches_jax_tensovm():
+    _check_tracking_step(_vm(make_synthetic_config("", "/tmp/unused", H=40,
+                                                   W=52)))
+
+
+def _check_ba_iteration(cfg):
+    """One BA iteration on the rays, pose table and smoothness sample the
     JAX step draws (its key splits replayed here): loss, map and pose
     gradients, and the map and poses after the Adam steps."""
-    cfg = make_synthetic_config("", "/tmp/unused", H=24, W=32)
     cfg["training"]["perturb"] = 0
     cfg["mapping"].update(sample=64, iters=1, pose_accum_step=1,
                           min_pixels_cur=20)
@@ -133,9 +149,10 @@ def test_ba_iteration_matches_jax():
                                             cur_rays.shape[0]))
     quota = max(m["sample"] // kf_count, m["min_pixels_cur"])
     smooth_key = jax.random.split(k3)[1]
-    pts = np.asarray(jm.smoothness_points(smooth_key, w["smooth_pts"],
-                                          w["smooth_vox"],
-                                          w["smooth_margin"]))
+    # The lattice's points for the hash grid, its axes for TensoVM.
+    draw = jm.smoothness_axes if is_tensovm(cfg) else jm.smoothness_points
+    smooth_sample = np.asarray(draw(smooth_key, w["smooth_pts"],
+                                    w["smooth_vox"], w["smooth_margin"]))
     ray_data = np.concatenate([kf_rays.reshape(-1, 7)[idx],
                                cur_rays[cur_idx[:quota]]])
     ray_ids = np.concatenate([idx // R, np.full(quota, max_kf)])
@@ -174,7 +191,7 @@ def test_ba_iteration_matches_jax():
                                        ba.frozen_mask("cpu"),
                                        TP.at_to_transform_matrix),
                    torch.from_numpy(ray_data), torch.from_numpy(ray_ids),
-                   torch.from_numpy(pts), None)
+                   torch.from_numpy(smooth_sample), None)
     loss.backward()
     np.testing.assert_allclose(float(loss), j_loss, rtol=1e-4)
     for name, got, ref in (("rot", rot.grad, j_gpose["rot"]),
@@ -183,10 +200,10 @@ def test_ba_iteration_matches_jax():
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3,
                                    atol=1e-6 * np.abs(ref).max(),
                                    err_msg=name)
-    leaves = [params["grid"], *params["decoder"]["sdf_net"],
-              *params["decoder"]["color_net"]]
-    jg = [j_gmap["grid"], *j_gmap["decoder"]["sdf_net"],
-          *j_gmap["decoder"]["color_net"]]
+    leaves = map_param_list(params)
+    n_grid = len(grid_leaves(params["grid"]))
+    jg = [*jax.tree_util.tree_leaves(j_gmap["grid"]),
+          *j_gmap["decoder"]["sdf_net"], *j_gmap["decoder"]["color_net"]]
     for p, ref in zip(leaves, jg):
         ref = np.asarray(ref)
         np.testing.assert_allclose(p.grad.numpy(), ref, rtol=1e-3,
@@ -195,13 +212,14 @@ def test_ba_iteration_matches_jax():
     map_opt.step()
     pose_opt = make_pose_optimizer(rot, trans, m["lr_rot"], m["lr_trans"])
     pose_opt.step()
-    ja = [j_params_after["grid"], *j_params_after["decoder"]["sdf_net"],
+    ja = [*jax.tree_util.tree_leaves(j_params_after["grid"]),
+          *j_params_after["decoder"]["sdf_net"],
           *j_params_after["decoder"]["color_net"]]
     for i, (p, ref, g) in enumerate(zip(leaves, ja, jg)):
         # Where |g| is within a thousand eps (1e-15 on the grid, 1e-8 on the
         # decoder) of zero the step lr * g / (|g| + eps) follows g's f32
         # sum-order noise; there it is only bounded by lr.
-        tiny = np.abs(np.asarray(g)) < 1e3 * (1e-15 if i == 0 else 1e-8)
+        tiny = np.abs(np.asarray(g)) < 1e3 * (1e-15 if i < n_grid else 1e-8)
         got, ref = p.detach().numpy(), np.asarray(ref)
         np.testing.assert_allclose(got[~tiny], ref[~tiny], atol=1e-6)
         assert np.all(np.abs(got - ref)[tiny] <= m["lr_embed"] * 1.01)
@@ -213,7 +231,18 @@ def test_ba_iteration_matches_jax():
     np.testing.assert_array_equal(final[0].numpy(), kf_poses[0])
 
 
-def test_slam_loop_on_small_scene(tmp_path):
+def test_ba_iteration_matches_jax():
+    _check_ba_iteration(make_synthetic_config("", "/tmp/unused", H=24, W=32))
+
+
+def test_ba_iteration_matches_jax_tensovm():
+    """The TensoVM twin: dplanes and dlines through the encode backward
+    plus the analytic TV's gradient, on the axes of the JAX draw."""
+    _check_ba_iteration(_vm(make_synthetic_config("", "/tmp/unused", H=24,
+                                                  W=32)))
+
+
+def _check_slam_loop(tmp_path, vm: bool):
     """CoSLAM.run on the 12-frame 40x52 scene of
     tests/test_integration.py:test_full_slam_loop, with 128-ray batches
     (CPU time): ATE < 5 cm and 3 keyframes; the first mesh and the
@@ -224,6 +253,8 @@ def test_slam_loop_on_small_scene(tmp_path):
     datadir = str(tmp_path / "scene")
     cfg = make_synthetic_config(datadir, str(tmp_path / "out"), H=40, W=52,
                                 n_frames=12)
+    if vm:
+        _vm(cfg)
     cfg["mapping"].update(first_iters=100, sample=128)
     cfg["tracking"]["sample"] = 128
     cfg["mapping"]["first_mesh"] = True
@@ -243,27 +274,46 @@ def test_slam_loop_on_small_scene(tmp_path):
     assert os.path.exists(os.path.join(out, "output.txt"))
     for i in (0, 10, 11):
         assert os.path.exists(os.path.join(out, f"mesh_track{i}.ply")), i
+    return slam
+
+
+def test_slam_loop_on_small_scene(tmp_path):
+    _check_slam_loop(tmp_path, vm=False)
+
+
+def test_slam_loop_on_small_scene_tensovm(tmp_path):
+    slam = _check_slam_loop(tmp_path, vm=True)
+    assert set(slam.params["grid"]) == {"planes", "lines"}
 
 
 def test_port_runs_without_jax():
-    """Importing coslam_torch and running one CPU tracking step leaves jax
-    out of sys.modules."""
+    """Importing coslam_torch and running one CPU tracking step, with the
+    hash grid and with TensoVM, and TensoVM's smoothness TV with its
+    gradient, leaves jax out of sys.modules."""
     code = """
 import sys
 import numpy as np, torch
 from coslam_tpu.data.synth import make_synthetic_config
 from coslam_torch.models.scene_rep import JointEncoding
+from coslam_torch.runtime.optim import make_map_optimizer, map_param_list
 from coslam_torch.runtime.slam import CoSLAM
 from coslam_torch.runtime.tracking import make_tracking_step
 import coslam_torch.cli, coslam_torch.convert, coslam_torch.mesh.extract
-cfg = make_synthetic_config("", "/tmp/unused", H=24, W=32)
-cfg["tracking"].update(iter=1, sample=16)
-m = JointEncoding(cfg, np.array(cfg["mapping"]["bound"], np.float32))
-p = m.init_params(torch.Generator().manual_seed(0))
-rays = torch.rand(16, 7)
-c2w, losses, _ = make_tracking_step(m, cfg)(p, torch.eye(4), rays,
-                                            torch.Generator())
-assert torch.isfinite(losses).all()
+import coslam_torch.data.synth, coslam_torch.tools.profile_slice
+for enc in ("HashGrid", "TensoVM"):
+    cfg = make_synthetic_config("", "/tmp/unused", H=24, W=32)
+    cfg["grid"].update(enc=enc, triplane_levels=3)
+    cfg["tracking"].update(iter=1, sample=16)
+    m = JointEncoding(cfg, np.array(cfg["mapping"]["bound"], np.float32))
+    p = m.init_params(torch.Generator().manual_seed(0))
+    rays = torch.rand(16, 7)
+    c2w, losses, _ = make_tracking_step(m, cfg)(p, torch.eye(4), rays,
+                                                torch.Generator())
+    assert torch.isfinite(losses).all()
+make_map_optimizer(cfg, p)
+tv = m.smoothness(p, m.smoothness_sample(torch.Generator(), 8, 0.1, 0.05), 8)
+tv.backward()
+assert all(torch.isfinite(t.grad).all() for t in map_param_list(p)[:2])
 assert "jax" not in sys.modules, "jax was imported"
 print("ok")
 """
@@ -283,75 +333,128 @@ def _chip_smoke():
     return chip_smoke
 
 
+# The config keys of the smoke's slices, beside the grid's own.
+_SLICE_KEYS = {
+    "pos": ["enc", "n_bins"],
+    "decoder": ["geo_feat_dim", "hidden_dim", "num_layers",
+                "num_layers_color", "hidden_dim_color"],
+    "training": ["n_samples_d", "n_range_d", "range_d", "n_importance",
+                 "perturb", "trunc", "rgb_weight", "depth_weight",
+                 "sdf_weight", "fs_weight", "smooth_weight", "smooth_pts",
+                 "smooth_vox", "smooth_margin", "rot_rep", "rgb_missing"],
+    "tracking": ["iter", "sample", "lr_rot", "lr_trans", "ignore_edge_W",
+                 "ignore_edge_H", "best", "robust_delta", "const_speed",
+                 "wait_iters"],
+    "mapping": ["sample", "iters", "first_iters", "min_pixels_cur",
+                "keyframe_every", "map_every", "n_pixels", "optim_cur",
+                "pose_accum_step", "map_accum_step", "map_wait_step",
+                "lr_embed", "lr_decoder", "lr_rot", "lr_trans",
+                "filter_depth", "cur_frame_iters"],
+    "mesh": ["voxel_final"],
+}
+
+
+def _bound(cfg):
+    return np.array(cfg["mapping"]["bound"], np.float32)
+
+
+def _check_smoke_settings(smoke, yaml_name, grid_keys):
+    """smoke carries the YAML config's values at the keys of the slice,
+    and both resolve to the same grid spec."""
+    from coslam_tpu.config import load_config
+
+    ref = load_config(os.path.join(REPO, "configs/Replica", yaml_name))
+    for section, names in dict(_SLICE_KEYS, grid=grid_keys).items():
+        for k in names:
+            assert smoke[section][k] == ref[section][k], (section, k)
+    assert (TModel(smoke, _bound(smoke)).grid_spec
+            == TModel(ref, _bound(ref)).grid_spec)
+
+
 def test_chip_smoke_uses_room0_settings():
     """The synthetic config chip_smoke.py runs (coslam_torch.data.synth
     .room0_config) carries room0's model and recipe
-    (configs/Replica/room0.yaml + replica.yaml) at the keys of the slice."""
-    from coslam_tpu.config import load_config
+    (configs/Replica/room0.yaml + replica.yaml) at the keys of the slice;
+    both resolve to resolution 400 (8 m / 0.02 m in room0)."""
     from coslam_torch.data import synth
 
     assert _chip_smoke().room0_config is synth.room0_config
-    room0 = load_config(os.path.join(REPO, "configs/Replica/room0.yaml"))
-    smoke = synth.room0_config("/tmp/unused")
-    keys = {
-        "grid": ["enc", "hash_size", "oneGrid"],
-        "pos": ["enc", "n_bins"],
-        "decoder": ["geo_feat_dim", "hidden_dim", "num_layers",
-                    "num_layers_color", "hidden_dim_color"],
-        "training": ["n_samples_d", "n_range_d", "range_d", "n_importance",
-                     "perturb", "trunc", "rgb_weight", "depth_weight",
-                     "sdf_weight", "fs_weight", "smooth_weight", "smooth_pts",
-                     "smooth_vox", "smooth_margin", "rot_rep", "rgb_missing"],
-        "tracking": ["iter", "sample", "lr_rot", "lr_trans", "ignore_edge_W",
-                     "ignore_edge_H", "best", "robust_delta", "const_speed",
-                     "wait_iters"],
-        "mapping": ["sample", "iters", "first_iters", "min_pixels_cur",
-                    "keyframe_every", "map_every", "n_pixels", "optim_cur",
-                    "pose_accum_step", "map_accum_step", "map_wait_step",
-                    "lr_embed", "lr_decoder", "lr_rot", "lr_trans",
-                    "filter_depth", "cur_frame_iters"],
-        "mesh": ["voxel_final"],
-    }
-    for section, names in keys.items():
-        for k in names:
-            assert smoke[section][k] == room0[section][k], (section, k)
-    # Both resolve to the same grid: resolution 400 (8 m / 0.02 m in room0).
-    bb = lambda c: np.array(c["mapping"]["bound"], np.float32)  # noqa: E731
-    assert (TModel(smoke, bb(smoke)).grid_spec
-            == TModel(room0, bb(room0)).grid_spec)
+    _check_smoke_settings(synth.room0_config("/tmp/unused"), "room0.yaml",
+                          ["enc", "hash_size", "oneGrid"])
 
 
-def test_chip_smoke_checks_the_shapes_of_the_slice(tmp_path, monkeypatch):
-    """chip_smoke.main_path_cases lists the (points, need_dtable, need_dx)
-    of every encode call CoSLAM.run makes at room0's rays and samples:
-    recorded here from a run with one iteration per phase and a coarse
-    mesh (iteration counts and grid size do not change the shapes)."""
-    from coslam_torch.data.synth import SyntheticFrames, room0_config
-    from coslam_torch.ops import hash_packed as HP
+def test_chip_smoke_uses_room0_vm_settings():
+    """The TensoVM slice's config (room0_vm_config) carries
+    configs/Replica/room0_vm.yaml's model and recipe: TensoVM, 3 levels,
+    16 + 11 samples per ray, and room0's everything else."""
+    from coslam_torch.data import synth
+
+    assert _chip_smoke().room0_vm_config is synth.room0_vm_config
+    smoke = synth.room0_vm_config("/tmp/unused")
+    _check_smoke_settings(smoke, "room0_vm.yaml",
+                          ["enc", "triplane_levels", "oneGrid"])
+    assert TModel(smoke, _bound(smoke)).grid_spec.resolutions[::3] == (
+        32, 100, 311)
+
+
+def test_room0_vm_yaml_builds_the_tensovm_model():
+    """configs/Replica/room0_vm.yaml builds the port's TensoVM model: an
+    encoding 6 wide over 325,902 plane rows and 1,338 line rows."""
+    from coslam_tpu.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "configs/Replica/room0_vm.yaml"))
+    m = TModel(cfg, _bound(cfg))
+    assert m.input_ch == 6 and m.grid_spec.total_entries == 325_902
+    grid = m.init_params(torch.Generator().manual_seed(0))["grid"]
+    assert grid["planes"].shape == (325_902, 2)
+    assert grid["lines"].shape == (1_338, 2)
+    assert float(grid["planes"].abs().max()) <= 1e-4
+    assert bool((grid["lines"] == 1).all())
+
+
+def _recorded_cases(tmp_path, monkeypatch, make_cfg, module, names,
+                    n_tables):
+    """Run CoSLAM on the CPU with one iteration per phase and a coarse
+    mesh (iteration counts and grid size do not change the shapes),
+    recording the points of every forward and the (points, flags...) of
+    every backward of the plain versions `names` of `module`, whose
+    arguments are (spec, n_tables tables, x[, g, flags...])."""
+    from coslam_torch.data.synth import SyntheticFrames
     from coslam_torch.runtime.slam import CoSLAM
 
     frames = 11
-    cfg = room0_config(str(tmp_path), H=72, W=88, n_frames=frames)
+    cfg = make_cfg(str(tmp_path), H=72, W=88, n_frames=frames)
     cfg["grid"].update(hash_size=12, voxel_sdf=64)
     cfg["mapping"].update(first_iters=1, iters=1)
     cfg["tracking"]["iter"] = 1
     cfg["mesh"]["voxel_final"] = 0.1
     fwd, bwd = [], set()
-    fwd_ref, bwd_ref = HP.grid_encode_fwd_ref, HP.grid_encode_bwd_ref
+    fwd_ref, bwd_ref = (getattr(module, n) for n in names)
 
-    def rec_fwd(spec, table, x):
-        fwd.append(x.shape[0])
-        return fwd_ref(spec, table, x)
+    def rec_fwd(spec, *args):
+        fwd.append(args[-1].shape[0])
+        return fwd_ref(spec, *args)
 
-    def rec_bwd(spec, table, x, g, need_dtable, need_dx):
-        bwd.add((x.shape[0], need_dtable, need_dx))
-        return bwd_ref(spec, table, x, g, need_dtable, need_dx)
+    def rec_bwd(spec, *args):
+        bwd.add((args[n_tables].shape[0], *args[n_tables + 2:]))
+        return bwd_ref(spec, *args)
 
-    monkeypatch.setattr(HP, "grid_encode_fwd_ref", rec_fwd)
-    monkeypatch.setattr(HP, "grid_encode_bwd_ref", rec_bwd)
+    monkeypatch.setattr(module, names[0], rec_fwd)
+    monkeypatch.setattr(module, names[1], rec_bwd)
     slam = CoSLAM(cfg, SyntheticFrames(cfg, frames), device="cpu")
     slam.run(verbose=False, eval_ate=False)
-    cases = _chip_smoke().main_path_cases(cfg, frames)
+    return _chip_smoke().main_path_cases(cfg, frames), fwd, bwd
+
+
+def test_chip_smoke_checks_the_shapes_of_the_slice(tmp_path, monkeypatch):
+    """chip_smoke.main_path_cases lists the (points, need_dtable, need_dx)
+    of every encode call CoSLAM.run makes at room0's rays and samples."""
+    from coslam_torch.data.synth import room0_config
+    from coslam_torch.ops import hash_packed as HP
+
+    cases, fwd, bwd = _recorded_cases(
+        tmp_path, monkeypatch, room0_config, HP,
+        ("grid_encode_fwd_ref", "grid_encode_bwd_ref"), n_tables=1)
     assert bwd == {(n, dt, dx) for _, n, dt, dx in cases if dt or dx}
     assert {n for _, n, _, _ in cases} <= set(fwd)
     labels = [c[0] for c in cases]
@@ -362,13 +465,29 @@ def test_chip_smoke_checks_the_shapes_of_the_slice(tmp_path, monkeypatch):
                                      3072 * 43, 31 ** 3, 65536]
 
 
-def test_profile_slice_small_on_cpu(tmp_path):
-    """coslam_torch.tools.profile_slice at its --small size on the CPU:
-    every phase reports a finite wall, and the CPU path launches no
-    kernel."""
+def test_chip_smoke_checks_the_shapes_of_the_vm_slice(tmp_path, monkeypatch):
+    """The same for the TensoVM slice: (points, need_dplanes, need_dlines,
+    need_dx) of every call, the tables asked for together; no lattice
+    row, because the analytic TV encodes no points."""
+    from coslam_torch.data.synth import room0_vm_config
+    from coslam_torch.ops import tensovm as VM
+
+    cases, fwd, bwd = _recorded_cases(
+        tmp_path, monkeypatch, room0_vm_config, VM,
+        ("tensovm_encode_fwd_ref", "tensovm_encode_bwd_ref"), n_tables=2)
+    assert bwd == {(n, dt, dt, dx) for _, n, dt, dx in cases if dt or dx}
+    assert {n for _, n, _, _ in cases} <= set(fwd)
+    assert [c[0] for c in cases] == ["first frame", "tracking", "BA 1 kf",
+                                     "BA 2 kf", "mesh chunk"]
+    # room0_vm: 27 samples per ray; the points of the table in PERF.md.
+    assert [c[1] for c in cases] == [55_296, 27_648, 110_592, 82_944,
+                                     65_536]
+
+
+def _check_profile_small(tmp_path, *flags):
     from coslam_torch.tools import profile_slice
 
-    res = profile_slice.main(["--device", "cpu", "--small",
+    res = profile_slice.main(["--device", "cpu", "--small", *flags,
                               "--out", str(tmp_path)])
     assert os.path.exists(tmp_path / "profile_slice.json")
     assert len(res["tracking_step_ms"]) == 1 and len(res["ba_call_ms"]) == 3
@@ -379,5 +498,20 @@ def test_profile_slice_small_on_cpu(tmp_path):
     for name in ("tracking_step", "ba_call"):
         assert res[name]["launches"] == 0 and res[name]["wall_us_profiled"] > 0
     assert res["mesh_vertices"] > 0
+    return res
+
+
+def test_profile_slice_small_on_cpu(tmp_path):
+    """coslam_torch.tools.profile_slice at its --small size on the CPU:
+    every phase reports a finite wall, and the CPU path launches no
+    kernel."""
+    res = _check_profile_small(tmp_path)
     assert res["encode_launches"] == {"grid_encode_fwd": 0,
                                       "grid_encode_bwd": 0}
+
+
+def test_profile_slice_small_vm_on_cpu(tmp_path):
+    """The same with --vm: the TensoVM slice, and its kernels' counts."""
+    res = _check_profile_small(tmp_path, "--vm")
+    assert res["encode_launches"] == {"tensovm_encode_fwd": 0,
+                                      "tensovm_encode_bwd": 0}
