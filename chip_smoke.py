@@ -7,16 +7,24 @@ Run from the repository root. Phases, each printing its own lines:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from coslam_torch/csrc with nvcc;
-3. kernels: the hash-grid kernels A and B at the room0 spec and the
-   TensoVM kernels C and D at the room0_vm spec, each against its plain
-   PyTorch version at every shape its slice gives it (main_path_cases),
-   with the tolerances below, and both timed with CUDA events;
+3. kernels: the hash-grid kernels A and B at the room0 spec, the
+   TensoVM kernels C and D at the room0_vm spec and the XOR-hash kernels
+   E and G at the room0_xor spec, each against its plain PyTorch version
+   at every shape its slice gives it (main_path_cases), with the
+   tolerances below, and timed with CUDA events; then the row accumulate,
+   kernels F (atomic) and H (deterministic), on kernel G's update streams
+   of every case that asks for the table gradient (up to 22.5 M
+   updates), against the plain version, H also bit-identical over two
+   calls and bit for bit equal to a serial np.add.at on the host;
 4. slices: the sequential SLAM loop (CoSLAM.run) at room0's model width
-   and recipe (hash grid), then at room0_vm's (TensoVM), on one 15-frame
+   and recipe (hash grid), at room0_vm's (TensoVM) and at room0_xor's
+   (the XOR hash with grad_impl pallas, kernel H), on one 15-frame
    480x640 analytic synthetic scene, each checked for finite losses,
-   keyframes 0, 5 and 10, ATE RMSE < 10 cm, a mesh, and launches of its
-   two kernels on the path (every count set to 0 just before the slice
-   and read just after it).
+   keyframes 0, 5 and 10, ATE RMSE < 10 cm and a mesh; then room0_xor with
+   grad_impl scatter (kernel F) from the first frame to the first BA call
+   (6 frames, no mesh). Every slice checks the launches of its kernels on
+   the path (every count set to 0 just before the slice and read just
+   after it).
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, the kernels' JSON record and
@@ -37,7 +45,7 @@ import time
 import numpy as np
 
 from coslam_torch.data.synth import (SyntheticFrames, room0_config,
-                                     room0_vm_config)
+                                     room0_vm_config, room0_xor_config)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -50,9 +58,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # terms scaled by the resolution (up to 399) with unit-normal cotangent,
 # so its terms reach hundreds and an entry near zero keeps an absolute
 # error near 1e-4: hence atol 1e-3 on dx.
+# Kernel G's update streams are exact: the same selects and correctly
+# rounded products as the plain version. Kernel H's sums are compared with
+# the plain version (index_add_, itself atomic on the card) at TABLE_TOL,
+# and with a serial np.add.at bit for bit.
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 TABLE_TOL = dict(rtol=1e-4, atol=1e-5)
 DX_TOL = dict(rtol=1e-4, atol=1e-3)
+EXACT = dict(rtol=0.0, atol=0.0)
+TOLS = {"dx": DX_TOL, "idx": EXACT, "vals": EXACT}
 
 N_FRAMES = 15
 H, W = 480, 640
@@ -194,6 +208,50 @@ class TensoVMKernels:
                            need_table, need_table, need_dx)))
 
 
+class XorKernels:
+    """Kernels E and G at the room0_xor spec (make_hashgrid_spec(400, 16),
+    834,097 rows): unit-normal table. G's outputs are the update streams
+    (idx, vals) and dx."""
+
+    source = "coslam_torch/csrc/xor_grid_encode.cu"
+    # Neither replaces a pallas_call: on the TPU the forward was XLA
+    # (hashgrid_encode), and so were the backward's dx (jax.vjp) and the
+    # streams it hands to K4.
+    record = {"xor_grid_encode_fwd": {
+                  "replaces": "coslam_tpu/ops/encodings.py:140",
+                  "pallas_call": False},
+              "xor_grid_encode_bwd": {
+                  "replaces": "coslam_tpu/ops/hash_pallas.py:170",
+                  "pallas_call": False,
+                  "computes": ["coslam_tpu/ops/encodings.py:198"]}}
+
+    def __init__(self, device, rng):
+        from coslam_torch.ops import encodings as E
+        from coslam_torch.ops import hash_pallas as XP
+
+        self.E, self.m = E, XP
+        self.fwd_fn, self.bwd_fn = XP.xor_grid_encode_fwd, XP.xor_grid_encode_bwd
+        self.spec = E.make_hashgrid_spec(400, 16)
+        self.table = _tensor(device, rng.standard_normal(
+            (self.spec.total_entries, self.spec.n_features)))
+
+    def fwd(self, x, plain=False):
+        fn = self.E.hashgrid_encode if plain else self.m.xor_grid_encode_fwd
+        return fn(self.spec, self.table, x)
+
+    def bwd(self, x, g, need_table, need_dx, plain=False):
+        fn = (self.m.xor_grid_encode_bwd_ref if plain
+              else self.m.xor_grid_encode_bwd)
+        return dict(zip(("idx", "vals", "dx"), fn(self.spec, self.table, x, g,
+                                                  need_table, need_dx)))
+
+
+# The row accumulate: kernels F and H replace K4 and K3's generic form.
+ACCUM_SOURCE = "coslam_torch/csrc/row_accum.cu"
+ACCUM_RECORD = {"replaces": "coslam_tpu/ops/hash_pallas.py:84",
+                "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]}
+
+
 def check_kernels(device, kernels, cases: list) -> dict:
     """The forward and backward kernel of `kernels` against their plain
     versions on each case of `cases`. Returns {kernel name:
@@ -228,8 +286,7 @@ def check_kernels(device, kernels, cases: list) -> dict:
                 assert (a is None) == (ref[what] is None), what
                 if a is not None:
                     line.append(err(bwd, a, ref[what],
-                                    DX_TOL if what == "dx" else TABLE_TOL,
-                                    what))
+                                    TOLS.get(what, TABLE_TOL), what))
             times.update(
                 bwd=_time_ms(lambda: kernels.bwd(x, g, need_table, need_dx)),
                 bwd_plain=_time_ms(lambda: kernels.bwd(
@@ -242,50 +299,116 @@ def check_kernels(device, kernels, cases: list) -> dict:
     return out
 
 
-def run_slice(device, cfg: dict, data, wrappers, own) -> dict:
-    """CoSLAM.run on the synthetic frames `data`; returns the launch
-    counts of every kernel wrapper in `wrappers` over the run (each set
-    to 0 just before it), after checking what the run produced, that the
-    slice's own kernels `own` were launched on the path, and printing its
+def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
+    """Kernels F and H against the plain row accumulate (row_accum_ref) on
+    the update streams kernel G gives at every case of `cases` that asks
+    for the table gradient (M = N x 16 levels x 8 corners); H twice, bit
+    for bit, and, on every 1 in M // 200,000 update of the largest case,
+    bit for bit against a serial np.add.at on the host. Returns {kernel
+    name: {"max_abs_err", "ms", "plain_ms"}}, the times at the case with
+    the most updates (H's time includes its key clip and stable sort)."""
+    import torch
+
+    from coslam_torch.ops import serial_scatter as SS
+
+    rng = np.random.default_rng(2)
+    rows = xk.spec.total_entries
+    fns = {False: SS.row_accum_atomic, True: SS.row_accum_segmented}
+    out = {fn.__name__: {"max_abs_err": 0.0} for fn in fns.values()}
+    cases = [c for c in cases if c[2]]
+    timed = max(cases, key=lambda c: c[1])[0]
+    for label, n, _, _ in cases:
+        x = _tensor(device, rng.uniform(0, 1, (n, 3)))
+        g = _tensor(device, rng.standard_normal((n, xk.spec.out_dim)))
+        idx, vals, _ = xk.m.xor_grid_encode_bwd(xk.spec, xk.table, x, g,
+                                                True, False)
+        ref = SS.row_accum_ref(idx, vals, rows)
+        line = [f"{label} M={idx.shape[0]}"]
+        for det, fn in fns.items():
+            got = SS.row_accum(idx, vals, rows, det)
+            if det:
+                again = SS.row_accum(idx, vals, rows, det)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), f"{label}: H not bit-identical"
+            torch.testing.assert_close(got, ref, **TABLE_TOL,
+                                       msg=lambda m: f"{label}: {m}")
+            e = float((got - ref).abs().max())
+            rec = out[fn.__name__]
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            ms = _time_ms(lambda: SS.row_accum(idx, vals, rows, det))
+            line.append(f"{fn.__name__} err {e:.3g}, {ms:.4f} ms")
+            if label == timed:
+                rec["ms"] = ms
+        plain_ms = _time_ms(lambda: SS.row_accum_ref(idx, vals, rows))
+        line.append(f"plain {plain_ms:.4f} ms")
+        if label == timed:
+            for rec in out.values():
+                rec["plain_ms"] = plain_ms
+            step = max(idx.shape[0] // 200_000, 1)
+            sub_idx, sub_vals = idx[::step].contiguous(), vals[::step]
+            host = np.zeros((rows + 1, vals.shape[1]), np.float32)
+            np.add.at(host, sub_idx.cpu().numpy(), sub_vals.cpu().numpy())
+            got = SS.row_accum(sub_idx, sub_vals.contiguous(), rows, True)
+            np.testing.assert_array_equal(got.cpu().numpy(), host)
+            line.append(f"H == np.add.at on {sub_idx.shape[0]} updates")
+        print("  " + ", ".join(line), flush=True)
+    return out
+
+
+def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
+              n_frames=None) -> dict:
+    """CoSLAM.run on the synthetic frames `data` (the first `n_frames`
+    only, without the final mesh, when given); returns the launch counts
+    of every kernel wrapper in `wrappers` over the run (each set to 0
+    just before it), after checking what the run produced, that the
+    slice's own kernels were launched on the path (`own` in every
+    tracking and BA iteration, `table_own` in every iteration that asks
+    for the table gradient: first frame and BA) and printing its
     summary."""
     import torch
 
     from coslam_torch.runtime.slam import CoSLAM
 
-    frames = data.num_frames
+    frames = data.num_frames if n_frames is None else n_frames
+    mesh = n_frames is None
     slam = CoSLAM(cfg, data, device=device)
 
     for fn in wrappers:
         fn.launches = 0
     t0 = time.perf_counter()
-    res = slam.run(verbose=False)
+    res = slam.run(n_frames=n_frames, verbose=False, mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in wrappers}
 
+    mcfg, tcfg = cfg["mapping"], cfg["tracking"]
     losses = [v for vals in slam.losses.values() for v in vals]
     assert losses and all(math.isfinite(v) for v in losses), slam.losses
-    assert slam.kf_db.count == 3, slam.kf_db.count
-    assert list(slam.kf_db.frame_ids[:3]) == [0, 5, 10], slam.kf_db.frame_ids
+    kf_ids = list(range(0, frames, mcfg["keyframe_every"]))
+    assert slam.kf_db.count == len(kf_ids), slam.kf_db.count
+    assert list(slam.kf_db.frame_ids[:len(kf_ids)]) == kf_ids, \
+        slam.kf_db.frame_ids
     ate = res["absolute_translational_error.rmse"]
     assert math.isfinite(ate) and ate < 0.10, ate
-    n_vert = len(slam.final_mesh.vertices)
-    assert n_vert > 100, n_vert
-    mcfg, tcfg = cfg["mapping"], cfg["tracking"]
+    n_vert = len(slam.final_mesh.vertices) if mesh else 0
+    assert n_vert > 100 or not mesh, n_vert
     n_track = (frames - 1) * tcfg["iter"]
     n_ba = len(slam.timings["mapping"]) * mcfg["iters"]
+    assert n_ba > 0, "no BA call"
+    floors = {fn: n_track + n_ba for fn in own}
+    floors.update({fn: mcfg["first_iters"] + n_ba for fn in table_own})
     if device.type == "cuda":
-        for fn in own:
+        for fn, floor in floors.items():
             n = launches[fn.__name__]
-            assert n >= n_track + n_ba, (fn.__name__, n, n_track + n_ba)
+            assert n >= floor, (fn.__name__, n, floor)
     t = slam.timings
     summary = {
         "wall_s": wall,
         "first_frame_s": t["first_frame"][0],
         "tracking_ms_median": 1e3 * float(np.median(t["tracking"])),
         "ba_ms_median": 1e3 * float(np.median(t["mapping"])),
-        "mesh_s": t["mesh"][-1],
+        "mesh_s": t["mesh"][-1] if mesh else None,
         "ate_rmse_m": ate,
         "mesh_vertices": n_vert,
         "keyframes": slam.kf_db.count,
@@ -308,12 +431,12 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"  {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"  {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"  nvidia-smi: {smi}", flush=True)
 
     from coslam_torch.ops import _kernels
@@ -323,42 +446,64 @@ def main() -> int:
     _kernels.library()
     print(f"  build {time.perf_counter() - t:.1f} s", flush=True)
 
-    out = os.path.join(REPO, "output")
-    slices = [(room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke"),
-               HashKernels(device, np.random.default_rng(0))),
-              (room0_vm_config(out, H, W, N_FRAMES, exp_name="chip_smoke_vm"),
-               TensoVMKernels(device, np.random.default_rng(0)))]
-    wrappers = [fn for _, k in slices for fn in (k.fwd_fn, k.bwd_fn)]
+    from coslam_torch.ops import serial_scatter as SS
 
-    kernels = {}
-    for cfg, k in slices:
+    out = os.path.join(REPO, "output")
+    rng = np.random.default_rng
+    hk, vk, xk = (HashKernels(device, rng(0)), TensoVMKernels(device, rng(0)),
+                  XorKernels(device, rng(0)))
+    accum = (SS.row_accum_atomic, SS.row_accum_segmented)
+    xor_cfg = room0_xor_config(out, H, W, N_FRAMES, exp_name="chip_smoke_xor")
+    measured = {}   # kernel name -> its record, launches aside
+    for k, cfg in ((hk, room0_config(out, H, W, N_FRAMES)),
+                   (vk, room0_vm_config(out, H, W, N_FRAMES)), (xk, xor_cfg)):
         _phase(f"kernels against the plain versions: {k.source}")
-        kernels.update(check_kernels(device, k,
-                                     main_path_cases(cfg, N_FRAMES)))
+        for name, rec in check_kernels(
+                device, k, main_path_cases(cfg, N_FRAMES)).items():
+            measured[name] = {"source": k.source, **k.record[name], **rec}
+    _phase(f"kernels against the plain versions: {ACCUM_SOURCE}")
+    for name, rec in check_accumulate(
+            device, xk, main_path_cases(xor_cfg, N_FRAMES)).items():
+        measured[name] = {"source": ACCUM_SOURCE, **ACCUM_RECORD, **rec}
+
+    # (config, kernels that run in every tracking and BA iteration, kernels
+    # that run in every table-gradient iteration, frames or None for all).
+    slices = [
+        (room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke"),
+         [hk.fwd_fn, hk.bwd_fn], [], None),
+        (room0_vm_config(out, H, W, N_FRAMES, exp_name="chip_smoke_vm"),
+         [vk.fwd_fn, vk.bwd_fn], [], None),
+        (xor_cfg, [xk.fwd_fn, xk.bwd_fn], [SS.row_accum_segmented], None),
+        (room0_xor_config(out, H, W, N_FRAMES, exp_name="chip_smoke_scatter",
+                          grad_impl="scatter"),
+         [xk.fwd_fn, xk.bwd_fn], [SS.row_accum_atomic], 6)]
+    wrappers = [hk.fwd_fn, hk.bwd_fn, vk.fwd_fn, vk.bwd_fn, xk.fwd_fn,
+                xk.bwd_fn, *accum]
 
     t = time.perf_counter()
     data = SyntheticFrames(slices[0][0], N_FRAMES)
     print(f"  rendered {N_FRAMES} frames {H}x{W} in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    records = []
-    for cfg, k in slices:
+    launches = {}
+    for cfg, own, table_own, n_frames in slices:
         t = _phase(f"slice: CoSLAM.run at {cfg['data']['exp_name']} "
-                   f"({cfg['grid']['enc']})")
-        own = [k.fwd_fn, k.bwd_fn]
-        counts = run_slice(device, cfg, data, wrappers, own)
+                   f"({cfg['grid']['enc']}, grad_impl "
+                   f"{cfg['grid'].get('grad_impl', 'auto')}, "
+                   f"{n_frames or N_FRAMES} frames)")
+        counts = run_slice(device, cfg, data, wrappers, own, table_own,
+                           n_frames)
         print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
-        for fn in own:
-            kname = fn.__name__
-            records.append({
-                "name": kname, "route": "cuda", "source": k.source,
-                "replaces": k.record[kname]["replaces"],
-                "launches": counts[kname], **kernels[kname],
-                **{key: v for key, v in k.record[kname].items()
-                   if key != "replaces"}})
+        for fn in (*own, *table_own):
+            launches.setdefault(fn.__name__, counts[fn.__name__])
+    records = [{"name": name, "route": "cuda", "source": rec["source"],
+                "replaces": rec["replaces"], "launches": launches[name],
+                **{key: v for key, v in rec.items()
+                   if key not in ("replaces", "source")}}
+               for name, rec in measured.items()]
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

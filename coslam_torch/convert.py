@@ -23,11 +23,28 @@ def _map_grid(fn, grid):
     return fn(grid)
 
 
-def params_from_numpy(params: Dict, device="cpu") -> Dict:
-    """JAX params as numpy arrays (np.asarray of each leaf) -> tensors."""
+def check_grid(grid, spec) -> None:
+    """Raise unless a hash table [T, F] has its spec's shape. The packed
+    and XOR layouts of one configuration differ in rows (room0: 835,977
+    packed, 834,097 XOR), so a table is never taken for the other's.
+    Dict grids (TensoVM) are not checked here."""
+    if isinstance(grid, dict):
+        return
+    want = (spec.total_entries, spec.n_features)
+    if tuple(grid.shape) != want:
+        raise ValueError(f"grid table {tuple(grid.shape)} does not match "
+                         f"the {type(spec).__name__} {want}")
+
+
+def params_from_numpy(params: Dict, device="cpu", spec=None) -> Dict:
+    """JAX params as numpy arrays (np.asarray of each leaf) -> tensors;
+    with ``spec`` (the model's grid_spec) the grid table's shape is
+    checked against it first."""
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
+    if spec is not None:
+        check_grid(params["grid"], spec)
     return {"grid": _map_grid(t, params["grid"]),
             "decoder": {k: [t(w) for w in params["decoder"][k]]
                         for k in ("sdf_net", "color_net")}}

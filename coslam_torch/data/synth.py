@@ -4,7 +4,8 @@ The frames come from coslam_tpu/data/synth.py's analytic scene and scan
 trajectory (numpy only); nothing is written to disk, so no image codec
 is needed. :func:`room0_config` carries the model widths and recipe of
 configs/Replica/room0.yaml (with replica.yaml) onto that scene, and
-:func:`room0_vm_config` those of configs/Replica/room0_vm.yaml.
+:func:`room0_vm_config` those of configs/Replica/room0_vm.yaml, and
+:func:`room0_xor_config` room0's with the XOR-hash grid.
 """
 
 from __future__ import annotations
@@ -41,6 +42,21 @@ def room0_vm_config(output: str, H: int = 480, W: int = 640,
     cfg = room0_config(output, H, W, n_frames, exp_name)
     cfg["grid"].update(enc="TensoVM", triplane_levels=3)
     cfg["training"].update(n_samples_d=16, n_range_d=11)
+    return cfg
+
+
+def room0_xor_config(output: str, H: int = 480, W: int = 640,
+                     n_frames: int = 15,
+                     exp_name: str = "room0_xor_synth",
+                     grad_impl: str = "pallas") -> Dict:
+    """room0_config with ``grid.grad_impl: pallas``: the same model at the
+    same width, but the grid is tiny-cuda-nn's XOR hash (the reference
+    Co-SLAM's), 16 levels x 2 at hash_size 16 and resolution 400, levels
+    0-4 dense and 5-15 hashed at 2^16 rows each, 834,097 rows, with the
+    deterministic table gradient of the Pallas K4. ``grad_impl`` scatter
+    or onehot keeps the grid and takes the atomic table gradient."""
+    cfg = room0_config(output, H, W, n_frames, exp_name)
+    cfg["grid"]["grad_impl"] = grad_impl
     return cfg
 
 

@@ -1,7 +1,9 @@
 """Joint scene representation: hash grid or TensoVM + OneBlob -> SDF / color.
 
 Counterpart of coslam_tpu/models/scene_rep.py:JointEncoding for the
-HashGrid + OneBlob and TensoVM + OneBlob, ``oneGrid: true`` models. As in
+HashGrid + OneBlob and TensoVM + OneBlob, ``oneGrid: true`` models; the
+hash grid is the packed layout or, with ``grid.grad_impl`` pallas,
+scatter or onehot, the XOR hash (ops/hash_pallas.py). As in
 the JAX package the class holds only static configuration; the learnable
 state is an explicit parameter dict ``{"grid": ..., "decoder":
 {"sdf_net": [...], "color_net": [...]}}`` of tensors, where the grid is
@@ -38,8 +40,9 @@ def check_supported(config: Dict) -> None:
     unsupported = {
         "grid.enc other than HashGrid or TensoVM":
             not (is_hash or is_tensovm(config)),
-        "grid.grad_impl other than packed": is_hash and
-            config["grid"].get("grad_impl", "auto") not in ("auto", "packed"),
+        "grid.grad_impl other than auto, packed, pallas, scatter or onehot":
+            is_hash and config["grid"].get("grad_impl", "auto") not in (
+                "auto", "packed", *enc.XOR_GRAD_IMPLS),
         "grid.oneGrid: false": not config["grid"]["oneGrid"],
         "pos.enc other than OneBlob":
             "blob" not in str(config["pos"]["enc"]).lower(),
@@ -78,6 +81,8 @@ class JointEncoding:
          ) = enc.make_encoder(config["grid"]["enc"],
                               log2_hashmap_size=config["grid"]["hash_size"],
                               desired_resolution=self.resolution_sdf,
+                              grad_impl=config["grid"].get("grad_impl",
+                                                           "auto"),
                               **grid_kw)
         self._grid_tv = (VM.make_tensovm_lattice_tv(self.grid_spec) if vm
                          else None)
@@ -246,7 +251,8 @@ class JointEncoding:
         """TV of the grid features on the lattice. TensoVM: ``sample`` is
         the axes [3, g] and the TV is the analytic separable sum (no point
         is encoded). Hash grid: ``sample`` is the points [g^3, 3], encoded
-        as constants (the encode backward computes no dx)."""
+        as constants (the encode backward computes no dx), in the packed
+        and the XOR layout alike."""
         if self._grid_tv is not None:
             return self._grid_tv(params["grid"], sample, sample_points)
         g = sample_points - 1

@@ -22,16 +22,20 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCES = (_PKG / "csrc" / "grid_encode.cu",
-            _PKG / "csrc" / "tensovm_encode.cu")
+            _PKG / "csrc" / "tensovm_encode.cu",
+            _PKG / "csrc" / "xor_grid_encode.cu",
+            _PKG / "csrc" / "row_accum.cu")
 BUILD_DIR = _PKG.parent / "build" / "coslam_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
+_I64, _I32, _U32 = ctypes.c_int64, ctypes.c_int, ctypes.c_uint
 
 
 def _nvcc() -> str:
@@ -104,6 +108,17 @@ def library() -> ctypes.CDLL:
                                        ctypes.c_int64, ctypes.c_int, _P,
                                        ctypes.c_int, ctypes.c_int, _P]
     lib.tensovm_encode_bwd.restype = ctypes.c_int
+    lib.xor_grid_encode_fwd.argtypes = [_P, _P, _P, _I64, _I32, _P, _I32,
+                                        _U32, _P]
+    lib.xor_grid_encode_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32,
+                                        _P, _I32, _U32, _P]
+    lib.row_accum_atomic.argtypes = [_P, _P, _P, _I64, _I32, _I32, _P]
+    lib.row_accum_keys.argtypes = [_P, _P, _I64, _I32, _P]
+    lib.row_accum_segmented.argtypes = [_P, _P, _P, _P, _I64, _I32, _I32, _P]
+    for fn in (lib.xor_grid_encode_fwd, lib.xor_grid_encode_bwd,
+               lib.row_accum_atomic, lib.row_accum_keys,
+               lib.row_accum_segmented):
+        fn.restype = ctypes.c_int
     lib.grid_encode_error_string.argtypes = [ctypes.c_int]
     lib.grid_encode_error_string.restype = ctypes.c_char_p
     return lib
@@ -134,6 +149,15 @@ def check_tensors(what: str, device: torch.device, **tensors) -> None:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous float32, "
                              f"got {t.dtype}")
+
+
+@functools.lru_cache(maxsize=None)
+def level_table(spec, device: torch.device) -> torch.Tensor:
+    """int32 [3, L] (resolution, table offset, hashed) of a hash grid spec
+    (packed or XOR) on the kernel's device."""
+    arr = np.array([spec.resolutions, spec.offsets,
+                    [int(h) for h in spec.hashed]], np.int32)
+    return torch.from_numpy(arr).to(device)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -25,12 +25,10 @@ lattice (table only: the points are constants).
 
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from . import _kernels
@@ -222,14 +220,6 @@ def grid_encode_bwd_ref(spec: PackedGridSpec, table: torch.Tensor,
 # Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def _level_table(spec: PackedGridSpec, device: torch.device) -> torch.Tensor:
-    """int32 [3, L] (resolution, offset, hashed) on the kernel's device."""
-    arr = np.array([spec.resolutions, spec.offsets,
-                    [int(h) for h in spec.hashed]], np.int32)
-    return torch.from_numpy(arr).to(device)
-
-
 def _check_cuda(spec: PackedGridSpec, table: torch.Tensor, x: torch.Tensor,
                 *more: torch.Tensor) -> None:
     _kernels.check_tensors("grid encode", x.device, table=table, x=x,
@@ -252,7 +242,7 @@ def grid_encode_fwd(spec: PackedGridSpec, table: torch.Tensor,
                       dtype=torch.float32)
     code = _kernels.library().grid_encode_fwd(
         x.data_ptr(), table.data_ptr(), out.data_ptr(), x.shape[0],
-        spec.n_features, _level_table(spec, x.device).data_ptr(),
+        spec.n_features, _kernels.level_table(spec, x.device).data_ptr(),
         spec.n_levels, 2 ** spec.log2_hashmap_size - 1,
         _kernels.stream(x.device))
     _kernels.check(code, "grid_encode_fwd")
@@ -274,7 +264,7 @@ def grid_encode_bwd(spec: PackedGridSpec, table: torch.Tensor,
     code = _kernels.library().grid_encode_bwd(
         x.data_ptr(), table.data_ptr(), g.data_ptr(), _kernels.ptr(dtable),
         _kernels.ptr(dx), x.shape[0], spec.n_features,
-        _level_table(spec, x.device).data_ptr(), spec.n_levels,
+        _kernels.level_table(spec, x.device).data_ptr(), spec.n_levels,
         2 ** spec.log2_hashmap_size - 1, _kernels.stream(x.device))
     _kernels.check(code, "grid_encode_bwd")
     grid_encode_bwd.launches += 1

@@ -1,10 +1,11 @@
 """Where the slice's time goes: per-phase walls and a device profile.
 
     python -m coslam_torch.tools.profile_slice [--device cuda|cpu]
-        [--vm] [--small] [--out DIR]
+        [--vm | --xor] [--small] [--out DIR]
 
-Drives the same CoSLAM as chip_smoke.py (room0's model and recipe, or
-with ``--vm`` room0_vm's TensoVM model and recipe, on the in-memory
+Drives the same CoSLAM as chip_smoke.py (room0's model and recipe, with
+``--vm`` room0_vm's TensoVM model and recipe, or with ``--xor``
+room0_xor's XOR-hash grid with grad_impl pallas, on the in-memory
 analytic scene, 480 x 640, 11 frames): first-frame mapping,
 tracking of frames 1-9, a keyframe at frame 5, then BA calls on frame 10
 with 2 keyframes, then the final mesh. It reports
@@ -38,10 +39,13 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..data.synth import SyntheticFrames, room0_config, room0_vm_config
+from ..data.synth import (SyntheticFrames, room0_config, room0_vm_config,
+                          room0_xor_config)
 from ..mesh import extract as E
 from ..ops import _kernels
 from ..ops import hash_packed as HP
+from ..ops import hash_pallas as XP
+from ..ops import serial_scatter as SS
 from ..ops import tensovm as VM
 from ..runtime.slam import CoSLAM
 
@@ -88,8 +92,11 @@ def trace_stats(prof, path: str, top: int = 12) -> Dict:
 def main(argv=None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--vm", action="store_true",
-                    help="room0_vm's TensoVM grid, not room0's hash grid")
+    grid = ap.add_mutually_exclusive_group()
+    grid.add_argument("--vm", action="store_true",
+                      help="room0_vm's TensoVM grid, not room0's hash grid")
+    grid.add_argument("--xor", action="store_true",
+                      help="room0_xor's XOR-hash grid (grad_impl pallas)")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--out", default=os.path.join("output", "profile_slice"))
     args = ap.parse_args(argv)
@@ -115,8 +122,15 @@ def main(argv=None) -> Dict:
 
     # Frames 1-4 warm tracking up, frame 5 becomes the second keyframe.
     nf, H, W = (7, 48, 64) if args.small else (11, 480, 640)
-    cfg = (room0_vm_config if args.vm else room0_config)(
-        os.path.join(args.out, "run"), H, W, nf, exp_name="profile_slice")
+    make_cfg, encode_fns = (
+        (room0_vm_config, (VM.tensovm_encode_fwd, VM.tensovm_encode_bwd))
+        if args.vm else
+        (room0_xor_config, (XP.xor_grid_encode_fwd, XP.xor_grid_encode_bwd,
+                            SS.row_accum_segmented))
+        if args.xor else
+        (room0_config, (HP.grid_encode_fwd, HP.grid_encode_bwd)))
+    cfg = make_cfg(os.path.join(args.out, "run"), H, W, nf,
+                   exp_name="profile_slice")
     if args.small:
         cfg["grid"].update(hash_size=12, voxel_sdf=64)
         cfg["training"]["smooth_pts"] = 8
@@ -182,10 +196,7 @@ def main(argv=None) -> Dict:
         E._chunked_query, E.marching_cubes, E.TriMesh.export = saved
     res["mesh_phases_s"] = phases
     res["mesh_vertices"] = len(mesh.vertices)
-    res["encode_launches"] = {
-        fn.__name__: fn.launches
-        for fn in ((VM.tensovm_encode_fwd, VM.tensovm_encode_bwd) if args.vm
-                   else (HP.grid_encode_fwd, HP.grid_encode_bwd))}
+    res["encode_launches"] = {fn.__name__: fn.launches for fn in encode_fns}
     res["tracking_step_ms_median"] = float(np.median(res["tracking_step_ms"]))
     with open(os.path.join(args.out, "profile_slice.json"), "w") as f:
         json.dump(res, f, indent=1)

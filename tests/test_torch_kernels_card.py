@@ -1,5 +1,6 @@
 """The CUDA kernels of coslam_torch against their plain PyTorch versions,
-on the card: kernels A and B (hash grid) and C and D (TensoVM). This file
+on the card: kernels A and B (hash grid), C and D (TensoVM), E and G (XOR
+hash grid) and the row accumulate F (atomic) and H (deterministic). This file
 imports no jax, so it also runs on a machine with the card and without
 the JAX package's dependencies:
 
@@ -9,7 +10,14 @@ Without a CUDA device every test skips. Tolerances: the forward is the
 same arithmetic up to FMA contraction (rtol 1e-5); the backward adds with
 f32 atomics in a run-dependent order (rtol 1e-4); dx sums terms scaled
 by resolutions up to 399, so an entry near zero keeps an absolute error
-near 1e-4 (atol 1e-3).
+near 1e-4 (atol 1e-3). Kernel G's update streams are exact (the same
+selects and rounded products as the plain version), and kernel H adds
+every row in increasing update order, so it equals a serial np.add.at bit
+for bit and two calls give the same bits. Kernel F's rows are held to the
+worst-case error of f32 summation in any order, (n - 1) u sum |v| with
+u = 2^-24 over a row's n updates, around their exact float64 sum: an
+atomic sum compared with another atomic sum at a fixed tolerance fails
+now and then on rows of thousands of updates whose sum is near zero.
 """
 
 import itertools
@@ -18,7 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from coslam_torch.ops import encodings as E
 from coslam_torch.ops import hash_packed as HP
+from coslam_torch.ops import hash_pallas as XP
+from coslam_torch.ops import serial_scatter as SS
 from coslam_torch.ops import tensovm as VM
 
 torch.set_num_threads(1)
@@ -144,3 +155,140 @@ def test_tensovm_autograd_function_on_card(cuda_device):
     torch.testing.assert_close(p["planes"].grad, r_p, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(p["lines"].grad, r_l, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(xx.grad, r_x, rtol=1e-4, atol=1e-3)
+
+
+XOR_SPECS = {
+    "mixed": dict(desired_resolution=64, log2_hashmap_size=12, n_levels=4),
+    "dense": dict(desired_resolution=24, log2_hashmap_size=16, n_levels=3,
+                  base_resolution=12, dense_only=True),
+    "room0": dict(desired_resolution=400, log2_hashmap_size=16),
+}
+
+
+def _xor_inputs(spec, n, seed, device):
+    """Unit-normal table and cotangent; points in [-0.05, 1.05] with some
+    at exactly 0 and 1 and on grid lines of the finest level."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.05, 1.05, (n, 3))
+    x[:8] = rng.integers(0, 2, (8, 3))
+    r = spec.resolutions[-1]
+    x[8:24] = rng.integers(0, r + 1, (16, 3)) / r
+    arrays = (rng.standard_normal((spec.total_entries, spec.n_features)), x,
+              rng.standard_normal((n, spec.out_dim)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(XOR_SPECS))
+@pytest.mark.parametrize("need", [(True, True), (False, True), (True, False)])
+def test_xor_kernels_match_plain_versions(cuda_device, name, need):
+    """Kernels E and G against hashgrid_encode / xor_grid_encode_bwd_ref
+    for every (need_streams, need_dx): streams exact, dx to rtol 1e-4."""
+    spec = E.make_hashgrid_spec(**XOR_SPECS[name])
+    table, x, g = _xor_inputs(spec, 4099, 0, cuda_device)
+    launches = XP.xor_grid_encode_fwd.launches, XP.xor_grid_encode_bwd.launches
+    torch.testing.assert_close(XP.xor_grid_encode_fwd(spec, table, x),
+                               E.hashgrid_encode(spec, table, x),
+                               rtol=1e-5, atol=1e-5)
+    got = XP.xor_grid_encode_bwd(spec, table, x, g, *need)
+    ref = XP.xor_grid_encode_bwd_ref(spec, table, x, g, *need)
+    torch.cuda.synchronize()
+    for a, b, tol in zip(got, ref, ({"rtol": 0, "atol": 0},) * 2
+                         + ({"rtol": 1e-4, "atol": 1e-3},)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, **tol)
+    assert (XP.xor_grid_encode_fwd.launches,
+            XP.xor_grid_encode_bwd.launches) == (launches[0] + 1,
+                                                 launches[1] + 1)
+
+
+def _accum_inputs(m, rows, width, seed, device):
+    """idx over [-3, rows + 3) (negatives and slack-row indices), heavy on
+    a few rows; unit-normal values."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-3, rows + 3, m)
+    idx[: m // 4] = rng.integers(0, 4, m // 4)
+    vals = rng.standard_normal((m, width)).astype(np.float32)
+    return (torch.from_numpy(idx.astype(np.int32)).to(device),
+            torch.from_numpy(vals).to(device), idx, vals)
+
+
+def _assert_within_sum_order(got, idx, vals, rows):
+    """got [rows + 1, W] within (n - 1) u sum |v| (u = 2^-24, with 1 %
+    for the second-order term) of the exact sum of each row's n updates,
+    whatever order they were added in."""
+    keys = np.clip(idx, 0, rows)
+    exact = np.zeros((rows + 1, vals.shape[1]))
+    np.add.at(exact, keys, vals.astype(np.float64))
+    mass = np.zeros_like(exact)
+    np.add.at(mass, keys, np.abs(vals.astype(np.float64)))
+    n = np.bincount(keys, minlength=rows + 1)[:, None]
+    bound = 1.01 * np.maximum(n - 1, 0) * 2.0 ** -24 * mass
+    err = np.abs(got.cpu().numpy().astype(np.float64) - exact)
+    assert (err <= bound).all(), float((err - bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 16])
+def test_row_accum_kernels_match_plain_versions(cuda_device, width):
+    """F within the sum-order bound of the exact sum; H equal to a serial
+    np.add.at on the host bit for bit, twice."""
+    rows = 5000
+    idx, vals, idx_np, vals_np = _accum_inputs(200_003, rows, width, 0,
+                                               cuda_device)
+    launches = SS.row_accum_atomic.launches, SS.row_accum_segmented.launches
+    _assert_within_sum_order(SS.row_accum(idx, vals, rows, False), idx_np,
+                             vals_np, rows)
+    ref = np.zeros((rows + 1, width), np.float32)
+    np.add.at(ref, np.clip(idx_np, 0, rows), vals_np)
+    first = SS.row_accum(idx, vals, rows, True)
+    second = SS.row_accum(idx, vals, rows, True)
+    np.testing.assert_array_equal(first.cpu().numpy(), ref)
+    assert torch.equal(first, second)
+    assert (SS.row_accum_atomic.launches, SS.row_accum_segmented.launches) == (
+        launches[0] + 1, launches[1] + 2)
+
+
+@pytest.mark.cuda
+def test_row_accum_empty_and_room0_streams(cuda_device):
+    """No update: both modes give zeros. The streams of 20,000 points at
+    the room0 spec (2.56 M updates): H equals np.add.at bit for bit, F is
+    within the sum-order bound of the exact sum."""
+    idx = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    vals = torch.empty((0, 2), device=cuda_device)
+    for det in (False, True):
+        assert torch.equal(SS.row_accum(idx, vals, 7, det),
+                           torch.zeros((8, 2), device=cuda_device))
+    spec = E.make_hashgrid_spec(**XOR_SPECS["room0"])
+    table, x, g = _xor_inputs(spec, 20_000, 2, cuda_device)
+    idx, vals, _ = XP.xor_grid_encode_bwd(spec, table, x, g, True, False)
+    idx_np, vals_np = idx.cpu().numpy(), vals.cpu().numpy()
+    ref = np.zeros((spec.total_entries + 1, 2), np.float32)
+    np.add.at(ref, idx_np, vals_np)
+    out = SS.row_accum(idx, vals, spec.total_entries, True)
+    np.testing.assert_array_equal(out.cpu().numpy(), ref)
+    _assert_within_sum_order(SS.row_accum(idx, vals, spec.total_entries,
+                                          False), idx_np, vals_np,
+                             spec.total_entries)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_xor_autograd_function_on_card(cuda_device, deterministic):
+    """XorGridEncode on CUDA tensors against the same Function on the CPU
+    (the plain versions): dtable bit for bit through kernel H, to rtol
+    1e-4 through kernel F; dx to rtol 1e-4."""
+    spec = E.make_hashgrid_spec(**XOR_SPECS["mixed"])
+    table, x, g = _xor_inputs(spec, 1031, 1, cuda_device)
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        t = table.to(dev).clone().requires_grad_(True)
+        xx = x.to(dev).clone().requires_grad_(True)
+        (XP.encode(spec, t, xx, deterministic) * g.to(dev)).sum().backward()
+        grads.append((t.grad.cpu(), xx.grad.cpu()))
+    (t_card, x_card), (t_cpu, x_cpu) = grads
+    if deterministic:
+        assert torch.equal(t_card, t_cpu)
+    torch.testing.assert_close(t_card, t_cpu, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(x_card, x_cpu, rtol=1e-4, atol=1e-3)

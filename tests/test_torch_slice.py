@@ -1,7 +1,8 @@
 """The port's main path against the JAX package: the tracking step, one
-BA iteration, and the sequential loop on a small synthetic scene; plus
-the port's independence from jax and the room0 settings of
-chip_smoke.py.
+BA iteration, and the sequential loop on a small synthetic scene, for the
+packed hash grid, TensoVM and the XOR-hash grid (grid.grad_impl pallas,
+whose JAX table gradient runs the Pallas K4 in interpret mode); plus the
+port's independence from jax and the room0 settings of chip_smoke.py.
 
 Tolerances. Tracking (perturb 0, so both sides are deterministic): each
 Adam step moves a pose component by about lr = 1e-3 whatever the
@@ -71,6 +72,13 @@ def _vm(cfg):
     return cfg
 
 
+def _xor(cfg):
+    """The XOR-hash twin of a synthetic config (room0_xor's grid:
+    grad_impl pallas, the deterministic table gradient)."""
+    cfg["grid"]["grad_impl"] = "pallas"
+    return cfg
+
+
 def _check_tracking_step(cfg):
     cfg["training"]["perturb"] = 0
     cfg["tracking"]["sample"] = 128
@@ -94,8 +102,8 @@ def _check_tracking_step(cfg):
 
     cfg["tracking"]["iter"] = n_iter
     c2w, losses, psnrs = make_tracking_step(tm, cfg)(
-        convert.params_from_numpy(np_params), torch.from_numpy(init),
-        torch.from_numpy(rays))
+        convert.params_from_numpy(np_params, spec=tm.grid_spec),
+        torch.from_numpy(init), torch.from_numpy(rays))
     np.testing.assert_allclose(float(losses[0]), ref[1][1], rtol=1e-4)
     np.testing.assert_allclose(float(losses[-1]), ref[n_iter][1], rtol=1e-4)
     np.testing.assert_allclose(float(psnrs[-1]), ref[n_iter][2], rtol=1e-4)
@@ -112,6 +120,11 @@ def test_tracking_step_matches_jax():
 def test_tracking_step_matches_jax_tensovm():
     _check_tracking_step(_vm(make_synthetic_config("", "/tmp/unused", H=40,
                                                    W=52)))
+
+
+def test_tracking_step_matches_jax_xor():
+    _check_tracking_step(_xor(make_synthetic_config("", "/tmp/unused", H=40,
+                                                    W=52)))
 
 
 def _check_ba_iteration(cfg):
@@ -181,7 +194,7 @@ def _check_ba_iteration(cfg):
     np.testing.assert_allclose(float(j_val), j_loss, rtol=1e-5)
 
     # The port: the same iteration through BundleAdjust.loss + Adam.
-    params = convert.params_from_numpy(np_params)
+    params = convert.params_from_numpy(np_params, spec=tm.grid_spec)
     map_opt = make_map_optimizer(cfg, params)
     ba = BundleAdjust(tm, cfg, map_opt, max_kf)
     p0 = torch.from_numpy(poses0)
@@ -242,7 +255,14 @@ def test_ba_iteration_matches_jax_tensovm():
                                                   W=32)))
 
 
-def _check_slam_loop(tmp_path, vm: bool):
+def test_ba_iteration_matches_jax_xor():
+    """The XOR twin: dtable through kernel H's plain version against the
+    JAX gradient through K4 in interpret mode, lattice term included."""
+    _check_ba_iteration(_xor(make_synthetic_config("", "/tmp/unused", H=24,
+                                                   W=32)))
+
+
+def _check_slam_loop(tmp_path, vm: bool = False, xor: bool = False):
     """CoSLAM.run on the 12-frame 40x52 scene of
     tests/test_integration.py:test_full_slam_loop, with 128-ray batches
     (CPU time): ATE < 5 cm and 3 keyframes; the first mesh and the
@@ -255,6 +275,8 @@ def _check_slam_loop(tmp_path, vm: bool):
                                 n_frames=12)
     if vm:
         _vm(cfg)
+    if xor:
+        _xor(cfg)
     cfg["mapping"].update(first_iters=100, sample=128)
     cfg["tracking"]["sample"] = 128
     cfg["mapping"]["first_mesh"] = True
@@ -286,10 +308,22 @@ def test_slam_loop_on_small_scene_tensovm(tmp_path):
     assert set(slam.params["grid"]) == {"planes", "lines"}
 
 
+def test_slam_loop_on_small_scene_xor(tmp_path):
+    from coslam_torch.ops.encodings import HashGridSpec
+
+    slam = _check_slam_loop(tmp_path, xor=True)
+    spec = slam.model.grid_spec
+    assert isinstance(spec, HashGridSpec)
+    assert slam.params["grid"].shape == (spec.total_entries, 2)
+    # Dense coarse levels and hashed fine ones, as at room0's width.
+    assert not spec.hashed[0] and spec.hashed[-1]
+
+
 def test_port_runs_without_jax():
     """Importing coslam_torch and running one CPU tracking step, with the
-    hash grid and with TensoVM, and TensoVM's smoothness TV with its
-    gradient, leaves jax out of sys.modules."""
+    packed hash grid, the XOR-hash grid and TensoVM, the XOR grid's
+    lattice encode and TensoVM's smoothness TV with their gradients,
+    leaves jax out of sys.modules."""
     code = """
 import sys
 import numpy as np, torch
@@ -300,9 +334,11 @@ from coslam_torch.runtime.slam import CoSLAM
 from coslam_torch.runtime.tracking import make_tracking_step
 import coslam_torch.cli, coslam_torch.convert, coslam_torch.mesh.extract
 import coslam_torch.data.synth, coslam_torch.tools.profile_slice
-for enc in ("HashGrid", "TensoVM"):
+import coslam_torch.ops.hash_pallas, coslam_torch.ops.serial_scatter
+for enc, impl in (("HashGrid", "auto"), ("HashGrid", "pallas"),
+                  ("TensoVM", "auto")):
     cfg = make_synthetic_config("", "/tmp/unused", H=24, W=32)
-    cfg["grid"].update(enc=enc, triplane_levels=3)
+    cfg["grid"].update(enc=enc, triplane_levels=3, grad_impl=impl)
     cfg["tracking"].update(iter=1, sample=16)
     m = JointEncoding(cfg, np.array(cfg["mapping"]["bound"], np.float32))
     p = m.init_params(torch.Generator().manual_seed(0))
@@ -310,6 +346,13 @@ for enc in ("HashGrid", "TensoVM"):
     c2w, losses, _ = make_tracking_step(m, cfg)(p, torch.eye(4), rays,
                                                 torch.Generator())
     assert torch.isfinite(losses).all()
+    if impl == "auto":
+        continue
+    make_map_optimizer(cfg, p)
+    tv = m.smoothness(p, m.smoothness_sample(torch.Generator(), 8, 0.1,
+                                             0.05), 8)
+    tv.backward()
+    assert torch.isfinite(p["grid"].grad).all()
 make_map_optimizer(cfg, p)
 tv = m.smoothness(p, m.smoothness_sample(torch.Generator(), 8, 0.1, 0.05), 8)
 tv.backward()
@@ -395,6 +438,38 @@ def test_chip_smoke_uses_room0_vm_settings():
                           ["enc", "triplane_levels", "oneGrid"])
     assert TModel(smoke, _bound(smoke)).grid_spec.resolutions[::3] == (
         32, 100, 311)
+
+
+def test_chip_smoke_uses_room0_xor_settings():
+    """The XOR slice's config (room0_xor_config) is room0's at every key
+    of the slice, with grid.grad_impl pallas: the XOR hash at room0's
+    full width, 16 levels x 2, hash_size 16, 834,097 rows (5 dense levels,
+    11 hashed at 2^16), 32 + 11 samples, 1024 tracking and 2048 BA rays;
+    the same with scatter for the smoke's kernel-F run."""
+    from coslam_tpu.models.scene_rep import JointEncoding as JEnc
+    from coslam_torch.data import synth
+    from coslam_torch.ops.encodings import HashGridSpec
+
+    assert _chip_smoke().room0_xor_config is synth.room0_xor_config
+    smoke = synth.room0_xor_config("/tmp/unused")
+    ref = synth.room0_config("/tmp/unused")
+    assert smoke["grid"].pop("grad_impl") == "pallas"
+    ref["data"]["exp_name"] = smoke["data"]["exp_name"]
+    assert smoke == ref
+    _check_smoke_settings(ref, "room0.yaml", ["enc", "hash_size", "oneGrid"])
+    smoke["grid"]["grad_impl"] = "pallas"
+    spec = TModel(smoke, _bound(smoke)).grid_spec
+    assert isinstance(spec, HashGridSpec) and spec.total_entries == 834_097
+    assert vars(spec) == vars(JEnc(smoke, _bound(smoke)).grid_spec)
+    assert (spec.n_levels, spec.n_features, spec.log2_hashmap_size) == (16, 2,
+                                                                        16)
+    assert spec.hashed == (False,) * 5 + (True,) * 11
+    tr = smoke["training"]
+    assert (tr["n_samples_d"], tr["n_range_d"]) == (32, 11)
+    assert (smoke["tracking"]["sample"], smoke["mapping"]["sample"]) == (1024,
+                                                                         2048)
+    scatter = synth.room0_xor_config("/tmp/unused", grad_impl="scatter")
+    assert TModel(scatter, _bound(scatter)).grid_spec == spec
 
 
 def test_room0_vm_yaml_builds_the_tensovm_model():
@@ -484,6 +559,25 @@ def test_chip_smoke_checks_the_shapes_of_the_vm_slice(tmp_path, monkeypatch):
                                      65_536]
 
 
+def test_chip_smoke_checks_the_shapes_of_the_xor_slice(tmp_path,
+                                                        monkeypatch):
+    """The same for the XOR slice: (points, need_streams, need_dx) of
+    every call of kernels E and G through XorGridEncode, at room0's rays
+    and samples (the same cases as room0's)."""
+    from coslam_torch.data.synth import room0_xor_config
+    from coslam_torch.ops import hash_pallas as XP
+
+    cases, fwd, bwd = _recorded_cases(
+        tmp_path, monkeypatch, room0_xor_config, XP,
+        ("xor_grid_encode_fwd", "xor_grid_encode_bwd"), n_tables=1)
+    assert bwd == {(n, dt, dx) for _, n, dt, dx in cases if dt or dx}
+    assert {n for _, n, _, _ in cases} <= set(fwd)
+    assert [c[0] for c in cases] == ["first frame", "tracking", "BA 1 kf",
+                                     "BA 2 kf", "lattice", "mesh chunk"]
+    assert [c[1] for c in cases] == [2048 * 43, 1024 * 43, 4096 * 43,
+                                     3072 * 43, 31 ** 3, 65536]
+
+
 def _check_profile_small(tmp_path, *flags):
     from coslam_torch.tools import profile_slice
 
@@ -515,3 +609,11 @@ def test_profile_slice_small_vm_on_cpu(tmp_path):
     res = _check_profile_small(tmp_path, "--vm")
     assert res["encode_launches"] == {"tensovm_encode_fwd": 0,
                                       "tensovm_encode_bwd": 0}
+
+
+def test_profile_slice_small_xor_on_cpu(tmp_path):
+    """The same with --xor: the XOR slice, its kernels' counts."""
+    res = _check_profile_small(tmp_path, "--xor")
+    assert res["encode_launches"] == {"xor_grid_encode_fwd": 0,
+                                      "xor_grid_encode_bwd": 0,
+                                      "row_accum_segmented": 0}
