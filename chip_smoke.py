@@ -12,11 +12,21 @@ Run from the repository root. Phases, each printing its own lines:
    E and G at the room0_xor spec, each against its plain PyTorch version
    at every shape its slice gives it (main_path_cases), with the
    tolerances below, and timed with CUDA events; then the row accumulate,
-   kernels F (atomic) and H (deterministic), on kernel G's update streams
-   of every case that asks for the table gradient (up to 22.5 M
-   updates), against the plain version, H also bit-identical over two
-   calls and bit for bit equal to a serial np.add.at on the host;
-4. slices: the sequential SLAM loop (CoSLAM.run) at room0's model width
+   kernels F (atomic: kernel P's CUDA kernel with its clip rule) and H
+   (deterministic), on kernel G's update streams of every case that asks
+   for the table gradient (up to 22.5 M updates), against the plain
+   version, H also bit-identical over two calls and bit for bit equal to
+   a serial np.add.at on the host; then the probes' kernels P (scalar and
+   float4 atomics), Q, R and S (coslam_torch/csrc/probe_accum.cu) at each
+   probe's main shape against their plain versions, and P's pair form and
+   skip rule, timed on the card alone by CUDA graphs of the calls;
+4. probes: the five scatter-accumulate probes of
+   coslam_torch/tools/bench (their entry points, --quick: one setting
+   per kernel, at the probes' own shapes; each holds every variant to
+   its plain version within the sum-order bound and raises beyond it),
+   with the launch counts of P, Q, R and S set to 0 just before and read
+   just after;
+5. slices: the sequential SLAM loop (CoSLAM.run) at room0's model width
    and recipe (hash grid), at room0_vm's (TensoVM) and at room0_xor's
    (the XOR hash with grad_impl pallas, kernel H), on one 15-frame
    480x640 analytic synthetic scene, each checked for finite losses,
@@ -24,7 +34,18 @@ Run from the repository root. Phases, each printing its own lines:
    grad_impl scatter (kernel F) from the first frame to the first BA call
    (6 frames, no mesh). Every slice checks the launches of its kernels on
    the path (every count set to 0 just before the slice and read just
-   after it).
+   after it), and that the mesh came from the port's own native marching
+   cubes.
+
+Every kernel's record carries its time (for P-S, whose calls are short
+enough that the host's cost per call would show, the card's time from a
+CUDA graph of the calls, and ``call_ms`` with the host's cost), its plain
+version's, the time of one PyTorch call for the same function where
+there is one (``library_ms``; index_add_ for the row accumulates) and
+its bound: the
+larger of the bytes it must move (each input read once, each output
+written once; table rows counted as those this run's points touch) over
+3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, the kernels' JSON record and
@@ -46,6 +67,7 @@ import numpy as np
 
 from coslam_torch.data.synth import (SyntheticFrames, room0_config,
                                      room0_vm_config, room0_xor_config)
+from coslam_torch.tools.bench._common import accum_bound, bound
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -59,9 +81,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # so its terms reach hundreds and an entry near zero keeps an absolute
 # error near 1e-4: hence atol 1e-3 on dx.
 # Kernel G's update streams are exact: the same selects and correctly
-# rounded products as the plain version. Kernel H's sums are compared with
-# the plain version (index_add_, itself atomic on the card) at TABLE_TOL,
-# and with a serial np.add.at bit for bit.
+# rounded products as the plain version. The row accumulates F and H and
+# the probes' kernels P-S are held to their plain versions (index_add_,
+# itself atomic on the card) within the sum-order bound of
+# coslam_torch/tools/bench/_common.sum_order_tol, which no order of f32
+# adds can exceed; H also to a serial np.add.at bit for bit.
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 TABLE_TOL = dict(rtol=1e-4, atol=1e-5)
 DX_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -97,6 +121,42 @@ def _time_ms(fn, batches: int = 5, per_batch: int = 20,
         end.synchronize()
         times.append(start.elapsed_time(end) / per_batch)
     return float(np.median(times))
+
+
+def _graph_ms(fn, batches: int = 5, per_batch: int = 20) -> float:
+    """ms per call of fn on the card alone: `per_batch` calls captured in
+    one CUDA graph (after warm-up on a side stream), replayed between CUDA
+    events; the median of `batches` replays. No host work runs between
+    the calls, so this is the card's time for what fn launches (its
+    output's zero fill included)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_batch):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_batch)
+    del graph
+    return float(np.median(times))
+
+
+def _nonzero_rows(t) -> int:
+    return int((t != 0).any(1).sum())
 
 
 def main_path_cases(cfg: dict, frames: int) -> list:
@@ -163,6 +223,25 @@ class HashKernels:
         return dict(zip(("dtable", "dx"), fn(self.spec, self.table, x, g,
                                              need_table, need_dx)))
 
+    def touched_bytes(self, x, g) -> int:
+        """Bytes of the table rows x reads: the rows its table gradient
+        reaches (a row whose gradient sums to exactly 0 aside)."""
+        dt = self.m.grid_encode_bwd_ref(self.spec, self.table, x, g, True,
+                                        False)[0]
+        return 4 * self.spec.n_features * _nonzero_rows(dt)
+
+    def work(self, n, touched, need_table, need_dx):
+        """(bytes, ops) of the forward and of the backward: per (point,
+        level) 8 corners x F multiply-adds and ~26 operations for the cell
+        and weights; the backward's table term the same, its dx three
+        times the corner terms."""
+        L, F = self.spec.n_levels, self.spec.n_features
+        fwd = (12 * n + touched + 4 * n * L * F, n * L * (16 * F + 26))
+        bwd = (12 * n + 4 * n * L * F + (touched + 12 * n) * need_dx
+               + 4 * self.table.numel() * need_table,
+               n * L * (26 + 16 * F * (need_table + 3 * need_dx)))
+        return fwd, bwd
+
 
 class TensoVMKernels:
     """Kernels C and D at the room0_vm spec: planes 0.1 x noise, lines
@@ -207,6 +286,24 @@ class TensoVMKernels:
                         fn(self.spec, self.planes, self.lines, x, g,
                            need_table, need_table, need_dx)))
 
+    def touched_bytes(self, x, g) -> int:
+        dp, dl, _ = self.m.tensovm_encode_bwd_ref(
+            self.spec, self.planes, self.lines, x, g, True, True, False)
+        return 4 * self.spec.n_features * (_nonzero_rows(dp)
+                                           + _nonzero_rows(dl))
+
+    def work(self, n, touched, need_table, need_dx):
+        """Per (point, section): 4 plane corners and 2 line entries x F
+        multiply-adds, the product, ~20 for cells and weights; dx three
+        times the corner terms."""
+        S, F = self.spec.n_levels, self.spec.n_features
+        out = 4 * n * self.spec.out_dim
+        fwd = (12 * n + touched + out, n * S * (13 * F + 20))
+        bwd = (12 * n + out + (touched + 12 * n) * need_dx
+               + 4 * (self.planes.numel() + self.lines.numel()) * need_table,
+               n * S * (20 + 13 * F * (need_table + 3 * need_dx)))
+        return fwd, bwd
+
 
 class XorKernels:
     """Kernels E and G at the room0_xor spec (make_hashgrid_spec(400, 16),
@@ -245,18 +342,65 @@ class XorKernels:
         return dict(zip(("idx", "vals", "dx"), fn(self.spec, self.table, x, g,
                                                   need_table, need_dx)))
 
+    def touched_bytes(self, x, g) -> int:
+        import torch
 
-# The row accumulate: kernels F and H replace K4 and K3's generic form.
-ACCUM_SOURCE = "coslam_torch/csrc/row_accum.cu"
+        idx = self.m.xor_grid_encode_bwd_ref(self.spec, self.table, x, g,
+                                             True, False)[0]
+        return 4 * self.spec.n_features * int(torch.unique(idx).numel())
+
+    def work(self, n, touched, need_table, need_dx):
+        """As the packed grid's, but the backward writes the update
+        streams (idx and F values per corner) instead of a table."""
+        L, F = self.spec.n_levels, self.spec.n_features
+        fwd = (12 * n + touched + 4 * n * L * F, n * L * (16 * F + 26))
+        bwd = (12 * n + 4 * n * L * F + (touched + 12 * n) * need_dx
+               + 4 * n * L * 8 * (1 + F) * need_table,
+               n * L * (26 + 16 * F * (need_table + 3 * need_dx)))
+        return fwd, bwd
+
+
+# The row accumulate: kernels F and H replace K4 and K3's generic form. F
+# is kernel P's CUDA kernel with its clip rule, so its source is P's.
+ACCUM_SOURCES = {"row_accum_atomic": "coslam_torch/csrc/probe_accum.cu",
+                 "row_accum_segmented": "coslam_torch/csrc/row_accum.cu"}
 ACCUM_RECORD = {"replaces": "coslam_tpu/ops/hash_pallas.py:84",
                 "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]}
+
+
+# The probes' kernels: P, Q, R and S replace K5-K12, the pallas_calls of
+# the scatter-accumulate probes under tools/bench/.
+PROBE_SOURCE = "coslam_torch/csrc/probe_accum.cu"
+PROBE_RECORD = {
+    "probe_accum": {
+        "replaces": "tools/bench/_bench_row_rates.py:126",
+        "also_replaces": ["tools/bench/_bench_row_rates.py:109",
+                          "tools/bench/_bench_cell_merge.py:101",
+                          "tools/bench/_bench_chunk_tune.py:81",
+                          "tools/bench/_bench_scatter_variants.py:86",
+                          "tools/bench/_bench_run_merge.py:196"]},
+    "probe_accum_bf16x2": {
+        "replaces": "tools/bench/_bench_row_rates.py:126",
+        "also_replaces": ["tools/bench/_bench_scatter_variants.py:86"]},
+    "probe_accum_pair_merged": {
+        "replaces": "tools/bench/_bench_cell_merge.py:124"},
+    "probe_accum_run_merge": {
+        "replaces": "tools/bench/_bench_run_merge.py:123"},
+}
+
+
+def _itensor(device, a):
+    import torch
+
+    return torch.from_numpy(np.asarray(a, np.int32)).to(device)
 
 
 def check_kernels(device, kernels, cases: list) -> dict:
     """The forward and backward kernel of `kernels` against their plain
     versions on each case of `cases`. Returns {kernel name:
-    {"max_abs_err", "ms", "plain_ms"}}, the times at the case with the
-    most points that runs the backward."""
+    {"max_abs_err", "ms", "plain_ms", "library_ms", bound}}, the times
+    and the bound at the case with the most points that runs the backward
+    (no single PyTorch call computes an encode or its backward)."""
     import torch
 
     rng = np.random.default_rng(1)
@@ -294,22 +438,28 @@ def check_kernels(device, kernels, cases: list) -> dict:
         line += [f"{k} {v:.4f} ms" for k, v in times.items()]
         print("  " + ", ".join(line), flush=True)
         if label == timed[0]:
-            out[fwd].update(ms=times["fwd"], plain_ms=times["fwd_plain"])
-            out[bwd].update(ms=times["bwd"], plain_ms=times["bwd_plain"])
+            work = kernels.work(n, kernels.touched_bytes(x, g), need_table,
+                                need_dx)
+            out[fwd].update(ms=times["fwd"], plain_ms=times["fwd_plain"],
+                            library_ms=None, **bound(*work[0]))
+            out[bwd].update(ms=times["bwd"], plain_ms=times["bwd_plain"],
+                            library_ms=None, **bound(*work[1]))
     return out
 
 
 def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
-    """Kernels F and H against the plain row accumulate (row_accum_ref) on
-    the update streams kernel G gives at every case of `cases` that asks
-    for the table gradient (M = N x 16 levels x 8 corners); H twice, bit
-    for bit, and, on every 1 in M // 200,000 update of the largest case,
+    """Kernels F and H against the plain row accumulate (row_accum_ref),
+    within the sum-order bound (``_common.sum_order_tol``), on the update
+    streams kernel G gives at every case of `cases` that asks for the
+    table gradient (M = N x 16 levels x 8 corners); H twice, bit for bit,
+    and, on every 1 in M // 200,000 update of the largest case,
     bit for bit against a serial np.add.at on the host. Returns {kernel
     name: {"max_abs_err", "ms", "plain_ms"}}, the times at the case with
     the most updates (H's time includes its key clip and stable sort)."""
     import torch
 
     from coslam_torch.ops import serial_scatter as SS
+    from coslam_torch.tools.bench import _common as C
 
     rng = np.random.default_rng(2)
     rows = xk.spec.total_entries
@@ -323,6 +473,7 @@ def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
         idx, vals, _ = xk.m.xor_grid_encode_bwd(xk.spec, xk.table, x, g,
                                                 True, False)
         ref = SS.row_accum_ref(idx, vals, rows)
+        tol = C.sum_order_tol(idx.clamp(0, rows), vals, rows + 1)
         line = [f"{label} M={idx.shape[0]}"]
         for det, fn in fns.items():
             got = SS.row_accum(idx, vals, rows, det)
@@ -330,9 +481,7 @@ def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
                 again = SS.row_accum(idx, vals, rows, det)
                 torch.cuda.synchronize()
                 assert torch.equal(got, again), f"{label}: H not bit-identical"
-            torch.testing.assert_close(got, ref, **TABLE_TOL,
-                                       msg=lambda m: f"{label}: {m}")
-            e = float((got - ref).abs().max())
+            e = C.assert_within(f"{label} {fn.__name__}", got, ref, tol)
             rec = out[fn.__name__]
             rec["max_abs_err"] = max(rec["max_abs_err"], e)
             ms = _time_ms(lambda: SS.row_accum(idx, vals, rows, det))
@@ -342,8 +491,13 @@ def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
         plain_ms = _time_ms(lambda: SS.row_accum_ref(idx, vals, rows))
         line.append(f"plain {plain_ms:.4f} ms")
         if label == timed:
+            buf = torch.zeros_like(ref)
+            library_ms = _time_ms(lambda: buf.index_add_(0, idx, vals))
+            line.append(f"index_add_ {library_ms:.4f} ms")
+            m, width = vals.shape
             for rec in out.values():
-                rec["plain_ms"] = plain_ms
+                rec.update(plain_ms=plain_ms, library_ms=library_ms,
+                           **accum_bound(m, width, ref.numel()))
             step = max(idx.shape[0] // 200_000, 1)
             sub_idx, sub_vals = idx[::step].contiguous(), vals[::step]
             host = np.zeros((rows + 1, vals.shape[1]), np.float32)
@@ -353,6 +507,164 @@ def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
             line.append(f"H == np.add.at on {sub_idx.shape[0]} updates")
         print("  " + ", ".join(line), flush=True)
     return out
+
+
+def check_probes(device) -> dict:
+    """Kernels P-S against their plain versions at each probe's main
+    shape, each within the sum-order bound of the plain version
+    (``_common.sum_order_tol``: twice the worst-case error of an f32 sum
+    of an entry's updates in any order): P (streams, float4 and scalar
+    atomics) and Q (packed bf16, float4) at the row-rate probe's W = 8
+    (1,048,576 updates into 65,537 rows); P's pair form at the chunk
+    probe's TUM scale (1,859,584 updates, 65,702 rows, float2, 256
+    threads, 4 updates per thread, as its --quick run launches it); R on
+    the cell-merge probe's "runs" stream (524,288 updates, W = 8); S and
+    P's skip rule (after the suffix scan) on the run-merge probe's r = 311
+    stream (62,208 updates, W = 8). Returns {kernel name: record}, timed
+    at those shapes: ``ms`` and ``library_ms`` from CUDA graphs of the
+    calls (``_graph_ms``: the card's time, no host cost), ``call_ms`` with
+    the host's (``_time_ms``), ``plain_ms`` likewise (the plain versions
+    wait on the card and cannot be captured)."""
+    import torch
+
+    from coslam_torch.ops import probe_accum as PA
+    from coslam_torch.tools.bench import _bench_cell_merge as CM
+    from coslam_torch.tools.bench import _bench_chunk_tune as CT
+    from coslam_torch.tools.bench import _bench_row_rates as RR
+    from coslam_torch.tools.bench import _bench_run_merge as RM
+    from coslam_torch.tools.bench import _common as C
+
+    rng = np.random.default_rng(3)
+    out = {}
+
+    def check(fn, got, ref, tol, label):
+        torch.cuda.synchronize()
+        e = C.assert_within(label, got, ref, tol)
+        rec = out.setdefault(fn.__name__, {"max_abs_err": 0.0})
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        return f"{label} err {e:.3g}"
+
+    def timed(fn, call, plain, library, bounds, **extra):
+        rec = out[fn.__name__]
+        rec.update(ms=_graph_ms(call), call_ms=_time_ms(call),
+                   plain_ms=_time_ms(plain),
+                   library_ms=None if library is None else _graph_ms(library),
+                   **bounds, **extra)
+        return ", ".join(f"{k} {rec[k]:.4f}" for k in (
+            "ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
+            if rec[k] is not None)
+
+    # P and Q: the row-rate probe at W = 8.
+    rows, m, w = RR.ROWS, RR.M, 8
+    idx = _itensor(device, rng.integers(0, rows, m))
+    streams = _tensor(device, rng.standard_normal((w, m)))
+    words = RR.pack_streams(streams)
+    ref = PA.probe_accum_ref(idx, streams.T, rows + 1)
+    tol = C.sum_order_tol(idx, streams.T, rows + 1)
+    line = [check(PA.probe_accum, PA.probe_accum(idx, streams, rows + 1,
+                                                 vec=v), ref, tol, f"P vec{v}")
+            for v in (1, 4)]
+    vec1_ms = _graph_ms(lambda: PA.probe_accum(idx, streams, rows + 1))
+    buf = torch.zeros_like(ref)
+    line.append("P " + timed(
+        PA.probe_accum, lambda: PA.probe_accum(idx, streams, rows + 1, vec=4),
+        lambda: PA.probe_accum_ref(idx, streams.T, rows + 1),
+        lambda: buf.index_add_(0, idx, streams.T),
+        accum_bound(m, w, ref.numel()), ms_vec1=vec1_ms,
+        setting="row rates W=8 streams, float4 (ms) and scalar (ms_vec1)"))
+    unpacked = PA.unpack_bf16x2(words.T.contiguous())
+    q_ref = PA.probe_accum_ref(idx, unpacked, rows + 1)
+    line.append(check(PA.probe_accum_bf16x2, PA.probe_accum_bf16x2(
+        idx, words, rows + 1, vec=4), q_ref,
+        C.sum_order_tol(idx, unpacked, rows + 1), "Q vec4"))
+    line.append("Q " + timed(
+        PA.probe_accum_bf16x2,
+        lambda: PA.probe_accum_bf16x2(idx, words, rows + 1, vec=4),
+        lambda: PA.probe_accum_ref(idx, PA.unpack_bf16x2(
+            words.T.contiguous()), rows + 1), None,
+        accum_bound(m, w, ref.numel(), 2),
+        setting="row rates W=8, 4 word streams, float4"))
+    print(f"  row rates M={m} W={w}: " + ", ".join(line), flush=True)
+
+    # P's pair form: the chunk probe at its larger scale, as --quick runs it.
+    rows, m = CT.ROWS, CT.MS[-1]
+    (threads, upt), = CT.QUICK
+    idx = _itensor(device, rng.integers(0, rows - 2, m))
+    pair = _tensor(device, rng.standard_normal((4, m)))
+    print("  pair form M={}: {}".format(m, check(
+        PA.probe_accum, PA.probe_accum(idx, pair, rows + 2, stride=2, vec=2,
+                                       upt=upt, threads=threads),
+        PA.probe_accum_ref(idx, pair.T, rows + 2, stride=2),
+        C.sum_order_tol(idx, pair.T, rows + 2, stride=2), "P pair")),
+        flush=True)
+
+    # R: the cell-merge probe's runs stream.
+    rows, n = CM.ROWS, CM.N
+    idx = _itensor(device, CM.streams(rows, n)["runs"])
+    vals = _tensor(device, rng.standard_normal((CM.WIDTH, n)))
+    merged = PA.merge_pairs(idx, vals)
+    taken = int(merged[1].sum())
+    n2 = n // 2
+    line = [check(PA.probe_accum_pair_merged, PA.probe_accum_pair_merged(
+        *merged, rows + 1), PA.probe_accum_ref(idx, vals.T, rows + 1),
+        C.sum_order_tol(idx, vals.T, rows + 1), "R vec4")]
+    line.append("R " + timed(
+        PA.probe_accum_pair_merged,
+        lambda: PA.probe_accum_pair_merged(*merged, rows + 1),
+        lambda: PA.pair_merged_ref(*merged, rows + 1), None,
+        bound(12 * n2 + 4 * CM.WIDTH * (n2 + taken)
+              + 4 * (rows + 1) * CM.WIDTH, CM.WIDTH * (n2 + taken)),
+        setting="cell merge runs stream, after the pre-pass, float4",
+        pairs_taken=taken))
+    print(f"  cell merge runs N={n} ({n2 - taken} of {n2} pairs merged): "
+          + ", ".join(line), flush=True)
+
+    # S and P's skip rule: the run-merge probe at r = 311.
+    r = RM.RS[-1]
+    rows = r * r
+    ids, vals_np = RM.make_stream(r)
+    idx, vals = _itensor(device, ids), _tensor(device, vals_np)
+    m, w = vals.shape
+    ref = PA.probe_accum_ref(idx, vals, rows + 1)
+    tol = C.sum_order_tol(idx, vals, rows + 1)
+    s_idx, s_vals = PA.run_merge_outside(idx, vals, rows)
+    line = [check(PA.probe_accum_run_merge, PA.probe_accum_run_merge(
+        idx, vals, rows + 1, span=16), ref, tol, "S"),
+        check(PA.probe_accum, PA.probe_accum(s_idx, s_vals, rows + 1,
+                                             rows=True, vec=4), ref, tol,
+              "P skip")]
+    buf = torch.zeros_like(ref)
+    line.append("S " + timed(
+        PA.probe_accum_run_merge,
+        lambda: PA.probe_accum_run_merge(idx, vals, rows + 1, span=16),
+        lambda: PA.probe_accum_ref(idx, vals, rows + 1),
+        lambda: buf.index_add_(0, idx, vals),
+        accum_bound(m, w, ref.numel()),
+        setting="run merge r=311, span 16, float4",
+        row_atomics=PA.adjacent_runs(idx, 16), updates=m))
+    print(f"  run merge r={r} M={m}: " + ", ".join(line), flush=True)
+    return out
+
+
+def run_probes(wrappers) -> dict:
+    """The probes' entry points (--quick) with the launch counts of
+    `wrappers` set to 0 just before and read just after; each must have
+    launched."""
+    import importlib
+
+    for fn in wrappers:
+        fn.launches = 0
+    for name in ("_bench_row_rates", "_bench_scatter_variants",
+                 "_bench_chunk_tune", "_bench_cell_merge",
+                 "_bench_run_merge"):
+        print(f"  -- python -m coslam_torch.tools.bench.{name} --quick",
+              flush=True)
+        importlib.import_module(f"coslam_torch.tools.bench.{name}").main(
+            ["--quick"])
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    print(f"  launches {json.dumps(launches)}", flush=True)
+    assert all(launches.values()), launches
+    return launches
 
 
 def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
@@ -393,6 +705,12 @@ def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
     assert math.isfinite(ate) and ate < 0.10, ate
     n_vert = len(slam.final_mesh.vertices) if mesh else 0
     assert n_vert > 100 or not mesh, n_vert
+    if mesh:
+        from coslam_torch.mesh import mcubes
+
+        assert mcubes.library.cache_info().currsize == 1, "no native mesh"
+        lib = os.path.abspath(mcubes.library()._name)
+        assert os.path.dirname(lib) == str(mcubes.BUILD_DIR), lib
     n_track = (frames - 1) * tcfg["iter"]
     n_ba = len(slam.timings["mapping"]) * mcfg["iters"]
     assert n_ba > 0, "no BA call"
@@ -461,10 +779,23 @@ def main() -> int:
         for name, rec in check_kernels(
                 device, k, main_path_cases(cfg, N_FRAMES)).items():
             measured[name] = {"source": k.source, **k.record[name], **rec}
-    _phase(f"kernels against the plain versions: {ACCUM_SOURCE}")
+    _phase("kernels against the plain versions: the row accumulate, "
+           + ", ".join(sorted(set(ACCUM_SOURCES.values()))))
     for name, rec in check_accumulate(
             device, xk, main_path_cases(xor_cfg, N_FRAMES)).items():
-        measured[name] = {"source": ACCUM_SOURCE, **ACCUM_RECORD, **rec}
+        measured[name] = {"source": ACCUM_SOURCES[name], **ACCUM_RECORD,
+                          **rec}
+    _phase(f"kernels against the plain versions: {PROBE_SOURCE}")
+    for name, rec in check_probes(device).items():
+        measured[name] = {"source": PROBE_SOURCE, **PROBE_RECORD[name], **rec}
+
+    from coslam_torch.ops import probe_accum as PA
+
+    t = _phase("probes: coslam_torch.tools.bench at the probes' shapes")
+    launches = run_probes([PA.probe_accum, PA.probe_accum_bf16x2,
+                           PA.probe_accum_pair_merged,
+                           PA.probe_accum_run_merge])
+    print(f"  probes {time.perf_counter() - t:.1f} s", flush=True)
 
     # (config, kernels that run in every tracking and BA iteration, kernels
     # that run in every table-gradient iteration, frames or None for all).
@@ -484,7 +815,6 @@ def main() -> int:
     data = SyntheticFrames(slices[0][0], N_FRAMES)
     print(f"  rendered {N_FRAMES} frames {H}x{W} in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    launches = {}
     for cfg, own, table_own, n_frames in slices:
         t = _phase(f"slice: CoSLAM.run at {cfg['data']['exp_name']} "
                    f"({cfg['grid']['enc']}, grad_impl "
@@ -495,10 +825,12 @@ def main() -> int:
         print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
         for fn in (*own, *table_own):
             launches.setdefault(fn.__name__, counts[fn.__name__])
+    first = ("source", "replaces", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")
     records = [{"name": name, "route": "cuda", "source": rec["source"],
                 "replaces": rec["replaces"], "launches": launches[name],
-                **{key: v for key, v in rec.items()
-                   if key not in ("replaces", "source")}}
+                **{key: rec[key] for key in first[2:]},
+                **{key: v for key, v in rec.items() if key not in first}}
                for name, rec in measured.items()]
     print(smi)
     print(json.dumps({"kernels": records}))

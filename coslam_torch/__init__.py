@@ -6,8 +6,10 @@ hand-written CUDA kernels for Hopper (coslam_torch/csrc). The layout
 mirrors coslam_tpu: ``ops/`` (encodings, render, losses, pose math, the
 kernels' wrappers), ``models/`` (decoder, joint scene representation),
 ``runtime/`` (optimizers, tracking, keyframes, mapping, the sequential
-SLAM loop), ``mesh/``, ``data/`` (in-memory synthetic sequences) and
-``tools/`` (the slices' profiler). Framework-neutral modules of coslam_tpu (datasets, synthetic
-scenes, rays, marching cubes, ATE, config) are imported, not copied;
-none of them imports jax.
+SLAM loop), ``mesh/`` (extraction and the native marching cubes),
+``data/`` (dataset loaders, in-memory synthetic sequences), ``eval/``
+(ATE), ``config.py`` and ``tools/`` (the slices' profiler; ``bench/``,
+the scatter-accumulate probes). The port keeps its own copy of every
+module it needs from coslam_tpu, even of those that import no jax: it
+imports nothing of the JAX package.
 """

@@ -1,7 +1,7 @@
 """Command-line entry point: ``python -m coslam_torch --config <yaml>``.
 
-Loads the YAML config (recursive inherit_from) with the JAX package's
-framework-neutral loader, builds the dataset from it and runs the
+Loads the YAML config (recursive inherit_from) with the port's loader
+(coslam_torch/config.py), builds the dataset from it and runs the
 sequential loop on the chosen device. ``yaml`` and the image decoders of
 the dataset loaders are imported here only, never by the package.
 """
@@ -29,9 +29,8 @@ def main(argv=None):
                              "runs their plain versions)")
     args = parser.parse_args(argv)
 
-    from coslam_tpu.config import load_config
-    from coslam_tpu.data.datasets import get_dataset
-
+    from .config import load_config
+    from .data.datasets import get_dataset
     from .runtime.slam import CoSLAM
 
     cfg = load_config(args.config)

@@ -1,7 +1,7 @@
-// The generic row accumulate out[clip(idx[m], 0, rows), :] += vals[m, :]
-// (idx int32 [M], vals f32 [M, W], out f32 [rows + 1, W], row `rows` the
-// slack row) for Hopper (sm_90a), bound to Python through a plain C
-// interface (coslam_torch/ops/_kernels.py; wrapped by
+// The deterministic row accumulate out[clip(idx[m], 0, rows), :] +=
+// vals[m, :] (idx int32 [M], vals f32 [M, W], out f32 [rows + 1, W], row
+// `rows` the slack row) for Hopper (sm_90a), bound to Python through a
+// plain C interface (coslam_torch/ops/_kernels.py; wrapped by
 // coslam_torch/ops/serial_scatter.py:row_accum).
 //
 // What it replaces: the Pallas K4, coslam_tpu/ops/hash_pallas.py
@@ -12,23 +12,18 @@
 // accumulator in VMEM; their VMEM row limits, level groups and multi-pass
 // have no counterpart here: one pass covers a table of any size.
 //
-// Two modes:
-//   row_accum_atomic (kernel F): one thread per update, W f32 atomicAdds
-//     into the zeroed output. The order in which a row's updates add
-//     changes from run to run. Bound by atomic throughput in L2: at room0's
-//     BA (22.5 M updates of W = 2) the 834,097-row table (6.7 MB) stays in
-//     L2, and contention is highest on the coarse dense levels (level 0 has
-//     4,913 rows for every point).
-//   row_accum_segmented (kernel H): deterministic. row_accum_keys clips the
-//     keys; a stable sort of the keys gives the permutation (torch.sort
-//     with stable=True, in the wrapper); then one thread per row finds its
-//     run in the sorted keys by binary search and sums the run in sorted
-//     order, which is increasing m, from 0.0f, and writes the row (empty
-//     rows get 0). That is the order of the TPU's serial loop, so every
-//     row has the same bits on every run and equals a serial np.add.at.
-//     Bound by the sort and by the gather of vals through the permutation
-//     (8 random bytes per update at W = 2); a hot row is summed by one
-//     thread, serially, by design.
+// row_accum_segmented (kernel H): row_accum_keys clips the keys; a stable
+// sort of the keys gives the permutation (torch.sort with stable=True, in
+// the wrapper); then one thread per row finds its run in the sorted keys
+// by binary search and sums the run in sorted order, which is increasing
+// m, from 0.0f, and writes the row (empty rows get 0). That is the order
+// of the TPU's serial loop, so every row has the same bits on every run
+// and equals a serial np.add.at. Bound by the sort and by the gather of
+// vals through the permutation (8 random bytes per update at W = 2); a hot
+// row is summed by one thread, serially, by design.
+//
+// The atomic mode (kernel F) is kernel P of probe_accum.cu with its clip
+// rule: one thread per update, a row of vector atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,18 +38,6 @@ inline unsigned int n_blocks(int64_t n_threads) {
 
 __device__ __forceinline__ int clip_row(int i, int rows) {
   return min(max(i, 0), rows);
-}
-
-__global__ void row_accum_atomic_kernel(const int* __restrict__ idx,
-                                        const float* __restrict__ vals,
-                                        float* __restrict__ out, int64_t m,
-                                        int rows, int width) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= m) return;
-  float* dst = out + static_cast<int64_t>(clip_row(idx[i], rows)) * width;
-  const float* src = vals + i * width;
-  for (int w = 0; w < width; ++w) atomicAdd(dst + w, src[w]);
 }
 
 __global__ void row_accum_keys_kernel(const int* __restrict__ idx,
@@ -125,17 +108,6 @@ void launch_segmented(const int* keys, const int64_t* perm, const float* vals,
 extern "C" {
 
 // Each entry point returns a cudaError_t code (0 = success).
-
-// out: [rows + 1, width], zeroed by the caller.
-int row_accum_atomic(const int* idx, const float* vals, float* out,
-                     int64_t m, int rows, int width, void* stream) {
-  if (rows < 0 || width <= 0) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  row_accum_atomic_kernel<<<n_blocks(m), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      idx, vals, out, m, rows, width);
-  return cudaGetLastError();
-}
 
 // keys[m] = clip(idx[m], 0, rows): the sort keys of row_accum_segmented.
 int row_accum_keys(const int* idx, int* keys, int64_t m, int rows,

@@ -1,9 +1,9 @@
-"""Mesh extraction: SDF grid query through the port + shared marching cubes.
+"""Mesh extraction: SDF grid query through the port + native marching cubes.
 
 Counterpart of coslam_tpu/mesh/extract.py: the voxel grid of the
 marching-cubes bound is queried in fixed-size chunks through the port's
 model (the grid's encode kernel on the card), and the volume goes to the
-JAX package's framework-neutral native marching cubes.
+port's copy of the native marching cubes (mesh/mcubes.py).
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from coslam_tpu.mesh.io import TriMesh
-from coslam_tpu.mesh.mcubes import marching_cubes
+from .io import TriMesh
+from .mcubes import marching_cubes
 
 CHUNK = 1024 * 64
 
@@ -22,8 +22,7 @@ CHUNK = 1024 * 64
 def get_voxels(x_max, x_min, y_max, y_min, z_max, z_min,
                voxel_size: float):
     """Grid axis coordinates at voxel_size (coslam_tpu.mesh.extract
-    .get_voxels; that module imports jax, so the lines are repeated
-    here)."""
+    .get_voxels)."""
     n = [round((hi - lo) / voxel_size + 0.0005) + 1
          for hi, lo in ((x_max, x_min), (y_max, y_min), (z_max, z_min))]
     return tuple(np.linspace(lo, hi, k, dtype=np.float32)

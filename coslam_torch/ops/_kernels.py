@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parents[1]
 _SOURCES = (_PKG / "csrc" / "grid_encode.cu",
             _PKG / "csrc" / "tensovm_encode.cu",
             _PKG / "csrc" / "xor_grid_encode.cu",
-            _PKG / "csrc" / "row_accum.cu")
+            _PKG / "csrc" / "row_accum.cu",
+            _PKG / "csrc" / "probe_accum.cu")
 BUILD_DIR = _PKG.parent / "build" / "coslam_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -112,12 +113,17 @@ def library() -> ctypes.CDLL:
                                         _U32, _P]
     lib.xor_grid_encode_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32,
                                         _P, _I32, _U32, _P]
-    lib.row_accum_atomic.argtypes = [_P, _P, _P, _I64, _I32, _I32, _P]
     lib.row_accum_keys.argtypes = [_P, _P, _I64, _I32, _P]
     lib.row_accum_segmented.argtypes = [_P, _P, _P, _P, _I64, _I32, _I32, _P]
+    lib.probe_accum.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32,
+                                _I32, _I32, _I32, _I32, _I32, _P]
+    lib.probe_accum_pair_merged.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
+                                            _I32, _I32, _I32, _I32, _P]
+    lib.probe_accum_run_merge.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
+                                          _I32, _I32, _P]
     for fn in (lib.xor_grid_encode_fwd, lib.xor_grid_encode_bwd,
-               lib.row_accum_atomic, lib.row_accum_keys,
-               lib.row_accum_segmented):
+               lib.row_accum_keys, lib.row_accum_segmented, lib.probe_accum,
+               lib.probe_accum_pair_merged, lib.probe_accum_run_merge):
         fn.restype = ctypes.c_int
     lib.grid_encode_error_string.argtypes = [ctypes.c_int]
     lib.grid_encode_error_string.restype = ctypes.c_char_p

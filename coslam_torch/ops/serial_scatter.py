@@ -6,11 +6,15 @@ coslam_tpu/ops/hash_pallas.py (``scatter_add_pallas``): idx [M] and vals
 [M, W] f32 give an f32 accumulator [rows + 1, W]; idx is clipped to
 [0, rows], so row ``rows`` is the slack row that the caller drops.
 
-On the card (coslam_torch/csrc/row_accum.cu) it runs in one of two modes:
+On the card it runs in one of two modes:
 
-- atomic (kernel F, ``row_accum_atomic``): one thread per update, W f32
-  atomics; the order in which a row's updates add changes from run to run;
-- deterministic (kernel H, ``row_accum_segmented``): the updates are
+- atomic (kernel F, ``row_accum_atomic``): kernel P of
+  coslam_torch/csrc/probe_accum.cu with its clip rule, one thread per
+  update and a row of the widest vector atomics that divide W (float2 for
+  the grids' 2 features); the order in which a row's updates add changes
+  from run to run;
+- deterministic (kernel H, ``row_accum_segmented``,
+  coslam_torch/csrc/row_accum.cu): the updates are
   stably sorted by row (``torch.sort(stable=True)`` gives the
   permutation), then one thread per row sums its run in sorted order, that
   is in increasing m, from 0.0: the order in which the TPU's serial loop
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
+from . import probe_accum as PA
 
 
 def row_accum_ref(idx: torch.Tensor, vals: torch.Tensor,
@@ -62,17 +67,15 @@ def row_accum(idx: torch.Tensor, vals: torch.Tensor, rows: int,
         return row_accum_ref(idx, vals, rows)
     _check_cuda(idx, vals, rows)
     m, width = vals.shape
-    lib, stream = _kernels.library(), _kernels.stream(vals.device)
     if not deterministic:
-        out = torch.zeros((rows + 1, width), dtype=torch.float32,
-                          device=vals.device)
-        _kernels.check(lib.row_accum_atomic(
-            idx.data_ptr(), vals.data_ptr(), out.data_ptr(), m, rows, width,
-            stream), "row_accum_atomic")
+        out = PA.launch_accum("row_accum_atomic", idx, vals, width, m,
+                              rows + 1, width, PA.widest_vec(width), 1, 256,
+                              False, True, clip=True)
         row_accum_atomic.launches += 1
         return out
     # The permutation: clip the keys first (a stable sort of the raw keys
     # would put a -1 before an earlier 0 in row 0's run), then sort.
+    lib, stream = _kernels.library(), _kernels.stream(vals.device)
     keys = torch.empty_like(idx)
     _kernels.check(lib.row_accum_keys(idx.data_ptr(), keys.data_ptr(), m,
                                       rows, stream), "row_accum_keys")

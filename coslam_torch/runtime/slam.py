@@ -44,7 +44,7 @@ class CoSLAM:
         _check_supported_loop(config)
         self.config = config
         if dataset is None:
-            from coslam_tpu.data.datasets import get_dataset
+            from ..data.datasets import get_dataset
             dataset = get_dataset(config)
         self.dataset = dataset
         self.device = torch.device(device)
@@ -200,14 +200,14 @@ class CoSLAM:
     def evaluate_ate(self, n_frames: int) -> Dict:
         """ATE of the first n_frames tracked poses against the ground truth
         (coslam_tpu.eval.ate without its plot); appends to output.txt."""
-        from coslam_tpu.eval.ate import convert_poses, evaluate_ate
+        from ..eval.ate import convert_poses, evaluate_ate
 
         est = {i: self.est_c2w[i] for i in range(n_frames)}
         gt_arr, mask = convert_poses(self.pose_gt, n_frames, 1.0)
         est_arr, _ = convert_poses(est, n_frames, 1.0, gt=False)
         est_arr = est_arr[mask[:len(est_arr)]]
         results = evaluate_ate({k: v for k, v in enumerate(gt_arr)},
-                               {k: v for k, v in enumerate(est_arr)}, plot="")
+                               {k: v for k, v in enumerate(est_arr)})
         results["Name"] = n_frames - 1
         out = os.path.join(self.config["data"]["output"],
                            self.config["data"]["exp_name"])

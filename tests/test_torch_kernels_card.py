@@ -1,7 +1,7 @@
 """The CUDA kernels of coslam_torch against their plain PyTorch versions,
 on the card: kernels A and B (hash grid), C and D (TensoVM), E and G (XOR
-hash grid) and the row accumulate F (atomic) and H (deterministic). This file
-imports no jax, so it also runs on a machine with the card and without
+hash grid), the row accumulate F (atomic) and H (deterministic), and the
+probes' kernels P, Q, R and S (bottom of the file). This file imports no jax, so it also runs on a machine with the card and without
 the JAX package's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_card.py
@@ -29,6 +29,7 @@ import torch
 from coslam_torch.ops import encodings as E
 from coslam_torch.ops import hash_packed as HP
 from coslam_torch.ops import hash_pallas as XP
+from coslam_torch.ops import probe_accum as PA
 from coslam_torch.ops import serial_scatter as SS
 from coslam_torch.ops import tensovm as VM
 
@@ -292,3 +293,159 @@ def test_xor_autograd_function_on_card(cuda_device, deterministic):
         assert torch.equal(t_card, t_cpu)
     torch.testing.assert_close(t_card, t_cpu, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(x_card, x_cpu, rtol=1e-4, atol=1e-3)
+
+
+# The probes' kernels P-S (coslam_torch/csrc/probe_accum.cu): each table
+# within the sum-order bound of the exact sum of its rows' updates (the
+# bound above, which cannot fail by chance on hot rows), and against the
+# plain version at TABLE_TOL where no row is hot.
+TABLE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _pieces(idx, rows2d, out_rows, stride):
+    """(keys, values) of every stride-wide piece of every update whose row
+    lies inside the [out_rows, stride] output (numpy)."""
+    k = rows2d.shape[1] // stride
+    keep = (idx >= 0) & (idx <= out_rows - k)
+    keys = (idx[keep, None] + np.arange(k)).reshape(-1)
+    return keys, rows2d[keep].reshape(-1, stride)
+
+
+# (W, stride, vec, updates per thread, threads per block)
+PROBE_SETTINGS = [(8, 8, 4, 1, 256), (8, 8, 1, 4, 128), (16, 16, 4, 8, 512),
+                  (4, 2, 2, 1, 256), (4, 2, 1, 16, 128), (6, 6, 2, 2, 256),
+                  (2, 2, 1, 1, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", PROBE_SETTINGS, ids=str)
+@pytest.mark.parametrize("rows_layout", [False, True])
+def test_probe_accum_kernels_match_plain_versions(cuda_device, setting,
+                                                  rows_layout):
+    """Kernel P in both layouts and kernel Q (packed bf16, streams), at
+    every vector width and launch shape, with out-of-range indices
+    skipped: within the sum-order bound on hot rows; at TABLE_TOL to the
+    plain version on uniform ones."""
+    width, stride, vec, upt, threads = setting
+    out_rows = 4001
+    launches = PA.probe_accum.launches, PA.probe_accum_bf16x2.launches
+    for hot in (True, False):
+        idx, _, idx_np, _ = _accum_inputs(100_003, out_rows, 1, width,
+                                          cuda_device)
+        if not hot:
+            idx_np = np.random.default_rng(width).integers(
+                -3, out_rows + 3, idx_np.shape[0])
+            idx = torch.from_numpy(idx_np.astype(np.int32)).to(cuda_device)
+        streams = torch.randn(width, idx.shape[0], device=cuda_device)
+        words = torch.stack([PA.pack_bf16x2(streams[2 * p], streams[2 * p + 1])
+                             for p in range(width // 2)])
+        calls = {"P": (streams.T, lambda: PA.probe_accum(
+                     idx, streams.T.contiguous() if rows_layout else streams,
+                     out_rows, stride, rows=rows_layout, vec=vec, upt=upt,
+                     threads=threads)),
+                 "Q": (PA.unpack_bf16x2(words.T.contiguous()),
+                       lambda: PA.probe_accum_bf16x2(
+                           idx, words, out_rows, stride, vec=vec, upt=upt,
+                           threads=threads))}
+        for rows2d, call in calls.values():
+            got = call()
+            torch.cuda.synchronize()
+            keys, pieces = _pieces(idx_np, rows2d.cpu().numpy(), out_rows,
+                                   stride)
+            _assert_within_sum_order(got, keys, pieces, out_rows - 1)
+            if not hot:
+                torch.testing.assert_close(
+                    got, PA.probe_accum_ref(idx, rows2d, out_rows, stride),
+                    **TABLE_TOL)
+    assert (PA.probe_accum.launches, PA.probe_accum_bf16x2.launches) == (
+        launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 6, 3])
+def test_probe_pair_merged_kernel_matches_plain_version(cuda_device, width):
+    """Kernel R after merge_pairs (float4, float2 and scalar atomics, by
+    W), on the cell-merge probe's two streams: within the sum-order
+    bound, and at TABLE_TOL to its plain version and to kernel P on the
+    unmerged streams."""
+    from coslam_torch.tools.bench import _bench_cell_merge as CM
+
+    rows, n = 5000, 200_000
+    for ids in CM.streams(rows, n).values():
+        idx = torch.from_numpy(ids).to(cuda_device)
+        vals = torch.randn(width, n, device=cuda_device)
+        merged = PA.merge_pairs(idx, vals)
+        launches = PA.probe_accum_pair_merged.launches
+        got = PA.probe_accum_pair_merged(*merged, rows + 1)
+        torch.cuda.synchronize()
+        assert PA.probe_accum_pair_merged.launches == launches + 1
+        _assert_within_sum_order(got, ids, vals.T.cpu().numpy(), rows)
+        torch.testing.assert_close(got, PA.pair_merged_ref(*merged, rows + 1),
+                                   **TABLE_TOL)
+        torch.testing.assert_close(got, PA.probe_accum(idx, vals, rows + 1),
+                                   **TABLE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [140, 311])
+@pytest.mark.parametrize("width,span", [(8, 16), (8, 1), (6, 64), (3, 7),
+                                        (16, 1000)])
+def test_probe_run_merge_kernel_matches_plain_version(cuda_device, r, width,
+                                                      span):
+    """Kernel S (float4, float2 or scalar atomics, by W) on the run-merge
+    probe's ray-ordered streams: within the sum-order bound and at
+    TABLE_TOL to its plain version; and the skip route (suffix scan +
+    kernel P) likewise."""
+    from coslam_torch.tools.bench import _bench_run_merge as RM
+
+    ids, _ = RM.make_stream(r)
+    rows = r * r
+    idx = torch.from_numpy(ids).to(cuda_device)
+    vals = torch.randn(ids.shape[0], width, device=cuda_device)
+    launches = PA.probe_accum_run_merge.launches
+    got = PA.probe_accum_run_merge(idx, vals, rows + 1, span=span)
+    torch.cuda.synchronize()
+    assert PA.probe_accum_run_merge.launches == launches + 1
+    _assert_within_sum_order(got, ids, vals.cpu().numpy(), rows)
+    ref = PA.probe_accum_ref(idx, vals, rows + 1)
+    torch.testing.assert_close(got, ref, **TABLE_TOL)
+    s_idx, s_vals = PA.run_merge_outside(idx, vals, rows)
+    skip = PA.probe_accum(s_idx, s_vals, rows + 1, rows=True)
+    torch.testing.assert_close(skip, ref, **TABLE_TOL)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    vals = torch.zeros((6, 8), device=cuda_device)
+    with pytest.raises(ValueError):     # float4 atomics on 6-wide rows
+        PA.probe_accum(idx, vals, 9, vec=4)
+    with pytest.raises(ValueError):     # an int64 index
+        PA.probe_accum(idx.long(), vals, 9)
+    with pytest.raises(ValueError):     # a CPU index beside CUDA values
+        PA.probe_accum(idx.cpu(), vals, 9)
+    with pytest.raises(ValueError):     # S keeps at most 16 in registers
+        PA.probe_accum_run_merge(idx, torch.zeros((8, 17),
+                                                  device=cuda_device), 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["_bench_row_rates",
+                                  "_bench_scatter_variants",
+                                  "_bench_chunk_tune", "_bench_cell_merge",
+                                  "_bench_run_merge"])
+def test_probe_quick_runs_on_card(cuda_device, name):
+    """Each probe's quick setting at its own shapes: it holds every
+    variant to its plain version within the sum-order bound (the probe
+    raises otherwise), times it and launches the kernels."""
+    import importlib
+
+    mod = importlib.import_module(f"coslam_torch.tools.bench.{name}")
+    before = sum(f.launches for f in (PA.probe_accum, PA.probe_accum_bf16x2,
+                                      PA.probe_accum_pair_merged,
+                                      PA.probe_accum_run_merge))
+    mod.main(["--quick"])
+    after = sum(f.launches for f in (PA.probe_accum, PA.probe_accum_bf16x2,
+                                     PA.probe_accum_pair_merged,
+                                     PA.probe_accum_run_merge))
+    assert after > before

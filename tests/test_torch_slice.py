@@ -265,9 +265,10 @@ def test_ba_iteration_matches_jax_xor():
 def _check_slam_loop(tmp_path, vm: bool = False, xor: bool = False):
     """CoSLAM.run on the 12-frame 40x52 scene of
     tests/test_integration.py:test_full_slam_loop, with 128-ray batches
-    (CPU time): ATE < 5 cm and 3 keyframes; the first mesh and the
-    mesh.vis meshes are written beside the final one."""
-    from coslam_tpu.data.datasets import get_dataset
+    (CPU time), read from disk by the port's loader: ATE < 5 cm and 3
+    keyframes; the first mesh and the mesh.vis meshes are written beside
+    the final one."""
+    from coslam_torch.data.datasets import get_dataset
     from coslam_torch.runtime.slam import CoSLAM
 
     datadir = str(tmp_path / "scene")
@@ -323,11 +324,11 @@ def test_port_runs_without_jax():
     """Importing coslam_torch and running one CPU tracking step, with the
     packed hash grid, the XOR-hash grid and TensoVM, the XOR grid's
     lattice encode and TensoVM's smoothness TV with their gradients,
-    leaves jax out of sys.modules."""
+    leaves jax and the JAX package out of sys.modules."""
     code = """
 import sys
 import numpy as np, torch
-from coslam_tpu.data.synth import make_synthetic_config
+from coslam_torch.data.synth import make_synthetic_config
 from coslam_torch.models.scene_rep import JointEncoding
 from coslam_torch.runtime.optim import make_map_optimizer, map_param_list
 from coslam_torch.runtime.slam import CoSLAM
@@ -358,6 +359,7 @@ tv = m.smoothness(p, m.smoothness_sample(torch.Generator(), 8, 0.1, 0.05), 8)
 tv.backward()
 assert all(torch.isfinite(t.grad).all() for t in map_param_list(p)[:2])
 assert "jax" not in sys.modules, "jax was imported"
+assert "coslam_tpu" not in sys.modules, "coslam_tpu was imported"
 print("ok")
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")
