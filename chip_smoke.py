@@ -7,19 +7,27 @@ Run from the repository root. Phases, each printing its own lines:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from coslam_torch/csrc with nvcc;
+   render the 15-frame scene, and record the ray-ordered points of the
+   room0 slice's first BA call (coslam_torch.tools.kernel_times
+   .record_ba_points: 4,096 rays x 43 samples, a ray's samples adjacent;
+   saved to output/ba_points.npy for kernel_times' --points);
 3. kernels: the hash-grid kernels A and B at the room0 spec, the
    TensoVM kernels C and D at the room0_vm spec and the XOR-hash kernels
    E and G at the room0_xor spec, each against its plain PyTorch version
-   at every shape its slice gives it (main_path_cases), with the
-   tolerances below, and timed with CUDA events; then the row accumulate,
+   at every shape its slice gives it (main_path_cases, uniform points),
+   with the tolerances below, and timed with CUDA events; B also on the
+   ray-ordered points and under a CUDA graph; then the row accumulate,
    kernels F (atomic: kernel P's CUDA kernel with its clip rule) and H
    (deterministic), on kernel G's update streams of every case that asks
-   for the table gradient (up to 22.5 M updates), against the plain
-   version, H also bit-identical over two calls and bit for bit equal to
-   a serial np.add.at on the host; then the probes' kernels P (scalar and
-   float4 atomics), Q, R and S (coslam_torch/csrc/probe_accum.cu) at each
-   probe's main shape against their plain versions, and P's pair form and
-   skip rule, timed on the card alone by CUDA graphs of the calls;
+   for the table gradient (up to 22.5 M updates) and of the ray-ordered
+   points, against the plain version, H also bit-identical over two calls
+   and bit for bit equal to a serial np.add.at on the host at every case,
+   F and H and index_add_ also under a CUDA graph, and H's three phases
+   (sort, run starts, walk) each timed alone; then the probes' kernels P
+   (scalar and float4 atomics), Q, R and S
+   (coslam_torch/csrc/probe_accum.cu) at each probe's main shape against
+   their plain versions, and P's pair form and skip rule, timed on the
+   card alone by CUDA graphs of the calls;
 4. probes: the five scatter-accumulate probes of
    coslam_torch/tools/bench (their entry points, --quick: one setting
    per kernel, at the probes' own shapes; each holds every variant to
@@ -68,6 +76,9 @@ import numpy as np
 from coslam_torch.data.synth import (SyntheticFrames, room0_config,
                                      room0_vm_config, room0_xor_config)
 from coslam_torch.tools.bench._common import accum_bound, bound
+from coslam_torch.tools.kernel_times import graph_ms as _graph_ms
+from coslam_torch.tools.kernel_times import h_phases, record_ba_points
+from coslam_torch.tools.kernel_times import time_ms as _time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -80,6 +91,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # terms scaled by the resolution (up to 399) with unit-normal cotangent,
 # so its terms reach hundreds and an entry near zero keeps an absolute
 # error near 1e-4: hence atol 1e-3 on dx.
+# On the ray-ordered points B's dtable is held to the sum-order bound of
+# each entry instead (HashKernels.table_tol): the samples of a ray share
+# coarse rows, whose thousands of contributions can cancel to near 0.
 # Kernel G's update streams are exact: the same selects and correctly
 # rounded products as the plain version. The row accumulates F and H and
 # the probes' kernels P-S are held to their plain versions (index_add_,
@@ -99,60 +113,6 @@ H, W = 480, 640
 def _phase(name: str):
     print(f"== {name}", flush=True)
     return time.perf_counter()
-
-
-def _time_ms(fn, batches: int = 5, per_batch: int = 20,
-             warmup: int = 5) -> float:
-    """ms per call of fn: CUDA events around `per_batch` back-to-back
-    calls, so the queue stays fed, divided by the count; the median of
-    `batches` such batches after warm-up."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    return float(np.median(times))
-
-
-def _graph_ms(fn, batches: int = 5, per_batch: int = 20) -> float:
-    """ms per call of fn on the card alone: `per_batch` calls captured in
-    one CUDA graph (after warm-up on a side stream), replayed between CUDA
-    events; the median of `batches` replays. No host work runs between
-    the calls, so this is the card's time for what fn launches (its
-    output's zero fill included)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(per_batch):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    del graph
-    return float(np.median(times))
 
 
 def _nonzero_rows(t) -> int:
@@ -197,6 +157,7 @@ class HashKernels:
     """Kernels A and B at the room0 spec: unit-normal table."""
 
     source = "coslam_torch/csrc/grid_encode.cu"
+    graph = True     # time the backward under a CUDA graph too
     # The pallas_call of each TPU kernel a kernel replaces; the backward
     # replaces two (the hashed and the dense table gradient).
     record = {"grid_encode_fwd": {
@@ -230,6 +191,26 @@ class HashKernels:
                                         False)[0]
         return 4 * self.spec.n_features * _nonzero_rows(dt)
 
+    def table_tol(self, x, g) -> dict:
+        """{"dtable": the sum-order bound of each entry} on points x:
+        per entry, the most two f32 sums of its contributions can differ
+        (``_common.sum_order_tol``), for cases whose coarse rows take
+        thousands of contributions, as the samples of a ray do."""
+        import torch
+
+        from coslam_torch.tools.bench import _common as C
+
+        HP, spec = self.m, self.spec
+        n, L, F = x.shape[0], spec.n_levels, spec.n_features
+        cell, w = HP._cells_and_weights(spec, x)
+        e = HP._corner_entries(spec, cell)                      # [L, 4, N]
+        wz = w[:, 2, None]
+        gw = g.reshape(n, L, F).permute(2, 1, 0)[:, :, None] * HP._xy_weights(w)
+        idx = torch.cat([e.reshape(-1), (e + 1).reshape(-1)]).to(torch.int32)
+        vals = torch.cat([(gw * (1 - wz)).reshape(F, -1),
+                          (gw * wz).reshape(F, -1)], 1).T.contiguous()
+        return {"dtable": C.sum_order_tol(idx, vals, spec.total_entries)}
+
     def work(self, n, touched, need_table, need_dx):
         """(bytes, ops) of the forward and of the backward: per (point,
         level) 8 corners x F multiply-adds and ~26 operations for the cell
@@ -248,6 +229,7 @@ class TensoVMKernels:
     1 + 0.1 x noise; mapping asks for dplanes and dlines together."""
 
     source = "coslam_torch/csrc/tensovm_encode.cu"
+    graph = False
     # Kernel C has no pallas_call to replace: it computes what XLA
     # computed on the TPU, tensovm_encode_fwd_only (gather_quads, the
     # forward of make_line_eval, _vm_combine). Kernel D's plane-table
@@ -311,6 +293,7 @@ class XorKernels:
     (idx, vals) and dx."""
 
     source = "coslam_torch/csrc/xor_grid_encode.cu"
+    graph = False
     # Neither replaces a pallas_call: on the TPU the forward was XLA
     # (hashgrid_encode), and so were the backward's dx (jax.vjp) and the
     # streams it hands to K4.
@@ -395,13 +378,25 @@ def _itensor(device, a):
     return torch.from_numpy(np.asarray(a, np.int32)).to(device)
 
 
-def check_kernels(device, kernels, cases: list) -> dict:
+RAY_CASE = "BA 1 kf ray-ordered"
+
+
+def check_kernels(device, kernels, cases: list, ray=None) -> dict:
     """The forward and backward kernel of `kernels` against their plain
-    versions on each case of `cases`. Returns {kernel name:
-    {"max_abs_err", "ms", "plain_ms", "library_ms", bound}}, the times
+    versions on each case of `cases` (uniform points). Returns {kernel
+    name: {"max_abs_err", "ms", "plain_ms", "library_ms", bound}}, the times
     and the bound at the case with the most points that runs the backward
-    (no single PyTorch call computes an encode or its backward)."""
+    (no single PyTorch call computes an encode or its backward). With
+    `ray` (the ray-ordered points of the slice's first BA call), one more
+    case, that call's table gradient on them, held to the sum-order bound
+    of each entry (``kernels.table_tol``: a coarse row there sums
+    thousands of contributions) and timed beside the uniform case
+    (``ray_ms``). Kernels with ``graph = True`` also time every
+    backward on the card alone (a CUDA graph of 20 calls: ``graph_ms``,
+    ``ray_graph_ms``)."""
     import torch
+
+    from coslam_torch.tools.bench import _common as C
 
     rng = np.random.default_rng(1)
     fwd, bwd = kernels.fwd_fn.__name__, kernels.bwd_fn.__name__
@@ -414,8 +409,12 @@ def check_kernels(device, kernels, cases: list) -> dict:
         return f"{what} err {e:.3g}"
 
     timed = max((c for c in cases if c[2] or c[3]), key=lambda c: c[1])
-    for label, n, need_table, need_dx in cases:
-        x = _tensor(device, rng.uniform(0, 1, (n, 3)))
+    runs = [(*c, None) for c in cases]
+    if ray is not None:
+        runs.append((RAY_CASE, ray.shape[0], True, False, ray))
+    for label, n, need_table, need_dx, x in runs:
+        if x is None:
+            x = _tensor(device, rng.uniform(0, 1, (n, 3)))
         g = _tensor(device, rng.standard_normal((n, kernels.spec.out_dim)))
         line = [f"{label} N={n}",
                 err(fwd, kernels.fwd(x), kernels.fwd(x, plain=True), FWD_TOL,
@@ -426,15 +425,23 @@ def check_kernels(device, kernels, cases: list) -> dict:
             got = kernels.bwd(x, g, need_table, need_dx)
             ref = kernels.bwd(x, g, need_table, need_dx, plain=True)
             torch.cuda.synchronize()
+            bounds = kernels.table_tol(x, g) if label == RAY_CASE else {}
             for what, a in got.items():
                 assert (a is None) == (ref[what] is None), what
-                if a is not None:
+                if what in bounds:
+                    e = C.assert_within(f"{label} {what}", a, ref[what],
+                                        bounds[what])
+                    out[bwd]["max_abs_err"] = max(out[bwd]["max_abs_err"], e)
+                    line.append(f"{what} err {e:.3g} (sum-order bound)")
+                elif a is not None:
                     line.append(err(bwd, a, ref[what],
                                     TOLS.get(what, TABLE_TOL), what))
-            times.update(
-                bwd=_time_ms(lambda: kernels.bwd(x, g, need_table, need_dx)),
-                bwd_plain=_time_ms(lambda: kernels.bwd(
-                    x, g, need_table, need_dx, plain=True)))
+            call = lambda: kernels.bwd(x, g, need_table, need_dx)  # noqa: E731
+            times["bwd"] = _time_ms(call)
+            if kernels.graph:
+                times["bwd_graph"] = _graph_ms(call)
+            times["bwd_plain"] = _time_ms(lambda: kernels.bwd(
+                x, g, need_table, need_dx, plain=True))
         line += [f"{k} {v:.4f} ms" for k, v in times.items()]
         print("  " + ", ".join(line), flush=True)
         if label == timed[0]:
@@ -444,18 +451,27 @@ def check_kernels(device, kernels, cases: list) -> dict:
                             library_ms=None, **bound(*work[0]))
             out[bwd].update(ms=times["bwd"], plain_ms=times["bwd_plain"],
                             library_ms=None, **bound(*work[1]))
+            if kernels.graph:
+                out[bwd]["graph_ms"] = times["bwd_graph"]
+        if label == RAY_CASE:
+            out[bwd]["ray_ms"] = times["bwd"]
+            if kernels.graph:
+                out[bwd]["ray_graph_ms"] = times["bwd_graph"]
     return out
 
 
-def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
+def check_accumulate(device, xk: XorKernels, cases: list, ray) -> dict:
     """Kernels F and H against the plain row accumulate (row_accum_ref),
     within the sum-order bound (``_common.sum_order_tol``), on the update
     streams kernel G gives at every case of `cases` that asks for the
-    table gradient (M = N x 16 levels x 8 corners); H twice, bit for bit,
-    and, on every 1 in M // 200,000 update of the largest case,
-    bit for bit against a serial np.add.at on the host. Returns {kernel
-    name: {"max_abs_err", "ms", "plain_ms"}}, the times at the case with
-    the most updates (H's time includes its key clip and stable sort)."""
+    table gradient (M = N x 16 levels x 8 corners) and on the ray-ordered
+    points `ray` of the slice's first BA call; H twice, bit for bit, and,
+    on every 1 in M // 200,000 update of each case, bit for bit against a
+    serial np.add.at on the host. Returns {kernel name: {"max_abs_err",
+    "ms", "plain_ms", ...}}, the times at the case with the most updates
+    (events, and ``graph_ms`` from a CUDA graph of 20 calls), and at the
+    ray-ordered case (``ray_ms``, ``ray_graph_ms``); H's per-phase times
+    at both (``phases``, ``ray_phases``)."""
     import torch
 
     from coslam_torch.ops import serial_scatter as SS
@@ -465,46 +481,64 @@ def check_accumulate(device, xk: XorKernels, cases: list) -> dict:
     rows = xk.spec.total_entries
     fns = {False: SS.row_accum_atomic, True: SS.row_accum_segmented}
     out = {fn.__name__: {"max_abs_err": 0.0} for fn in fns.values()}
-    cases = [c for c in cases if c[2]]
-    timed = max(cases, key=lambda c: c[1])[0]
-    for label, n, _, _ in cases:
-        x = _tensor(device, rng.uniform(0, 1, (n, 3)))
+    runs = [(label, n, None) for label, n, need_table, _ in cases
+            if need_table]
+    timed = max(runs, key=lambda c: c[1])[0]
+    runs.append((RAY_CASE, ray.shape[0], ray))
+    for label, n, x in runs:
+        if x is None:
+            x = _tensor(device, rng.uniform(0, 1, (n, 3)))
         g = _tensor(device, rng.standard_normal((n, xk.spec.out_dim)))
         idx, vals, _ = xk.m.xor_grid_encode_bwd(xk.spec, xk.table, x, g,
                                                 True, False)
         ref = SS.row_accum_ref(idx, vals, rows)
         tol = C.sum_order_tol(idx.clamp(0, rows), vals, rows + 1)
+        measure = label in (timed, RAY_CASE)
+        key = "" if label == timed else "ray_"
         line = [f"{label} M={idx.shape[0]}"]
         for det, fn in fns.items():
-            got = SS.row_accum(idx, vals, rows, det)
+            call = lambda: SS.row_accum(idx, vals, rows, det)  # noqa: E731
+            got = call()
             if det:
-                again = SS.row_accum(idx, vals, rows, det)
+                again = call()
                 torch.cuda.synchronize()
                 assert torch.equal(got, again), f"{label}: H not bit-identical"
             e = C.assert_within(f"{label} {fn.__name__}", got, ref, tol)
             rec = out[fn.__name__]
             rec["max_abs_err"] = max(rec["max_abs_err"], e)
-            ms = _time_ms(lambda: SS.row_accum(idx, vals, rows, det))
+            ms = _time_ms(call)
             line.append(f"{fn.__name__} err {e:.3g}, {ms:.4f} ms")
-            if label == timed:
-                rec["ms"] = ms
+            if measure:
+                rec[key + "ms"] = ms
+                rec[key + "graph_ms"] = _graph_ms(call)
+                line.append(f"graph {rec[key + 'graph_ms']:.4f} ms")
         plain_ms = _time_ms(lambda: SS.row_accum_ref(idx, vals, rows))
         line.append(f"plain {plain_ms:.4f} ms")
-        if label == timed:
+        if measure:
             buf = torch.zeros_like(ref)
-            library_ms = _time_ms(lambda: buf.index_add_(0, idx, vals))
-            line.append(f"index_add_ {library_ms:.4f} ms")
-            m, width = vals.shape
+            library = lambda: buf.index_add_(0, idx, vals)  # noqa: E731
+            lib_ms, lib_graph_ms = _time_ms(library), _graph_ms(library)
+            line.append(f"index_add_ {lib_ms:.4f} ms, graph {lib_graph_ms:.4f}")
+            phases = h_phases(idx, vals, rows)
+            out["row_accum_segmented"][key + "phases"] = phases
+            line.append("H phases " + ", ".join(
+                f"{k} {v['ms']:.4f} (graph {v['graph_ms']:.4f})"
+                for k, v in phases.items()))
             for rec in out.values():
-                rec.update(plain_ms=plain_ms, library_ms=library_ms,
-                           **accum_bound(m, width, ref.numel()))
-            step = max(idx.shape[0] // 200_000, 1)
-            sub_idx, sub_vals = idx[::step].contiguous(), vals[::step]
-            host = np.zeros((rows + 1, vals.shape[1]), np.float32)
-            np.add.at(host, sub_idx.cpu().numpy(), sub_vals.cpu().numpy())
-            got = SS.row_accum(sub_idx, sub_vals.contiguous(), rows, True)
-            np.testing.assert_array_equal(got.cpu().numpy(), host)
-            line.append(f"H == np.add.at on {sub_idx.shape[0]} updates")
+                rec.update({key + "library_ms": lib_ms,
+                            key + "library_graph_ms": lib_graph_ms})
+            if label == timed:
+                m, width = vals.shape
+                for rec in out.values():
+                    rec.update(plain_ms=plain_ms,
+                               **accum_bound(m, width, ref.numel()))
+        step = max(idx.shape[0] // 200_000, 1)
+        sub_idx, sub_vals = idx[::step].contiguous(), vals[::step].contiguous()
+        host = np.zeros((rows + 1, vals.shape[1]), np.float32)
+        np.add.at(host, sub_idx.cpu().numpy(), sub_vals.cpu().numpy())
+        got = SS.row_accum(sub_idx, sub_vals, rows, True)
+        np.testing.assert_array_equal(got.cpu().numpy(), host)
+        line.append(f"H == np.add.at on {sub_idx.shape[0]} updates")
         print("  " + ", ".join(line), flush=True)
     return out
 
@@ -771,18 +805,38 @@ def main() -> int:
     hk, vk, xk = (HashKernels(device, rng(0)), TensoVMKernels(device, rng(0)),
                   XorKernels(device, rng(0)))
     accum = (SS.row_accum_atomic, SS.row_accum_segmented)
+    room0_cfg = room0_config(out, H, W, N_FRAMES)
     xor_cfg = room0_xor_config(out, H, W, N_FRAMES, exp_name="chip_smoke_xor")
+
+    t = time.perf_counter()
+    data = SyntheticFrames(room0_cfg, N_FRAMES)
+    print(f"  rendered {N_FRAMES} frames {H}x{W} in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    _phase("ray-ordered points: the room0 slice's first BA call")
+    ray = record_ba_points(room0_config(out, H, W, N_FRAMES,
+                                        exp_name="chip_smoke_rays"),
+                           data, device)
+    ba_case = [c for c in main_path_cases(room0_cfg, N_FRAMES)
+               if c[0] == "BA 1 kf"]
+    assert ray.shape == (ba_case[0][1], 3), (ray.shape, ba_case)
+    os.makedirs(out, exist_ok=True)
+    np.save(os.path.join(out, "ba_points.npy"), ray.cpu().numpy())
+    outside = int(((ray < 0) | (ray > 1)).any(1).sum())
+    print(f"  {ray.shape[0]} points ({outside} outside [0, 1]), saved to "
+          "output/ba_points.npy", flush=True)
+
     measured = {}   # kernel name -> its record, launches aside
-    for k, cfg in ((hk, room0_config(out, H, W, N_FRAMES)),
-                   (vk, room0_vm_config(out, H, W, N_FRAMES)), (xk, xor_cfg)):
+    for k, cfg in ((hk, room0_cfg), (vk, room0_vm_config(out, H, W, N_FRAMES)),
+                   (xk, xor_cfg)):
         _phase(f"kernels against the plain versions: {k.source}")
         for name, rec in check_kernels(
-                device, k, main_path_cases(cfg, N_FRAMES)).items():
+                device, k, main_path_cases(cfg, N_FRAMES),
+                ray if k is hk else None).items():
             measured[name] = {"source": k.source, **k.record[name], **rec}
     _phase("kernels against the plain versions: the row accumulate, "
            + ", ".join(sorted(set(ACCUM_SOURCES.values()))))
     for name, rec in check_accumulate(
-            device, xk, main_path_cases(xor_cfg, N_FRAMES)).items():
+            device, xk, main_path_cases(xor_cfg, N_FRAMES), ray).items():
         measured[name] = {"source": ACCUM_SOURCES[name], **ACCUM_RECORD,
                           **rec}
     _phase(f"kernels against the plain versions: {PROBE_SOURCE}")
@@ -811,10 +865,6 @@ def main() -> int:
     wrappers = [hk.fwd_fn, hk.bwd_fn, vk.fwd_fn, vk.bwd_fn, xk.fwd_fn,
                 xk.bwd_fn, *accum]
 
-    t = time.perf_counter()
-    data = SyntheticFrames(slices[0][0], N_FRAMES)
-    print(f"  rendered {N_FRAMES} frames {H}x{W} in "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
     for cfg, own, table_own, n_frames in slices:
         t = _phase(f"slice: CoSLAM.run at {cfg['data']['exp_name']} "
                    f"({cfg['grid']['enc']}, grad_impl "

@@ -113,8 +113,10 @@ def library() -> ctypes.CDLL:
                                         _U32, _P]
     lib.xor_grid_encode_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32,
                                         _P, _I32, _U32, _P]
-    lib.row_accum_keys.argtypes = [_P, _P, _I64, _I32, _P]
-    lib.row_accum_segmented.argtypes = [_P, _P, _P, _P, _I64, _I32, _I32, _P]
+    lib.row_accum_sort.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I64, _P,
+                                   _I64, _I32, _I32, _I32, _P]
+    lib.row_accum_starts.argtypes = [_P, _P, _I64, _I32, _P]
+    lib.row_accum_walk.argtypes = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _P]
     lib.probe_accum.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32,
                                 _I32, _I32, _I32, _I32, _I32, _P]
     lib.probe_accum_pair_merged.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
@@ -122,7 +124,8 @@ def library() -> ctypes.CDLL:
     lib.probe_accum_run_merge.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
                                           _I32, _I32, _P]
     for fn in (lib.xor_grid_encode_fwd, lib.xor_grid_encode_bwd,
-               lib.row_accum_keys, lib.row_accum_segmented, lib.probe_accum,
+               lib.row_accum_sort, lib.row_accum_starts, lib.row_accum_walk,
+               lib.probe_accum,
                lib.probe_accum_pair_merged, lib.probe_accum_run_merge):
         fn.restype = ctypes.c_int
     lib.grid_encode_error_string.argtypes = [ctypes.c_int]

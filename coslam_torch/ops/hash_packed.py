@@ -12,7 +12,10 @@ CUDA kernels in coslam_torch/csrc/grid_encode.cu read and atomically
 update the row pair of the logical f32 table directly:
 
 - :func:`grid_encode_fwd`: kernel A, the encode forward;
-- :func:`grid_encode_bwd`: kernel B, the table gradient and/or dx.
+- :func:`grid_encode_bwd`: kernel B, the table gradient and/or dx. Each
+  corner adds its row pair (e, e + 1) with one float4 atomic (e even) or
+  two float2 atomics (e odd); a point's dx is summed over its levels
+  inside the block and stored once, so dx needs no zero fill.
 
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 versions (:func:`grid_encode_fwd_ref`, :func:`grid_encode_bwd_ref`),
@@ -260,7 +263,7 @@ def grid_encode_bwd(spec: PackedGridSpec, table: torch.Tensor,
         return None, None
     _check_cuda(spec, table, x, g)
     dtable = torch.zeros_like(table) if need_dtable else None
-    dx = torch.zeros_like(x) if need_dx else None
+    dx = torch.empty_like(x) if need_dx else None     # every entry written
     code = _kernels.library().grid_encode_bwd(
         x.data_ptr(), table.data_ptr(), g.data_ptr(), _kernels.ptr(dtable),
         _kernels.ptr(dx), x.shape[0], spec.n_features,

@@ -1,8 +1,9 @@
 """The CUDA kernels of coslam_torch against their plain PyTorch versions,
 on the card: kernels A and B (hash grid), C and D (TensoVM), E and G (XOR
-hash grid), the row accumulate F (atomic) and H (deterministic), and the
-probes' kernels P, Q, R and S (bottom of the file). This file imports no jax, so it also runs on a machine with the card and without
-the JAX package's dependencies:
+hash grid), the row accumulate F (atomic) and H (deterministic, also on
+adversarial streams), and the probes' kernels P, Q, R and S (bottom of
+the file). This file imports no jax, so it also runs on a machine with
+the card and without the JAX package's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_card.py
 
@@ -272,6 +273,130 @@ def test_row_accum_empty_and_room0_streams(cuda_device):
     _assert_within_sum_order(SS.row_accum(idx, vals, spec.total_entries,
                                           False), idx_np, vals_np,
                              spec.total_entries)
+
+
+# Adversarial update streams for kernel H (the CPU twin of each is in
+# tests/test_torch_row_accum.py). Their sizes pick out H's sort tile
+# (4,096 keys), its warps' 512-key slices, its 64-update limit of a
+# thread's run, and sorts of 1, 2, 3 and 4 passes.
+ADVERSARIAL = ("one_row", "long_run", "tile_straddle", "out_of_range",
+               "single", "rows0", "empty", "three_pass")
+
+
+def adversarial_stream(name, width, seed=0):
+    """(idx int32 [M], vals f32 [M, width], rows) of one named stream;
+    values unit normal times 10^U(-3, 3), so that a change of order
+    changes the bits of most sums."""
+    rng = np.random.default_rng(seed)
+    if name == "one_row":              # every update on one row
+        rows, idx = 1000, np.full(20_000, 7)
+    elif name == "long_run":           # one run longer than a tile, spread
+        rows = 2000
+        idx = rng.integers(0, rows, 15_000)
+        idx[rng.random(idx.shape[0]) < 0.6] = 3
+    elif name == "tile_straddle":      # runs of 4096, 512, 64 updates, +-1,
+        rows = 50_000                  # after 100 others: across tiles
+        lens = [4095, 4096, 4097, 511, 512, 513, 63, 64, 65]
+        idx = np.concatenate([rng.integers(0, rows, 100), np.repeat(
+            100 + 7 * np.arange(len(lens)), lens)])
+    elif name == "out_of_range":       # below 0 and above rows
+        rows = 300
+        idx = rng.integers(-1000, rows + 1000, 12_000)
+    elif name == "single":             # M = 1, into the slack row
+        rows, idx = 5, np.array([9])
+    elif name == "rows0":              # rows = 0: every update in row 0
+        rows = 0
+        idx = rng.integers(-5, 5, 3000)
+    elif name == "empty":
+        rows, idx = 10, np.zeros(0, np.int64)
+    elif name == "three_pass":         # 22 bits: 4 passes of 6
+        rows = 3_000_000
+        idx = rng.integers(-10, rows + 10, 200_000)
+    else:
+        raise ValueError(name)
+    vals = (rng.standard_normal((idx.shape[0], width))
+            * 10.0 ** rng.uniform(-3, 3, (idx.shape[0], 1)))
+    return idx.astype(np.int32), vals.astype(np.float32), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 3])
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_row_accum_segmented_adversarial_streams(cuda_device, name, width):
+    """Kernel H on each adversarial stream: equal to a serial np.add.at bit
+    for bit, and the same bits over two calls."""
+    idx_np, vals_np, rows = adversarial_stream(name, width)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    vals = torch.from_numpy(vals_np).to(cuda_device)
+    first = SS.row_accum(idx, vals, rows, True)
+    second = SS.row_accum(idx, vals, rows, True)
+    torch.cuda.synchronize()
+    ref = np.zeros((rows + 1, width), np.float32)
+    np.add.at(ref, np.clip(idx_np, 0, rows), vals_np)
+    np.testing.assert_array_equal(first.cpu().numpy(), ref)
+    assert torch.equal(first, second)
+
+
+def _ray_points(n_rays, samples, seed):
+    """Ray-ordered points: n_rays rays from inside the unit cube, the
+    samples of one ray adjacent and spaced along it, running out of
+    [0, 1] near their far end."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.2, 0.8, (n_rays, 1, 3))
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 0.9, (n_rays, samples, 1)), axis=1)
+    return (o + d * t).reshape(-1, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [16, 5])
+@pytest.mark.parametrize("need", [(True, True), (False, True), (True, False)])
+def test_grid_bwd_on_ray_ordered_points(cuda_device, levels, need):
+    """Kernel B on ray-ordered points (coarse-level rows shared by the
+    samples of a ray), with corner rows e both even (float4 atomic) and
+    odd (two float2), points outside [0, 1], at L = 16 (dx summed by
+    shuffles in a half-warp) and L = 5 (in shared memory): against
+    grid_encode_bwd_ref."""
+    spec = HP.make_packed_spec(400 if levels == 16 else 96, 16,
+                               n_levels=levels)
+    x_np = _ray_points(200, 43, levels)
+    cell, _ = HP._cells_and_weights(spec, torch.from_numpy(x_np).float())
+    e = HP._corner_entries(spec, cell)
+    assert (e % 2 == 0).any() and (e % 2 == 1).any()
+    assert ((x_np < 0) | (x_np > 1)).any()
+    rng = np.random.default_rng(levels)
+    table, x, g = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                   for a in (rng.standard_normal((spec.total_entries, 2)),
+                             x_np, rng.standard_normal((x_np.shape[0],
+                                                        spec.out_dim))))
+    got = HP.grid_encode_bwd(spec, table, x, g, *need)
+    ref = HP.grid_encode_bwd_ref(spec, table, x, g, *need)
+    torch.cuda.synchronize()
+    for a, b, atol in zip(got, ref, (1e-5, 1e-3)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+def test_autograd_function_on_card_room0_rays(cuda_device):
+    """GridEncode at the room0 spec (L = 16) on ray-ordered points, on
+    CUDA tensors: gradients through kernels A and B equal the plain
+    backward's."""
+    spec = HP.make_packed_spec(**SPECS["room0"])
+    x = torch.from_numpy(_ray_points(100, 43, 3).astype(np.float32)).to(
+        cuda_device)
+    rng = np.random.default_rng(4)
+    table, g = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                for a in (rng.standard_normal((spec.total_entries, 2)),
+                          rng.standard_normal((x.shape[0], spec.out_dim))))
+    t = table.clone().requires_grad_(True)
+    xx = x.clone().requires_grad_(True)
+    (HP.encode(spec, t, xx) * g).sum().backward()
+    r_t, r_x = HP.grid_encode_bwd_ref(spec, table, x, g, True, True)
+    torch.testing.assert_close(t.grad, r_t, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(xx.grad, r_x, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from coslam_tpu.ops import hash_pallas as JHP
 from coslam_tpu.ops import serial_scatter as JSS
 from coslam_torch.ops import hash_pallas as THP
 from coslam_torch.ops import serial_scatter as TSS
+from test_torch_kernels_card import ADVERSARIAL, adversarial_stream
 
 torch.set_num_threads(1)
 
@@ -121,3 +122,75 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
             TSS.row_accum(idx, vals[:, 0], 9, det)
     assert TSS.row_accum_atomic.launches == 0
     assert TSS.row_accum_segmented.launches == 0
+
+
+# Kernel H's adversarial streams (shared with its card test) on the plain
+# path: the oracle the card test holds kernel H to must itself equal the
+# TPU's serial order.
+
+
+@pytest.mark.parametrize("name", ADVERSARIAL)
+def test_deterministic_plain_path_on_adversarial_streams(name):
+    """row_accum(..., deterministic=True) on the CPU = serial np.add.at =
+    K4 (scatter_add_pallas, interpret mode; tables within its 64 Ki VMEM
+    rows) bit for bit: one row taking every update, a run longer than a
+    tile, runs across tile boundaries, indices below 0 and above rows,
+    M = 1, rows = 0, an empty stream and a 3-pass table."""
+    idx, vals, rows = adversarial_stream(name, 2)
+    out = TSS.row_accum(torch.from_numpy(idx), torch.from_numpy(vals), rows,
+                        True).numpy()
+    np.testing.assert_array_equal(out, _np_add_at(idx, vals, rows))
+    if idx.shape[0] and rows <= 65_536:
+        k4 = JHP.scatter_add_pallas(jnp.asarray(idx), (jnp.asarray(vals[:, 0]),
+                                                       jnp.asarray(vals[:, 1])),
+                                    rows, interpret=True)
+        np.testing.assert_array_equal(out[:rows], np.asarray(k4))
+
+
+@pytest.mark.parametrize("rows,bits,passes", [
+    (0, 1, 1), (1, 1, 1), (127, 7, 1), (128, 4, 2), (300, 5, 2),
+    (834_097, 7, 3), (3_000_000, 6, 4), (2 ** 31 - 2, 7, 5)])
+def test_sort_plan_covers_the_keys_in_few_even_passes(rows, bits, passes):
+    """Kernel H sorts keys in [0, rows] over the bits rows needs, in the
+    fewest passes of at most 7 bits (room0_xor's 834,097 rows: 3 of 7)."""
+    plan = TSS.sort_plan(rows)
+    assert (plan.digit_bits, plan.passes) == (bits, passes)
+    assert plan.digit_bits <= TSS.SORT_MAX_DIGIT_BITS
+    assert rows < 2 ** (plan.digit_bits * plan.passes)
+    assert plan.digit_bits * (plan.passes - 1) < max(rows.bit_length(), 1)
+
+
+@pytest.mark.parametrize("width", [2, 3])
+@pytest.mark.parametrize("rows", [300, 1024, 3_000_000])
+def test_segmented_plan_scratch_layout(rows, width):
+    """Kernel H's scratch: one int32 allocation split, without overlap,
+    into two key buffers of M (each 16-byte aligned), a published count
+    per sort tile and digit and the ticket, the digit counts of every
+    pass, rows + 2 run starts and the walk's count and list of long runs
+    (rows + 2); two payload buffers of the value rows (W = 2, float32
+    [M, 2]) or of m (int32 [M]), each 16-byte aligned; the sorted keys
+    and payloads where the last pass writes them (buffer a after an odd
+    count of passes)."""
+    m = 5001
+    h = TSS.SegmentedPlan(torch.zeros(m, dtype=torch.int32),
+                          torch.zeros((m, width)), rows)
+    tiles = -(-m // TSS.SORT_TILE)
+    parts = (h.keys_a, h.keys_b, h.status, h.digit_total, h.start,
+             h.long_rows)
+    assert [p.numel() for p in parts] == [
+        m, m, tiles * h.plan.radix + 1, h.plan.passes * h.plan.radix,
+        rows + 2, rows + 2]
+    offsets = [p.storage_offset() for p in parts]
+    assert offsets == sorted(offsets)
+    assert offsets[0] % 4 == 0 and offsets[1] % 4 == 0     # 16-byte aligned
+    assert offsets[1] >= offsets[0] + m and offsets[2] >= offsets[1] + m
+    assert all(p.dtype == torch.int32 and p.is_contiguous() for p in parts)
+    assert h.carry == (width == 2)
+    for pay in (h.pay_a, h.pay_b):
+        assert pay.is_contiguous() and pay.data_ptr() % 16 == 0
+        assert ((pay.dtype, tuple(pay.shape)) == (torch.float32, (m, 2))
+                if h.carry else (pay.dtype, tuple(pay.shape))
+                == (torch.int32, (m,)))
+    odd = h.plan.passes % 2 == 1
+    assert h.keys is (h.keys_a if odd else h.keys_b)
+    assert h.pay is (h.pay_a if odd else h.pay_b)

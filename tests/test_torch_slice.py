@@ -619,3 +619,31 @@ def test_profile_slice_small_xor_on_cpu(tmp_path):
     assert res["encode_launches"] == {"xor_grid_encode_fwd": 0,
                                       "xor_grid_encode_bwd": 0,
                                       "row_accum_segmented": 0}
+
+
+def test_record_ba_points_gives_the_first_ba_calls_rays(tmp_path):
+    """kernel_times.record_ba_points (the smoke's ray-ordered case for
+    kernels B and H) returns the points that the first BA call's first
+    iteration encodes: as many as the smoke's BA 1-keyframe case, 43
+    samples a ray, the samples of one ray adjacent and on one line."""
+    from coslam_torch.data.synth import SyntheticFrames, room0_config
+    from coslam_torch.tools.kernel_times import record_ba_points
+
+    frames = 6
+    cfg = room0_config(str(tmp_path), H=72, W=88, n_frames=frames)
+    cfg["grid"].update(hash_size=12, voxel_sdf=64)
+    cfg["mapping"].update(first_iters=1, iters=1)
+    cfg["tracking"]["iter"] = 1
+    pts = record_ba_points(cfg, SyntheticFrames(cfg, frames), "cpu")
+    (n,) = [c[1] for c in _chip_smoke().main_path_cases(cfg, frames)
+            if c[0] == "BA 1 kf"]
+    assert pts.shape == (n, 3) and n == 4096 * 43
+    rays = pts.reshape(-1, 43, 3).double()
+    axis = rays[:, -1] - rays[:, 0]
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    off = rays - rays[:, :1]
+    # Distance of every sample from the line through its ray's first and
+    # last sample: f32 rounding of normalized coordinates only.
+    dist = (off - (off * axis[:, None]).sum(-1, keepdim=True) * axis[:, None])
+    assert float(dist.norm(dim=-1).max()) < 1e-5
+    assert torch.isfinite(pts).all()
