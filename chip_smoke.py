@@ -8,19 +8,28 @@ Run from the repository root. Phases, each printing its own lines:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from coslam_torch/csrc with nvcc;
    render the 15-frame scene, and record the ray-ordered points of the
-   room0 slice's first BA call (coslam_torch.tools.kernel_times
-   .record_ba_points: 4,096 rays x 43 samples, a ray's samples adjacent;
-   saved to output/ba_points.npy for kernel_times' --points);
+   first BA call of the room0, room0_xor and room0_vm slices
+   (coslam_torch.tools.kernel_times.record_ba_points: 4,096 rays x 43
+   samples, or x 27 for TensoVM, a ray's samples adjacent; saved to
+   output/ba_points.npy, ba_points_xor.npy and ba_points_vm.npy for
+   kernel_times' --points, --xor-points and --vm-points); measure the
+   card's L2 sector rate with a plain gather (kernel_times.l2_rate);
 3. kernels: the hash-grid kernels A and B at the room0 spec, the
    TensoVM kernels C and D at the room0_vm spec and the XOR-hash kernels
    E and G at the room0_xor spec, each against its plain PyTorch version
    at every shape its slice gives it (main_path_cases, uniform points),
-   with the tolerances below, and timed with CUDA events; B also on the
-   ray-ordered points and under a CUDA graph; then the row accumulate,
+   with the tolerances below, and timed with CUDA events and under a
+   CUDA graph; each pair also on the ray-ordered points of its slice's
+   first BA call (the table gradient held to each entry's sum-order
+   bound), timed beside the uniform case; E and D with their L2 figure
+   (their sector accesses over the measured rate); E and G also at the
+   Dense grid (grid.enc: Dense, 4 dense XOR levels, 67 M rows) at the BA
+   1-keyframe case; then the row accumulate,
    kernels F (atomic: kernel P's CUDA kernel with its clip rule) and H
    (deterministic), on kernel G's update streams of every case that asks
-   for the table gradient (up to 22.5 M updates) and of the ray-ordered
-   points, against the plain version, H also bit-identical over two calls
+   for the table gradient (up to 22.5 M updates) and of the room0
+   slice's ray-ordered points, against the plain version, H also
+   bit-identical over two calls
    and bit for bit equal to a serial np.add.at on the host at every case,
    F and H and index_add_ also under a CUDA graph, and H's three phases
    (sort, run starts, walk) each timed alone; then the probes' kernels P
@@ -77,7 +86,10 @@ from coslam_torch.data.synth import (SyntheticFrames, room0_config,
                                      room0_vm_config, room0_xor_config)
 from coslam_torch.tools.bench._common import accum_bound, bound
 from coslam_torch.tools.kernel_times import graph_ms as _graph_ms
-from coslam_torch.tools.kernel_times import h_phases, record_ba_points
+from coslam_torch.tools.kernel_times import (d_l2_sectors, e_l2_sectors,
+                                             h_phases, l2_rate,
+                                             main_path_cases,
+                                             record_ba_points)
 from coslam_torch.tools.kernel_times import time_ms as _time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -91,9 +103,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # terms scaled by the resolution (up to 399) with unit-normal cotangent,
 # so its terms reach hundreds and an entry near zero keeps an absolute
 # error near 1e-4: hence atol 1e-3 on dx.
-# On the ray-ordered points B's dtable is held to the sum-order bound of
-# each entry instead (HashKernels.table_tol): the samples of a ray share
-# coarse rows, whose thousands of contributions can cancel to near 0.
+# On the ray-ordered points B's dtable and D's dplanes and dlines are held
+# to the sum-order bound of each entry instead (table_tol): the samples of
+# a ray share coarse rows, whose thousands of contributions can cancel to
+# near 0.
 # Kernel G's update streams are exact: the same selects and correctly
 # rounded products as the plain version. The row accumulates F and H and
 # the probes' kernels P-S are held to their plain versions (index_add_,
@@ -117,34 +130,6 @@ def _phase(name: str):
 
 def _nonzero_rows(t) -> int:
     return int((t != 0).any(1).sum())
-
-
-def main_path_cases(cfg: dict, frames: int) -> list:
-    """(label, points, need_table, need_dx) of every encode call the
-    slice makes, from its config: points are rays x samples per ray.
-    Only a BA call with >= 2 keyframes optimizes poses, so only it and
-    tracking ask for dx; a BA call's current-frame quota is
-    max(sample // kf_count, min_pixels_cur), with the keyframe count
-    before that frame's keyframe is added; the hash grid's smoothness
-    lattice is encoded as constant points (TensoVM's analytic TV encodes
-    none); the mesh only queries."""
-    from coslam_torch.mesh.extract import CHUNK
-    from coslam_torch.models.scene_rep import is_tensovm
-
-    tr, mc = cfg["training"], cfg["mapping"]
-    z = tr["n_samples_d"] + tr["n_range_d"]
-    S = mc["sample"]
-    cases = [("first frame", S * z, True, False),
-             ("tracking", cfg["tracking"]["sample"] * z, False, True)]
-    kf_counts = sorted({(i - 1) // mc["keyframe_every"] + 1
-                        for i in range(1, frames) if i % mc["map_every"] == 0})
-    for kf in kf_counts:
-        quota = min(max(S // kf, mc["min_pixels_cur"]), S)
-        cases.append((f"BA {kf} kf", (S + quota) * z, True, kf >= 2))
-    if not is_tensovm(cfg):
-        cases.append(("lattice", (tr["smooth_pts"] - 1) ** 3, True, False))
-    cases.append(("mesh chunk", CHUNK, False, False))
-    return cases
 
 
 def _tensor(device, a):
@@ -211,6 +196,9 @@ class HashKernels:
                           (gw * wz).reshape(F, -1)], 1).T.contiguous()
         return {"dtable": C.sum_order_tol(idx, vals, spec.total_entries)}
 
+    def l2_sectors(self, x, need_table, need_dx):
+        return None, None
+
     def work(self, n, touched, need_table, need_dx):
         """(bytes, ops) of the forward and of the backward: per (point,
         level) 8 corners x F multiply-adds and ~26 operations for the cell
@@ -229,7 +217,7 @@ class TensoVMKernels:
     1 + 0.1 x noise; mapping asks for dplanes and dlines together."""
 
     source = "coslam_torch/csrc/tensovm_encode.cu"
-    graph = False
+    graph = True
     # Kernel C has no pallas_call to replace: it computes what XLA
     # computed on the TPU, tensovm_encode_fwd_only (gather_quads, the
     # forward of make_line_eval, _vm_combine). Kernel D's plane-table
@@ -274,6 +262,63 @@ class TensoVMKernels:
         return 4 * self.spec.n_features * (_nonzero_rows(dp)
                                            + _nonzero_rows(dl))
 
+    def table_tol(self, x, g) -> dict:
+        """{"dplanes", "dlines": the bound of each entry} on points x, for
+        the ray-ordered case, whose coarse rows take thousands of
+        contributions: the sum-order bound (``_common.sum_order_tol``)
+        over the update streams of tensovm_encode_bwd_ref (4 plane
+        corners and 2 line rows per (point, section)), plus 12 u (u =
+        2^-24) times the sum of each update's magnitude bound, because the
+        kernel's updates are not the plain version's bit for bit: FMA
+        contraction changes the roundings of the line interpolation (up to
+        2.5 u apart) and of the plane's two-level one (up to 5 u), and the
+        two products that follow each round on their own (up to 2 u more
+        each), so an update may differ by about 9 u of its magnitude (4.6 u
+        seen on the card on single-update entries). That magnitude bound is
+        the update with |g| and the interpolations of |planes| and |lines|,
+        which no cancellation in the interpolation can exceed."""
+        import torch
+
+        from coslam_torch.tools.bench import _common as C
+
+        VM, spec = self.m, self.spec
+        n, L, F = x.shape[0], spec.pyr_levels, spec.n_features
+
+        def updates(planes, lines, g):
+            geo = VM._Geometry(spec, planes, lines, x)
+            gs = g.reshape(n, L, F).permute(2, 1, 0).repeat_interleave(3, 1)
+            gp, gq = gs * geo.line, gs * geo.plane
+            wu, wv, f = geo.wu, geo.wv, geo.f
+            return {"dplanes": [(geo.e00, gp * (1 - wu) * (1 - wv)),
+                                (geo.e00 + 1, gp * (1 - wu) * wv),
+                                (geo.e10, gp * wu * (1 - wv)),
+                                (geo.e10 + 1, gp * wu * wv)],
+                    "dlines": [(geo.l_row, gq * (1 - f)),
+                               (geo.l_row + 1, gq * f)]}
+
+        def streams(pairs):
+            idx = torch.cat([e.reshape(-1) for e, _ in pairs]).to(torch.int32)
+            vals = torch.cat([v.reshape(F, -1) for _, v in pairs], 1).T
+            return idx, vals.contiguous()
+
+        exact = updates(self.planes, self.lines, g)
+        mags = updates(self.planes.abs(), self.lines.abs(), g.abs())
+        rows = {"dplanes": spec.total_entries, "dlines": self.lines.shape[0]}
+        out = {}
+        for what, pairs in exact.items():
+            idx, vals = streams(pairs)
+            mag_idx, mag = streams(mags[what])
+            slack = torch.zeros((rows[what], F), device=x.device)
+            slack.index_add_(0, mag_idx.long(), mag)
+            out[what] = (C.sum_order_tol(idx, vals, rows[what])
+                         + 12 * 2.0 ** -24 * slack)
+        return out
+
+    def l2_sectors(self, x, need_table, need_dx):
+        """(None, kernel D's L2 sector accesses): the L2 figure is kept
+        for D only."""
+        return None, d_l2_sectors(self.spec, x, need_table, need_dx)
+
     def work(self, n, touched, need_table, need_dx):
         """Per (point, section): 4 plane corners and 2 line entries x F
         multiply-adds, the product, ~20 for cells and weights; dx three
@@ -289,11 +334,11 @@ class TensoVMKernels:
 
 class XorKernels:
     """Kernels E and G at the room0_xor spec (make_hashgrid_spec(400, 16),
-    834,097 rows): unit-normal table. G's outputs are the update streams
-    (idx, vals) and dx."""
+    834,097 rows), or at another XOR spec (the Dense grid's): unit-normal
+    table. G's outputs are the update streams (idx, vals) and dx."""
 
     source = "coslam_torch/csrc/xor_grid_encode.cu"
-    graph = False
+    graph = True
     # Neither replaces a pallas_call: on the TPU the forward was XLA
     # (hashgrid_encode), and so were the backward's dx (jax.vjp) and the
     # streams it hands to K4.
@@ -305,13 +350,13 @@ class XorKernels:
                   "pallas_call": False,
                   "computes": ["coslam_tpu/ops/encodings.py:198"]}}
 
-    def __init__(self, device, rng):
+    def __init__(self, device, rng, spec=None):
         from coslam_torch.ops import encodings as E
         from coslam_torch.ops import hash_pallas as XP
 
         self.E, self.m = E, XP
         self.fwd_fn, self.bwd_fn = XP.xor_grid_encode_fwd, XP.xor_grid_encode_bwd
-        self.spec = E.make_hashgrid_spec(400, 16)
+        self.spec = spec or E.make_hashgrid_spec(400, 16)
         self.table = _tensor(device, rng.standard_normal(
             (self.spec.total_entries, self.spec.n_features)))
 
@@ -331,6 +376,14 @@ class XorKernels:
         idx = self.m.xor_grid_encode_bwd_ref(self.spec, self.table, x, g,
                                              True, False)[0]
         return 4 * self.spec.n_features * int(torch.unique(idx).numel())
+
+    def table_tol(self, x, g) -> dict:
+        return {}    # G's streams are exact on any points
+
+    def l2_sectors(self, x, need_table, need_dx):
+        """(kernel E's L2 sector accesses, None): the L2 figure is kept
+        for E only."""
+        return e_l2_sectors(self.spec, x), None
 
     def work(self, n, touched, need_table, need_dx):
         """As the packed grid's, but the backward writes the update
@@ -381,19 +434,21 @@ def _itensor(device, a):
 RAY_CASE = "BA 1 kf ray-ordered"
 
 
-def check_kernels(device, kernels, cases: list, ray=None) -> dict:
+def check_kernels(device, kernels, cases: list, ray=None, l2=None) -> dict:
     """The forward and backward kernel of `kernels` against their plain
     versions on each case of `cases` (uniform points). Returns {kernel
     name: {"max_abs_err", "ms", "plain_ms", "library_ms", bound}}, the times
     and the bound at the case with the most points that runs the backward
     (no single PyTorch call computes an encode or its backward). With
     `ray` (the ray-ordered points of the slice's first BA call), one more
-    case, that call's table gradient on them, held to the sum-order bound
-    of each entry (``kernels.table_tol``: a coarse row there sums
-    thousands of contributions) and timed beside the uniform case
-    (``ray_ms``). Kernels with ``graph = True`` also time every
-    backward on the card alone (a CUDA graph of 20 calls: ``graph_ms``,
-    ``ray_graph_ms``)."""
+    case, that call's forward and table gradient on them, the gradient
+    held to the sum-order bound of each entry (``kernels.table_tol``: a
+    coarse row there sums thousands of contributions) and both timed
+    beside the uniform case (``ray_ms``). Kernels with ``graph = True``
+    also time every call on the card alone (a CUDA graph of 20 calls:
+    ``graph_ms``, ``ray_graph_ms``). With `l2` (``l2_rate``'s record), the
+    kernels that have an L2 figure (``kernels.l2_sectors``: E and D) get
+    ``l2_ms`` and ``ray_l2_ms``: their sector accesses over that rate."""
     import torch
 
     from coslam_torch.tools.bench import _common as C
@@ -419,8 +474,10 @@ def check_kernels(device, kernels, cases: list, ray=None) -> dict:
         line = [f"{label} N={n}",
                 err(fwd, kernels.fwd(x), kernels.fwd(x, plain=True), FWD_TOL,
                     "fwd")]
-        times = {"fwd": _time_ms(lambda: kernels.fwd(x)),
-                 "fwd_plain": _time_ms(lambda: kernels.fwd(x, plain=True))}
+        times = {"fwd": _time_ms(lambda: kernels.fwd(x))}
+        if kernels.graph:
+            times["fwd_graph"] = _graph_ms(lambda: kernels.fwd(x))
+        times["fwd_plain"] = _time_ms(lambda: kernels.fwd(x, plain=True))
         if need_table or need_dx:
             got = kernels.bwd(x, g, need_table, need_dx)
             ref = kernels.bwd(x, g, need_table, need_dx, plain=True)
@@ -442,6 +499,13 @@ def check_kernels(device, kernels, cases: list, ray=None) -> dict:
                 times["bwd_graph"] = _graph_ms(call)
             times["bwd_plain"] = _time_ms(lambda: kernels.bwd(
                 x, g, need_table, need_dx, plain=True))
+        key = {timed[0]: "", RAY_CASE: "ray_"}.get(label)
+        if key is not None and l2 is not None:
+            for name, sectors in zip((fwd, bwd), kernels.l2_sectors(
+                    x, need_table, need_dx)):
+                if sectors is not None:
+                    out[name][key + "l2_ms"] = sectors / l2["sectors_per_ms"]
+                    times[name[-3:] + "_l2"] = out[name][key + "l2_ms"]
         line += [f"{k} {v:.4f} ms" for k, v in times.items()]
         print("  " + ", ".join(line), flush=True)
         if label == timed[0]:
@@ -451,12 +515,13 @@ def check_kernels(device, kernels, cases: list, ray=None) -> dict:
                             library_ms=None, **bound(*work[0]))
             out[bwd].update(ms=times["bwd"], plain_ms=times["bwd_plain"],
                             library_ms=None, **bound(*work[1]))
-            if kernels.graph:
-                out[bwd]["graph_ms"] = times["bwd_graph"]
-        if label == RAY_CASE:
-            out[bwd]["ray_ms"] = times["bwd"]
-            if kernels.graph:
-                out[bwd]["ray_graph_ms"] = times["bwd_graph"]
+        if key is not None:
+            for name in (fwd, bwd):
+                step = name[-3:]
+                if step in times:
+                    out[name][key + "ms"] = times[step]
+                if step + "_graph" in times:
+                    out[name][key + "graph_ms"] = times[step + "_graph"]
     return out
 
 
@@ -812,31 +877,63 @@ def main() -> int:
     data = SyntheticFrames(room0_cfg, N_FRAMES)
     print(f"  rendered {N_FRAMES} frames {H}x{W} in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    _phase("ray-ordered points: the room0 slice's first BA call")
-    ray = record_ba_points(room0_config(out, H, W, N_FRAMES,
-                                        exp_name="chip_smoke_rays"),
-                           data, device)
-    ba_case = [c for c in main_path_cases(room0_cfg, N_FRAMES)
-               if c[0] == "BA 1 kf"]
-    assert ray.shape == (ba_case[0][1], 3), (ray.shape, ba_case)
+    vm_cfg = room0_vm_config(out, H, W, N_FRAMES)
     os.makedirs(out, exist_ok=True)
-    np.save(os.path.join(out, "ba_points.npy"), ray.cpu().numpy())
-    outside = int(((ray < 0) | (ray > 1)).any(1).sum())
-    print(f"  {ray.shape[0]} points ({outside} outside [0, 1]), saved to "
-          "output/ba_points.npy", flush=True)
+    rays = {}   # slice -> the ray-ordered points of its first BA call
+    for name, cfg_fn, cfg in (("", room0_config, room0_cfg),
+                              ("_xor", room0_xor_config, xor_cfg),
+                              ("_vm", room0_vm_config, vm_cfg)):
+        _phase(f"ray-ordered points: the room0{name} slice's first BA call")
+        ray = record_ba_points(cfg_fn(out, H, W, N_FRAMES,
+                                      exp_name=f"chip_smoke{name}_rays"),
+                               data, device)
+        ba_case = [c for c in main_path_cases(cfg, N_FRAMES)
+                   if c[0] == "BA 1 kf"]
+        assert ray.shape == (ba_case[0][1], 3), (ray.shape, ba_case)
+        path = f"output/ba_points{name}.npy"
+        np.save(os.path.join(REPO, path), ray.cpu().numpy())
+        outside = int(((ray < 0) | (ray > 1)).any(1).sum())
+        print(f"  {ray.shape[0]} points ({outside} outside [0, 1]), saved "
+              f"to {path}", flush=True)
+        rays[name] = ray
+
+    _phase("L2 rate: a plain gather over an L2-resident table")
+    l2 = l2_rate(device)
+    print(f"  {l2['sectors']} sector accesses in {l2['ms']:.4f} ms: "
+          f"{l2['sectors_per_ms']:.4g} per ms", flush=True)
 
     measured = {}   # kernel name -> its record, launches aside
-    for k, cfg in ((hk, room0_cfg), (vk, room0_vm_config(out, H, W, N_FRAMES)),
-                   (xk, xor_cfg)):
+    for k, cfg, ray in ((hk, room0_cfg, rays[""]), (vk, vm_cfg, rays["_vm"]),
+                        (xk, xor_cfg, rays["_xor"])):
         _phase(f"kernels against the plain versions: {k.source}")
         for name, rec in check_kernels(
-                device, k, main_path_cases(cfg, N_FRAMES),
-                ray if k is hk else None).items():
+                device, k, main_path_cases(cfg, N_FRAMES), ray, l2).items():
             measured[name] = {"source": k.source, **k.record[name], **rec}
+
+    # The Dense grid (grid.enc: Dense, 4 dense XOR levels under
+    # grad_impl pallas, 67 M rows at room0's resolution) through E and G
+    # at the BA 1-keyframe case.
+    from coslam_torch.models.scene_rep import JointEncoding
+
+    dense_cfg = room0_xor_config(out, H, W, N_FRAMES)
+    dense_cfg["grid"]["enc"] = "Dense"
+    dense_spec = JointEncoding(dense_cfg, dense_cfg["mapping"]["bound"],
+                               device).grid_spec
+    assert dense_spec.n_levels == 4 and not any(dense_spec.hashed)
+    dk = XorKernels(device, rng(0), dense_spec)
+    _phase(f"kernels against the plain versions: {dk.source}, the Dense "
+           f"grid ({dense_spec.total_entries} rows)")
+    ba1 = [c for c in main_path_cases(xor_cfg, N_FRAMES) if c[0] == "BA 1 kf"]
+    for name, rec in check_kernels(device, dk, ba1, None, l2).items():
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
+                                            rec.pop("max_abs_err"))
+        measured[name]["dense"] = rec
+    del dk
+
     _phase("kernels against the plain versions: the row accumulate, "
            + ", ".join(sorted(set(ACCUM_SOURCES.values()))))
     for name, rec in check_accumulate(
-            device, xk, main_path_cases(xor_cfg, N_FRAMES), ray).items():
+            device, xk, main_path_cases(xor_cfg, N_FRAMES), rays[""]).items():
         measured[name] = {"source": ACCUM_SOURCES[name], **ACCUM_RECORD,
                           **rec}
     _phase(f"kernels against the plain versions: {PROBE_SOURCE}")

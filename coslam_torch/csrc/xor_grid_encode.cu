@@ -34,15 +34,32 @@
 // cotangent passes with factor 1 inside (0, 1), 0.5 at exactly 0 or 1
 // (the max or min splits a tie) and 0 outside.
 //
-// What bounds them on this card. E is bound by random row reads: 8 corner
-// rows of F floats per (point, level), each an 8-byte access scattered over
-// the 6.7 MB room0 table, which stays in the 50 MB L2. G writes 12 bytes of
-// stream per (point, level, corner), 22.5 M updates (270 MB) at room0's
-// largest BA call, so it is bound by that write; its threads run
-// level-major (thread = l * N + n) so the stream stores of a warp are
-// contiguous, at the price of a strided read of g and an f32 atomic per dx
-// component (16 levels of a point add into it from different blocks).
-// Fusing the stream write into the accumulate is later work.
+// What bounds them on this card. E reads 8 corner rows of F = 2 floats per
+// (point, level) at scattered rows of a table that stays in the 50 MB L2
+// (6.7 MB at room0_xor): it is bound by the count and latency of scattered
+// L2 sector reads, which the DRAM-byte bound does not see. Its design:
+//   - level-major warps: a block takes a tile of consecutive points (32 when
+//     L >= 8, more for fewer levels) and each warp walks one level across
+//     32 of them, so the consecutive samples of a ray, which share the cells
+//     of the coarse levels, read the same rows in one warp (one L1 sector
+//     for many lanes), and every warp takes one branch (dense or hashed);
+//   - vector row loads: one float2 per corner row, and one float4 for two
+//     corners whose rows form one 16-byte aligned pair: on a dense level
+//     the z pair (rows e and e + 1, when e is even), on a hashed level the
+//     x pair (rows h and h ^ 1 when the cell's x is even: the x prime is
+//     1);
+//   - the tile's points (x) come into shared memory with coalesced loads,
+//     and its [points, L * F] outputs are staged in shared memory and
+//     written as whole contiguous rows;
+//   - the fold is unchanged: corners 0..7 in order, the same __fmul_rn
+//     weights and the same multiply-adds, so the result is the plain
+//     version's up to FMA contraction, as before.
+// G writes 12 bytes of stream per (point, level, corner), 22.5 M updates
+// (270 MB) at room0's largest BA call, so it is bound by that write; its
+// threads run level-major (thread = l * N + n) so the stream stores of a
+// warp are contiguous, at the price of a strided read of g and an f32
+// atomic per dx component (16 levels of a point add into it from different
+// blocks). Fusing the stream write into the accumulate is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,38 +131,96 @@ __device__ __forceinline__ float clip_grad(float xv) {
   return (xv == 0.0f || xv == 1.0f) ? 0.5f : 0.0f;
 }
 
-// E: one thread per (point, level), thread = n * L + l, so the L threads of
-// a point store its [L * F] output row contiguously.
-template <int F>
-__global__ void xor_grid_encode_fwd_kernel(const float* __restrict__ x,
-                                           const float* __restrict__ table,
-                                           float* __restrict__ out,
-                                           int64_t n_points, Levels lv) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int L = lv.n_levels;
-  if (tid >= n_points * L) return;
-  const int64_t n = tid / L;
-  const int l = static_cast<int>(tid - n * L);
-  const int res = lv.res(l);
-
-  int cell[3];
-  float w[3];
-  cell_and_weights(x, n, res, cell, w);
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int64_t e = corner_row(lv, l, res, cell, c);
-    float cw[3];
-    corner_cw(w, c, cw);
-    const float wt = __fmul_rn(__fmul_rn(cw[0], cw[1]), cw[2]);
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] += __ldg(table + e * F + f) * wt;
+// Rows e0 and e1 of a [T, 2] table: one float4 when they are the two rows
+// of one 16-byte aligned pair (e0 ^ e1 == 1), two float2 (or one, when
+// e1 == e0: a corner clamped to res) otherwise.
+__device__ __forceinline__ void load_rows(const float* __restrict__ table,
+                                          int e0, int e1, float2* v0,
+                                          float2* v1) {
+  const float2* rows = reinterpret_cast<const float2*>(table);
+  if ((e0 ^ e1) == 1) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(rows + (e0 & ~1)));
+    const float2 lo = make_float2(q.x, q.y), hi = make_float2(q.z, q.w);
+    *v0 = (e0 & 1) ? hi : lo;
+    *v1 = (e0 & 1) ? lo : hi;
+  } else {
+    *v0 = __ldg(rows + e0);
+    *v1 = e1 == e0 ? *v0 : __ldg(rows + e1);
   }
+}
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// E: a block per tile of `tile` consecutive points (a multiple of 32); the
+// tile's L * tile / 32 (level, 32-point group) items go round its warps,
+// lane = point. Dynamic shared memory: the tile's x [tile, 3], then its
+// outputs [tile, L * 2 + 1] (one float of padding a row, so the lanes' row
+// stores fall in different banks).
+__global__ void __launch_bounds__(kThreads) xor_grid_encode_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ table,
+    float* __restrict__ out, int64_t n_points, Levels lv, int tile) {
+  constexpr int F = 2;
+  extern __shared__ float smem[];
+  const int L = lv.n_levels;
+  const int width = L * F;
+  float* xs = smem;
+  float* os = smem + tile * 3;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int rows =
+      n_points - n0 < tile ? static_cast<int>(n_points - n0) : tile;
+  for (int i = threadIdx.x; i < rows * 3; i += kThreads) xs[i] = x[n0 * 3 + i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int items = L * (tile / 32);
+  for (int item = threadIdx.x / 32; item < items; item += kWarps) {
+    const int l = item % L;
+    const int p = (item / L) * 32 + lane;
+    if (p >= rows) continue;
+    const int res = lv.res(l);
+    int cell[3];
+    float w[3];
+    cell_and_weights(xs, p, res, cell, w);
+    // The pairs that can share a 16-byte row pair: on a dense level the z
+    // pair (corners c, c + 1: rows e, e + 1); on a hashed level the x pair
+    // (corners c, c + 4), whose rows are h and h ^ 1 when the cell's x is
+    // even, since the x prime is 1. The branch is the same for the warp.
+    float2 v[8];
+    if (lv.hashed(l)) {
 #pragma unroll
-  for (int f = 0; f < F; ++f) out[tid * F + f] = acc[f];
+      for (int c = 0; c < 4; ++c)
+        load_rows(table, corner_row(lv, l, res, cell, c),
+                  corner_row(lv, l, res, cell, c + 4), &v[c], &v[c + 4]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; c += 2)
+        load_rows(table, corner_row(lv, l, res, cell, c),
+                  corner_row(lv, l, res, cell, c + 1), &v[c], &v[c + 1]);
+    }
+    float acc[F] = {0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float cw[3];
+      corner_cw(w, c, cw);
+      const float wt = __fmul_rn(__fmul_rn(cw[0], cw[1]), cw[2]);
+      acc[0] += v[c].x * wt;
+      acc[1] += v[c].y * wt;
+    }
+    os[p * (width + 1) + l * F] = acc[0];
+    os[p * (width + 1) + l * F + 1] = acc[1];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * width; i += kThreads) {
+    const int p = i / width;
+    out[n0 * width + i] = os[p * (width + 1) + (i - p * width)];
+  }
+}
+
+// Points per tile of E: 32 when L >= kWarps, else enough 32-point groups
+// that every warp of the block has a (level, group) item.
+inline int fwd_tile(int n_levels) {
+  return 32 * ((kWarps + n_levels - 1) / n_levels);
 }
 
 // G: one thread per (level, point), thread = l * N + n. idx/vals (the
@@ -206,8 +281,6 @@ __global__ void xor_grid_encode_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-constexpr int kThreads = 256;
-
 // Features per level: the port's grids have 2 (encodings.make_encoder).
 // Instantiate another width together with a configuration that needs it.
 constexpr int kFeatures = 2;
@@ -226,12 +299,28 @@ extern "C" {
 int xor_grid_encode_fwd(const float* x, const float* table, float* out,
                         int64_t n_points, int n_features, const int* levels,
                         int n_levels, unsigned int hash_mask, void* stream) {
-  if (n_features != kFeatures) return cudaErrorInvalidValue;
+  if (n_features != kFeatures || n_levels < 1 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
   const Levels lv{levels, n_levels, hash_mask};
-  xor_grid_encode_fwd_kernel<kFeatures>
-      <<<n_blocks(n_points * n_levels), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(x, table, out, n_points, lv);
+  const int tile = fwd_tile(n_levels);
+  const size_t smem =
+      static_cast<size_t>(tile) * (3 + n_levels * kFeatures + 1) *
+      sizeof(float);
+  if (smem > 48 * 1024) {
+    // Above 48 KB a block gets shared memory only when asked for (at most
+    // 227 KB on Hopper: L up to ~440 levels).
+    const cudaError_t err = cudaFuncSetAttribute(
+        xor_grid_encode_fwd_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned int blocks =
+      static_cast<unsigned int>((n_points + tile - 1) / tile);
+  xor_grid_encode_fwd_kernel<<<blocks, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      x, table, out, n_points, lv, tile);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Joint scene representation: hash grid or TensoVM + OneBlob -> SDF / color.
 
 Counterpart of coslam_tpu/models/scene_rep.py:JointEncoding for the
-HashGrid + OneBlob and TensoVM + OneBlob, ``oneGrid: true`` models; the
+HashGrid (or Dense, 4 dense levels, or Tiled) + OneBlob and TensoVM +
+OneBlob, ``oneGrid: true`` models; the
 hash grid is the packed layout or, with ``grid.grad_impl`` pallas,
 scatter or onehot, the XOR hash (ops/hash_pallas.py). As in
 the JAX package the class holds only static configuration; the learnable
@@ -36,12 +37,14 @@ def is_tensovm(config: Dict) -> bool:
 def check_supported(config: Dict) -> None:
     """Raise for the configuration options the port does not run yet."""
     enc_name = str(config["grid"]["enc"]).lower()
-    is_hash = "hash" in enc_name
+    # Every name enc.make_encoder routes to a hash grid (Dense: 4 dense
+    # levels), in the packed or the XOR layout.
+    is_grid = any(k in enc_name for k in ("dense", "hash", "tiled"))
     unsupported = {
-        "grid.enc other than HashGrid or TensoVM":
-            not (is_hash or is_tensovm(config)),
+        "grid.enc other than HashGrid, Dense, Tiled or TensoVM":
+            not (is_grid or is_tensovm(config)),
         "grid.grad_impl other than auto, packed, pallas, scatter or onehot":
-            is_hash and config["grid"].get("grad_impl", "auto") not in (
+            is_grid and config["grid"].get("grad_impl", "auto") not in (
                 "auto", "packed", *enc.XOR_GRAD_IMPLS),
         "grid.oneGrid: false": not config["grid"]["oneGrid"],
         "pos.enc other than OneBlob":

@@ -107,7 +107,13 @@ def _check_cuda(spec: E.HashGridSpec, table: torch.Tensor, x: torch.Tensor,
 
 def xor_grid_encode_fwd(spec: E.HashGridSpec, table: torch.Tensor,
                         x: torch.Tensor) -> torch.Tensor:
-    """Encode forward: x [N, 3] (normalized) -> [N, L*F]."""
+    """Encode forward: x [N, 3] (normalized) -> [N, L*F].
+
+    On the card, kernel E: a warp walks one level across 32 consecutive
+    points (the samples of a ray share coarse cells), reads each corner
+    row as a float2, and two corners as one float4 where their rows form
+    an aligned pair (a dense level's z pair, a hashed level's x pair), and
+    the block writes its tile's output rows whole."""
     if _kernels.on_cpu(table, x):
         return E.hashgrid_encode(spec, table, x)
     _check_cuda(spec, table, x)

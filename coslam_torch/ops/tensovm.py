@@ -251,7 +251,13 @@ def tensovm_encode_fwd(spec: TriPlaneSpec, planes: torch.Tensor,
 def tensovm_encode_bwd(spec: TriPlaneSpec, planes: torch.Tensor,
                        lines: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
                        need_dplanes: bool, need_dlines: bool, need_dx: bool):
-    """Encode backward: (dplanes, dlines, dx), None where not asked for."""
+    """Encode backward: (dplanes, dlines, dx), None where not asked for.
+
+    On the card, kernel D: the plane and line rows read and the plane
+    gradient added as row pairs (float4/float2), the line gradient summed
+    per block in shared memory after the lanes of a warp that share a row
+    are summed, and dx summed over a point's levels in the block and
+    stored once (so it is allocated without a zero fill)."""
     if _kernels.on_cpu(planes, lines, x, g):
         return tensovm_encode_bwd_ref(spec, planes, lines, x, g, need_dplanes,
                                       need_dlines, need_dx)
@@ -263,7 +269,7 @@ def tensovm_encode_bwd(spec: TriPlaneSpec, planes: torch.Tensor,
                          f"[{x.shape[0]}, {spec.out_dim}]")
     dplanes = torch.zeros_like(planes) if need_dplanes else None
     dlines = torch.zeros_like(lines) if need_dlines else None
-    dx = torch.zeros_like(x) if need_dx else None
+    dx = torch.empty_like(x) if need_dx else None   # every entry written
     code = _kernels.library().tensovm_encode_bwd(
         x.data_ptr(), planes.data_ptr(), lines.data_ptr(), g.data_ptr(),
         _kernels.ptr(dplanes), _kernels.ptr(dlines), _kernels.ptr(dx),

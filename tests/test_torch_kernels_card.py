@@ -1,6 +1,7 @@
 """The CUDA kernels of coslam_torch against their plain PyTorch versions,
 on the card: kernels A and B (hash grid), C and D (TensoVM), E and G (XOR
-hash grid), the row accumulate F (atomic) and H (deterministic, also on
+hash grid; E and D also on ray-ordered points, E also at the Dense grid's
+4 levels), the row accumulate F (atomic) and H (deterministic, also on
 adversarial streams), and the probes' kernels P, Q, R and S (bottom of
 the file). This file imports no jax, so it also runs on a machine with
 the card and without the JAX package's dependencies:
@@ -418,6 +419,124 @@ def test_xor_autograd_function_on_card(cuda_device, deterministic):
         assert torch.equal(t_card, t_cpu)
     torch.testing.assert_close(t_card, t_cpu, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(x_card, x_cpu, rtol=1e-4, atol=1e-3)
+
+
+def _edge_points(x, r, rng):
+    """x with its first 8 points at exactly 0 or 1 on every axis and the
+    next 16 on grid lines of resolution r."""
+    x[:8] = rng.integers(0, 2, (8, 3))
+    x[8:24] = rng.integers(0, r + 1, (16, 3)) / r
+    return x
+
+
+# Kernel E's shapes: room0_xor's 16 levels (5 dense, 11 hashed) and the
+# Dense grid's 4 dense levels (at a smaller resolution than room0's
+# 67 M-row table).
+E_SPECS = {"mixed16": dict(desired_resolution=400, log2_hashmap_size=16),
+           "dense4": dict(desired_resolution=128, log2_hashmap_size=16,
+                          n_levels=4, dense_only=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(E_SPECS))
+def test_xor_fwd_on_ray_ordered_points(cuda_device, name):
+    """Kernel E on ray-ordered points (the samples of a ray adjacent, so a
+    warp's lanes share coarse cells), with points outside [0, 1], at
+    exactly 0 and 1 and on grid lines, N = 8,600 (not a multiple of E's
+    32- or 64-point tile), at L = 16 mixed and L = 4 dense: against
+    hashgrid_encode; and on the first N - 1 and 1 points alone."""
+    spec = E.make_hashgrid_spec(**E_SPECS[name])
+    rng = np.random.default_rng(5)
+    x_np = _edge_points(_ray_points(200, 43, 6), spec.resolutions[-1], rng)
+    assert x_np.shape[0] % 32 and ((x_np < 0) | (x_np > 1)).any()
+    table, x = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                for a in (rng.standard_normal((spec.total_entries, 2)), x_np))
+    launches = XP.xor_grid_encode_fwd.launches
+    for n in (x.shape[0], x.shape[0] - 1, 1):
+        xs = x[:n].contiguous()
+        torch.testing.assert_close(XP.xor_grid_encode_fwd(spec, table, xs),
+                                   E.hashgrid_encode(spec, table, xs),
+                                   rtol=1e-5, atol=1e-5)
+    assert XP.xor_grid_encode_fwd.launches == launches + 3
+
+
+@pytest.mark.cuda
+def test_xor_autograd_dense_on_card_rays(cuda_device):
+    """XorGridEncode with the Dense grid's 4 levels on ray-ordered points:
+    the forward through kernel E and the gradients through G and H equal
+    the same Function's on the CPU (dtable bit for bit)."""
+    spec = E.make_hashgrid_spec(**E_SPECS["dense4"])
+    rng = np.random.default_rng(7)
+    x_np = _ray_points(60, 43, 8).astype(np.float32)
+    table = rng.standard_normal((spec.total_entries, 2)).astype(np.float32)
+    g = rng.standard_normal((x_np.shape[0], spec.out_dim)).astype(np.float32)
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        t = torch.from_numpy(table).to(dev).requires_grad_(True)
+        xx = torch.from_numpy(x_np).to(dev).requires_grad_(True)
+        y = XP.encode(spec, t, xx, True)
+        (y * torch.from_numpy(g).to(dev)).sum().backward()
+        outs.append((y.detach().cpu(), t.grad.cpu(), xx.grad.cpu()))
+    (y_card, t_card, x_card), (y_cpu, t_cpu, x_cpu) = outs
+    torch.testing.assert_close(y_card, y_cpu, rtol=1e-5, atol=1e-5)
+    assert torch.equal(t_card, t_cpu)
+    torch.testing.assert_close(x_card, x_cpu, rtol=1e-4, atol=1e-3)
+
+
+def _vm_ray_inputs(spec, seed, device, rays=200):
+    """room0_vm-like inputs on ray-ordered points (rays x 27 samples, some
+    outside [0, 1], some at 0, 1 and on grid lines)."""
+    rng = np.random.default_rng(seed)
+    x = _edge_points(_ray_points(rays, 27, seed + 1), spec.resolutions[-1],
+                     rng)
+    arrays = (rng.standard_normal((spec.total_entries, spec.n_features)) * 0.1,
+              1.0 + 0.1 * rng.standard_normal((VM.line_total_rows(spec),
+                                               spec.n_features)),
+              x, rng.standard_normal((x.shape[0], spec.out_dim)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", [(True, True, True), (False, True, True),
+                                  (True, False, True), (True, True, False)])
+def test_tensovm_bwd_on_ray_ordered_points(cuda_device, need):
+    """Kernel D at the room0_vm spec on ray-ordered points (a warp's lanes
+    share line rows and coarse plane rows), with each of need_dplanes,
+    need_dlines and need_dx off in turn, points on grid lines, at 0 and 1
+    and outside [0, 1], N = 5,400 (not a multiple of D's 64-point tile):
+    against tensovm_encode_bwd_ref."""
+    spec = VM.make_tensovm_spec(**VM_SPECS["room0_vm"])
+    planes, lines, x, g = _vm_ray_inputs(spec, 9, cuda_device)
+    assert x.shape[0] % 64 and bool(((x < 0) | (x > 1)).any())
+    launches = VM.tensovm_encode_bwd.launches
+    got = VM.tensovm_encode_bwd(spec, planes, lines, x, g, *need)
+    ref = VM.tensovm_encode_bwd_ref(spec, planes, lines, x, g, *need)
+    torch.cuda.synchronize()
+    assert VM.tensovm_encode_bwd.launches == launches + 1
+    for a, b, atol in zip(got, ref, (1e-5, 1e-5, 1e-3)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=atol)
+    if need[2]:   # dx is zero exactly where x lies outside [0, 1]
+        outside = (x < 0) | (x > 1)
+        assert bool((got[2][outside] == 0).all())
+
+
+@pytest.mark.cuda
+def test_tensovm_autograd_function_on_card_rays(cuda_device):
+    """TensoVMEncode at the room0_vm spec on ray-ordered points, on CUDA
+    tensors: gradients through kernel D equal the plain backward's."""
+    spec = VM.make_tensovm_spec(**VM_SPECS["room0_vm"])
+    planes, lines, x, g = _vm_ray_inputs(spec, 11, cuda_device, rays=100)
+    p = {"planes": planes.clone().requires_grad_(True),
+         "lines": lines.clone().requires_grad_(True)}
+    xx = x.clone().requires_grad_(True)
+    (VM.encode(spec, p, xx) * g).sum().backward()
+    r_p, r_l, r_x = VM.tensovm_encode_bwd_ref(spec, planes, lines, x, g,
+                                              True, True, True)
+    torch.testing.assert_close(p["planes"].grad, r_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(p["lines"].grad, r_l, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(xx.grad, r_x, rtol=1e-4, atol=1e-3)
 
 
 # The probes' kernels P-S (coslam_torch/csrc/probe_accum.cu): each table

@@ -28,9 +28,18 @@ from coslam_torch.ops import losses as TL
 torch.set_num_threads(1)
 
 
-def _setup(perturb=0):
+# Grid variants beside the default HashGrid (packed): (grid.enc,
+# grid.grad_impl). Dense is 4 dense levels, packed or XOR; Tiled routes as
+# HashGrid.
+GRIDS = {"dense_packed": ("Dense", "auto"), "dense_pallas": ("Dense", "pallas"),
+         "tiled": ("TiledGrid", "auto")}
+
+
+def _setup(perturb=0, grid=None):
     cfg = make_synthetic_config("", "/tmp/unused", H=40, W=52)
     cfg["training"]["perturb"] = perturb
+    if grid is not None:
+        cfg["grid"]["enc"], cfg["grid"]["grad_impl"] = GRIDS[grid]
     bb = np.array(cfg["mapping"]["bound"], np.float32)
     jm, tm = JModel(cfg, bb), TModel(cfg, bb)
     jparams = jm.init_params(jax.random.PRNGKey(0))
@@ -57,10 +66,15 @@ def _grad_tol(ref):
     return dict(rtol=1e-3, atol=1e-6 * float(np.abs(ref).max()) + 1e-12)
 
 
-@pytest.mark.parametrize("variant", ["plain", "perturbed", "huber_masked"])
+@pytest.mark.parametrize("variant", ["plain", "perturbed", "huber_masked",
+                                     *GRIDS])
 def test_forward_losses_and_gradients_match_jax(variant):
+    """Losses and gradients of one forward; the GRIDS variants (which the
+    port's check_supported refused before, though its encoder built them)
+    with the table converted and its shape checked against the spec."""
     cfg, jm, tm, jparams, np_params = _setup(
-        perturb=1 if variant == "perturbed" else 0)
+        perturb=1 if variant == "perturbed" else 0,
+        grid=variant if variant in GRIDS else None)
     rays_o, rays_d, rgb, depth = _rays(cfg)
     n = rays_o.shape[0]
     key = jax.random.PRNGKey(3)
@@ -85,7 +99,7 @@ def test_forward_losses_and_gradients_match_jax(variant):
     (j_total, j_ret), j_grads = jax.jit(
         jax.value_and_grad(j_loss, has_aux=True))(jparams)
 
-    params = convert.params_from_numpy(np_params)
+    params = convert.params_from_numpy(np_params, spec=tm.grid_spec)
     leaves = [params["grid"], *params["decoder"]["sdf_net"],
               *params["decoder"]["color_net"]]
     for p in leaves:
@@ -111,6 +125,19 @@ def test_forward_losses_and_gradients_match_jax(variant):
     for p, ref in zip(leaves, jg):
         ref = np.asarray(ref)
         np.testing.assert_allclose(p.grad.numpy(), ref, **_grad_tol(ref))
+
+
+@pytest.mark.parametrize("enc", ["Dense", "HashGrid", "TiledGrid"])
+def test_unknown_grad_impl_is_refused(enc):
+    """Every grid name the encoder routes is built, and an unknown
+    grid.grad_impl under it still raises at construction."""
+    cfg = make_synthetic_config("", "/tmp/unused", H=40, W=52)
+    bb = np.array(cfg["mapping"]["bound"], np.float32)
+    cfg["grid"]["enc"] = enc
+    assert TModel(cfg, bb).grid_spec.n_levels == (4 if enc == "Dense" else 16)
+    cfg["grid"]["grad_impl"] = "segment_sum"
+    with pytest.raises(NotImplementedError, match="grid.grad_impl"):
+        TModel(cfg, bb)
 
 
 def test_smoothness_on_jax_lattice_matches_jax():

@@ -647,3 +647,84 @@ def test_record_ba_points_gives_the_first_ba_calls_rays(tmp_path):
     dist = (off - (off * axis[:, None]).sum(-1, keepdim=True) * axis[:, None])
     assert float(dist.norm(dim=-1).max()) < 1e-5
     assert torch.isfinite(pts).all()
+
+
+def test_record_ba_points_of_the_vm_slice(tmp_path):
+    """The same for the TensoVM slice (the smoke's ray-ordered case for
+    kernel D): room0_vm's BA 1-keyframe count, 27 samples a ray, the
+    samples of one ray on one line."""
+    from coslam_torch.data.synth import SyntheticFrames, room0_vm_config
+    from coslam_torch.tools.kernel_times import record_ba_points
+
+    frames = 6
+    cfg = room0_vm_config(str(tmp_path), H=72, W=88, n_frames=frames)
+    cfg["grid"].update(voxel_sdf=48)
+    cfg["mapping"].update(first_iters=1, iters=1)
+    cfg["tracking"]["iter"] = 1
+    pts = record_ba_points(cfg, SyntheticFrames(cfg, frames), "cpu")
+    (n,) = [c[1] for c in _chip_smoke().main_path_cases(cfg, frames)
+            if c[0] == "BA 1 kf"]
+    assert pts.shape == (n, 3) and n == 4096 * 27
+    rays = pts.reshape(-1, 27, 3).double()
+    step = rays[:, 1:] - rays[:, :-1]
+    cos = (step[:, 1:] * step[:, :-1]).sum(-1) / (
+        step[:, 1:].norm(dim=-1) * step[:, :-1].norm(dim=-1) + 1e-30)
+    assert float(cos.min()) > 1 - 1e-4 and torch.isfinite(pts).all()
+
+
+def _distinct_sectors(rows, row_bytes=8):
+    """Brute force: per column of rows [K, ...], the count of distinct
+    32-byte sectors, summed."""
+    sec = (rows * row_bytes // 32).reshape(rows.shape[0], -1).T.tolist()
+    return sum(len(set(col)) for col in sec)
+
+
+def test_l2_sector_counts_of_e_and_d():
+    """kernel_times.e_l2_sectors / d_l2_sectors (the L2 figure of kernels
+    E and D): the distinct sectors per (point, level) or (point, section)
+    against a brute-force count, plus the streams, and N copies of one
+    point count N times its sectors."""
+    from coslam_torch.ops import encodings as E
+    from coslam_torch.ops import tensovm as VM
+    from coslam_torch.tools import kernel_times as K
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -0.05, 1.05, (300, 3)).astype(np.float32))
+    spec = E.make_hashgrid_spec(96, 12, n_levels=6)
+    rows, _ = E._hash_corners_and_weights(spec, x)                # [L, 8, N]
+    streams = (12 * 300 + 4 * 300 * spec.out_dim) // 32
+    assert K.e_l2_sectors(spec, x) == _distinct_sectors(
+        rows.permute(1, 0, 2)) + streams
+    one = x[:1].repeat(300, 1)
+    assert K.e_l2_sectors(spec, one) == 300 * _distinct_sectors(
+        E._hash_corners_and_weights(spec, x[:1])[0].permute(1, 0, 2)) + streams
+
+    vspec = VM.make_tensovm_spec(96, 2, base_resolution=16)
+    geo = VM._Geometry(vspec, torch.zeros((vspec.total_entries, 2)),
+                       torch.zeros((VM.line_total_rows(vspec), 2)), x)
+    reads = (_distinct_sectors(torch.stack([geo.e00, geo.e00 + 1, geo.e10,
+                                            geo.e10 + 1]))
+             + _distinct_sectors(torch.stack([geo.l_row, geo.l_row + 1])))
+    atomics = sum(1 if e % 2 == 0 else 2
+                  for e in torch.cat([geo.e00.reshape(-1),
+                                      geo.e10.reshape(-1)]).tolist())
+    io = 12 * 300 + 4 * 300 * vspec.out_dim
+    assert K.d_l2_sectors(vspec, x, False, False) == reads + io // 32
+    assert K.d_l2_sectors(vspec, x, True, True) == (
+        reads + atomics + (io + 12 * 300) // 32)
+
+
+def test_l2_sector_count_of_a():
+    """kernel_times.a_l2_sectors (kernel A's L2 figure, the yardstick
+    beside E's): per (point, level) the distinct sectors of the 4 xy
+    corners' row pairs, against a brute-force count, plus the streams."""
+    from coslam_torch.ops import hash_packed as HP
+    from coslam_torch.tools import kernel_times as K
+
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, (200, 3)).astype(np.float32))
+    spec = HP.make_packed_spec(96, 12, n_levels=6)
+    e = HP._corner_entries(spec, HP._cells_and_weights(spec, x)[0])
+    rows = torch.cat([e, e + 1], 1).permute(1, 0, 2)              # [8, L, N]
+    assert K.a_l2_sectors(spec, x) == _distinct_sectors(rows) + (
+        12 * 200 + 4 * 200 * spec.out_dim) // 32
