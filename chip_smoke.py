@@ -21,9 +21,10 @@ Run from the repository root. Phases, each printing its own lines:
    with the tolerances below, and timed with CUDA events and under a
    CUDA graph; each pair also on the ray-ordered points of its slice's
    first BA call (the table gradient held to each entry's sum-order
-   bound), timed beside the uniform case; E and D with their L2 figure
-   (their sector accesses over the measured rate); E and G also at the
-   Dense grid (grid.enc: Dense, 4 dense XOR levels, 67 M rows) at the BA
+   bound), timed beside the uniform case; A, C, E and D with their L2
+   figure (their sector accesses over the measured rate); E and G, and A
+   and B, also at the Dense grid (grid.enc: Dense, 4 dense levels, 67 M
+   rows: XOR under grad_impl pallas, packed under the default) at the BA
    1-keyframe case; then the row accumulate,
    kernels F (atomic: kernel P's CUDA kernel with its clip rule) and H
    (deterministic), on kernel G's update streams of every case that asks
@@ -86,9 +87,11 @@ from coslam_torch.data.synth import (SyntheticFrames, room0_config,
                                      room0_vm_config, room0_xor_config)
 from coslam_torch.tools.bench._common import accum_bound, bound
 from coslam_torch.tools.kernel_times import graph_ms as _graph_ms
-from coslam_torch.tools.kernel_times import (d_l2_sectors, e_l2_sectors,
+from coslam_torch.tools.kernel_times import (a_l2_sectors, c_l2_sectors,
+                                             d_l2_sectors, e_l2_sectors,
                                              h_phases, l2_rate,
                                              main_path_cases,
+                                             packed_dense_spec,
                                              record_ba_points)
 from coslam_torch.tools.kernel_times import time_ms as _time_ms
 
@@ -139,7 +142,9 @@ def _tensor(device, a):
 
 
 class HashKernels:
-    """Kernels A and B at the room0 spec: unit-normal table."""
+    """Kernels A and B at the room0 spec (make_packed_spec(400, 16),
+    835,977 rows), or at another packed spec (the Dense grid's):
+    unit-normal table."""
 
     source = "coslam_torch/csrc/grid_encode.cu"
     graph = True     # time the backward under a CUDA graph too
@@ -151,12 +156,12 @@ class HashKernels:
                   "replaces": "coslam_tpu/ops/hash_packed.py:411",
                   "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]}}
 
-    def __init__(self, device, rng):
+    def __init__(self, device, rng, spec=None):
         from coslam_torch.ops import hash_packed as HP
 
         self.m = HP
         self.fwd_fn, self.bwd_fn = HP.grid_encode_fwd, HP.grid_encode_bwd
-        self.spec = HP.make_packed_spec(400, 16)
+        self.spec = spec or HP.make_packed_spec(400, 16)
         self.table = _tensor(device, rng.standard_normal(
             (self.spec.total_entries, self.spec.n_features)))
 
@@ -197,7 +202,9 @@ class HashKernels:
         return {"dtable": C.sum_order_tol(idx, vals, spec.total_entries)}
 
     def l2_sectors(self, x, need_table, need_dx):
-        return None, None
+        """(kernel A's L2 sector accesses, None): the L2 figure is kept for
+        A only."""
+        return a_l2_sectors(self.spec, x), None
 
     def work(self, n, touched, need_table, need_dx):
         """(bytes, ops) of the forward and of the backward: per (point,
@@ -315,9 +322,9 @@ class TensoVMKernels:
         return out
 
     def l2_sectors(self, x, need_table, need_dx):
-        """(None, kernel D's L2 sector accesses): the L2 figure is kept
-        for D only."""
-        return None, d_l2_sectors(self.spec, x, need_table, need_dx)
+        """(kernel C's, kernel D's L2 sector accesses)."""
+        return (c_l2_sectors(self.spec, x),
+                d_l2_sectors(self.spec, x, need_table, need_dx))
 
     def work(self, n, touched, need_table, need_dx):
         """Per (point, section): 4 plane corners and 2 line entries x F
@@ -447,7 +454,7 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None) -> dict:
     beside the uniform case (``ray_ms``). Kernels with ``graph = True``
     also time every call on the card alone (a CUDA graph of 20 calls:
     ``graph_ms``, ``ray_graph_ms``). With `l2` (``l2_rate``'s record), the
-    kernels that have an L2 figure (``kernels.l2_sectors``: E and D) get
+    kernels that have an L2 figure (``kernels.l2_sectors``: A, C, E, D) get
     ``l2_ms`` and ``ray_l2_ms``: their sector accesses over that rate."""
     import torch
 
@@ -910,25 +917,29 @@ def main() -> int:
                 device, k, main_path_cases(cfg, N_FRAMES), ray, l2).items():
             measured[name] = {"source": k.source, **k.record[name], **rec}
 
-    # The Dense grid (grid.enc: Dense, 4 dense XOR levels under
-    # grad_impl pallas, 67 M rows at room0's resolution) through E and G
-    # at the BA 1-keyframe case.
+    # The Dense grid (grid.enc: Dense, 67 M rows at room0's resolution) at
+    # the BA 1-keyframe case: 4 dense XOR levels under grad_impl pallas
+    # through E and G, 4 dense packed levels under the default grad_impl
+    # through A and B.
     from coslam_torch.models.scene_rep import JointEncoding
 
     dense_cfg = room0_xor_config(out, H, W, N_FRAMES)
     dense_cfg["grid"]["enc"] = "Dense"
     dense_spec = JointEncoding(dense_cfg, dense_cfg["mapping"]["bound"],
                                device).grid_spec
-    assert dense_spec.n_levels == 4 and not any(dense_spec.hashed)
-    dk = XorKernels(device, rng(0), dense_spec)
-    _phase(f"kernels against the plain versions: {dk.source}, the Dense "
-           f"grid ({dense_spec.total_entries} rows)")
+    packed_spec = packed_dense_spec(device)
     ba1 = [c for c in main_path_cases(xor_cfg, N_FRAMES) if c[0] == "BA 1 kf"]
-    for name, rec in check_kernels(device, dk, ba1, None, l2).items():
-        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
-                                            rec.pop("max_abs_err"))
-        measured[name]["dense"] = rec
-    del dk
+    for kernels, spec in ((XorKernels, dense_spec),
+                          (HashKernels, packed_spec)):
+        assert spec.n_levels == 4 and not any(spec.hashed)
+        dk = kernels(device, rng(0), spec)
+        _phase(f"kernels against the plain versions: {dk.source}, the Dense "
+               f"grid ({spec.total_entries} rows)")
+        for name, rec in check_kernels(device, dk, ba1, None, l2).items():
+            measured[name]["max_abs_err"] = max(
+                measured[name]["max_abs_err"], rec.pop("max_abs_err"))
+            measured[name]["dense"] = rec
+        del dk
 
     _phase("kernels against the plain versions: the row accumulate, "
            + ", ".join(sorted(set(ACCUM_SOURCES.values()))))

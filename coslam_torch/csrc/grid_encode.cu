@@ -3,13 +3,14 @@
 // (coslam_torch/ops/_kernels.py loads the shared library with ctypes).
 //
 // What they replace (coslam_tpu/ops/hash_packed.py):
-//   grid_encode_fwd  - the forward of make_packed_encode /
+//   grid_encode_fwd  - (kernel A) the forward of make_packed_encode /
 //                      make_packed_encode_frozen: _cells_and_weights,
 //                      _corner_entries, the pair read (the Pallas
 //                      _pair_select_kernel, or the XLA _gather_pairs),
 //                      the dense _gather_cells and _combine.
-//   grid_encode_bwd  - the table gradient of the hashed levels (Pallas
-//                      _pair_scatter_kernel via _scatter_table_grad), the
+//   grid_encode_bwd  - (kernel B) the table gradient of the hashed levels
+//                      (Pallas _pair_scatter_kernel via
+//                      _scatter_table_grad), the
 //                      table gradient of the dense levels (Pallas
 //                      serial_scatter._row_kernel via _cell_table_grad)
 //                      and the dx chain of the custom VJP.
@@ -22,19 +23,32 @@
 // therefore not needed: both kernels read and write rows e and e + 1 of
 // the logical table directly.
 //
-// Threads. One thread per (point, level). The forward numbers them
-// n * L + l; the backward gives each block kThreads / L whole points with
-// their L threads adjacent (the same numbering when L divides kThreads),
-// so the L threads of a point are adjacent and their F-wide output slices
-// are contiguous (coalesced stores of out[n, l*F + f]).
+// Threads. The forward (kernel A) gives each block a tile of consecutive
+// points and each warp a (level, 32 of those points) item, lane = point.
+// The backward gives each block kThreads / L whole points with their L
+// threads adjacent, so a point's dx terms are summed in the block.
 //
 // What bounds them on this card. The forward is bound by random row
-// reads: per (point, level) 4 xy-corners x 2 rows of F floats, each a
-// separate 8-byte access scattered over a table of T * F * 4 bytes
-// (6.7 MB at room0: it stays in the 50 MB L2, so the reads are L2-latency
-// bound rather than HBM-bandwidth bound). The design reads the row pair
-// straight from the table (no packed mirror to rebuild per call) through
-// the read-only cache.
+// reads: per (point, level) 4 xy-corners x one row pair (e, e + 1) of F
+// floats, 16 contiguous bytes, scattered over a table of T * F * 4 bytes
+// (6.7 MB at room0: it stays in the 50 MB L2). Its time is the count of
+// 32-byte sectors it asks of L2, at about the rate a plain gather from an
+// L2-resident table reaches, so its design cuts sector accesses, not
+// instructions:
+//   - level-major warps: a warp reads one level for 32 consecutive points,
+//     so the samples of a ray, which share the cells of the coarse levels,
+//     share sectors inside one load instruction (point-major threads, 2
+//     points x 16 levels a warp, never did);
+//   - one float4 load per row pair when e is even, two float2 otherwise;
+//   - the tile's x comes into shared memory with coalesced loads, and its
+//     [points, L * F] outputs are staged there and written as whole rows;
+//   - the fold is the plain version's: corners c = 0..3,
+//     (p0 (1 - wz) + p1 wz) wxy, with the __fmul_rn / __fsub_rn cell and
+//     weight of cell_and_weights.
+// Walking the whole card level by level (a persistent grid taking
+// level-major items, so that each SM's L1 holds one level) read fewer
+// sectors, but an item then stores 8 or 32 bytes of a row: with the stores
+// it was slower on ray-ordered points and on the Dense grid.
 //
 // The backward (kernel B) is bound by its atomic instructions: the
 // scatter-accumulate probes showed that on this card the count of atomic
@@ -122,43 +136,6 @@ __device__ __forceinline__ float xy_weight(const float w[3], int c) {
   return wx * wy;
 }
 
-template <int F>
-__global__ void grid_encode_fwd_kernel(const float* __restrict__ x,
-                                       const float* __restrict__ table,
-                                       float* __restrict__ out,
-                                       int64_t n_points, Levels lv) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int L = lv.n_levels;
-  if (tid >= n_points * L) return;
-  const int64_t n = tid / L;
-  const int l = static_cast<int>(tid - n * L);
-  const int res = lv.res(l);
-
-  int cell[3];
-  float w[3];
-  cell_and_weights(x, n, res, cell, w);
-  const float wz = w[2];
-
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int64_t e = corner_entry(lv, l, res, cell, c);
-    const float wxy = xy_weight(w, c);
-    const float* r0 = table + e * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float p0 = __ldg(r0 + f);
-      const float p1 = __ldg(r0 + F + f);
-      acc[f] += (p0 * (1.0f - wz) + p1 * wz) * wxy;
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) out[tid * F + f] = acc[f];
-}
-
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 
@@ -175,6 +152,86 @@ __device__ __forceinline__ void add_row_pair(float* dtable, int64_t e,
   } else {
     atomicAdd(reinterpret_cast<float2*>(d), make_float2(v0[0], v0[1]));
     atomicAdd(reinterpret_cast<float2*>(d + 2), make_float2(v1[0], v1[1]));
+  }
+}
+
+// Rows e and e + 1 of the [T, 2] table: one float4 when e is even (16-byte
+// aligned), two float2 otherwise.
+__device__ __forceinline__ void load_pair(const float* __restrict__ table,
+                                          int64_t e, float2* v0, float2* v1) {
+  const float2* rows = reinterpret_cast<const float2*>(table);
+  if ((e & 1) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(rows + e));
+    *v0 = make_float2(q.x, q.y);
+    *v1 = make_float2(q.z, q.w);
+  } else {
+    *v0 = __ldg(rows + e);
+    *v1 = __ldg(rows + e + 1);
+  }
+}
+
+constexpr int kWarps = kThreads / 32;
+
+// One (point, level) of kernel A at the point's coordinates xp: the cell
+// and weights of cell_and_weights, the 4 xy-corners' row pairs, and the
+// fold of the plain version, (p0 (1 - wz) + p1 wz) wxy summed over c.
+__device__ __forceinline__ float2 encode_level(const float* __restrict__ table,
+                                               const Levels& lv, int l,
+                                               const float xp[3]) {
+  const int res = lv.res(l);
+  int cell[3];
+  float w[3];
+  cell_and_weights(xp, 0, res, cell, w);
+  const float wz = w[2];
+  float2 acc = make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int64_t e = corner_entry(lv, l, res, cell, c);
+    float2 p0, p1;
+    load_pair(table, e, &p0, &p1);
+    const float wxy = xy_weight(w, c);
+    acc.x += (p0.x * (1.0f - wz) + p1.x * wz) * wxy;
+    acc.y += (p0.y * (1.0f - wz) + p1.y * wz) * wxy;
+  }
+  return acc;
+}
+
+// Kernel A: a block per tile of `tile` consecutive points (a multiple of
+// 32); the tile's L * tile / 32 (level, 32-point group) items go round its
+// warps, lane = point. Dynamic shared memory: the tile's x [tile, 3], then
+// its outputs [tile, L * F + 1] (one float of padding a row, so the lanes'
+// row stores fall in different banks).
+template <int F>
+__global__ void __launch_bounds__(kThreads) grid_encode_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ table,
+    float* __restrict__ out, int64_t n_points, Levels lv, int tile) {
+  static_assert(F == 2, "the row-pair loads are written for F = 2");
+  extern __shared__ float smem[];
+  const int L = lv.n_levels;
+  const int width = L * F;
+  float* xs = smem;
+  float* os = smem + tile * 3;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int rows =
+      n_points - n0 < tile ? static_cast<int>(n_points - n0) : tile;
+  for (int i = threadIdx.x; i < rows * 3; i += kThreads)
+    xs[i] = x[n0 * 3 + i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int items = L * (tile / 32);
+  for (int item = threadIdx.x / 32; item < items; item += kWarps) {
+    const int l = item % L;
+    const int p = (item / L) * 32 + lane;
+    if (p >= rows) continue;
+    const float xp[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
+    const float2 v = encode_level(table, lv, l, xp);
+    os[p * (width + 1) + l * F] = v.x;
+    os[p * (width + 1) + l * F + 1] = v.y;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * width; i += kThreads) {
+    const int p = i / width;
+    out[n0 * width + i] = os[p * (width + 1) + (i - p * width)];
   }
 }
 
@@ -284,10 +341,6 @@ __global__ void __launch_bounds__(kThreads) grid_encode_bwd_kernel(
 // Instantiate another width together with a configuration that needs it.
 constexpr int kFeatures = 2;
 
-inline unsigned int n_blocks(int64_t n_threads) {
-  return static_cast<unsigned int>((n_threads + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
@@ -298,13 +351,21 @@ extern "C" {
 int grid_encode_fwd(const float* x, const float* table, float* out,
                     int64_t n_points, int n_features, const int* levels,
                     int n_levels, unsigned int hash_mask, void* stream) {
+  if (n_features != kFeatures || n_levels < 1 ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
+  // 32 points a tile when L >= kWarps, else enough 32-point groups that
+  // every warp has an item (at most 48 KB of shared memory: L <= 190).
+  const int tile = 32 * ((kWarps + n_levels - 1) / n_levels);
+  const size_t smem =
+      static_cast<size_t>(tile) * (3 + n_levels * kFeatures + 1) *
+      sizeof(float);
   const Levels lv{levels, n_levels, hash_mask};
-  const unsigned int blocks = n_blocks(n_points * n_levels);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_features != kFeatures) return cudaErrorInvalidValue;
-  grid_encode_fwd_kernel<kFeatures><<<blocks, kThreads, 0, s>>>(x, table, out,
-                                                                n_points, lv);
+  grid_encode_fwd_kernel<kFeatures>
+      <<<static_cast<unsigned int>((n_points + tile - 1) / tile), kThreads,
+         smem, static_cast<cudaStream_t>(stream)>>>(x, table, out, n_points,
+                                                    lv, tile);
   return cudaGetLastError();
 }
 

@@ -9,13 +9,15 @@
 // s = 0, 1, 2) and w = r * clip(x) on the axis the plane drops (2, 1, 0).
 //
 // What they replace (no Pallas kernel computes the forward on the TPU):
-//   tensovm_encode_fwd - the forward of coslam_tpu/ops/tensovm.py
-//                        make_tensovm_encode: plane_quad.gather_quads on
-//                        the bf16 quad-window mirror, make_line_eval's
-//                        two-hot matmul and _vm_combine (XLA on the TPU);
-//                        numerically tensovm_encode_fwd_only.
-//   tensovm_encode_bwd - the custom VJPs of the same: the plane-table
-//                        gradient of plane_quad.quad_table_grad, whose fine
+//   tensovm_encode_fwd - kernel C, the forward of
+//                        coslam_tpu/ops/tensovm.py make_tensovm_encode:
+//                        plane_quad.gather_quads on the bf16 quad-window
+//                        mirror, make_line_eval's two-hot matmul and
+//                        _vm_combine (XLA on the TPU); numerically
+//                        tensovm_encode_fwd_only.
+//   tensovm_encode_bwd - kernel D, the custom VJPs of the same: the
+//                        plane-table gradient of
+//                        plane_quad.quad_table_grad, whose fine
 //                        sections go through the Pallas
 //                        serial_scatter._row_kernel (called by
 //                        plane_quad.cell_scatter_grad) and whose coarse
@@ -34,11 +36,22 @@
 // into the logical table with atomics, for every section alike: no
 // accumulator, no shifted adds, no routing.
 //
-// What bounds them on this card. The forward (kernel C, one thread per
-// (point, level), thread id = n * L + l) reads, per (point, level), 3
-// sections x (4 plane rows + 2 line rows) of F floats, each a separate
-// 8-byte access; the tables (2.6 MB of planes, 10.7 KB of lines at room0)
-// stay in the 50 MB L2, so it is bound by L2 latency of scattered reads.
+// What bounds them on this card. The forward (kernel C) reads, per
+// (point, level), 3 sections x (2 plane row pairs + 1 line row pair) of F
+// floats; the tables (2.6 MB of planes, 10.7 KB of lines at room0_vm)
+// stay in the 50 MB L2, so it is bound by the scattered 32-byte sectors
+// it asks of L2, of which L1 serves the line table, level 0's planes (26
+// KB at room0_vm) and part of level 1's (245 KB). Its design:
+//   - level-major warps: a block takes one tile of 64 consecutive points
+//     at L = 3 with the tile's x staged in shared memory by coalesced
+//     loads, and each warp walks one level across 32 of them, so the
+//     samples of a ray share line rows and coarse plane rows inside one
+//     load;
+//   - row pairs read as one float4 (first row even) or two float2;
+//   - the tile's outputs staged in shared memory and written as whole
+//     contiguous rows;
+//   - the fold of the plain version: per section the v, then u, then line
+//     interpolation, their product summed over the sections in order.
 //
 // The backward (kernel D) re-reads the same rows (no saved residual) and
 // is bound by the atomic instructions it issues and by the scattered L2
@@ -137,46 +150,6 @@ __device__ __forceinline__ Section section(const Levels& lv, int l, int res,
   return sec;
 }
 
-template <int F>
-__global__ void tensovm_fwd_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ planes,
-                                   const float* __restrict__ lines,
-                                   float* __restrict__ out, int64_t n_points,
-                                   Levels lv) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int L = lv.n_levels;
-  if (tid >= n_points * L) return;
-  const int64_t n = tid / L;
-  const int l = static_cast<int>(tid - n * L);
-  const int res = lv.res(l);
-  const float xs[3] = {x[n * 3], x[n * 3 + 1], x[n * 3 + 2]};
-
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const Section sec = section(lv, l, res, s, xs);
-    const float* p0 = planes + sec.e00 * F;          // (cu, cv), (cu, cv+1)
-    const float* p1 = planes + (sec.e00 + sec.r1) * F;  // (cu+1, ...)
-    const float* v = lines + sec.l0 * F;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      const float featv0 = __ldg(p0 + f) * (1.0f - sec.wv) +
-                           __ldg(p0 + F + f) * sec.wv;
-      const float featv1 = __ldg(p1 + f) * (1.0f - sec.wv) +
-                           __ldg(p1 + F + f) * sec.wv;
-      const float plane = featv0 * (1.0f - sec.wu) + featv1 * sec.wu;
-      const float line = __ldg(v + f) * (1.0f - sec.wl) +
-                         __ldg(v + F + f) * sec.wl;
-      acc[f] += plane * line;
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < F; ++f) out[tid * F + f] = acc[f];
-}
-
 constexpr unsigned kFull = 0xffffffffu;
 
 // Rows e and e + 1 of a [T, 2] table: one float4 when e is even, two
@@ -240,10 +213,65 @@ __device__ __forceinline__ void add_line_rows(float* acc, int key, float v[4]) {
 
 constexpr int kThreads = 256;
 
-// Points per tile of the backward: 32 x as many 32-point groups as fit
+// Kernel C. Block b takes the tile of `tile` consecutive points from
+// b * tile (tile_points: 64 at L = 3), thread t = l * tile + p, so each
+// warp walks one level across 32 points. Dynamic shared memory, in floats:
+// the tile's x [tile * 3], then its outputs [tile, L * F + 1] (one float of
+// padding a row, so the lanes' row stores fall in different banks).
+__global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ planes,
+    const float* __restrict__ lines, float* __restrict__ out,
+    int64_t n_points, Levels lv, int tile) {
+  constexpr int F = 2;
+  extern __shared__ float smem[];
+  const int L = lv.n_levels;
+  const int width = L * F;
+  float* xs = smem;
+  float* os = xs + tile * 3;
+  const int l = threadIdx.x / tile;
+  const int p = threadIdx.x - l * tile;
+  const int res = lv.res(l);
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * tile;
+  const int rows =
+      n_points - n0 < tile ? static_cast<int>(n_points - n0) : tile;
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x)
+    xs[i] = x[n0 * 3 + i];
+  __syncthreads();
+  if (p < rows) {
+    const float xv[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
+    float acc[F] = {0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const Section sec = section(lv, l, res, s, xv);
+      float2 p00, p01, p10, p11, v0, v1;
+      load_pair(planes, sec.e00, &p00, &p01);
+      load_pair(planes, sec.e00 + sec.r1, &p10, &p11);
+      load_pair(lines, sec.l0, &v0, &v1);
+      const float a[F][6] = {{p00.x, p01.x, p10.x, p11.x, v0.x, v1.x},
+                             {p00.y, p01.y, p10.y, p11.y, v0.y, v1.y}};
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        const float featv0 = a[f][0] * (1.0f - sec.wv) + a[f][1] * sec.wv;
+        const float featv1 = a[f][2] * (1.0f - sec.wv) + a[f][3] * sec.wv;
+        const float plane = featv0 * (1.0f - sec.wu) + featv1 * sec.wu;
+        const float line = a[f][4] * (1.0f - sec.wl) + a[f][5] * sec.wl;
+        acc[f] += plane * line;
+      }
+    }
+    os[p * (width + 1) + l * F] = acc[0];
+    os[p * (width + 1) + l * F + 1] = acc[1];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+    const int q = i / width;
+    out[n0 * width + i] = os[q * (width + 1) + (i - q * width)];
+  }
+}
+
+// Points per tile of kernels C and D: 32 x as many 32-point groups as fit
 // kThreads / 32 warps with one level each (64 at L = 3); the block has
 // L * tile threads, thread t = l * tile + p.
-inline int bwd_tile(int n_levels) {
+inline int tile_points(int n_levels) {
   return 32 * (n_levels >= kThreads / 32 ? 1 : kThreads / 32 / n_levels);
 }
 
@@ -376,8 +404,8 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
 // needs it.
 constexpr int kFeatures = 2;
 
-inline int64_t n_blocks(int64_t n_threads) {
-  return (n_threads + kThreads - 1) / kThreads;
+inline bool misaligned(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
 }
 
 // The blocks of tensovm_bwd_kernel that the card holds at once with
@@ -415,18 +443,23 @@ extern "C" {
 // Both entry points return a cudaError_t code (0 = success); a feature
 // width other than kFeatures returns cudaErrorInvalidValue without a launch.
 
+// planes and lines must be 16-byte aligned (the row-pair loads).
 int tensovm_encode_fwd(const float* x, const float* planes,
                        const float* lines, float* out, int64_t n_points,
                        int n_features, const int* levels, int n_levels,
                        void* stream) {
-  if (n_features != kFeatures) return cudaErrorInvalidValue;
+  if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
+      misaligned(planes) || misaligned(lines))
+    return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
-  const Levels lv{levels, n_levels};
-  const unsigned int blocks =
-      static_cast<unsigned int>(n_blocks(n_points * n_levels));
-  tensovm_fwd_kernel<kFeatures>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, planes, lines, out, n_points, lv);
+  const int tile = tile_points(n_levels);
+  const int threads = n_levels * tile;
+  const size_t smem = static_cast<size_t>(tile) *
+                      (3 + n_levels * kFeatures + 1) * sizeof(float);
+  const int64_t blocks = (n_points + tile - 1) / tile;
+  tensovm_fwd_kernel<<<static_cast<unsigned int>(blocks), threads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, planes, lines, out, n_points, Levels{levels, n_levels}, tile);
   return cudaGetLastError();
 }
 
@@ -440,9 +473,6 @@ int tensovm_encode_bwd(const float* x, const float* planes,
                        float* dlines, float* dx, int64_t n_points,
                        int n_features, const int* levels, int n_levels,
                        int n_line_rows, void* stream) {
-  const auto misaligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
-  };
   if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
       misaligned(planes) || misaligned(lines) || misaligned(dplanes))
     return cudaErrorInvalidValue;
@@ -450,7 +480,7 @@ int tensovm_encode_bwd(const float* x, const float* planes,
       (dplanes == nullptr && dlines == nullptr && dx == nullptr))
     return cudaSuccess;
   const Levels lv{levels, n_levels};
-  const int tile = bwd_tile(n_levels);
+  const int tile = tile_points(n_levels);
   const int threads = n_levels * tile;
   const size_t floats =
       static_cast<size_t>(tile) * (3 + n_levels * kFeatures) +

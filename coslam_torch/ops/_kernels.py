@@ -143,12 +143,20 @@ def check(code: int, name: str) -> None:
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """Whether every tensor lies on the CPU (the wrappers then take the
     plain versions)."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def check_tensors(what: str, device: torch.device, **tensors) -> None:
     """Raise unless every tensor is contiguous float32 on the CUDA device
-    ``device``."""
+    ``device``. The common case, where all are, is one cheap test a
+    tensor; the messages are built only for a refusal."""
+    index = device.index
+    for t in tensors.values():
+        if not (t.is_cuda and t.get_device() == index
+                and t.dtype is torch.float32 and t.is_contiguous()):
+            break
+    else:
+        return
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}; the kernel "
@@ -174,4 +182,8 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current CUDA stream of `device`, as PyTorch's
+    own generated kernels take it: without the torch.cuda.Stream object
+    that ``current_stream`` builds."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device.index is None else device.index)

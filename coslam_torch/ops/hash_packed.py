@@ -241,14 +241,15 @@ def grid_encode_fwd(spec: PackedGridSpec, table: torch.Tensor,
     if _kernels.on_cpu(table, x):
         return grid_encode_fwd_ref(spec, table, x)
     _check_cuda(spec, table, x)
-    out = torch.empty((x.shape[0], spec.out_dim), device=x.device,
-                      dtype=torch.float32)
-    code = _kernels.library().grid_encode_fwd(
-        x.data_ptr(), table.data_ptr(), out.data_ptr(), x.shape[0],
-        spec.n_features, _kernels.level_table(spec, x.device).data_ptr(),
-        spec.n_levels, 2 ** spec.log2_hashmap_size - 1,
-        _kernels.stream(x.device))
-    _kernels.check(code, "grid_encode_fwd")
+    n = x.shape[0]
+    out = x.new_empty((n, spec.out_dim))
+    if n == 0:
+        return out
+    _kernels.check(_kernels.library().grid_encode_fwd(
+        x.data_ptr(), table.data_ptr(), out.data_ptr(), n, spec.n_features,
+        _kernels.level_table(spec, x.device).data_ptr(), spec.n_levels,
+        2 ** spec.log2_hashmap_size - 1, _kernels.stream(x.device)),
+        "grid_encode_fwd")
     grid_encode_fwd.launches += 1
     return out
 

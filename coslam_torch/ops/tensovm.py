@@ -237,13 +237,14 @@ def tensovm_encode_fwd(spec: TriPlaneSpec, planes: torch.Tensor,
     if _kernels.on_cpu(planes, lines, x):
         return tensovm_encode_fwd_ref(spec, planes, lines, x)
     _check_cuda(spec, planes, lines, x)
-    out = torch.empty((x.shape[0], spec.out_dim), device=x.device,
-                      dtype=torch.float32)
-    code = _kernels.library().tensovm_encode_fwd(
-        x.data_ptr(), planes.data_ptr(), lines.data_ptr(), out.data_ptr(),
-        x.shape[0], spec.n_features, _level_table(spec, x.device).data_ptr(),
-        spec.pyr_levels, _kernels.stream(x.device))
-    _kernels.check(code, "tensovm_encode_fwd")
+    n = x.shape[0]
+    out = x.new_empty((n, spec.out_dim))
+    if n == 0:
+        return out
+    _kernels.check(_kernels.library().tensovm_encode_fwd(
+        x.data_ptr(), planes.data_ptr(), lines.data_ptr(), out.data_ptr(), n,
+        spec.n_features, _level_table(spec, x.device).data_ptr(),
+        spec.pyr_levels, _kernels.stream(x.device)), "tensovm_encode_fwd")
     tensovm_encode_fwd.launches += 1
     return out
 

@@ -1,8 +1,9 @@
-"""Kernels B and H, and E and D, at the BA 1-keyframe case, on uniform
-and ray-ordered points.
+"""Kernels B and H, and E, A, C and D, at the BA 1-keyframe case, on
+uniform and ray-ordered points.
 
-    python -m coslam_torch.tools.kernel_times --points FILE
-        [--xor-points FILE] [--vm-points FILE] [--out FILE] [--profile]
+    python -m coslam_torch.tools.kernel_times [--points FILE]
+        [--xor-points FILE --vm-points FILE] [--host-us] [--out FILE]
+        [--profile]
 
 Times kernel B (``hash_packed.grid_encode_bwd`` at the room0 spec, the
 table gradient alone, as the BA 1-keyframe call asks) and kernel H
@@ -12,11 +13,11 @@ sets of points of one size: uniform points in the unit cube (seeded),
 and the ray-ordered points of the room0 slice's first BA call, the
 samples of one ray adjacent (``record_ba_points``; ``chip_smoke.py``
 records them and saves them with ``numpy.save``, and ``--points`` loads
-such a file). Each time is taken twice: CUDA events around 20
-back-to-back calls, the median of 5 batches (``time_ms``, the host's cost
-per call included), and a CUDA graph of 20 calls (``graph_ms``, the
-card's time alone); where kernel H runs in phases, each phase is timed
-alone as well.
+such a file; without it B and H are not timed). Each time is taken
+twice: CUDA events around 20 back-to-back calls, the median of 5 batches
+(``time_ms``, the host's cost per call included), and a CUDA graph of 20
+calls (``graph_ms``, the card's time alone); where kernel H runs in
+phases, each phase is timed alone as well.
 
 With ``--xor-points`` and ``--vm-points`` (the ray-ordered points of the
 room0_xor and room0_vm slices' first BA calls, which ``chip_smoke.py``
@@ -24,15 +25,25 @@ saves as ``output/ba_points_xor.npy`` and ``output/ba_points_vm.npy``) it
 also times kernel E (``hash_pallas.xor_grid_encode_fwd`` at the room0_xor
 spec) and kernel A (``hash_packed.grid_encode_fwd`` at the room0 spec,
 the same point count) at the BA 1-keyframe case on uniform and
-ray-ordered points, and kernel D (``tensovm.tensovm_encode_bwd`` at the
-room0_vm spec) at every case of that slice that asks for a gradient
-(``main_path_cases``), uniform, and at the BA 1-keyframe case on the
-ray-ordered points; beside each time of E and D its L2 figure
-(``l2_rate``, ``e_l2_sectors``, ``d_l2_sectors``).
+ray-ordered points, A also at the packed Dense grid (``grid.enc: Dense``:
+4 dense levels, 67.2 M rows) on uniform points; kernel C
+(``tensovm.tensovm_encode_fwd`` at the room0_vm spec) at that slice's BA
+1-keyframe case on uniform and ray-ordered points; and kernel D
+(``tensovm.tensovm_encode_bwd``) at every case of that slice that asks for
+a gradient (``main_path_cases``), uniform, and at the BA 1-keyframe case
+on the ray-ordered points; beside each time of E, A, C and D its L2 figure
+(``l2_rate``, ``e_l2_sectors``, ``a_l2_sectors``, ``c_l2_sectors``,
+``d_l2_sectors``). A and C are held to their plain versions on every set
+of points before they are timed.
+
+With ``--host-us`` it also measures the host's cost of the A and C
+wrappers (``wrapper_host_us``): microseconds per call of the whole
+wrapper and of each part of its card path, over 10,000 calls each.
 
 The script calls only what earlier checkouts of the port also have
 (``grid_encode_fwd``, ``grid_encode_bwd``, ``xor_grid_encode_fwd``,
-``xor_grid_encode_bwd``, ``tensovm_encode_bwd``, ``row_accum``), so it also
+``xor_grid_encode_bwd``, ``tensovm_encode_fwd``, ``tensovm_encode_bwd``,
+``row_accum`` and the plain versions), so it also
 times an earlier checkout's kernels in the same machine: run it by path
 with that checkout's root first on ``PYTHONPATH``. It prints one JSON
 line and writes it to ``--out`` when given. It needs a CUDA card.
@@ -43,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -168,16 +180,17 @@ def main_path_cases(cfg: dict, frames: int) -> list:
     return cases
 
 
-# The L2 figure of E and D. Their tables stay in the 50 MB L2, so what they
-# pay for is scattered 32-byte sector accesses there, which the DRAM-byte
-# bound does not count. l2_rate measures the card's rate for such accesses
-# in the same run (a plain gather from an L2-resident table), and
-# e_l2_sectors / d_l2_sectors count the sector accesses a call's work
-# needs from L2 on this run's points: per (point, level) the distinct
-# sectors of the rows it reads (no reuse between points counted: that is
-# L1's part), each output or streamed input sector once, and each atomic
-# instruction of D's plane gradient as one sector access (an atomic costs
-# L2 more than a read, so this is a floor).
+# The L2 figure of E, A, C and D. Their tables stay in the 50 MB L2, so
+# what they pay for is scattered 32-byte sector accesses there, which the
+# DRAM-byte bound does not count. l2_rate measures the card's rate for such
+# accesses in the same run (a plain gather from an L2-resident table: a
+# rate that gather reaches, not the L2's peak), and e_l2_sectors,
+# a_l2_sectors, c_l2_sectors and d_l2_sectors count the sector accesses a
+# call's work needs from L2 on this run's points: per (point, level) the
+# distinct sectors of the rows it reads (no reuse between points counted:
+# that is L1's part), each output or streamed input sector once, and each
+# atomic instruction of D's plane gradient as one sector access (an atomic
+# costs L2 more than a read, so this is a floor).
 
 SECTOR = 32
 
@@ -229,6 +242,15 @@ def a_l2_sectors(spec, x: torch.Tensor) -> int:
     rows = torch.cat([e, e + 1], 1)
     reads = _distinct(rows * (4 * spec.n_features) // SECTOR, 1)
     return reads + (12 * n + 4 * n * spec.out_dim) // SECTOR
+
+
+def c_l2_sectors(spec, x: torch.Tensor) -> int:
+    """Kernel C's sector accesses on points x: per (point, section) the
+    distinct sectors of its 4 plane rows and 2 line rows, counted as
+    d_l2_sectors counts D's reads, x read and the output written (the
+    count of D's call without the table gradient and dx, whose g read is
+    as long as C's output)."""
+    return d_l2_sectors(spec, x, False, False)
 
 
 def d_l2_sectors(spec, x: torch.Tensor, need_table: bool,
@@ -331,17 +353,32 @@ def time_b_and_h(device, points: dict, profiled: bool = False) -> dict:
     return out
 
 
+def packed_dense_spec(device):
+    """The packed grid of room0 with ``grid.enc: Dense`` and the default
+    ``grad_impl`` (4 dense levels, resolutions 16/46/136/400, 67,161,290
+    rows), as the model builds it."""
+    from coslam_torch.data.synth import room0_config
+    from coslam_torch.models.scene_rep import JointEncoding
+
+    cfg = room0_config("output", 48, 64, 1)
+    cfg["grid"]["enc"] = "Dense"
+    return JointEncoding(cfg, cfg["mapping"]["bound"], device).grid_spec
+
+
 def time_e_and_d(device, xor_ray: torch.Tensor, vm_ray: torch.Tensor,
                  l2: dict) -> dict:
-    """{"E": {set: times}, "A": {set: times}, "D": {case: times}}: kernel
-    E and kernel A at the BA 1-keyframe point count of room0_xor on
-    uniform points (seed 2) and on `xor_ray`; kernel D at every case of
-    room0_vm that asks for a gradient (uniform points, seed 2) and at its
-    BA 1-keyframe case on `vm_ray`. Tables as in chip_smoke.py (E and A
-    unit normal, seed 0; D planes 0.1 x noise, lines 1 + 0.1 x noise,
-    seed 0), cotangents unit normal, seed 1. Every E and D time carries
-    its L2 figure ``l2_ms`` (sector accesses over ``l2``'s rate), and so
-    does A's."""
+    """{"E": {set: times}, "A": {set: times}, "C": {set: times}, "D":
+    {case: times}}: kernel E and kernel A at the BA 1-keyframe point count
+    of room0_xor on uniform points (seed 2) and on `xor_ray`, A also at the
+    packed Dense grid on the uniform points; kernel C at room0_vm's BA
+    1-keyframe case on uniform points and on `vm_ray`; kernel D at every
+    case of room0_vm that asks for a gradient (uniform points, seed 2) and
+    at its BA 1-keyframe case on `vm_ray`. Tables as in chip_smoke.py (E
+    and A unit normal, seed 0; C and D planes 0.1 x noise, lines 1 + 0.1 x
+    noise, seed 0), cotangents unit normal, seed 1. Every time carries its
+    L2 figure ``l2_ms`` (sector accesses over ``l2``'s rate); A and C are
+    first held to their plain versions within the forward tolerance of
+    chip_smoke.py."""
     from coslam_torch.data.synth import room0_vm_config
     from coslam_torch.ops import encodings as E
     from coslam_torch.ops import hash_packed as HP
@@ -364,21 +401,44 @@ def time_e_and_d(device, xor_ray: torch.Tensor, vm_ray: torch.Tensor,
     xtable = tensor(rng.standard_normal((xspec.total_entries, 2)))
     htable = tensor(np.random.default_rng(0).standard_normal(
         (hspec.total_entries, 2)))
-    out = {"E": {}, "A": {}, "D": {}}
+    out = {"E": {}, "A": {}, "C": {}, "D": {}}
+
+    def held(name, got, ref):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"{name}: {m}")
+
+    def time_a(name, spec, table, x):
+        held(f"A {name}", HP.grid_encode_fwd(spec, table, x),
+              HP.grid_encode_fwd_ref(spec, table, x))
+        out["A"][name] = {
+            "points": int(x.shape[0]),
+            **both_ms(lambda: HP.grid_encode_fwd(spec, table, x)),
+            **l2_ms(a_l2_sectors(spec, x))}
+
     for name, x in (("uniform", uniform(xor_ray.shape[0])), ("ray", xor_ray)):
         out["E"][name] = {
             "points": int(x.shape[0]),
             **both_ms(lambda: XP.xor_grid_encode_fwd(xspec, xtable, x)),
             **l2_ms(e_l2_sectors(xspec, x))}
-        out["A"][name] = {
-            **both_ms(lambda: HP.grid_encode_fwd(hspec, htable, x)),
-            **l2_ms(a_l2_sectors(hspec, x))}
+        time_a(name, hspec, htable, x)
+    dspec = packed_dense_spec(device)
+    dtable = torch.randn((dspec.total_entries, 2), device=device,
+                         generator=torch.Generator(device).manual_seed(0))
+    time_a("dense", dspec, dtable, uniform(xor_ray.shape[0]))
+    del dtable
 
     vspec = VM.make_tensovm_spec(400, 3)
     rng = np.random.default_rng(0)
     planes = tensor(0.1 * rng.standard_normal((vspec.total_entries, 2)))
     lines = tensor(1.0 + 0.1 * rng.standard_normal(
         (VM.line_total_rows(vspec), 2)))
+    for name, x in (("uniform", uniform(vm_ray.shape[0])), ("ray", vm_ray)):
+        held(f"C {name}", VM.tensovm_encode_fwd(vspec, planes, lines, x),
+              VM.tensovm_encode_fwd_ref(vspec, planes, lines, x))
+        out["C"][name] = {
+            "points": int(x.shape[0]),
+            **both_ms(lambda: VM.tensovm_encode_fwd(vspec, planes, lines, x)),
+            **l2_ms(c_l2_sectors(vspec, x))}
     cases = [(label, n, table, dx, None) for label, n, table, dx
              in main_path_cases(room0_vm_config("output"), 15) if table or dx]
     cases.append(("BA 1 kf ray-ordered", vm_ray.shape[0], True, False,
@@ -395,14 +455,82 @@ def time_e_and_d(device, xor_ray: torch.Tensor, vm_ray: torch.Tensor,
     return out
 
 
+def _host_us(fn, calls: int) -> float:
+    """Host microseconds per call of fn over `calls` calls, no sync."""
+    fn()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter_ns() - t0) / calls / 1e3
+
+
+def wrapper_host_us(device, calls: int = 10_000, n: int = 1024) -> dict:
+    """{"A": {part: us}, "C": {part: us}}: the host's microseconds per call
+    of the kernel A and C wrappers (``grid_encode_fwd`` at the room0 spec,
+    ``tensovm_encode_fwd`` at room0_vm's) on `n` points, each timed over
+    `calls` calls with time.perf_counter_ns and no sync (the kernels take a
+    few us at this size, so the queue never backs up and the whole call is
+    the host's time): "call", the whole wrapper, and each part of its card
+    path: the CPU test (``_kernels.on_cpu``), the tensor checks
+    (``_check_cuda``), the level table lookup, the output's
+    ``torch.empty``, the stream query (``_kernels.stream``), the ctypes
+    call with no point (``n_points`` 0: the binding without a launch), and
+    the return code check (``_kernels.check``); "launch", the ctypes call
+    with the points, which enqueues the kernel."""
+    from coslam_torch.ops import _kernels as K
+    from coslam_torch.ops import hash_packed as HP
+    from coslam_torch.ops import tensovm as VM
+
+    hspec = HP.make_packed_spec(400, 16)
+    vspec = VM.make_tensovm_spec(400, 3)
+    x = torch.rand((n, 3), device=device)
+    table = torch.zeros((hspec.total_entries, 2), device=device)
+    planes = torch.zeros((vspec.total_entries, 2), device=device)
+    lines = torch.ones((VM.line_total_rows(vspec), 2), device=device)
+    lib = K.library()
+    out = {}
+    for name, mod, wrapper, tensors, spec in (
+            ("A", HP, HP.grid_encode_fwd, (table, x), hspec),
+            ("C", VM, VM.tensovm_encode_fwd, (planes, lines, x), vspec)):
+        level_table = K.level_table if name == "A" else mod._level_table
+        levels = level_table(spec, device)
+        parts = {"call": lambda: wrapper(spec, *tensors),
+                 "on_cpu": lambda: K.on_cpu(*tensors),
+                 "_check_cuda": lambda: mod._check_cuda(spec, *tensors),
+                 "level table": lambda: level_table(spec, device),
+                 "torch.empty": lambda: torch.empty(
+                     (n, spec.out_dim), device=device, dtype=torch.float32),
+                 "stream": lambda: K.stream(device)}
+        res = torch.empty((n, spec.out_dim), device=device)
+        ptrs = [t.data_ptr() for t in tensors] + [res.data_ptr()]
+        if name == "A":
+            fn = lib.grid_encode_fwd
+            args = lambda m: (ptrs[1], ptrs[0], ptrs[2], m, 2,  # noqa: E731
+                              levels.data_ptr(), hspec.n_levels,
+                              2 ** hspec.log2_hashmap_size - 1)
+        else:
+            fn = lib.tensovm_encode_fwd
+            args = lambda m: (  # noqa: E731
+                ptrs[2], ptrs[0], ptrs[1], ptrs[3], m, 2, levels.data_ptr(),
+                vspec.pyr_levels)
+        parts["ctypes, no point"] = lambda: fn(*args(0), None)
+        parts["launch"] = lambda: fn(*args(n), K.stream(device))
+        parts["check"] = lambda: K.check(0, "host_us")
+        out[name] = {k: _host_us(f, calls) for k, f in parts.items()}
+        torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--points", required=True,
-                    help="ray-ordered points [N, 3] (numpy .npy)")
+    ap.add_argument("--points",
+                    help="ray-ordered points [N, 3] (numpy .npy; times B, H)")
     ap.add_argument("--xor-points",
-                    help="room0_xor's ray-ordered points (times E, A, D)")
+                    help="room0_xor's ray-ordered points (times E, A, C, D)")
     ap.add_argument("--vm-points",
                     help="room0_vm's ray-ordered points (with --xor-points)")
+    ap.add_argument("--host-us", action="store_true",
+                    help="also the host's us per call of the A and C wrappers")
     ap.add_argument("--out", help="also write the JSON line here")
     ap.add_argument("--profile", action="store_true",
                     help="also each kernel's device time (torch.profiler)")
@@ -416,17 +544,20 @@ def main(argv=None) -> int:
     def load(path):
         return torch.from_numpy(np.load(path).astype(np.float32)).to(device)
 
-    ray = load(args.points)
-    uniform = torch.from_numpy(np.random.default_rng(2).uniform(
-        0, 1, ray.shape).astype(np.float32)).to(device)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     import coslam_torch
 
-    rec = {"card": card, "package": coslam_torch.__file__,
-           **time_b_and_h(device, {"uniform": uniform, "ray": ray},
-                          args.profile)}
+    rec = {"card": card, "package": coslam_torch.__file__}
+    if args.points:
+        ray = load(args.points)
+        uniform = torch.from_numpy(np.random.default_rng(2).uniform(
+            0, 1, ray.shape).astype(np.float32)).to(device)
+        rec.update(time_b_and_h(device, {"uniform": uniform, "ray": ray},
+                                args.profile))
+    if args.host_us:
+        rec["host_us"] = wrapper_host_us(device)
     if args.xor_points:
         rec["l2_gather"] = l2_rate(device)
         rec.update(time_e_and_d(device, load(args.xor_points),

@@ -1,10 +1,12 @@
 """The CUDA kernels of coslam_torch against their plain PyTorch versions,
 on the card: kernels A and B (hash grid), C and D (TensoVM), E and G (XOR
-hash grid; E and D also on ray-ordered points, E also at the Dense grid's
-4 levels), the row accumulate F (atomic) and H (deterministic, also on
-adversarial streams), and the probes' kernels P, Q, R and S (bottom of
-the file). This file imports no jax, so it also runs on a machine with
-the card and without the JAX package's dependencies:
+hash grid; A, C, E and D also on ray-ordered points, E also at the Dense
+grid's 4 levels; A and C also on a side stream, in a CUDA graph, and
+refusing what they do not take), the row accumulate F (atomic) and H
+(deterministic, also on adversarial streams), and the probes' kernels
+P, Q, R and S (bottom of the file). This file imports no jax, so it also
+runs on a machine with the card and without the JAX package's
+dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_card.py
 
@@ -537,6 +539,131 @@ def test_tensovm_autograd_function_on_card_rays(cuda_device):
     torch.testing.assert_close(p["planes"].grad, r_p, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(p["lines"].grad, r_l, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(xx.grad, r_x, rtol=1e-4, atol=1e-3)
+
+
+# Kernel A's shapes: room0's 16 levels (5 dense, 11 hashed), 5 levels (3
+# dense, 2 hashed) and a dense-only packed grid.
+A_SPECS = {"room0": dict(desired_resolution=400, log2_hashmap_size=16),
+           "L5": dict(desired_resolution=96, log2_hashmap_size=16,
+                      n_levels=5),
+           "dense": dict(desired_resolution=128, log2_hashmap_size=16,
+                         n_levels=4, dense_only=True)}
+
+
+def _a_inputs(name, device, seed=5):
+    spec = HP.make_packed_spec(**A_SPECS[name])
+    rng = np.random.default_rng(seed)
+    x_np = _edge_points(_ray_points(200, 43, seed + 1),
+                        spec.resolutions[-1], rng)
+    table, x = (torch.from_numpy(a.astype(np.float32)).to(device)
+                for a in (rng.standard_normal((spec.total_entries, 2)), x_np))
+    return spec, table, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(A_SPECS))
+def test_grid_fwd_on_ray_ordered_points(cuda_device, name):
+    """Kernel A on ray-ordered points (a warp's lanes share coarse cells),
+    with points outside [0, 1], at exactly 0 and 1 and on grid lines, at
+    room0's L = 16, at L = 5 and on a dense-only grid: against
+    grid_encode_fwd_ref at N = 8,600 (not a multiple of a 32-point group),
+    N - 1 and 1; N = 0 gives an empty output without a launch."""
+    spec, table, x = _a_inputs(name, cuda_device)
+    assert x.shape[0] % 32 and bool(((x < 0) | (x > 1)).any())
+    launches = HP.grid_encode_fwd.launches
+    for n in (x.shape[0], x.shape[0] - 1, 1):
+        xs = x[:n].contiguous()
+        torch.testing.assert_close(HP.grid_encode_fwd(spec, table, xs),
+                                   HP.grid_encode_fwd_ref(spec, table, xs),
+                                   rtol=1e-5, atol=1e-5)
+    empty = HP.grid_encode_fwd(spec, table, x[:0])
+    assert empty.shape == (0, spec.out_dim)
+    assert HP.grid_encode_fwd.launches == launches + 3
+
+
+def _c_inputs(name, device, seed=12):
+    spec = VM.make_tensovm_spec(**VM_SPECS[name])
+    return (spec, *_vm_ray_inputs(spec, seed, device)[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(VM_SPECS))
+def test_tensovm_fwd_on_ray_ordered_points(cuda_device, name):
+    """Kernel C on ray-ordered points (a warp's lanes share line rows and
+    coarse plane rows), with points outside [0, 1], at 0 and 1 and on grid
+    lines, at room0_vm and a small spec: against tensovm_encode_fwd_ref at
+    N = 5,400 (not a multiple of C's 64-point tile), N - 1 and 1; N = 0
+    gives an empty output without a launch."""
+    spec, planes, lines, x = _c_inputs(name, cuda_device)
+    assert x.shape[0] % 64 and bool(((x < 0) | (x > 1)).any())
+    launches = VM.tensovm_encode_fwd.launches
+    for n in (x.shape[0], x.shape[0] - 1, 1):
+        xs = x[:n].contiguous()
+        torch.testing.assert_close(
+            VM.tensovm_encode_fwd(spec, planes, lines, xs),
+            VM.tensovm_encode_fwd_ref(spec, planes, lines, xs),
+            rtol=1e-5, atol=1e-5)
+    empty = VM.tensovm_encode_fwd(spec, planes, lines, x[:0])
+    assert empty.shape == (0, spec.out_dim)
+    assert VM.tensovm_encode_fwd.launches == launches + 3
+
+
+def _fwd_calls(device):
+    """(kernel A's call, kernel C's call, their plain versions) on
+    ray-ordered points at room0 and room0_vm."""
+    spec, table, x = _a_inputs("room0", device)
+    vspec, planes, lines, vx = _c_inputs("room0_vm", device)
+    return ((lambda: HP.grid_encode_fwd(spec, table, x),
+             lambda: HP.grid_encode_fwd_ref(spec, table, x)),
+            (lambda: VM.tensovm_encode_fwd(vspec, planes, lines, vx),
+             lambda: VM.tensovm_encode_fwd_ref(vspec, planes, lines, vx)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["A", "C"])
+def test_fwd_on_a_side_stream_and_in_a_graph(cuda_device, kernel):
+    """Kernels A and C launch on the caller's current stream: called on a
+    side stream they agree with the plain version, and captured in a CUDA
+    graph their launch is in the graph (the output, zeroed after capture,
+    is written again by a replay)."""
+    call, plain = dict(zip("AC", _fwd_calls(cuda_device)))[kernel]
+    ref = plain()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = call()
+    side.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fwd_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """The A and C wrappers raise on a CPU/CUDA mix, a wrong dtype, a
+    table of the wrong shape, x not [N, 3] and a non-contiguous x."""
+    spec, table, x = _a_inputs("L5", cuda_device)
+    vspec, planes, lines, vx = _c_inputs("small", cuda_device)
+    bad = {
+        "A": [(table.cpu(), x), (table, x.cpu()), (table.double(), x),
+              (table[:-1], x), (table, x[:, :2].contiguous()),
+              (table, torch.cat([x, x], 1)[:, ::2])],
+        "C": [(planes.cpu(), lines, vx), (planes, lines, vx.cpu()),
+              (planes, lines.double(), vx), (planes, lines[:-2], vx),
+              (planes[:-1], lines, vx),
+              (planes, lines, vx[:, :2].contiguous()),
+              (planes, lines, torch.cat([vx, vx], 1)[:, ::2])]}
+    for args in bad["A"]:
+        with pytest.raises(ValueError):
+            HP.grid_encode_fwd(spec, *args)
+    for args in bad["C"]:
+        with pytest.raises(ValueError):
+            VM.tensovm_encode_fwd(vspec, *args)
 
 
 # The probes' kernels P-S (coslam_torch/csrc/probe_accum.cu): each table

@@ -22,6 +22,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from coslam_tpu.data.synth import (AnalyticScene, make_synthetic_config,
@@ -728,3 +729,68 @@ def test_l2_sector_count_of_a():
     rows = torch.cat([e, e + 1], 1).permute(1, 0, 2)              # [8, L, N]
     assert K.a_l2_sectors(spec, x) == _distinct_sectors(rows) + (
         12 * 200 + 4 * 200 * spec.out_dim) // 32
+
+
+def test_l2_sector_count_of_c():
+    """kernel_times.c_l2_sectors (kernel C's L2 figure): per (point,
+    section) the distinct sectors of its 4 plane rows and its 2 line rows,
+    against a brute-force count, plus x read and the output written; N
+    copies of one point count N times its sectors."""
+    from coslam_torch.ops import tensovm as VM
+    from coslam_torch.tools import kernel_times as K
+
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -0.05, 1.05, (250, 3)).astype(np.float32))
+    spec = VM.make_tensovm_spec(96, 3, base_resolution=16)
+
+    def brute(x):
+        geo = VM._Geometry(spec, torch.zeros((spec.total_entries, 2)),
+                           torch.zeros((VM.line_total_rows(spec), 2)), x)
+        return (_distinct_sectors(torch.stack([geo.e00, geo.e00 + 1, geo.e10,
+                                               geo.e10 + 1]))
+                + _distinct_sectors(torch.stack([geo.l_row, geo.l_row + 1])))
+
+    io = (12 * 250 + 4 * 250 * spec.out_dim) // 32
+    assert K.c_l2_sectors(spec, x) == brute(x) + io
+    one = x[:1].repeat(250, 1)
+    assert K.c_l2_sectors(spec, one) == 250 * brute(x[:1]) + io
+
+
+def test_wrapper_checks_and_level_tables():
+    """The encode wrappers' card-path helpers: each module's _check_cuda
+    (A/B, C/D, E/G) refuses tensors that are not on a CUDA card through
+    _kernels.check_tensors, and the level tables the kernels read are made
+    once per (spec, device) and hold the spec's layout."""
+    from coslam_torch.ops import _kernels
+    from coslam_torch.ops import encodings as E
+    from coslam_torch.ops import hash_packed as HP
+    from coslam_torch.ops import hash_pallas as XP
+    from coslam_torch.ops import tensovm as VM
+
+    cpu = torch.device("cpu")
+    x = torch.zeros((5, 3))
+    spec = HP.make_packed_spec(96, 12, n_levels=6)
+    xspec = E.make_hashgrid_spec(96, 12, n_levels=6)
+    vspec = VM.make_tensovm_spec(96, 3, base_resolution=16)
+    planes = torch.zeros((vspec.total_entries, 2))
+    lines = torch.zeros((VM.line_total_rows(vspec), 2))
+    for call in (
+            lambda: HP._check_cuda(spec, torch.zeros((spec.total_entries, 2)),
+                                   x),
+            lambda: XP._check_cuda(xspec,
+                                   torch.zeros((xspec.total_entries, 2)), x),
+            lambda: VM._check_cuda(vspec, planes, lines, x),
+            lambda: _kernels.check_tensors("t", torch.device("cuda", 0),
+                                           x=x)):
+        with pytest.raises(ValueError, match="is on cpu"):
+            call()
+    levels = _kernels.level_table(spec, cpu)
+    assert _kernels.level_table(spec, cpu) is levels
+    assert levels.tolist() == [list(spec.resolutions), list(spec.offsets),
+                               [int(h) for h in spec.hashed]]
+    vlevels = VM._level_table(vspec, cpu)
+    assert VM._level_table(vspec, cpu) is vlevels
+    sec0 = range(0, vspec.n_levels, 3)
+    assert vlevels.tolist() == [[vspec.resolutions[s] for s in sec0],
+                                [vspec.offsets[s] for s in sec0],
+                                [VM._line_offsets(vspec)[s] for s in sec0]]
