@@ -37,7 +37,14 @@ Run from the repository root. Phases, each printing its own lines:
    (scalar and float4 atomics), Q, R and S
    (coslam_torch/csrc/probe_accum.cu) at each probe's main shape against
    their plain versions, and P's pair form and skip rule, timed on the
-   card alone by CUDA graphs of the calls;
+   card alone by CUDA graphs of the calls; then the serial modes of B and
+   D (K2 and K3 in the TPU kernels' serial order) at the BA 1-keyframe
+   case and on the ray-ordered points: the same bits over two calls and
+   a CUDA graph replay, within the sum-order bound of the plain version,
+   the largest ulp distance from the host's plain version, kernel H's
+   walk over the kernel's own streams equal to np.add.at of them, and
+   their times beside the atomic mode's and deterministic
+   index_put_(accumulate=True)'s on the same streams;
 4. probes: the five scatter-accumulate probes of
    coslam_torch/tools/bench (their entry points, --quick: one setting
    per kernel, at the probes' own shapes; each holds every variant to
@@ -53,7 +60,17 @@ Run from the repository root. Phases, each printing its own lines:
    (6 frames, no mesh). Every slice checks the launches of its kernels on
    the path (every count set to 0 just before the slice and read just
    after it), and that the mesh came from the port's own native marching
-   cubes.
+   cubes;
+6. resume, under torch.use_deterministic_algorithms(True) (with
+   CUBLAS_WORKSPACE_CONFIG set at the top of this script): room0 for 15
+   frames and room0_vm for 10, each writing a checkpoint every 5 frames,
+   then a fresh CoSLAM loaded from the last periodic checkpoint and run
+   to the end, its poses and every parameter tensor equal to the
+   straight run's bit for bit; the serial modes launched in every
+   table-gradient iteration and the atomic B and D only for tracking's
+   dx (launch counts over the straight run, set to 0 just before it);
+7. the current-frame step: room0 for 6 frames with cur_frame_iters 2,
+   kernels A and B launched in each of its iterations, ATE < 10 cm.
 
 Every kernel's record carries its time (for P-S, whose calls are short
 enough that the host's cost per call would show, the card's time from a
@@ -74,6 +91,8 @@ non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import os
@@ -81,19 +100,21 @@ import subprocess
 import sys
 import time
 
-import numpy as np
+# cuBLAS reads this when it starts: with it, matrix products are
+# deterministic under torch.use_deterministic_algorithms(True), which the
+# resume phase turns on.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from coslam_torch.data.synth import (SyntheticFrames, room0_config,
-                                     room0_vm_config, room0_xor_config)
-from coslam_torch.tools.bench._common import accum_bound, bound
-from coslam_torch.tools.kernel_times import graph_ms as _graph_ms
-from coslam_torch.tools.kernel_times import (a_l2_sectors, c_l2_sectors,
-                                             d_l2_sectors, e_l2_sectors,
-                                             h_phases, l2_rate,
-                                             main_path_cases,
-                                             packed_dense_spec,
-                                             record_ba_points)
-from coslam_torch.tools.kernel_times import time_ms as _time_ms
+import numpy as np  # noqa: E402
+
+from coslam_torch.data.synth import (  # noqa: E402
+    SyntheticFrames, room0_config, room0_vm_config, room0_xor_config)
+from coslam_torch.tools.bench._common import accum_bound, bound  # noqa: E402
+from coslam_torch.tools.kernel_times import (  # noqa: E402
+    a_l2_sectors, c_l2_sectors, d_l2_sectors, e_l2_sectors, h_phases,
+    l2_rate, main_path_cases, packed_dense_spec, record_ba_points)
+from coslam_torch.tools.kernel_times import (  # noqa: E402
+    graph_ms as _graph_ms, time_ms as _time_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -154,7 +175,12 @@ class HashKernels:
                   "replaces": "coslam_tpu/ops/hash_packed.py:323"},
               "grid_encode_bwd": {
                   "replaces": "coslam_tpu/ops/hash_packed.py:411",
-                  "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]}}
+                  "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]},
+              "grid_encode_bwd_serial": {
+                  "replaces": "coslam_tpu/ops/hash_packed.py:411",
+                  "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"],
+                  "mode": "serial order (K2, K3), kernel B's stream and "
+                          "kernel H's sort and walk"}}
 
     def __init__(self, device, rng, spec=None):
         from coslam_torch.ops import hash_packed as HP
@@ -201,6 +227,27 @@ class HashKernels:
                           (gw * wz).reshape(F, -1)], 1).T.contiguous()
         return {"dtable": C.sum_order_tol(idx, vals, spec.total_entries)}
 
+    def serial(self, x, g):
+        """Kernel B's serial mode: {"dtable"}."""
+        return {"dtable": self.m.grid_encode_bwd_serial(
+            self.spec, self.table, x, g, False)[0]}
+
+    def cpu_plain(self, x, g):
+        """The plain version's table gradient on the host, whose
+        index_add_ adds in increasing m: the serial mode's order."""
+        return {"dtable": self.m.grid_encode_bwd_ref(
+            self.spec, self.table.cpu(), x.cpu(), g.cpu(), True, False)[0]}
+
+    def serial_stream(self, x):
+        """(keys, vals, tables): the stream buffers the serial mode wrote
+        at x's size, and each table's rows in the concatenated key range."""
+        from coslam_torch.ops import serial_scatter as SS
+
+        rows = self.spec.total_entries
+        keys, vals, _ = SS.stream_scratch(
+            2 * self.spec.n_levels * 4 * x.shape[0], rows, x.device)
+        return keys, vals, {"dtable": (0, rows)}
+
     def l2_sectors(self, x, need_table, need_dx):
         """(kernel A's L2 sector accesses, None): the L2 figure is kept for
         A only."""
@@ -237,7 +284,12 @@ class TensoVMKernels:
                                "coslam_tpu/ops/tensovm.py:287"]},
               "tensovm_encode_bwd": {
                   "replaces": "coslam_tpu/ops/serial_scatter.py:77",
-                  "caller": "coslam_tpu/ops/plane_quad.py:160"}}
+                  "caller": "coslam_tpu/ops/plane_quad.py:160"},
+              "tensovm_encode_bwd_serial": {
+                  "replaces": "coslam_tpu/ops/serial_scatter.py:77",
+                  "caller": "coslam_tpu/ops/plane_quad.py:160",
+                  "mode": "serial order (K3), kernel D's stream and "
+                          "kernel H's sort and walk"}}
 
     def __init__(self, device, rng):
         from coslam_torch.ops import tensovm as VM
@@ -320,6 +372,26 @@ class TensoVMKernels:
             out[what] = (C.sum_order_tol(idx, vals, rows[what])
                          + 12 * 2.0 ** -24 * slack)
         return out
+
+    def serial(self, x, g):
+        """Kernel D's serial mode: {"dplanes", "dlines"}."""
+        dp, dl, _ = self.m.tensovm_encode_bwd_serial(
+            self.spec, self.planes, self.lines, x, g, False)
+        return {"dplanes": dp, "dlines": dl}
+
+    def cpu_plain(self, x, g):
+        dp, dl, _ = self.m.tensovm_encode_bwd_ref(
+            self.spec, self.planes.cpu(), self.lines.cpu(), x.cpu(), g.cpu(),
+            True, True, False)
+        return {"dplanes": dp, "dlines": dl}
+
+    def serial_stream(self, x):
+        from coslam_torch.ops import serial_scatter as SS
+
+        tp, tl = self.spec.total_entries, self.lines.shape[0]
+        keys, vals, _ = SS.stream_scratch(
+            6 * self.spec.n_levels * x.shape[0], tp + tl, x.device)
+        return keys, vals, {"dplanes": (0, tp), "dlines": (tp, tp + tl)}
 
     def l2_sectors(self, x, need_table, need_dx):
         """(kernel C's, kernel D's L2 sector accesses)."""
@@ -844,6 +916,225 @@ def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
     return launches
 
 
+def _ulps(a, b) -> int:
+    """The largest distance between a and b in units in the last place
+    (f32 bit patterns mapped to a monotonic integer line)."""
+    def line(t):
+        i = t.detach().cpu().numpy().astype(np.float32).view(np.int32)
+        i = i.astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int(np.abs(line(a) - line(b)).max()) if a.numel() else 0
+
+
+def _graph_call(fn):
+    """fn's result from a replay of a CUDA graph that captured one call
+    (after warm-up on a side stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = {k: v.clone() for k, v in out.items()}
+    del graph
+    return out
+
+
+def check_serial(device, kernels, case, ray) -> dict:
+    """The serial mode of kernel B or D (``kernels.serial``: K2 and K3 in
+    the TPU kernels' serial order) at `case` (the BA 1-keyframe case,
+    uniform points) and on the ray-ordered points `ray`: the same bits over
+    two calls and from a CUDA graph's replay; within the sum-order bound of
+    the plain version on the card (``kernels.table_tol``), with the largest
+    ulp distance from the plain version on the host (whose index_add_ adds
+    in the serial mode's order); and H's walk over the kernel's own
+    streams equal to a serial np.add.at of them, bit for bit. Times, at
+    both: the mode (events, graph), the atomic mode beside it, the plain
+    version and deterministic ``index_put_(accumulate=True)`` on the same
+    streams (the library call). Returns the record."""
+    import torch
+
+    from coslam_torch.tools.bench import _common as C
+
+    rng = np.random.default_rng(3)
+    rec = {"max_abs_err": 0.0, "max_ulp": 0}
+    label, n = case[0], case[1]
+    for key, lab, x in (("", label, None), ("ray_", RAY_CASE, ray)):
+        if x is None:
+            x = _tensor(device, rng.uniform(0, 1, (n, 3)))
+        g = _tensor(device, rng.standard_normal((x.shape[0],
+                                                 kernels.spec.out_dim)))
+        call = lambda: kernels.serial(x, g)  # noqa: E731
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        for what in got:
+            assert torch.equal(got[what], again[what]), \
+                f"{lab} {what}: the serial mode changed its bits"
+        replay = _graph_call(call)
+        for what in got:
+            assert torch.equal(got[what], replay[what]), \
+                f"{lab} {what}: the graph replay changed the bits"
+        ref = kernels.bwd(x, g, True, False, plain=True)
+        bounds = kernels.table_tol(x, g)
+        host = kernels.cpu_plain(x, g)
+        line = [f"{lab} N={x.shape[0]}: two calls and a graph replay equal"]
+        for what, a in got.items():
+            e = C.assert_within(f"{lab} serial {what}", a, ref[what],
+                                bounds[what])
+            u = _ulps(a, host[what])
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            rec["max_ulp"] = max(rec["max_ulp"], u)
+            line.append(f"{what} err {e:.3g} (sum-order bound), "
+                        f"{u} ulp from the host's plain version")
+        # H's walk over the streams this call wrote, against np.add.at.
+        kernels.serial(x, g)
+        keys, vals, spans = kernels.serial_stream(x)
+        keys_h, vals_h = keys.cpu().numpy(), vals.cpu().numpy()
+        acc = np.zeros((max(hi for _, hi in spans.values()) + 1, 2),
+                       np.float32)
+        np.add.at(acc, keys_h, vals_h)
+        for what, (lo, hi) in spans.items():
+            np.testing.assert_array_equal(got[what].cpu().numpy(),
+                                          acc[lo:hi])
+        line.append(f"H's walk == np.add.at of the kernel's {keys.shape[0]} "
+                    "updates")
+        times = {"ms": _time_ms(call), "graph_ms": _graph_ms(call),
+                 "atomic_ms": _time_ms(lambda: kernels.bwd(x, g, True,
+                                                           False)),
+                 "plain_ms": _time_ms(lambda: kernels.bwd(x, g, True, False,
+                                                          plain=True))}
+        keys_l = keys.long()
+        buf = torch.zeros_like(torch.from_numpy(acc), device=device)
+        with _deterministic():
+            times["library_ms"] = _time_ms(lambda: buf.index_put_(
+                (keys_l,), vals, accumulate=True))
+        line += [f"{k} {v:.4f}" for k, v in times.items()]
+        print("  " + ", ".join(line), flush=True)
+        rec.update({key + k: v for k, v in times.items()})
+        if key == "":
+            work = kernels.work(x.shape[0], kernels.touched_bytes(x, g), True,
+                                False)
+            rec.update(bound(*work[1]))
+    return rec
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch.use_deterministic_algorithms(True) for a with block."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def run_resume(device, cfg: dict, data, n_frames: int, ckpt_every: int,
+               serial, atomic, wrappers) -> dict:
+    """Crash-resume on the card under torch.use_deterministic_algorithms
+    (True): a straight run of n_frames writing a checkpoint every
+    ckpt_every frames, then a fresh CoSLAM loaded from the last periodic
+    checkpoint and run to the end; est_c2w and every parameter tensor
+    must equal the straight run's bit for bit. The launch counts of
+    `wrappers` over the straight run (each set to 0 just before it) are
+    returned; the serial mode `serial` must be launched in every
+    table-gradient iteration (first frame, BA) of both runs, and the
+    atomic `atomic` only for tracking's dx (one a tracking iteration)."""
+    import torch
+
+    from coslam_torch.runtime.checkpoint import param_leaves
+    from coslam_torch.runtime.slam import CoSLAM
+
+    mcfg, tcfg = cfg["mapping"], cfg["tracking"]
+    last = (n_frames - 1) // ckpt_every * ckpt_every
+    assert 0 < last < n_frames - 1, (n_frames, ckpt_every)
+    with _deterministic():
+        slam_a = CoSLAM(cfg, data, device=device)
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = slam_a.run(n_frames=n_frames, verbose=False, mesh=False,
+                         ckpt_every=ckpt_every)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        n_track = (n_frames - 1) * tcfg["iter"]
+        n_ba = len(slam_a.timings["mapping"]) * mcfg["iters"]
+        assert launches[serial.__name__] >= mcfg["first_iters"] + n_ba, \
+            launches
+        assert launches[atomic.__name__] == n_track, launches
+
+        cfg_b = copy.deepcopy(cfg)
+        cfg_b["data"]["exp_name"] += "_resumed"
+        slam_b = CoSLAM(cfg_b, data, device=device)
+        path = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"],
+                            f"checkpoint{last}.npz")
+        assert slam_b.load_checkpoint(path) == last
+        serial.launches = atomic.launches = 0
+        slam_b.run(n_frames=n_frames, verbose=False, mesh=False,
+                   start_frame=last)
+        torch.cuda.synchronize()
+        n_ba_b = len(slam_b.timings["mapping"]) * mcfg["iters"]
+        assert n_ba_b > 0 and serial.launches >= n_ba_b, serial.launches
+        assert atomic.launches == (n_frames - last) * tcfg["iter"], \
+            atomic.launches
+    assert np.array_equal(slam_b.est_c2w, slam_a.est_c2w), \
+        "the resumed run's poses differ from the straight run's"
+    for a, b in zip(param_leaves(slam_a.params), param_leaves(slam_b.params),
+                    strict=True):
+        assert torch.equal(a, b), "the resumed run's map differs"
+    ate = res["absolute_translational_error.rmse"]
+    assert math.isfinite(ate) and ate < 0.10, ate
+    t = slam_a.timings
+    print("  " + json.dumps({
+        "deterministic": True, "wall_s": wall,
+        "tracking_ms_median": 1e3 * float(np.median(t["tracking"])),
+        "ba_ms_median": 1e3 * float(np.median(t["mapping"])),
+        "ate_rmse_m": ate, "resumed_from": last,
+        "resumed_equal_bit_for_bit": True, "launches": launches}),
+        flush=True)
+    return launches
+
+
+def run_current_frame(device, cfg: dict, data, n_frames: int, fwd,
+                      bwd) -> None:
+    """The loop with mapping.cur_frame_iters > 0: every current-frame call
+    must launch the grid's forward `fwd` and backward `bwd` kernels in
+    each of its iterations; ATE < 10 cm."""
+    import torch
+
+    from coslam_torch.runtime.slam import CoSLAM
+
+    iters = cfg["mapping"]["cur_frame_iters"]
+    slam = CoSLAM(cfg, data, device=device)
+    step, calls = slam._cur_step, []
+
+    def counted(*args):
+        before = fwd.launches, bwd.launches
+        loss = step(*args)
+        calls.append((fwd.launches - before[0], bwd.launches - before[1]))
+        return loss
+
+    slam._cur_step = counted
+    res = slam.run(n_frames=n_frames, verbose=False, mesh=False)
+    torch.cuda.synchronize()
+    assert calls and len(calls) == len(slam.timings["mapping"]), calls
+    assert all(a >= iters and b >= iters for a, b in calls), calls
+    ate = res["absolute_translational_error.rmse"]
+    assert math.isfinite(ate) and ate < 0.10, ate
+    print("  " + json.dumps({"cur_frame_iters": iters,
+                             "calls_launches_fwd_bwd": calls,
+                             "ate_rmse_m": ate}), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -941,6 +1232,20 @@ def main() -> int:
             measured[name]["dense"] = rec
         del dk
 
+    from coslam_torch.ops import hash_packed as HP
+    from coslam_torch.ops import tensovm as VM
+
+    for k, cfg, ray, serial in ((hk, room0_cfg, rays[""],
+                                 HP.grid_encode_bwd_serial),
+                                (vk, vm_cfg, rays["_vm"],
+                                 VM.tensovm_encode_bwd_serial)):
+        _phase(f"the serial mode against the plain version: {k.source}")
+        ba1 = [c for c in main_path_cases(cfg, N_FRAMES)
+               if c[0] == "BA 1 kf"][0]
+        measured[serial.__name__] = {
+            "source": k.source, **k.record[serial.__name__],
+            **check_serial(device, k, ba1, ray)}
+
     _phase("kernels against the plain versions: the row accumulate, "
            + ", ".join(sorted(set(ACCUM_SOURCES.values()))))
     for name, rec in check_accumulate(
@@ -983,6 +1288,27 @@ def main() -> int:
         print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
         for fn in (*own, *table_own):
             launches.setdefault(fn.__name__, counts[fn.__name__])
+    serial = (HP.grid_encode_bwd_serial, VM.tensovm_encode_bwd_serial)
+    for cfg, frames, own, atomic in (
+            (room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke_det"),
+             N_FRAMES, serial[0], hk.bwd_fn),
+            (room0_vm_config(out, H, W, N_FRAMES,
+                             exp_name="chip_smoke_vm_det"), 10, serial[1],
+             vk.bwd_fn)):
+        t = _phase(f"resume: {cfg['data']['exp_name']} ({cfg['grid']['enc']}"
+                   f", {frames} frames) under "
+                   "torch.use_deterministic_algorithms(True)")
+        counts = run_resume(device, cfg, data, frames, 5, own, atomic,
+                            [*wrappers, *serial])
+        print(f"  resume {time.perf_counter() - t:.1f} s", flush=True)
+        launches[own.__name__] = counts[own.__name__]
+
+    t = _phase("current-frame step: room0, 6 frames, cur_frame_iters 2")
+    cur_cfg = room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke_cur")
+    cur_cfg["mapping"]["cur_frame_iters"] = 2
+    run_current_frame(device, cur_cfg, data, 6, hk.fwd_fn, hk.bwd_fn)
+    print(f"  current frame {time.perf_counter() - t:.1f} s", flush=True)
+
     first = ("source", "replaces", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")
     records = [{"name": name, "route": "cuda", "source": rec["source"],

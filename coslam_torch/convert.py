@@ -6,14 +6,19 @@ whose grid is one table [T, F] or a dict of tables (TensoVM's
 ``{"planes", "lines"}``), becomes the port's dict of tensors with the
 same structure and layouts (weights stay [in, out]), and back. Both
 directions go through numpy, so neither side needs the other framework.
+The map optimizer's state crosses too: optax's Adam state as a flat
+leaf list (a checkpoint's ``opt_state``) to ``torch.optim.Adam``'s
+per-parameter state, and back.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
+
+from .runtime.optim import grid_leaves
 
 
 def _map_grid(fn, grid):
@@ -58,3 +63,79 @@ def params_to_numpy(params: Dict) -> Dict:
     return {"grid": _map_grid(a, params["grid"]),
             "decoder": {k: [a(w) for w in params["decoder"][k]]
                         for k in ("sdf_net", "color_net")}}
+
+
+# ---------------------------------------------------------------------------
+# Map optimizer state: optax's multi_transform Adam <-> torch.optim.Adam
+# ---------------------------------------------------------------------------
+
+# The JAX map optimizer (coslam_tpu/runtime/optim.py:make_map_optimizer)
+# is optax.multi_transform over the labels "decoder" and "grid" of the
+# top-level keys; its state flattens label by label in sorted order, each
+# as the Adam count, then mu over the label's leaves, then nu over them
+# (the weight-decay and scale transforms hold no arrays). The leaves of a
+# label come in the sorted-key flatten order of the parameters:
+# color_net before sdf_net, a dict grid's tables in sorted-key order.
+# tests/test_torch_integration.py holds this order to
+# jax.tree_util.tree_flatten of a live optax state.
+MAP_OPT_LABELS = ("decoder", "grid")
+
+
+def label_leaves(params: Dict, label: str) -> List:
+    """The tensors of one optax label, in JAX's flatten order."""
+    if label == "decoder":
+        return [*params["decoder"]["color_net"], *params["decoder"]["sdf_net"]]
+    return grid_leaves(params["grid"])
+
+
+def adam_state_to_jax(opt: torch.optim.Optimizer, params: Dict) -> List:
+    """The state of ``opt`` (the port's map optimizer over ``params``) as
+    the flat leaf list of the JAX map optimizer's state: per label, an
+    int32 count (torch's ``step``, which counts the same updates and
+    enters the bias correction the same way), then ``exp_avg`` (mu) and
+    ``exp_avg_sq`` (nu) of its tensors. Tensors stay on their device;
+    a tensor without state (no step taken yet) gives count 0 and zeros."""
+    out = []
+    for label in MAP_OPT_LABELS:
+        ps = label_leaves(params, label)
+        st = [opt.state.get(p, {}) for p in ps]
+        out.append(np.int32(int(st[0]["step"]) if st[0] else 0))
+        for key in ("exp_avg", "exp_avg_sq"):
+            out += [s[key] if s else torch.zeros_like(p)
+                    for p, s in zip(ps, st)]
+    return out
+
+
+def adam_state_from_jax(opt: torch.optim.Optimizer, params: Dict,
+                        leaves: List) -> None:
+    """Set the state of ``opt`` (the port's map optimizer over ``params``)
+    from the JAX map optimizer's state leaves (``adam_state_to_jax``'s
+    layout, as a checkpoint stores them)."""
+    i = 0
+    for label in MAP_OPT_LABELS:
+        ps = label_leaves(params, label)
+        count = int(np.asarray(leaves[i]))
+        mu = leaves[i + 1:i + 1 + len(ps)]
+        nu = leaves[i + 1 + len(ps):i + 1 + 2 * len(ps)]
+        i += 1 + 2 * len(ps)
+        for p, m, v in zip(ps, mu, nu):
+            group = next(g for g in opt.param_groups
+                         if any(q is p for q in g["params"]))
+            on_device = group.get("capturable") or group.get("fused")
+            opt.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=p.device if on_device else "cpu"),
+                "exp_avg": _tensor_like(m, p),
+                "exp_avg_sq": _tensor_like(v, p)}
+    if i != len(leaves):
+        raise ValueError(f"optimizer state has {len(leaves)} leaves, the "
+                         f"model's layout {i}")
+
+
+def _tensor_like(a, p: torch.Tensor) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor)
+                        else a)
+    if tuple(t.shape) != tuple(p.shape):
+        raise ValueError(f"optimizer state {tuple(t.shape)} does not match "
+                         f"its parameter {tuple(p.shape)}")
+    return t.to(device=p.device, dtype=p.dtype).clone()

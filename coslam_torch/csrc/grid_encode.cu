@@ -66,6 +66,17 @@
 // Determinism. f32 atomicAdd order changes from run to run, so dtable
 // agrees with a serial sum only to a sum-order tolerance; dx is summed in
 // a fixed order, but not the plain version's.
+//
+// The serial mode (grid_encode_bwd_stream: K2 and K3 in the TPU kernels'
+// serial order). In place of each row-pair atomic, the kernel writes the
+// two updates of the corner, (e, v0) and (e + 1, v1), into a (row key,
+// 2-wide value) stream at the update's index m in the plain version's
+// order (grid_encode_bwd_ref: every v0 over [L, corner, N], then every
+// v1): m = (l * 4 + c) * N + n, and M0 + m for v1, with M0 = L * 4 * N.
+// Kernel H's sort, run starts and walk (row_accum.cu) then sum every row
+// in increasing m from 0.0, so dtable is the same bits on every run. The
+// values are formed with __fmul_rn, one rounding a product as in the plain
+// version. dx is the atomic mode's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -238,10 +249,13 @@ __global__ void __launch_bounds__(kThreads) grid_encode_fwd_kernel(
 // Thread (point, level): a block holds `ppb` = kThreads / L whole points,
 // their L level-threads adjacent (L = 16: a half-warp each), so a point's
 // dx is summed inside the block and stored once.
-template <int F>
+// kStream: the serial mode, which writes the updates into keys [2 * M0]
+// and vals [2 * M0] (float2) instead of adding them into dtable.
+template <int F, bool kStream>
 __global__ void __launch_bounds__(kThreads) grid_encode_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ table,
     const float* __restrict__ g, float* __restrict__ dtable,
+    int* __restrict__ keys, float2* __restrict__ vals,
     float* __restrict__ dx, int64_t n_points, Levels lv, int ppb) {
   static_assert(F == 2, "the row-pair atomics are written for F = 2");
   __shared__ float part[kThreads][3];
@@ -269,7 +283,17 @@ __global__ void __launch_bounds__(kThreads) grid_encode_bwd_kernel(
     for (int c = 0; c < 4; ++c) {
       const int64_t e = corner_entry(lv, l, res, cell, c);
       const float wxy = xy_weight(w, c);
-      if (dtable != nullptr) {
+      if (kStream) {
+        // (gl wxy)(1 - wz) and (gl wxy) wz, each product rounded once.
+        const float gw0 = __fmul_rn(gl[0], wxy), gw1 = __fmul_rn(gl[1], wxy);
+        const int64_t m = (static_cast<int64_t>(l) * 4 + c) * n_points + n;
+        const int64_t m1 = m + static_cast<int64_t>(L) * 4 * n_points;
+        keys[m] = static_cast<int>(e);
+        vals[m] = make_float2(__fmul_rn(gw0, 1.0f - wz),
+                              __fmul_rn(gw1, 1.0f - wz));
+        keys[m1] = static_cast<int>(e + 1);
+        vals[m1] = make_float2(__fmul_rn(gw0, wz), __fmul_rn(gw1, wz));
+      } else if (dtable != nullptr) {
         float v0[F], v1[F];
 #pragma unroll
         for (int f = 0; f < F; ++f) {
@@ -385,9 +409,33 @@ int grid_encode_bwd(const float* x, const float* table, const float* g,
   const int ppb = kThreads / n_levels;
   const unsigned int blocks =
       static_cast<unsigned int>((n_points + ppb - 1) / ppb);
-  grid_encode_bwd_kernel<kFeatures>
+  grid_encode_bwd_kernel<kFeatures, false>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, table, g, dtable, dx, n_points, lv, ppb);
+          x, table, g, dtable, nullptr, nullptr, dx, n_points, lv, ppb);
+  return cudaGetLastError();
+}
+
+// The serial mode: keys (int32 [2 * L * 4 * N]) and vals (float2, 8-byte
+// aligned, as many) take every update of the table gradient at its index
+// m (the header's order); dx as in grid_encode_bwd (may be null). The
+// caller keeps 2 * L * 4 * N below 2^31 and every row below 2^31.
+int grid_encode_bwd_stream(const float* x, const float* table, const float* g,
+                           int* keys, float* vals, float* dx,
+                           int64_t n_points, int n_features,
+                           const int* levels, int n_levels,
+                           unsigned int hash_mask, void* stream) {
+  if (n_points == 0) return cudaSuccess;
+  if (n_features != kFeatures || n_levels < 1 || n_levels > kThreads ||
+      keys == nullptr || reinterpret_cast<uintptr_t>(vals) % 8 != 0)
+    return cudaErrorInvalidValue;
+  const Levels lv{levels, n_levels, hash_mask};
+  const int ppb = kThreads / n_levels;
+  const unsigned int blocks =
+      static_cast<unsigned int>((n_points + ppb - 1) / ppb);
+  grid_encode_bwd_kernel<kFeatures, true>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          x, table, g, nullptr, keys, reinterpret_cast<float2*>(vals), dx,
+          n_points, lv, ppb);
   return cudaGetLastError();
 }
 

@@ -92,6 +92,21 @@
 // Determinism. f32 atomicAdd order changes from run to run, so dplanes and
 // dlines agree with a serial sum only to a sum-order tolerance; dx is
 // summed in a fixed order, but not the plain version's.
+//
+// The serial mode (tensovm_encode_bwd_stream: K3 in the TPU kernel's serial
+// order). In place of the plane atomics and the line accumulator, the
+// kernel writes every update of dplanes and dlines as a (row key, 2-wide
+// value) pair into one stream over the concatenated table [Tp + Tl, F]
+// (line row i is key Tp + i), at the update's index m in the plain
+// version's order (tensovm_encode_bwd_ref): the plane corners e00,
+// e00 + 1, e10, e10 + 1, each over [S, N] (m = (k * S + s) * N + n), then
+// the line rows i0 and i0 + 1, each over [S, N] (m = 4 S N + (j * S + s) *
+// N + n), with S = 3 L sections. Kernel H's sort, run starts and walk
+// (row_accum.cu) then sum every row in increasing m from 0.0, so dplanes
+// and dlines are the same bits on every run. The values are formed with
+// __fmul_rn / __fadd_rn, one rounding an operation as in the plain
+// version, where FMA contraction moved single-update entries by a few
+// ulp. dx is the atomic mode's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -279,12 +294,19 @@ inline int tile_points(int n_levels) {
 // memory, in floats: the tile's x [tile * 3] and g [tile * L * 2], dx's
 // terms [L * tile * 3] (with dx) and the line accumulator [n_line_rows * 2]
 // (with dlines).
+//
+// kStream: the serial mode; keys and vals (float2) take the updates (the
+// header's order), line rows keyed from line_key0 = Tp, and dplanes and
+// dlines are null.
+template <bool kStream>
 __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
                                    const float* __restrict__ planes,
                                    const float* __restrict__ lines,
                                    const float* __restrict__ g,
                                    float* __restrict__ dplanes,
                                    float* __restrict__ dlines,
+                                   int* __restrict__ keys,
+                                   float2* __restrict__ vals, int line_key0,
                                    float* __restrict__ dx, int64_t n_points,
                                    Levels lv, int n_line_rows, int tile) {
   constexpr int F = 2;
@@ -352,7 +374,46 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
                          (a[f][3] - a[f][2]) * wu);
           dw += gq[f] * (a[f][5] - a[f][4]);
         }
-        if (dplanes != nullptr) {
+        if (kStream) {
+          // The plain version's values, one rounding an operation.
+          float gpe[F], gqe[F];
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float featv0 = __fadd_rn(__fmul_rn(a[f][0], 1.0f - wv),
+                                           __fmul_rn(a[f][1], wv));
+            const float featv1 = __fadd_rn(__fmul_rn(a[f][2], 1.0f - wv),
+                                           __fmul_rn(a[f][3], wv));
+            const float plane = __fadd_rn(__fmul_rn(featv0, 1.0f - wu),
+                                          __fmul_rn(featv1, wu));
+            const float line = __fadd_rn(__fmul_rn(a[f][4], 1.0f - wl),
+                                         __fmul_rn(a[f][5], wl));
+            gpe[f] = __fmul_rn(gl[f], line);
+            gqe[f] = __fmul_rn(gl[f], plane);
+          }
+          const float w[4] = {__fmul_rn(1.0f - wu, 1.0f - wv),
+                              __fmul_rn(1.0f - wu, wv),
+                              __fmul_rn(wu, 1.0f - wv), __fmul_rn(wu, wv)};
+          const int64_t corner[4] = {sec.e00, sec.e00 + 1, sec.e00 + sec.r1,
+                                     sec.e00 + sec.r1 + 1};
+          const int64_t S = 3 * static_cast<int64_t>(L);
+          const int64_t m0 = (3 * static_cast<int64_t>(l) + s) * n_points +
+                             n0 + p;
+          const int64_t step = S * n_points;  // one corner or line row
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            keys[m0 + k * step] = static_cast<int>(corner[k]);
+            vals[m0 + k * step] = make_float2(__fmul_rn(gpe[0], w[k]),
+                                              __fmul_rn(gpe[1], w[k]));
+          }
+          const float wlk[2] = {1.0f - wl, wl};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            keys[m0 + (4 + j) * step] =
+                line_key0 + static_cast<int>(sec.l0) + j;
+            vals[m0 + (4 + j) * step] = make_float2(
+                __fmul_rn(gqe[0], wlk[j]), __fmul_rn(gqe[1], wlk[j]));
+          }
+        } else if (dplanes != nullptr) {
           const float w00 = (1.0f - wu) * (1.0f - wv), w01 = (1.0f - wu) * wv;
           const float w10 = wu * (1.0f - wv), w11 = wu * wv;
           add_pair(dplanes, sec.e00, make_float2(gp[0] * w00, gp[1] * w00),
@@ -425,7 +486,7 @@ cudaError_t resident_blocks(int threads, size_t smem, int64_t* wave) {
                                  device);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, tensovm_bwd_kernel, threads, smem);
+          &per_sm, tensovm_bwd_kernel<false>, threads, smem);
     if (err != cudaSuccess) return err;
     last_device = device;
     last_threads = threads;
@@ -491,7 +552,7 @@ int tensovm_encode_bwd(const float* x, const float* planes,
   if (smem > 48 * 1024) {
     // Above 48 KB a block gets shared memory only when asked for (at most
     // 227 KB on Hopper; a larger line table is refused at launch).
-    err = cudaFuncSetAttribute(tensovm_bwd_kernel,
+    err = cudaFuncSetAttribute(tensovm_bwd_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -504,10 +565,50 @@ int tensovm_encode_bwd(const float* x, const float* planes,
     if (err != cudaSuccess) return err;
     if (blocks > wave) blocks = wave;
   }
-  tensovm_bwd_kernel<<<static_cast<unsigned int>(blocks), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, planes, lines, g, dplanes, dlines, dx, n_points, lv, n_line_rows,
-      tile);
+  tensovm_bwd_kernel<false>
+      <<<static_cast<unsigned int>(blocks), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          x, planes, lines, g, dplanes, dlines, nullptr, nullptr, 0, dx,
+          n_points, lv, n_line_rows, tile);
+  return cudaGetLastError();
+}
+
+// The serial mode: keys (int32 [6 * 3L * N]) and vals (float2, 8-byte
+// aligned, as many) take every update of dplanes and dlines at its index m
+// (the header's order), plane rows as they are and line rows from
+// n_plane_rows on; dx as in tensovm_encode_bwd (may be null). One tile a
+// block. The caller keeps 18 L N and n_plane_rows + n_line_rows below
+// 2^31.
+int tensovm_encode_bwd_stream(const float* x, const float* planes,
+                              const float* lines, const float* g, int* keys,
+                              float* vals, float* dx, int64_t n_points,
+                              int n_features, const int* levels, int n_levels,
+                              int n_plane_rows, int n_line_rows,
+                              void* stream) {
+  if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
+      misaligned(planes) || misaligned(lines) || keys == nullptr ||
+      reinterpret_cast<uintptr_t>(vals) % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (n_points == 0) return cudaSuccess;
+  const int tile = tile_points(n_levels);
+  const int threads = n_levels * tile;
+  const size_t smem =
+      (static_cast<size_t>(tile) * (3 + n_levels * kFeatures) +
+       (dx != nullptr ? static_cast<size_t>(n_levels) * tile * 3 : 0)) *
+      sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tensovm_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t blocks = (n_points + tile - 1) / tile;
+  tensovm_bwd_kernel<true>
+      <<<static_cast<unsigned int>(blocks), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          x, planes, lines, g, nullptr, nullptr, keys,
+          reinterpret_cast<float2*>(vals), n_plane_rows, dx, n_points,
+          Levels{levels, n_levels}, n_line_rows, tile);
   return cudaGetLastError();
 }
 

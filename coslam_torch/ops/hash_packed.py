@@ -15,7 +15,13 @@ update the row pair of the logical f32 table directly:
 - :func:`grid_encode_bwd`: kernel B, the table gradient and/or dx. Each
   corner adds its row pair (e, e + 1) with one float4 atomic (e even) or
   two float2 atomics (e odd); a point's dx is summed over its levels
-  inside the block and stored once, so dx needs no zero fill.
+  inside the block and stored once, so dx needs no zero fill;
+- :func:`grid_encode_bwd_serial`: kernel B's serial mode, K2 and K3 in
+  the TPU kernels' serial order, which :func:`grid_encode_bwd` takes for
+  the table gradient when ``torch.are_deterministic_algorithms_enabled()``:
+  B writes every update as a (row, value) stream in the plain version's
+  order (:func:`grid_encode_bwd_streams_ref`) and kernel H's sort and walk
+  sum each row in that order, so dtable is the same bits on every run.
 
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 versions (:func:`grid_encode_fwd_ref`, :func:`grid_encode_bwd_ref`),
@@ -35,6 +41,7 @@ from typing import Tuple
 import torch
 
 from . import _kernels
+from . import serial_scatter as SS
 
 # Instant-NGP spatial-hash primes, used for the x/y axes.
 _P1 = 2654435761
@@ -219,6 +226,26 @@ def grid_encode_bwd_ref(spec: PackedGridSpec, table: torch.Tensor,
     return dtable, dx
 
 
+def grid_encode_bwd_streams_ref(spec: PackedGridSpec, table: torch.Tensor,
+                                x: torch.Tensor, g: torch.Tensor):
+    """The table gradient's updates in the order grid_encode_bwd_ref adds
+    them: every v0 = (g wxy)(1 - wz) at row e over [L, corner, N], then
+    every v1 = (g wxy) wz at row e + 1 -> (rows int32 [M], values [M, F]),
+    M = 2 L 4 N. serial_scatter.row_accum_ref of them is
+    grid_encode_bwd_ref's dtable bit for bit on the CPU; kernel B's serial
+    mode writes the same stream on the card."""
+    del table  # the updates do not read it
+    n, L, F = x.shape[0], spec.n_levels, spec.n_features
+    cell, w = _cells_and_weights(spec, x)
+    e = _corner_entries(spec, cell)                          # [L, 4, N]
+    wz = w[:, 2, None]
+    gw = g.reshape(n, L, F).permute(2, 1, 0)[:, :, None] * _xy_weights(w)
+    idx = torch.cat([e.reshape(-1), (e + 1).reshape(-1)]).to(torch.int32)
+    vals = torch.cat([(gw * (1 - wz)).reshape(F, -1),
+                      (gw * wz).reshape(F, -1)], 1).T.contiguous()
+    return idx, vals
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
@@ -262,6 +289,8 @@ def grid_encode_bwd(spec: PackedGridSpec, table: torch.Tensor,
         return grid_encode_bwd_ref(spec, table, x, g, need_dtable, need_dx)
     if not (need_dtable or need_dx):
         return None, None
+    if need_dtable and torch.are_deterministic_algorithms_enabled():
+        return grid_encode_bwd_serial(spec, table, x, g, need_dx)
     _check_cuda(spec, table, x, g)
     dtable = torch.zeros_like(table) if need_dtable else None
     dx = torch.empty_like(x) if need_dx else None     # every entry written
@@ -275,9 +304,46 @@ def grid_encode_bwd(spec: PackedGridSpec, table: torch.Tensor,
     return dtable, dx
 
 
-# Launch counts of the two kernels (the CPU path never adds to them).
+def grid_encode_bwd_serial(spec: PackedGridSpec, table: torch.Tensor,
+                           x: torch.Tensor, g: torch.Tensor, need_dx: bool):
+    """Kernel B's serial mode: (dtable [T, F], dx [N, 3] or None). B
+    writes the table gradient's M = 2 L 4 N updates, in the order of
+    :func:`grid_encode_bwd_streams_ref`, into a stream of (row, value)
+    pairs (:func:`serial_scatter.stream_scratch`, reused across calls of
+    one shape), and kernel H's sort, run starts and walk sum every row in
+    increasing m from 0.0: the serial order of the TPU's K2 and K3, so
+    dtable is the same bits on every run and, up to each value's rounding,
+    grid_encode_bwd_ref's. dx as in :func:`grid_encode_bwd`. CUDA tensors
+    only: it raises on a CPU tensor (whose plain version is already
+    serial)."""
+    _check_cuda(spec, table, x, g)
+    if tuple(g.shape) != (x.shape[0], spec.out_dim):
+        raise ValueError(f"grid encode: g {tuple(g.shape)} is not "
+                         f"[{x.shape[0]}, {spec.out_dim}]")
+    n, rows = x.shape[0], spec.total_entries
+    m = 2 * spec.n_levels * 4 * n
+    if m >= 2 ** 31 or rows >= 2 ** 31 - 1:
+        raise ValueError(f"grid encode: {m} updates into {rows} rows are out "
+                         "of the serial mode's int32 range")
+    dx = torch.empty_like(x) if need_dx else None      # every entry written
+    if n == 0:
+        return torch.zeros_like(table), dx
+    keys, vals, plan = SS.stream_scratch(m, rows, x.device)
+    _kernels.check(_kernels.library().grid_encode_bwd_stream(
+        x.data_ptr(), table.data_ptr(), g.data_ptr(), keys.data_ptr(),
+        vals.data_ptr(), _kernels.ptr(dx), n, spec.n_features,
+        _kernels.level_table(spec, x.device).data_ptr(), spec.n_levels,
+        2 ** spec.log2_hashmap_size - 1, _kernels.stream(x.device)),
+        "grid_encode_bwd_stream")
+    dtable = SS.serial_sum(plan)[:rows]
+    grid_encode_bwd_serial.launches += 1
+    return dtable, dx
+
+
+# Launch counts of the kernels (the CPU path never adds to them).
 grid_encode_fwd.launches = 0
 grid_encode_bwd.launches = 0
+grid_encode_bwd_serial.launches = 0
 
 
 class GridEncode(torch.autograd.Function):

@@ -186,8 +186,11 @@ class XorGridEncode(torch.autograd.Function):
         need_table, need_dx = ctx.needs_input_grad[:2]
         idx, vals, dx = xor_grid_encode_bwd(ctx.spec, table, x, g.contiguous(),
                                             need_table, need_dx)
-        dtable = (scatter_add(idx, vals, ctx.spec.total_entries,
-                              ctx.deterministic) if need_table else None)
+        # PyTorch's deterministic switch takes kernel H for every
+        # grad_impl, as it takes B's and D's serial modes.
+        det = ctx.deterministic or torch.are_deterministic_algorithms_enabled()
+        dtable = (scatter_add(idx, vals, ctx.spec.total_entries, det)
+                  if need_table else None)
         return dtable, dx, None, None
 
 

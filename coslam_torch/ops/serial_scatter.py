@@ -22,6 +22,11 @@ On the card it runs in one of two modes:
   long one): the order in which the TPU's serial loop adds, so the result
   is the same bits on every run and equals a serial ``np.add.at``.
 
+Kernels B and D have a serial mode of their own (hash_packed.py,
+tensovm.py): each writes its updates as a (row key, 2-wide value) stream
+into the buffers of :func:`stream_scratch`, and :func:`serial_sum` runs
+kernel H's three phases over it.
+
 CPU tensors take the plain version in both modes: ``index_add_``, which
 on the CPU adds in increasing m (the serial order of the deterministic
 mode). CUDA tensors take the kernels or the call raises.
@@ -29,7 +34,9 @@ mode). CUDA tensors take the kernels or the call raises.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -162,6 +169,32 @@ class SegmentedPlan:
                    self.m, self.rows, self.width)
 
 
+@functools.lru_cache(maxsize=4)
+def stream_scratch(m: int, rows: int, device: torch.device
+                   ) -> Tuple[torch.Tensor, torch.Tensor, SegmentedPlan]:
+    """(keys int32 [m], vals f32 [m, 2], the SegmentedPlan over them into
+    [rows + 1, 2]): the update stream that a serial-mode backward kernel
+    (B's or D's) writes, and kernel H's scratch to sum it, kept for the
+    last few shapes so that the calls of one shape reuse them (a room0 BA
+    call at one keyframe streams 22.5 M updates: 270 MB, and the sort
+    twice as much again). Calls on one stream only: a call's buffers are
+    read by its own sort and walk before the next call writes them."""
+    keys = torch.empty(m, dtype=torch.int32, device=device)
+    vals = torch.empty((m, 2), dtype=torch.float32, device=device)
+    return keys, vals, SegmentedPlan(keys, vals, rows)
+
+
+def serial_sum(plan: SegmentedPlan) -> torch.Tensor:
+    """out [rows + 1, 2]: kernel H's sort, run starts and walk over the
+    plan's stream, every row summed in increasing m from 0.0."""
+    out = torch.empty((plan.rows + 1, plan.width), dtype=torch.float32,
+                      device=plan.vals.device)
+    plan.sort()
+    plan.starts()
+    plan.walk(out)
+    return out
+
+
 def row_accum(idx: torch.Tensor, vals: torch.Tensor, rows: int,
               deterministic: bool) -> torch.Tensor:
     """out [rows + 1, W] f32 with out[clip(idx[m], 0, rows)] += vals[m]:
@@ -177,12 +210,7 @@ def row_accum(idx: torch.Tensor, vals: torch.Tensor, rows: int,
                               False, True, clip=True)
         row_accum_atomic.launches += 1
         return out
-    h = SegmentedPlan(idx, vals, rows)
-    out = torch.empty((rows + 1, width), dtype=torch.float32,
-                      device=vals.device)
-    h.sort()
-    h.starts()
-    h.walk(out)
+    out = serial_sum(SegmentedPlan(idx, vals, rows))
     row_accum_segmented.launches += 1
     return out
 

@@ -21,7 +21,14 @@ kernels in coslam_torch/csrc/tensovm_encode.cu read the corner rows of
 the logical f32 tables directly:
 
 - :func:`tensovm_encode_fwd`: kernel C, the encode forward;
-- :func:`tensovm_encode_bwd`: kernel D, dplanes, dlines and/or dx.
+- :func:`tensovm_encode_bwd`: kernel D, dplanes, dlines and/or dx;
+- :func:`tensovm_encode_bwd_serial`: kernel D's serial mode (K3 in the
+  TPU kernel's serial order), which :func:`tensovm_encode_bwd` takes for
+  dplanes and dlines when ``torch.are_deterministic_algorithms_enabled()``:
+  D writes every update as a (row, value) stream over the concatenated
+  [planes; lines] table in the plain version's order
+  (:func:`tensovm_encode_bwd_streams_ref`) and kernel H's sort and walk
+  sum each row in that order, so both are the same bits on every run.
 
 CPU tensors take the plain versions (:func:`tensovm_encode_fwd_ref`,
 :func:`tensovm_encode_bwd_ref`); CUDA tensors take the kernels or the
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from . import serial_scatter as SS
 from .triplane import _PLANES, TriPlaneSpec, cell_project, make_triplane_spec
 
 # Line axis per plane section: the coordinate axis plane (u, v) drops.
@@ -200,6 +208,32 @@ def tensovm_encode_bwd_ref(spec: TriPlaneSpec, planes: torch.Tensor,
     return dplanes, dlines, dx
 
 
+def tensovm_encode_bwd_streams_ref(spec: TriPlaneSpec, planes: torch.Tensor,
+                                   lines: torch.Tensor, x: torch.Tensor,
+                                   g: torch.Tensor):
+    """dplanes' and dlines' updates in the order tensovm_encode_bwd_ref
+    adds them, as one stream over the concatenated table [Tp + Tl, F]
+    (line row i is row Tp + i): the plane corners e00, e00 + 1, e10,
+    e10 + 1, each over [S, N], then the line rows i0 and i0 + 1, each over
+    [S, N] -> (rows int32 [M], values [M, F]), M = 6 S N.
+    serial_scatter.row_accum_ref of them, split at Tp, is
+    tensovm_encode_bwd_ref's (dplanes, dlines) bit for bit on the CPU;
+    kernel D's serial mode writes the same stream on the card."""
+    n = x.shape[0]
+    L, F = spec.pyr_levels, spec.n_features
+    geo = _Geometry(spec, planes, lines, x)
+    gs = g.reshape(n, L, F).permute(2, 1, 0).repeat_interleave(3, dim=1)
+    gp, gq = gs * geo.line, gs * geo.plane                   # [F, S, N]
+    wu, wv, f = geo.wu, geo.wv, geo.f
+    tp = planes.shape[0]
+    rows = [geo.e00, geo.e00 + 1, geo.e10, geo.e10 + 1,
+            tp + geo.l_row, tp + geo.l_row + 1]
+    vals = [gp * ((1 - wu) * (1 - wv)), gp * ((1 - wu) * wv),
+            gp * (wu * (1 - wv)), gp * (wu * wv), gq * (1 - f), gq * f]
+    idx = torch.cat([r.reshape(-1) for r in rows]).to(torch.int32)
+    return idx, torch.cat([v.reshape(F, -1) for v in vals], 1).T.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
@@ -264,6 +298,12 @@ def tensovm_encode_bwd(spec: TriPlaneSpec, planes: torch.Tensor,
                                       need_dlines, need_dx)
     if not (need_dplanes or need_dlines or need_dx):
         return None, None, None
+    if ((need_dplanes or need_dlines)
+            and torch.are_deterministic_algorithms_enabled()):
+        dplanes, dlines, dx = tensovm_encode_bwd_serial(spec, planes, lines,
+                                                        x, g, need_dx)
+        return (dplanes if need_dplanes else None,
+                dlines if need_dlines else None, dx)
     _check_cuda(spec, planes, lines, x, g)
     if tuple(g.shape) != (x.shape[0], spec.out_dim):
         raise ValueError(f"tensovm encode: g {tuple(g.shape)} is not "
@@ -281,9 +321,47 @@ def tensovm_encode_bwd(spec: TriPlaneSpec, planes: torch.Tensor,
     return dplanes, dlines, dx
 
 
-# Launch counts of the two kernels (the CPU path never adds to them).
+def tensovm_encode_bwd_serial(spec: TriPlaneSpec, planes: torch.Tensor,
+                              lines: torch.Tensor, x: torch.Tensor,
+                              g: torch.Tensor, need_dx: bool):
+    """Kernel D's serial mode: (dplanes [Tp, F], dlines [Tl, F], dx [N, 3]
+    or None). D writes dplanes' and dlines' M = 6 S N updates, in the order
+    of :func:`tensovm_encode_bwd_streams_ref`, into one stream of (row,
+    value) pairs over the concatenated table
+    (:func:`serial_scatter.stream_scratch`, reused across calls of one
+    shape), and kernel H's sort, run starts and walk sum every row in
+    increasing m from 0.0: the serial order of the TPU's K3, so both are
+    the same bits on every run and, up to each value's rounding,
+    tensovm_encode_bwd_ref's. dx as in :func:`tensovm_encode_bwd`. CUDA
+    tensors only."""
+    _check_cuda(spec, planes, lines, x, g)
+    if tuple(g.shape) != (x.shape[0], spec.out_dim):
+        raise ValueError(f"tensovm encode: g {tuple(g.shape)} is not "
+                         f"[{x.shape[0]}, {spec.out_dim}]")
+    n, tp, tl = x.shape[0], planes.shape[0], lines.shape[0]
+    m = 6 * spec.n_levels * n
+    if m >= 2 ** 31 or tp + tl >= 2 ** 31 - 1:
+        raise ValueError(f"tensovm encode: {m} updates into {tp + tl} rows "
+                         "are out of the serial mode's int32 range")
+    dx = torch.empty_like(x) if need_dx else None      # every entry written
+    if n == 0:
+        return torch.zeros_like(planes), torch.zeros_like(lines), dx
+    keys, vals, plan = SS.stream_scratch(m, tp + tl, x.device)
+    _kernels.check(_kernels.library().tensovm_encode_bwd_stream(
+        x.data_ptr(), planes.data_ptr(), lines.data_ptr(), g.data_ptr(),
+        keys.data_ptr(), vals.data_ptr(), _kernels.ptr(dx), n,
+        spec.n_features, _level_table(spec, x.device).data_ptr(),
+        spec.pyr_levels, tp, tl, _kernels.stream(x.device)),
+        "tensovm_encode_bwd_stream")
+    out = SS.serial_sum(plan)
+    tensovm_encode_bwd_serial.launches += 1
+    return out[:tp], out[tp:tp + tl], dx
+
+
+# Launch counts of the kernels (the CPU path never adds to them).
 tensovm_encode_fwd.launches = 0
 tensovm_encode_bwd.launches = 0
+tensovm_encode_bwd_serial.launches = 0
 
 
 class TensoVMEncode(torch.autograd.Function):

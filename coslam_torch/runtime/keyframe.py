@@ -1,8 +1,9 @@
 """Keyframe ray reservoir: a preallocated [num_kf, R, 7] device tensor.
 
 Counterpart of coslam_tpu/runtime/keyframe.py without its TPU layout (the
-16-rays-per-128-lane packing): each keyframe stores R rays (direction,
-rgb, depth) sampled uniformly without replacement from its frame.
+16-rays-per-128-lane packing, which only a JAX checkpoint brings in):
+each keyframe stores R rays (direction, rgb, depth) sampled uniformly
+without replacement from its frame.
 """
 
 from __future__ import annotations
@@ -11,6 +12,21 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+# The JAX package's storage layout, which its checkpoints carry: 16 rays
+# a 128-lane row, each ray padded from 7 to 8 floats
+# (coslam_tpu/runtime/keyframe.py RAY_CHUNK, pack_rays).
+RAY_CHUNK = 16
+
+
+def unpack_rays(packed: np.ndarray) -> np.ndarray:
+    """[..., C, 128] packed rows -> [..., C * 16, 7] rays (the port's copy
+    of coslam_tpu/runtime/keyframe.py:unpack_rays)."""
+    *lead, c, w = packed.shape
+    if w != 8 * RAY_CHUNK:
+        raise ValueError(f"packed keyframe rays must be [..., C, 128], got "
+                         f"{tuple(packed.shape)}")
+    return packed.reshape(*lead, c * RAY_CHUNK, 8)[..., :7]
 
 
 class KeyFrameDatabase:
@@ -47,6 +63,24 @@ class KeyFrameDatabase:
         self.rays[slot] = frame_rays[perm[:self.num_rays_to_save]]
         self.frame_ids[slot] = frame_id
         return slot
+
+    def restore(self, rays: np.ndarray, frame_ids: np.ndarray, count: int,
+                wrap_ptr: int) -> None:
+        """Take a checkpoint's reservoir: rays [num_kf, R, 7], or the JAX
+        package's packed [num_kf, R / 16, 128], with their own ray count
+        R (the JAX reservoir keeps R - R mod 16 rays a keyframe)."""
+        rays = np.asarray(rays, np.float32)
+        if rays.shape[-1] != 7:
+            rays = unpack_rays(rays)
+        if rays.shape[0] != self.num_kf:
+            raise ValueError(f"checkpoint holds {rays.shape[0]} keyframe "
+                             f"slots, this run {self.num_kf}")
+        self.rays = torch.from_numpy(np.ascontiguousarray(rays)).to(
+            self.rays.device)
+        self.num_rays_to_save = rays.shape[1]
+        self.frame_ids = np.array(frame_ids, np.int64)
+        self.count = int(count)
+        self._wrap_ptr = int(wrap_ptr)
 
     def sample_global_rays(self, bs: int, generator: torch.Generator):
         """bs rays drawn with replacement from all stored keyframes ->

@@ -1,7 +1,9 @@
-"""Mapping: first-frame map initialization and global bundle adjustment.
+"""Mapping: first-frame map initialization, the current-frame step and
+global bundle adjustment.
 
-Counterpart of coslam_tpu/runtime/mapping.py (make_first_frame_step and
-make_ba_step). The JAX scans become Python loops of eager steps; the map
+Counterpart of coslam_tpu/runtime/mapping.py (make_first_frame_step,
+make_current_frame_step and make_ba_step). The JAX scans become Python
+loops of eager steps; the map
 optimizer is a persistent ``torch.optim.Adam`` (its moments live across
 frames, like the reference's map optimizer), the pose optimizer is fresh
 for each BA call. Random draws (ray indices, the stratified
@@ -49,6 +51,53 @@ def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam):
             map_opt.zero_grad(set_to_none=True)
             psnr = ret["psnr"]
         return loss.detach(), psnr.detach()
+
+    return run
+
+
+def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam):
+    """Returns run(params, c2w [4, 4], frame_rays [H*W, 7], generator,
+    draws=None) -> last loss: ``mapping.cur_frame_iters`` grid-only
+    steps on the current frame at its tracked pose (coslam_tpu's
+    make_current_frame_step; mapping.cur_frame_iters > 0). Each draws
+    ``mapping.sample`` pixels with replacement from the whole frame; the
+    loss is total_loss without the smoothness term; ``cur_opt`` (the
+    grid's own Adam, optim.make_cur_map_optimizer) steps the grid, and the
+    decoder stays fixed. ``draws``: an optional list, one (pixel indices
+    [sample], perturbation [sample, n_z] or None) an iteration, in place
+    of the generator's."""
+    sample = int(config["mapping"]["sample"])
+    n_iters = int(config["mapping"]["cur_frame_iters"])
+    weights = config["training"]
+    perturb = weights["perturb"] > 0
+
+    def run(params, c2w, frame_rays, generator, draws=None):
+        dev = frame_rays.device
+        Rm, tv = c2w[:3, :3], c2w[:3, 3]
+        # Gradients for the grid only: the decoder enters as constants.
+        p = {"grid": params["grid"],
+             "decoder": {k: [w.detach() for w in v]
+                         for k, v in params["decoder"].items()}}
+        loss = None
+        cur_opt.zero_grad(set_to_none=True)
+        for it in range(n_iters):
+            if draws is not None:
+                idx, t = draws[it]
+            else:
+                idx = torch.randint(0, frame_rays.shape[0], (sample,),
+                                    generator=generator, device=dev)
+                t = (torch.rand((sample, model.n_z_samples),
+                                generator=generator, device=dev)
+                     if perturb else None)
+            rays = frame_rays[idx]
+            rays_d = rays[:, :3] @ Rm.T
+            ret = model.forward(p, tv.expand_as(rays_d), rays_d, rays[:, 3:6],
+                                rays[:, 6:7], t=t)
+            loss = L.total_loss(ret, weights)
+            loss.backward()
+            cur_opt.step()
+            cur_opt.zero_grad(set_to_none=True)
+        return loss.detach()
 
     return run
 

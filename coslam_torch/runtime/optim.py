@@ -55,6 +55,17 @@ def make_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:
     ], betas=(0.9, 0.99))
 
 
+def make_cur_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:
+    """The current-frame step's own optimizer (mapping.cur_frame_iters >
+    0; coslam_tpu/runtime/slam.py builds it as _adam_l2(lr_embed, 0.9,
+    0.99, 1e-15)): Adam over the grid's tensors only, betas (0.9, 0.99),
+    eps 1e-15, no weight decay. Its moments persist across frames; like
+    the JAX package, the checkpoint does not carry them."""
+    return torch.optim.Adam(grid_leaves(params["grid"]),
+                            lr=config["mapping"]["lr_embed"],
+                            betas=(0.9, 0.99), eps=1e-15)
+
+
 def make_pose_optimizer(rot: torch.Tensor, trans: torch.Tensor,
                         lr_rot: float, lr_trans: float) -> torch.optim.Adam:
     """Adam over the pose tangents: betas (0.9, 0.999), eps 1e-8."""

@@ -2,10 +2,23 @@
 
 Counterpart of coslam_tpu/runtime/slam.py:CoSLAM.run (the sequential
 loop): first-frame mapping, tracking of every frame from the
-constant-speed prediction, BA every ``mapping.map_every`` frames, a
-keyframe every ``mapping.keyframe_every`` frames, then the final mesh and
-the ATE. Everything runs on tensors on ``device``; the host reads one
-packed [pose, loss, psnr] array per tracked frame and one per BA call.
+constant-speed prediction, BA every ``mapping.map_every`` frames (after
+the current-frame step when ``mapping.cur_frame_iters`` > 0), a keyframe
+every ``mapping.keyframe_every`` frames, a resumable checkpoint every
+``ckpt_every`` frames, then the final checkpoint, mesh and ATE (absolute,
+and from the keyframe-relative poses). Everything runs on tensors on
+``device``; the host reads one packed [pose, loss, psnr] array per
+tracked frame and one per BA call.
+
+Resuming (``load_checkpoint``, then ``run(start_frame=cursor)``) gives
+the straight run's bits when every step adds in a fixed order: on the CPU
+always; on the card under ``torch.use_deterministic_algorithms(True)``
+(with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before cuBLAS starts),
+which takes kernels B's and D's serial modes and H. The checkpoint holds
+the map, both pose tables, the keyframe reservoir, the map optimizer's
+Adam state and the generator's state; tracking's pixels come from a
+numpy stream keyed by (seed, frame id), so they need no state. Like the
+JAX package, it does not hold the current-frame optimizer's moments.
 """
 
 from __future__ import annotations
@@ -17,18 +30,20 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import convert
 from ..models.scene_rep import JointEncoding
+from .checkpoint import (AsyncCheckpointWriter, load_ckpt, param_leaves,
+                         save_ckpt)
 from .keyframe import KeyFrameDatabase
-from .mapping import BundleAdjust, make_first_frame_step
-from .optim import make_map_optimizer
+from .mapping import (BundleAdjust, make_current_frame_step,
+                      make_first_frame_step)
+from .optim import make_cur_map_optimizer, make_map_optimizer
 from .tracking import make_tracking_step, predict_current_pose
 
 
 def _check_supported_loop(config: Dict) -> None:
     unsupported = {
         "tracking.iter_point > 0": config["tracking"]["iter_point"] > 0,
-        "mapping.cur_frame_iters > 0":
-            config["mapping"]["cur_frame_iters"] > 0,
         "tracking.sample_info_frac > 0":
             float(config["tracking"].get("sample_info_frac", 0) or 0) > 0,
         "parallel.dp > 1":
@@ -54,6 +69,9 @@ class CoSLAM:
 
         n = dataset.num_frames
         self.est_c2w = np.zeros((n, 4, 4), np.float32)
+        # Non-keyframe poses relative to their keyframe's, as tracked
+        # (frame 0: its absolute pose); convert_relative_pose composes them.
+        self.est_c2w_rel: Dict[int, np.ndarray] = {}
         self.pose_gt = {i: np.asarray(p, np.float32)
                         for i, p in enumerate(dataset.poses)}
 
@@ -76,6 +94,12 @@ class CoSLAM:
         self._first_step = make_first_frame_step(self.model, config,
                                                  self.map_opt)
         self._ba = BundleAdjust(self.model, config, self.map_opt, num_kf)
+        self.cur_map_opt = self._cur_step = None
+        if config["mapping"]["cur_frame_iters"] > 0:
+            self.cur_map_opt = make_cur_map_optimizer(config, self.params)
+            self._cur_step = make_current_frame_step(self.model, config,
+                                                     self.cur_map_opt)
+        self._ckpt_writer = AsyncCheckpointWriter()
         self.timings = {"first_frame": [], "tracking": [], "mapping": [],
                         "mesh": []}
         self.losses = {"first_frame": [], "tracking": [], "mapping": []}
@@ -114,6 +138,7 @@ class CoSLAM:
         t0 = time.perf_counter()
         c2w = np.asarray(batch["c2w"], np.float32)
         self.est_c2w[0] = c2w
+        self.est_c2w_rel[0] = c2w
         frame_rays = self._frame_block(batch)
         loss, _ = self._first_step(self.params,
                                    torch.from_numpy(c2w).to(self.device),
@@ -140,13 +165,32 @@ class CoSLAM:
         c2w = torch.where(finite, c2w, c2w_init)
         packed = torch.cat([c2w.reshape(-1), losses[-1:], psnrs[-1:],
                             finite.float()[None]]).cpu().numpy()
-        self.est_c2w[frame_id] = packed[:16].reshape(4, 4)
+        c2w = packed[:16].reshape(4, 4)
+        self.est_c2w[frame_id] = c2w
+        kf_every = self.config["mapping"]["keyframe_every"]
+        if frame_id % kf_every != 0:
+            c2w_key = self.est_c2w[(frame_id // kf_every) * kf_every]
+            self.est_c2w_rel[frame_id] = (
+                c2w.astype(np.float64)
+                @ np.linalg.inv(c2w_key.astype(np.float64))).astype(np.float32)
         if packed[18] == 0.0:
             print(f"tracking produced a non-finite pose at frame {frame_id}; "
                   "keeping the motion-model prediction")
         self.timings["tracking"].append(time.perf_counter() - t0)
         self.losses["tracking"].append(float(packed[16]))
         return float(packed[16])
+
+    def current_frame_mapping(self, batch: Dict,
+                              cur_frame_id: int) -> Optional[float]:
+        """The grid-only refinement on the current frame at its tracked
+        pose (coslam_tpu's current_frame_mapping); None unless
+        mapping.cur_frame_iters > 0."""
+        if self._cur_step is None:
+            return None
+        loss = self._cur_step(
+            self.params, torch.from_numpy(self.est_c2w[cur_frame_id]).to(
+                self.device), self._frame_block(batch), self.generator)
+        return float(loss)
 
     def global_BA(self, batch: Dict, cur_frame_id: int) -> float:
         t0 = time.perf_counter()
@@ -197,12 +241,33 @@ class CoSLAM:
         self.timings["mesh"].append(time.perf_counter() - t0)
         return mesh
 
-    def evaluate_ate(self, n_frames: int) -> Dict:
-        """ATE of the first n_frames tracked poses against the ground truth
-        (coslam_tpu.eval.ate without its plot); appends to output.txt."""
+    def convert_relative_pose(self) -> Dict[int, np.ndarray]:
+        """Every tracked frame's pose recomposed from its keyframe's and
+        its stored relative pose (coslam_tpu's convert_relative_pose);
+        keyframes keep their own."""
+        kf_every = self.config["mapping"]["keyframe_every"]
+        poses = {}
+        for i in range(len(self.est_c2w)):
+            if not np.any(self.est_c2w[i]):
+                continue                              # not tracked yet
+            if i % kf_every == 0:
+                poses[i] = self.est_c2w[i]
+                continue
+            delta = self.est_c2w_rel.get(i, np.eye(4, dtype=np.float32))
+            poses[i] = (delta.astype(np.float64)
+                        @ self.est_c2w[(i // kf_every) * kf_every].astype(
+                            np.float64)).astype(np.float32)
+        return poses
+
+    def evaluate_ate(self, n_frames: int, poses: Optional[Dict] = None,
+                     name: str = "output.txt") -> Dict:
+        """ATE of the first n_frames poses (the absolute table, or
+        ``poses``) against the ground truth (coslam_tpu.eval.ate without
+        its plot); appends to ``name`` in the run's output directory."""
         from ..eval.ate import convert_poses, evaluate_ate
 
-        est = {i: self.est_c2w[i] for i in range(n_frames)}
+        src = self.est_c2w if poses is None else poses
+        est = {i: src[i] for i in range(n_frames)}
         gt_arr, mask = convert_poses(self.pose_gt, n_frames, 1.0)
         est_arr, _ = convert_poses(est, n_frames, 1.0, gt=False)
         est_arr = est_arr[mask[:len(est_arr)]]
@@ -212,23 +277,101 @@ class CoSLAM:
         out = os.path.join(self.config["data"]["output"],
                            self.config["data"]["exp_name"])
         os.makedirs(out, exist_ok=True)
-        with open(os.path.join(out, "output.txt"), "a") as f:
+        with open(os.path.join(out, name), "a") as f:
             print(results, file=f)
         return results
+
+    def _evaluate(self, n_frames: int) -> Dict:
+        """The absolute ATE (output.txt) and the relative one
+        (output_relative.txt); returns the absolute."""
+        results = self.evaluate_ate(n_frames)
+        self.evaluate_ate(n_frames, self.convert_relative_pose(),
+                          "output_relative.txt")
+        return results
+
+    # -- checkpoints ------------------------------------------------------------
+
+    def save_checkpoint(self, path: str, frame_cursor: Optional[int] = None,
+                        async_write: bool = False) -> None:
+        """The crash-resume state (coslam_tpu's save_checkpoint): params,
+        pose tables, keyframe reservoir (rays [num_kf, R, 7], ids, count,
+        wrap pointer, poses), the map optimizer's state in the JAX
+        layout, the generator's state (``torch_generator``, in place of
+        the JAX key) and ``frame_cursor``, the next frame to process.
+        async_write hands the copies and the write to the background
+        writer, which snapshots every tensor on the device at submit."""
+        self._ckpt_writer.wait()  # the previous write lands first
+        extra = {
+            "kf_rays": self.kf_db.rays,
+            "kf_frame_ids": self.kf_db.frame_ids.copy(),
+            "kf_count": np.int64(self.kf_db.count),
+            "kf_wrap_ptr": np.int64(self.kf_db._wrap_ptr),
+            "kf_poses": self.kf_poses,
+            "opt_state": convert.adam_state_to_jax(self.map_opt, self.params),
+            "torch_generator": self.generator.get_state().numpy(),
+        }
+        if frame_cursor is not None:
+            extra["frame_cursor"] = np.int64(frame_cursor)
+        rel = {k: v.copy() for k, v in self.est_c2w_rel.items()}
+        if async_write:
+            self._ckpt_writer.submit(path, self.params, self.est_c2w.copy(),
+                                     rel, extra)
+        else:
+            save_ckpt(path, self.params, self.est_c2w, rel, extra)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore what save_checkpoint wrote, from the port's file or the
+        JAX package's (whose packed keyframe rays are unpacked, and whose
+        JAX key and numpy RNG state are not read: the run goes on with its
+        own generator). Returns the frame to resume from (0 without a
+        cursor)."""
+        params, est, rel, extra = load_ckpt(path, self.params)
+        if est.shape != self.est_c2w.shape:
+            raise ValueError(f"checkpoint pose table {est.shape} does not "
+                             f"match the sequence's {self.est_c2w.shape}")
+        with torch.no_grad():
+            for p, a in zip(param_leaves(self.params), param_leaves(params)):
+                p.copy_(torch.from_numpy(np.asarray(a, np.float32)))
+        self.est_c2w = np.array(est, np.float32)
+        self.est_c2w_rel = {k: np.array(v, np.float32)
+                            for k, v in rel.items()}
+        if "kf_rays" in extra:
+            self.kf_db.restore(extra["kf_rays"], extra["kf_frame_ids"],
+                               int(extra["kf_count"]),
+                               int(extra["kf_wrap_ptr"]))
+            self.kf_poses = torch.from_numpy(
+                np.array(extra["kf_poses"], np.float32)).to(self.device)
+        if "opt_state" in extra:
+            convert.adam_state_from_jax(self.map_opt, self.params,
+                                        extra["opt_state"])
+        if "torch_generator" in extra:
+            self.generator.set_state(torch.from_numpy(
+                np.array(extra["torch_generator"], np.uint8)))
+        return int(extra.get("frame_cursor", 0))
 
     # -- main loop --------------------------------------------------------------
 
     def run(self, n_frames: Optional[int] = None, verbose: bool = True,
-            eval_ate: bool = True, mesh: bool = True):
+            eval_ate: bool = True, mesh: bool = True, ckpt_every: int = 0,
+            start_frame: int = 0):
         """Process the first n_frames frames (all by default); returns the
-        ATE statistics (None with eval_ate=False)."""
+        ATE statistics (None with eval_ate=False). ckpt_every: write
+        checkpoint{i}.npz (cursor i) every that many frames (0: only the
+        final checkpoint{total - 1}.npz, cursor total). start_frame:
+        resume there (the cursor load_checkpoint returned), skipping
+        first-frame mapping when it is past 0."""
         cfg = self.config
         total = self.dataset.num_frames if n_frames is None else min(
             n_frames, self.dataset.num_frames)
+        out = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"])
         map_every = cfg["mapping"]["map_every"]
         kf_every = cfg["mapping"]["keyframe_every"]
         mesh_every = int(cfg["mesh"].get("vis", 0) or 0)
-        for i in range(total):
+        for i in range(start_frame, total):
+            if ckpt_every and i > start_frame and i % ckpt_every == 0:
+                # The state covers frames [0, i): a resume starts at i.
+                self.save_checkpoint(os.path.join(out, f"checkpoint{i}.npz"),
+                                     frame_cursor=i, async_write=True)
             batch = self.dataset[i]
             if i == 0:
                 loss = self.first_frame_mapping(batch)
@@ -242,6 +385,7 @@ class CoSLAM:
                 err = np.abs(self.est_c2w[i][:3] - self.pose_gt[i][:3]).mean()
                 print(f"it: {i}, loss: {loss:.5f}, pose L1 vs gt: {err:.5f}")
             if i % map_every == 0:
+                self.current_frame_mapping(batch, i)
                 self.global_BA(batch, i)
             if i % kf_every == 0:
                 self.add_keyframe(batch)
@@ -250,11 +394,15 @@ class CoSLAM:
             if mesh_every and i % mesh_every == 0:
                 self.save_mesh(i, voxel_size=cfg["mesh"]["voxel_eval"])
                 if eval_ate:
-                    self.evaluate_ate(i + 1)
+                    self._evaluate(i + 1)
+        self._ckpt_writer.wait()
+        # Cursor total: resuming a finished run only finalizes it.
+        self.save_checkpoint(os.path.join(out, f"checkpoint{total - 1}.npz"),
+                             frame_cursor=total)
         if mesh:
             self.final_mesh = self.save_mesh(
                 total - 1, voxel_size=cfg["mesh"]["voxel_final"])
-        results = self.evaluate_ate(total) if eval_ate else None
+        results = self._evaluate(total) if eval_ate else None
         if verbose and results is not None:
             print(f"ATE RMSE {results['absolute_translational_error.rmse']}")
         return results

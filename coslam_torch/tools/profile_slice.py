@@ -1,7 +1,7 @@
 """Where the slice's time goes: per-phase walls and a device profile.
 
     python -m coslam_torch.tools.profile_slice [--device cuda|cpu]
-        [--vm | --xor] [--small] [--out DIR]
+        [--vm | --xor] [--deterministic] [--small] [--out DIR]
 
 Drives the same CoSLAM as chip_smoke.py (room0's model and recipe, with
 ``--vm`` room0_vm's TensoVM model and recipe, or with ``--xor``
@@ -18,6 +18,12 @@ with 2 keyframes, then the final mesh. It reports
   the device busy time (the union of kernel, memcpy and memset intervals
   in the trace), its share of the wall, the kernel launch count and the
   kernels that take the most device time.
+
+``--deterministic`` runs the slice under
+``torch.use_deterministic_algorithms(True)`` (with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless the environment sets it), so
+every table gradient takes its serial-order route (kernels B's and D's
+serial modes, H).
 
 The profiler's own overhead lengthens the profiled walls; the unprofiled
 walls are the ones to compare with. The summary goes to stdout and to
@@ -97,9 +103,23 @@ def main(argv=None) -> Dict:
                       help="room0_vm's TensoVM grid, not room0's hash grid")
     grid.add_argument("--xor", action="store_true",
                       help="room0_xor's XOR-hash grid (grad_impl pallas)")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="under torch.use_deterministic_algorithms(True)")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--out", default=os.path.join("output", "profile_slice"))
     args = ap.parse_args(argv)
+    was = torch.are_deterministic_algorithms_enabled()
+    if args.deterministic:
+        # cuBLAS reads it when it starts, which is after this point.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+    try:
+        return _profile(args)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _profile(args) -> Dict:
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
     os.makedirs(args.out, exist_ok=True)
@@ -123,12 +143,14 @@ def main(argv=None) -> Dict:
     # Frames 1-4 warm tracking up, frame 5 becomes the second keyframe.
     nf, H, W = (7, 48, 64) if args.small else (11, 480, 640)
     make_cfg, encode_fns = (
-        (room0_vm_config, (VM.tensovm_encode_fwd, VM.tensovm_encode_bwd))
+        (room0_vm_config, (VM.tensovm_encode_fwd, VM.tensovm_encode_bwd,
+                           VM.tensovm_encode_bwd_serial))
         if args.vm else
         (room0_xor_config, (XP.xor_grid_encode_fwd, XP.xor_grid_encode_bwd,
                             SS.row_accum_segmented))
         if args.xor else
-        (room0_config, (HP.grid_encode_fwd, HP.grid_encode_bwd)))
+        (room0_config, (HP.grid_encode_fwd, HP.grid_encode_bwd,
+                        HP.grid_encode_bwd_serial)))
     cfg = make_cfg(os.path.join(args.out, "run"), H, W, nf,
                    exp_name="profile_slice")
     if args.small:
@@ -197,6 +219,7 @@ def main(argv=None) -> Dict:
     res["mesh_phases_s"] = phases
     res["mesh_vertices"] = len(mesh.vertices)
     res["encode_launches"] = {fn.__name__: fn.launches for fn in encode_fns}
+    res["deterministic"] = torch.are_deterministic_algorithms_enabled()
     res["tracking_step_ms_median"] = float(np.median(res["tracking_step_ms"]))
     with open(os.path.join(args.out, "profile_slice.json"), "w") as f:
         json.dump(res, f, indent=1)

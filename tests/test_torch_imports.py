@@ -1,5 +1,7 @@
 """The port stands alone: a fresh import of every coslam_torch module and
-of chip_smoke.py loads nothing of the JAX package and no jax; and the
+of chip_smoke.py loads nothing of the JAX package and no jax (the
+checkpoint module, which reads the JAX package's files, unpickles
+nothing of them either); and the
 port's own copies of the JAX package's framework-neutral modules
 (config, rays, the synthetic scene, the dataset loaders, ATE, marching
 cubes) compute what the originals do.
@@ -50,6 +52,7 @@ bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("coslam_tpu", "jax", "jaxlib"))
 assert not bad, bad
 assert "coslam_torch.tools.bench._bench_run_merge" in names, names
+assert "coslam_torch.runtime.checkpoint" in names, names
 print(len(names))
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -57,6 +60,25 @@ print(len(names))
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert int(proc.stdout.split()[-1]) > 30
+
+
+def test_checkpoint_module_unpickles_nothing():
+    """runtime/checkpoint.py reads the JAX package's checkpoints without
+    jax and without unpickling their treedefs: it imports neither jax nor
+    pickle, and opens the files with allow_pickle=False."""
+    import ast
+
+    path = os.path.join(REPO, "coslam_torch", "runtime", "checkpoint.py")
+    with open(path) as f:
+        src = f.read()
+    imported = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.add(node.module.split(".")[0])
+    assert not imported & {"jax", "jaxlib", "pickle", "coslam_tpu"}, imported
+    assert "allow_pickle=False" in src and "allow_pickle=True" not in src
 
 
 def test_synthetic_frames_and_trajectory_match_jax():

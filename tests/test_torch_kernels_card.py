@@ -820,3 +820,112 @@ def test_probe_quick_runs_on_card(cuda_device, name):
                                      PA.probe_accum_pair_merged,
                                      PA.probe_accum_run_merge))
     assert after > before
+
+
+# -- the serial modes of kernels B and D (K2 and K3 in serial order) ----------
+
+def _serial_points(kind, n, seed):
+    """Uniform points (a few outside [0, 1]) or ray-ordered ones."""
+    if kind == "rays":
+        return _ray_points(n // 43, 43, seed)
+    return np.random.default_rng(seed).uniform(-0.05, 1.05, (n, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPECS))
+@pytest.mark.parametrize("kind", ["uniform", "rays"])
+def test_grid_bwd_serial_mode(cuda_device, name, kind):
+    """Kernel B's serial mode: the same bits over two calls, dtable within
+    the sum-order bound of the plain version (and of its own streams'
+    serial sum), dx as the plain version's."""
+    from coslam_torch.tools.bench import _common as C
+
+    spec = HP.make_packed_spec(**SPECS[name])
+    rng = np.random.default_rng(5)
+    x_np = _serial_points(kind, 8600, 5)
+    table, x, g = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                   for a in (rng.standard_normal((spec.total_entries, 2)),
+                             x_np, rng.standard_normal((x_np.shape[0],
+                                                        spec.out_dim))))
+    before = HP.grid_encode_bwd_serial.launches, HP.grid_encode_bwd.launches
+    d1, dx1 = HP.grid_encode_bwd_serial(spec, table, x, g, True)
+    d2, dx2 = HP.grid_encode_bwd_serial(spec, table, x, g, True)
+    torch.cuda.synchronize()
+    assert torch.equal(d1, d2) and torch.equal(dx1, dx2)
+    assert (HP.grid_encode_bwd_serial.launches, HP.grid_encode_bwd.launches) \
+        == (before[0] + 2, before[1])
+    ref, ref_dx = HP.grid_encode_bwd_ref(spec, table, x, g, True, True)
+    idx, vals = HP.grid_encode_bwd_streams_ref(spec, table, x, g)
+    C.assert_within("dtable", d1, ref,
+                    C.sum_order_tol(idx, vals, spec.total_entries))
+    torch.testing.assert_close(dx1, ref_dx, rtol=1e-4, atol=1e-3)
+    # The serial sum of the plain version's own streams, on the card.
+    torch.testing.assert_close(
+        d1, SS.row_accum_segmented(idx, vals, spec.total_entries)[:-1],
+        rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(VM_SPECS))
+@pytest.mark.parametrize("kind", ["uniform", "rays"])
+def test_tensovm_bwd_serial_mode(cuda_device, name, kind):
+    """Kernel D's serial mode: the same bits over two calls, dplanes and
+    dlines within the sum-order bound of the plain version, dx as the
+    plain version's."""
+    from coslam_torch.tools.bench import _common as C
+
+    spec = VM.make_tensovm_spec(**VM_SPECS[name])
+    planes, lines, _, g = _vm_inputs(spec, 8600, 6, cuda_device)
+    x_np = _serial_points(kind, 8600, 6)
+    x = torch.from_numpy(x_np.astype(np.float32)).to(cuda_device)
+    g = g[:x.shape[0]].contiguous()
+    before = VM.tensovm_encode_bwd_serial.launches
+    a = VM.tensovm_encode_bwd_serial(spec, planes, lines, x, g, True)
+    b = VM.tensovm_encode_bwd_serial(spec, planes, lines, x, g, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert VM.tensovm_encode_bwd_serial.launches == before + 2
+    ref = VM.tensovm_encode_bwd_ref(spec, planes, lines, x, g, True, True,
+                                    True)
+    idx, vals = VM.tensovm_encode_bwd_streams_ref(spec, planes, lines, x, g)
+    tp = spec.total_entries
+    tol = C.sum_order_tol(idx, vals, tp + lines.shape[0])
+    C.assert_within("dplanes", a[0], ref[0], tol[:tp])
+    C.assert_within("dlines", a[1], ref[1], tol[tp:])
+    torch.testing.assert_close(a[2], ref[2], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_deterministic_switch_takes_the_serial_modes(cuda_device):
+    """Under torch.use_deterministic_algorithms(True) every table gradient
+    takes its serial-order route (B's and D's serial modes, kernel H for
+    the XOR grid's scatter route); dx alone keeps kernel B's and D's
+    atomic-free default launch; with the switch off nothing changes."""
+    spec = HP.make_packed_spec(**SPECS["mixed"])
+    table, x, g = _inputs(spec, 999, 7, cuda_device)
+    vspec = VM.make_tensovm_spec(**VM_SPECS["small"])
+    planes, lines, vx, vg = _vm_inputs(vspec, 999, 7, cuda_device)
+    xspec = E.make_hashgrid_spec(**XOR_SPECS["mixed"])
+    xt = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (xspec.total_entries, 2)).astype(np.float32)).to(cuda_device)
+    fns = (HP.grid_encode_bwd, HP.grid_encode_bwd_serial,
+           VM.tensovm_encode_bwd, VM.tensovm_encode_bwd_serial,
+           SS.row_accum_atomic, SS.row_accum_segmented)
+
+    def counts(det):
+        before = [f.launches for f in fns]
+        torch.use_deterministic_algorithms(det)
+        try:
+            HP.grid_encode_bwd(spec, table, x, g, True, True)
+            HP.grid_encode_bwd(spec, table, x, g, False, True)
+            VM.tensovm_encode_bwd(vspec, planes, lines, vx, vg, True, True,
+                                  True)
+            t = xt.clone().requires_grad_(True)
+            XP.encode(xspec, t, x, False).sum().backward()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        return [f.launches - b for f, b in zip(fns, before)]
+
+    assert counts(True) == [1, 1, 0, 1, 0, 1]
+    assert counts(False) == [2, 0, 1, 0, 1, 0]

@@ -598,20 +598,30 @@ def _check_profile_small(tmp_path, *flags):
     return res
 
 
+def test_profile_slice_small_deterministic_on_cpu(tmp_path):
+    """--deterministic runs the slice under PyTorch's deterministic switch
+    and turns it off again on return."""
+    res = _check_profile_small(tmp_path, "--deterministic")
+    assert res["deterministic"] is True
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
 def test_profile_slice_small_on_cpu(tmp_path):
     """coslam_torch.tools.profile_slice at its --small size on the CPU:
     every phase reports a finite wall, and the CPU path launches no
     kernel."""
     res = _check_profile_small(tmp_path)
     assert res["encode_launches"] == {"grid_encode_fwd": 0,
-                                      "grid_encode_bwd": 0}
+                                      "grid_encode_bwd": 0,
+                                      "grid_encode_bwd_serial": 0}
 
 
 def test_profile_slice_small_vm_on_cpu(tmp_path):
     """The same with --vm: the TensoVM slice, and its kernels' counts."""
     res = _check_profile_small(tmp_path, "--vm")
     assert res["encode_launches"] == {"tensovm_encode_fwd": 0,
-                                      "tensovm_encode_bwd": 0}
+                                      "tensovm_encode_bwd": 0,
+                                      "tensovm_encode_bwd_serial": 0}
 
 
 def test_profile_slice_small_xor_on_cpu(tmp_path):
