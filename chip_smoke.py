@@ -70,7 +70,25 @@ Run from the repository root. Phases, each printing its own lines:
    table-gradient iteration and the atomic B and D only for tracking's
    dx (launch counts over the straight run, set to 0 just before it);
 7. the current-frame step: room0 for 6 frames with cur_frame_iters 2,
-   kernels A and B launched in each of its iterations, ATE < 10 cm.
+   kernels A and B launched in each of its iterations, ATE < 10 cm;
+8. quality: kernels A and B at the replica quality recipe's packed grid
+   (hash_size 13, resolution 125: 2 dense and 14 hashed levels), C and D
+   at the rgbd recipe's TensoVM grid and at the ScanNet recipe's (the
+   apartment's 9.2 m bound), each against its plain version at the shapes
+   that recipe's run gives it (first frame, tracking, the BA calls with
+   1, 2 and the most keyframes, the lattice, a mesh chunk), as in phase 3
+   (uniform points; each table-gradient entry within its sum-order
+   bound, as phase 3's ray-ordered case: the ScanNet grid's coarse plane
+   rows take ~200 points each, and an entry that cancels to near 0 there
+   fails TABLE_TOL's rtol); the
+   sphere tracer on the card against the numpy tracer (three apartment
+   frames, 1e-4); then coslam_torch.tools.quality_bench through the
+   in-memory route: the replica protocol (room, 60 frames, 120x160,
+   Co-SLAM culling with virtual cameras, 50 eval views; finite metrics,
+   ATE < 10 cm, depth-L1 < 3 cm) and the rgbd protocol (30 frames;
+   finite metrics, ATE < 10 cm), with every launch count set to 0 just
+   before each run and read just after (A and B, C and D launched), the
+   phase within QUALITY_WALL_S.
 
 Every kernel's record carries its time (for P-S, whose calls are short
 enough that the host's cost per call would show, the card's time from a
@@ -267,8 +285,9 @@ class HashKernels:
 
 
 class TensoVMKernels:
-    """Kernels C and D at the room0_vm spec: planes 0.1 x noise, lines
-    1 + 0.1 x noise; mapping asks for dplanes and dlines together."""
+    """Kernels C and D at the room0_vm spec (or another TensoVM spec):
+    planes 0.1 x noise, lines 1 + 0.1 x noise; mapping asks for dplanes
+    and dlines together."""
 
     source = "coslam_torch/csrc/tensovm_encode.cu"
     graph = True
@@ -291,12 +310,12 @@ class TensoVMKernels:
                   "mode": "serial order (K3), kernel D's stream and "
                           "kernel H's sort and walk"}}
 
-    def __init__(self, device, rng):
+    def __init__(self, device, rng, spec=None):
         from coslam_torch.ops import tensovm as VM
 
         self.m = VM
         self.fwd_fn, self.bwd_fn = VM.tensovm_encode_fwd, VM.tensovm_encode_bwd
-        self.spec = VM.make_tensovm_spec(400, 3)
+        self.spec = spec or VM.make_tensovm_spec(400, 3)
         F = self.spec.n_features
         self.planes = _tensor(device, 0.1 * rng.standard_normal(
             (self.spec.total_entries, F)))
@@ -513,7 +532,8 @@ def _itensor(device, a):
 RAY_CASE = "BA 1 kf ray-ordered"
 
 
-def check_kernels(device, kernels, cases: list, ray=None, l2=None) -> dict:
+def check_kernels(device, kernels, cases: list, ray=None, l2=None,
+                  sum_order: bool = False) -> dict:
     """The forward and backward kernel of `kernels` against their plain
     versions on each case of `cases` (uniform points). Returns {kernel
     name: {"max_abs_err", "ms", "plain_ms", "library_ms", bound}}, the times
@@ -525,7 +545,9 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None) -> dict:
     coarse row there sums thousands of contributions) and both timed
     beside the uniform case (``ray_ms``). Kernels with ``graph = True``
     also time every call on the card alone (a CUDA graph of 20 calls:
-    ``graph_ms``, ``ray_graph_ms``). With `l2` (``l2_rate``'s record), the
+    ``graph_ms``, ``ray_graph_ms``). With `sum_order`, every case's table
+    gradient is held to that bound too (grids whose coarse rows take
+    hundreds of uniform points each). With `l2` (``l2_rate``'s record), the
     kernels that have an L2 figure (``kernels.l2_sectors``: A, C, E, D) get
     ``l2_ms`` and ``ray_l2_ms``: their sector accesses over that rate."""
     import torch
@@ -561,7 +583,8 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None) -> dict:
             got = kernels.bwd(x, g, need_table, need_dx)
             ref = kernels.bwd(x, g, need_table, need_dx, plain=True)
             torch.cuda.synchronize()
-            bounds = kernels.table_tol(x, g) if label == RAY_CASE else {}
+            bounds = (kernels.table_tol(x, g) if need_table
+                      and (label == RAY_CASE or sum_order) else {})
             for what, a in got.items():
                 assert (a is None) == (ref[what] is None), what
                 if what in bounds:
@@ -1135,6 +1158,102 @@ def run_current_frame(device, cfg: dict, data, n_frames: int, fwd,
                              "ate_rmse_m": ate}), flush=True)
 
 
+# The quality phase: the harness of coslam_torch.tools.quality_bench on
+# the card, through the in-memory route (no image codec), at the JAX
+# verify recipe's sizes; its bounds (60 frames of the replica protocol:
+# ATE < 10 cm, depth-L1 < 3 cm; 30 frames of the rgbd protocol: ATE < 10
+# cm) and the phase's wall budget.
+QUALITY_RUNS = [
+    ("replica", ["--protocol", "replica", "--scene", "room", "--frames",
+                 "60"], {"ate_rmse_cm": 10.0, "depth_l1_cm": 3.0}),
+    ("rgbd", ["--protocol", "rgbd", "--frames", "30"],
+     {"ate_rmse_cm": 10.0}),
+]
+QUALITY_WALL_S = 180.0
+
+
+def quality_specs(device):
+    """(label, kernels class, spec, config, frames) of the quality rows'
+    grids, as the model builds them: the replica recipe's packed grid
+    (hash_size 13, voxel_sdf 0.04 on the 5 m bound: resolution 125, two
+    dense and 14 hashed levels), the rgbd recipe's TensoVM (voxel_sdf
+    0.01) and the ScanNet recipe's TensoVM on the apartment's bound."""
+    from coslam_torch.models.scene_rep import JointEncoding
+    from coslam_torch.tools.quality_bench import recipe_config
+
+    out = []
+    for label, kernels, hw, frames in (("replica", HashKernels, (120, 160), 60),
+                                       ("rgbd", TensoVMKernels, (120, 160), 30),
+                                       ("scannet", TensoVMKernels, (480, 640),
+                                        800)):
+        cfg = recipe_config(label, "", "", *hw, frames)
+        spec = JointEncoding(cfg, cfg["mapping"]["bound"], device).grid_spec
+        out.append((label, kernels, spec, cfg, frames))
+    return out
+
+
+def check_device_tracer(device) -> float:
+    """The sphere tracer on the card against the numpy tracer on three
+    120x160 frames of the apartment walkthrough (0, 99 and 198 of 200):
+    depth and rgb 1e-4. Returns the largest difference."""
+    from coslam_torch.data import synth as S
+
+    scene = S.AnalyticApartment()
+    cam = (120, 160, 128.0, 128.0, 79.5, 59.5)
+    worst = 0.0
+    for c2w in S.make_walkthrough_trajectory(200, seed=0)[::99]:
+        got = S.DeviceRenderer(scene, *cam, device=device)(c2w)
+        want = S.render_frame(scene, c2w, *cam)
+        for a, b, what in zip(got, want, ("rgb", "depth")):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4,
+                                       err_msg=what)
+            worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
+def run_quality(device, wrappers, own) -> dict:
+    """quality_bench.main on the card for each of QUALITY_RUNS (--frames_in
+    memory, 120x160, Co-SLAM culling, 50 eval views), each checked for
+    finite metrics, its bounds and the launches of its grid's kernels
+    (`own[label]`: every count set to 0 just before the run, read just
+    after; each must have launched). Returns {label: launches}."""
+    import torch
+
+    from coslam_torch.tools import quality_bench
+
+    launches = {}
+    for label, flags, bounds in QUALITY_RUNS:
+        out = os.path.join(REPO, "output", f"chip_smoke_quality_{label}.json")
+        argv = flags + ["--hw", "120x160", "--frames_in", "memory",
+                        "--culling", "coslam", "--eval_views", "50",
+                        "--device", "cuda", "--workdir",
+                        os.path.join(REPO, "output", "chip_smoke_quality"),
+                        "--out", out]
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = quality_bench.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {fn.__name__: fn.launches for fn in wrappers}
+        for key in ("ate_rmse_cm", "acc_cm", "comp_cm", "comp_ratio_pct",
+                    "depth_l1_cm"):
+            assert math.isfinite(res[key]), (label, key, res[key])
+        for key, bound in bounds.items():
+            assert res[key] < bound, (label, key, res[key], bound)
+        for fn in own[label]:
+            assert counts[fn.__name__] > 0, (label, fn.__name__, counts)
+        launches[label] = counts
+        print("  " + json.dumps({
+            "run": label, "wall_s": wall, "launches": counts,
+            **{k: res[k] for k in (
+                "ate_rmse_cm", "acc_cm", "comp_cm", "comp_ratio_pct",
+                "depth_l1_cm", "virtual_cameras", "runtime_s",
+                "tracking_ms", "mapping_ms", "device")}}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1308,6 +1427,35 @@ def main() -> int:
     cur_cfg["mapping"]["cur_frame_iters"] = 2
     run_current_frame(device, cur_cfg, data, 6, hk.fwd_fn, hk.bwd_fn)
     print(f"  current frame {time.perf_counter() - t:.1f} s", flush=True)
+
+    t_quality = _phase("quality: the quality rows' grids, the device tracer "
+                       "and coslam_torch.tools.quality_bench on the card")
+    for label, kernels, spec, cfg, frames in quality_specs(device):
+        qk = kernels(device, rng(0), spec)
+        _phase(f"kernels against the plain versions: {qk.source}, the "
+               f"{label} recipe's grid ({spec.total_entries} rows)")
+        cases = main_path_cases(cfg, frames)
+        ba = [c for c in cases if c[0].startswith("BA ")]
+        cases = [c for c in cases if not c[0].startswith("BA ")
+                 or c in (ba[0], ba[1], ba[-1])]
+        for name, rec in check_kernels(device, qk, cases,
+                                       sum_order=True).items():
+            measured[name]["max_abs_err"] = max(
+                measured[name]["max_abs_err"], rec.pop("max_abs_err"))
+            measured[name].setdefault("quality", {})[label] = rec
+        del qk
+    print(f"  device tracer: largest difference "
+          f"{check_device_tracer(device):.3g}", flush=True)
+    quality = run_quality(device, wrappers, {
+        "replica": [hk.fwd_fn, hk.bwd_fn], "rgbd": [vk.fwd_fn, vk.bwd_fn]})
+    for label, counts in quality.items():
+        for name, n in counts.items():
+            if name in measured and n:
+                measured[name].setdefault("quality_launches", {})[label] = n
+    wall = time.perf_counter() - t_quality
+    print(f"  quality {wall:.1f} s (budget {QUALITY_WALL_S:.0f} s)",
+          flush=True)
+    assert wall <= QUALITY_WALL_S, (wall, QUALITY_WALL_S)
 
     first = ("source", "replaces", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")

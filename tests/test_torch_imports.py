@@ -1,7 +1,9 @@
 """The port stands alone: a fresh import of every coslam_torch module and
 of chip_smoke.py loads nothing of the JAX package and no jax (the
 checkpoint module, which reads the JAX package's files, unpickles
-nothing of them either); and the
+nothing of them either); chip_smoke.py, the quality harness and the
+in-memory route of every protocol run with cv2, PIL and yaml blocked
+(the card path needs none of them); and the
 port's own copies of the JAX package's framework-neutral modules
 (config, rays, the synthetic scene, the dataset loaders, ATE, marching
 cubes) compute what the originals do.
@@ -53,6 +55,10 @@ bad = sorted(k for k in sys.modules
 assert not bad, bad
 assert "coslam_torch.tools.bench._bench_run_merge" in names, names
 assert "coslam_torch.runtime.checkpoint" in names, names
+for new in ("mesh.raster", "eval.recon", "eval.cull", "eval.benchmark",
+            "eval.cli", "tools.virtual_cameras", "tools.quality_bench",
+            "tools.run_quality_suite"):
+    assert "coslam_torch." + new in names, new
 print(len(names))
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -180,3 +186,46 @@ def test_marching_cubes_library_is_keyed_by_the_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(TM, "_cpu_model", lambda: "x86_64 another cpu avx")
     there = TM.build()
     assert there != here and there.exists()
+
+
+def test_memory_route_quality_bench_and_smoke_need_no_image_codec():
+    """With cv2, PIL and yaml blocked in sys.modules (an import of any of
+    them raises), chip_smoke, quality_bench, the suite runner, the
+    benchmark and the in-memory route of every protocol import and run:
+    each protocol's frames are built and read at 24x32."""
+    code = """
+import sys
+for name in ("cv2", "PIL", "yaml"):
+    sys.modules[name] = None
+import numpy as np
+import chip_smoke
+from coslam_torch.data import synth as S
+from coslam_torch.eval import benchmark, cull, recon
+from coslam_torch.tools import quality_bench, run_quality_suite
+from coslam_torch.tools import virtual_cameras
+makers = {"replica": S.make_synthetic_config,
+          "tum": S.make_tum_synthetic_config,
+          "scannet": S.make_scannet_synthetic_config,
+          "rgbd": S.make_rgbd_synthetic_config}
+for protocol, make in makers.items():
+    cfg = make("d", "o", H=24, W=32, n_frames=3)
+    poses = (S.make_walkthrough_trajectory(3) if protocol == "scannet"
+             else S.make_scan_trajectory(3))
+    frames = S.SyntheticFrames(cfg, 3, protocol=protocol, poses=poses,
+                               scene=S.AnalyticApartment()
+                               if protocol == "scannet" else None,
+                               device="cpu")
+    for i in range(len(frames)):
+        b = frames[i]
+        assert b["rgb"].shape == b["depth"].shape + (3,)
+        assert np.isfinite(b["depth"]).all()
+bad = sorted(k for k in sys.modules if sys.modules[k] is not None
+             and k.split(".")[0] in ("cv2", "PIL", "yaml"))
+assert not bad, bad
+print("ok")
+"""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split()[-1] == "ok"
