@@ -8,11 +8,12 @@ Run from the repository root. Phases, each printing its own lines:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from coslam_torch/csrc with nvcc;
    render the 15-frame scene, and record the ray-ordered points of the
-   first BA call of the room0, room0_xor and room0_vm slices
-   (coslam_torch.tools.kernel_times.record_ba_points: 4,096 rays x 43
-   samples, or x 27 for TensoVM, a ray's samples adjacent; saved to
-   output/ba_points.npy, ba_points_xor.npy and ba_points_vm.npy for
-   kernel_times' --points, --xor-points and --vm-points); measure the
+   first BA call of the room0, room0_xor, room0_vm and room0_hybrid
+   slices (coslam_torch.tools.kernel_times.record_ba_points: 4,096 rays x
+   43 samples, or x 27 for TensoVM, a ray's samples adjacent; saved to
+   output/ba_points.npy, ba_points_xor.npy, ba_points_vm.npy and
+   ba_points_hybrid.npy for kernel_times' --points, --xor-points,
+   --vm-points and --hybrid); measure the
    card's L2 sector rate with a plain gather (kernel_times.l2_rate);
 3. kernels: the hash-grid kernels A and B at the room0 spec, the
    TensoVM kernels C and D at the room0_vm spec and the XOR-hash kernels
@@ -25,7 +26,11 @@ Run from the repository root. Phases, each printing its own lines:
    figure (their sector accesses over the measured rate); E and G, and A
    and B, also at the Dense grid (grid.enc: Dense, 4 dense levels, 67 M
    rows: XOR under grad_impl pallas, packed under the default) at the BA
-   1-keyframe case; then the row accumulate,
+   1-keyframe case; the tri-plane kernels T and U at room0_hybrid's planes
+   at every case of that slice but the lattice, and A and B at its 3
+   dense levels at every case, each also on that slice's ray-ordered
+   points and each table gradient within its sum-order bound; then the
+   row accumulate,
    kernels F (atomic: kernel P's CUDA kernel with its clip rule) and H
    (deterministic), on kernel G's update streams of every case that asks
    for the table gradient (up to 22.5 M updates) and of the room0
@@ -37,8 +42,8 @@ Run from the repository root. Phases, each printing its own lines:
    (scalar and float4 atomics), Q, R and S
    (coslam_torch/csrc/probe_accum.cu) at each probe's main shape against
    their plain versions, and P's pair form and skip rule, timed on the
-   card alone by CUDA graphs of the calls; then the serial modes of B and
-   D (K2 and K3 in the TPU kernels' serial order) at the BA 1-keyframe
+   card alone by CUDA graphs of the calls; then the serial modes of B, D
+   and U (K2 and K3 in the TPU kernels' serial order) at the BA 1-keyframe
    case and on the ray-ordered points: the same bits over two calls and
    a CUDA graph replay, within the sum-order bound of the plain version,
    the largest ulp distance from the host's plain version, kernel H's
@@ -52,8 +57,10 @@ Run from the repository root. Phases, each printing its own lines:
    with the launch counts of P, Q, R and S set to 0 just before and read
    just after;
 5. slices: the sequential SLAM loop (CoSLAM.run) at room0's model width
-   and recipe (hash grid), at room0_vm's (TensoVM) and at room0_xor's
-   (the XOR hash with grad_impl pallas, kernel H), on one 15-frame
+   and recipe (hash grid), at room0_vm's (TensoVM), at room0_xor's
+   (the XOR hash with grad_impl pallas, kernel H) and at room0_hybrid's
+   (TriPlaneHybrid: A and B on the dense levels, T and U on the planes;
+   after the scatter run below), on one 15-frame
    480x640 analytic synthetic scene, each checked for finite losses,
    keyframes 0, 5 and 10, ATE RMSE < 10 cm and a mesh; then room0_xor with
    grad_impl scatter (kernel F) from the first frame to the first BA call
@@ -63,7 +70,8 @@ Run from the repository root. Phases, each printing its own lines:
    cubes;
 6. resume, under torch.use_deterministic_algorithms(True) (with
    CUBLAS_WORKSPACE_CONFIG set at the top of this script): room0 for 15
-   frames and room0_vm for 10, each writing a checkpoint every 5 frames,
+   frames, room0_vm and room0_hybrid for 10, each writing a checkpoint
+   every 5 frames,
    then a fresh CoSLAM loaded from the last periodic checkpoint and run
    to the end, its poses and every parameter tensor equal to the
    straight run's bit for bit; the serial modes launched in every
@@ -85,10 +93,12 @@ Run from the repository root. Phases, each printing its own lines:
    frames, 1e-4); then coslam_torch.tools.quality_bench through the
    in-memory route: the replica protocol (room, 60 frames, 120x160,
    Co-SLAM culling with virtual cameras, 50 eval views; finite metrics,
-   ATE < 10 cm, depth-L1 < 3 cm) and the rgbd protocol (30 frames;
-   finite metrics, ATE < 10 cm), with every launch count set to 0 just
-   before each run and read just after (A and B, C and D launched), the
-   phase within QUALITY_WALL_S.
+   ATE < 10 cm, depth-L1 < 3 cm), the rgbd protocol (30 frames;
+   finite metrics, ATE < 10 cm) and the replica protocol again with
+   --enc TriPlaneHybrid (60 frames; ATE < 10 cm, depth-L1 < 3 cm), with
+   every launch count set to 0 just before each run and read just after
+   (A and B, C and D, and A, B, T and U launched), the phase within
+   QUALITY_WALL_S.
 
 Every kernel's record carries its time (for P-S, whose calls are short
 enough that the host's cost per call would show, the card's time from a
@@ -126,7 +136,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 
 from coslam_torch.data.synth import (  # noqa: E402
-    SyntheticFrames, room0_config, room0_vm_config, room0_xor_config)
+    SyntheticFrames, room0_config, room0_hybrid_config, room0_vm_config,
+    room0_xor_config)
 from coslam_torch.tools.bench._common import accum_bound, bound  # noqa: E402
 from coslam_torch.tools.kernel_times import (  # noqa: E402
     a_l2_sectors, c_l2_sectors, d_l2_sectors, e_l2_sectors, h_phases,
@@ -427,6 +438,98 @@ class TensoVMKernels:
         bwd = (12 * n + out + (touched + 12 * n) * need_dx
                + 4 * (self.planes.numel() + self.lines.numel()) * need_table,
                n * S * (20 + 13 * F * (need_table + 3 * need_dx)))
+        return fwd, bwd
+
+
+class TriPlaneKernels:
+    """Kernels T and U at the room0_hybrid plane spec (the TriPlaneHybrid
+    grid's tri-plane pyramid, 32/68/146/311, 374,409 rows) or another
+    tri-plane spec: table 0.1 x noise. U's updates are the plain version's
+    products bit for bit (single roundings, no sum to contract), so its
+    table gradient is held to each entry's sum-order bound alone."""
+
+    source = "coslam_torch/csrc/tensovm_encode.cu"
+    graph = True
+    # Kernel T has no pallas_call to replace: it computes what XLA computed
+    # on the TPU (_gather_pairs on the window mirror and _combine). Kernel
+    # U's table gradient replaces K2 for its tri-plane caller.
+    record = {"triplane_encode_fwd": {
+                  "replaces": "coslam_tpu/ops/triplane.py:245",
+                  "pallas_call": False,
+                  "computes": ["coslam_tpu/ops/hash_packed.py:236",
+                               "coslam_tpu/ops/triplane.py:142"]},
+              "triplane_encode_bwd": {
+                  "replaces": "coslam_tpu/ops/hash_packed.py:411",
+                  "caller": "coslam_tpu/ops/triplane.py:289"},
+              "triplane_encode_bwd_serial": {
+                  "replaces": "coslam_tpu/ops/hash_packed.py:411",
+                  "caller": "coslam_tpu/ops/triplane.py:289",
+                  "mode": "serial order (K2), kernel U's stream and "
+                          "kernel H's sort and walk"}}
+
+    def __init__(self, device, rng, spec=None):
+        from coslam_torch.ops import triplane as TP
+
+        self.m = TP
+        self.fwd_fn, self.bwd_fn = TP.triplane_encode_fwd, TP.triplane_encode_bwd
+        self.spec = spec or TP.make_triplane_spec(400, 4)
+        self.table = _tensor(device, 0.1 * rng.standard_normal(
+            (self.spec.total_entries, self.spec.n_features)))
+
+    def fwd(self, x, plain=False):
+        fn = (self.m.triplane_encode_fwd_ref if plain
+              else self.m.triplane_encode_fwd)
+        return fn(self.spec, self.table, x)
+
+    def bwd(self, x, g, need_table, need_dx, plain=False):
+        fn = (self.m.triplane_encode_bwd_ref if plain
+              else self.m.triplane_encode_bwd)
+        return dict(zip(("dtable", "dx"), fn(self.spec, self.table, x, g,
+                                             need_table, need_dx)))
+
+    def touched_bytes(self, x, g) -> int:
+        dt = self.m.triplane_encode_bwd_ref(self.spec, self.table, x, g, True,
+                                            False)[0]
+        return 4 * self.spec.n_features * _nonzero_rows(dt)
+
+    def table_tol(self, x, g) -> dict:
+        from coslam_torch.tools.bench import _common as C
+
+        idx, vals = self.m.triplane_encode_bwd_streams_ref(self.spec,
+                                                           self.table, x, g)
+        rows = self.spec.total_entries
+        return {"dtable": C.sum_order_tol(idx, vals, rows)}
+
+    def serial(self, x, g):
+        """Kernel U's serial mode: {"dtable"}."""
+        return {"dtable": self.m.triplane_encode_bwd_serial(
+            self.spec, self.table, x, g, False)[0]}
+
+    def cpu_plain(self, x, g):
+        return {"dtable": self.m.triplane_encode_bwd_ref(
+            self.spec, self.table.cpu(), x.cpu(), g.cpu(), True, False)[0]}
+
+    def serial_stream(self, x):
+        from coslam_torch.ops import serial_scatter as SS
+
+        rows = self.spec.total_entries
+        keys, vals, _ = SS.stream_scratch(4 * self.spec.n_levels * x.shape[0],
+                                          rows, x.device)
+        return keys, vals, {"dtable": (0, rows)}
+
+    def l2_sectors(self, x, need_table, need_dx):
+        return None, None     # no L2 figure kept for T and U
+
+    def work(self, n, touched, need_table, need_dx):
+        """Per (point, section): the v, then the u interpolation of F
+        features (9 F operations) and ~14 for the cell and weights; the
+        table gradient 8 F products, dx three times the interpolation."""
+        S, F = self.spec.n_levels, self.spec.n_features
+        out = 4 * n * self.spec.out_dim
+        fwd = (12 * n + touched + out, n * S * (9 * F + 14))
+        bwd = (12 * n + out + (touched + 12 * n) * need_dx
+               + 4 * self.table.numel() * need_table,
+               n * S * (14 + 8 * F * need_table + 27 * F * need_dx))
         return fwd, bwd
 
 
@@ -1061,16 +1164,17 @@ def _deterministic():
 
 
 def run_resume(device, cfg: dict, data, n_frames: int, ckpt_every: int,
-               serial, atomic, wrappers) -> dict:
+               serial: list, atomic: list, wrappers) -> dict:
     """Crash-resume on the card under torch.use_deterministic_algorithms
     (True): a straight run of n_frames writing a checkpoint every
     ckpt_every frames, then a fresh CoSLAM loaded from the last periodic
     checkpoint and run to the end; est_c2w and every parameter tensor
     must equal the straight run's bit for bit. The launch counts of
     `wrappers` over the straight run (each set to 0 just before it) are
-    returned; the serial mode `serial` must be launched in every
-    table-gradient iteration (first frame, BA) of both runs, and the
-    atomic `atomic` only for tracking's dx (one a tracking iteration)."""
+    returned; each serial mode of `serial` must be launched in every
+    table-gradient iteration (first frame, BA) of both runs, and each
+    atomic backward of `atomic` only for tracking's dx (one a tracking
+    iteration)."""
     import torch
 
     from coslam_torch.runtime.checkpoint import param_leaves
@@ -1091,9 +1195,11 @@ def run_resume(device, cfg: dict, data, n_frames: int, ckpt_every: int,
         launches = {fn.__name__: fn.launches for fn in wrappers}
         n_track = (n_frames - 1) * tcfg["iter"]
         n_ba = len(slam_a.timings["mapping"]) * mcfg["iters"]
-        assert launches[serial.__name__] >= mcfg["first_iters"] + n_ba, \
-            launches
-        assert launches[atomic.__name__] == n_track, launches
+        for fn in serial:
+            assert launches[fn.__name__] >= mcfg["first_iters"] + n_ba, \
+                launches
+        for fn in atomic:
+            assert launches[fn.__name__] == n_track, launches
 
         cfg_b = copy.deepcopy(cfg)
         cfg_b["data"]["exp_name"] += "_resumed"
@@ -1101,14 +1207,18 @@ def run_resume(device, cfg: dict, data, n_frames: int, ckpt_every: int,
         path = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"],
                             f"checkpoint{last}.npz")
         assert slam_b.load_checkpoint(path) == last
-        serial.launches = atomic.launches = 0
+        for fn in (*serial, *atomic):
+            fn.launches = 0
         slam_b.run(n_frames=n_frames, verbose=False, mesh=False,
                    start_frame=last)
         torch.cuda.synchronize()
         n_ba_b = len(slam_b.timings["mapping"]) * mcfg["iters"]
-        assert n_ba_b > 0 and serial.launches >= n_ba_b, serial.launches
-        assert atomic.launches == (n_frames - last) * tcfg["iter"], \
-            atomic.launches
+        assert n_ba_b > 0
+        for fn in serial:
+            assert fn.launches >= n_ba_b, (fn.__name__, fn.launches)
+        for fn in atomic:
+            assert fn.launches == (n_frames - last) * tcfg["iter"], \
+                (fn.__name__, fn.launches)
     assert np.array_equal(slam_b.est_c2w, slam_a.est_c2w), \
         "the resumed run's poses differ from the straight run's"
     for a, b in zip(param_leaves(slam_a.params), param_leaves(slam_b.params),
@@ -1168,6 +1278,9 @@ QUALITY_RUNS = [
                  "60"], {"ate_rmse_cm": 10.0, "depth_l1_cm": 3.0}),
     ("rgbd", ["--protocol", "rgbd", "--frames", "30"],
      {"ate_rmse_cm": 10.0}),
+    ("replica_hybrid", ["--protocol", "replica", "--scene", "room",
+                        "--frames", "60", "--enc", "TriPlaneHybrid"],
+     {"ate_rmse_cm": 10.0, "depth_l1_cm": 3.0}),
 ]
 QUALITY_WALL_S = 180.0
 
@@ -1286,6 +1399,7 @@ def main() -> int:
     rng = np.random.default_rng
     hk, vk, xk = (HashKernels(device, rng(0)), TensoVMKernels(device, rng(0)),
                   XorKernels(device, rng(0)))
+    tk = TriPlaneKernels(device, rng(0))
     accum = (SS.row_accum_atomic, SS.row_accum_segmented)
     room0_cfg = room0_config(out, H, W, N_FRAMES)
     xor_cfg = room0_xor_config(out, H, W, N_FRAMES, exp_name="chip_smoke_xor")
@@ -1295,11 +1409,13 @@ def main() -> int:
     print(f"  rendered {N_FRAMES} frames {H}x{W} in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     vm_cfg = room0_vm_config(out, H, W, N_FRAMES)
+    hybrid_cfg = room0_hybrid_config(out, H, W, N_FRAMES)
     os.makedirs(out, exist_ok=True)
     rays = {}   # slice -> the ray-ordered points of its first BA call
     for name, cfg_fn, cfg in (("", room0_config, room0_cfg),
                               ("_xor", room0_xor_config, xor_cfg),
-                              ("_vm", room0_vm_config, vm_cfg)):
+                              ("_vm", room0_vm_config, vm_cfg),
+                              ("_hybrid", room0_hybrid_config, hybrid_cfg)):
         _phase(f"ray-ordered points: the room0{name} slice's first BA call")
         ray = record_ba_points(cfg_fn(out, H, W, N_FRAMES,
                                       exp_name=f"chip_smoke{name}_rays"),
@@ -1351,13 +1467,42 @@ def main() -> int:
             measured[name]["dense"] = rec
         del dk
 
+    # TriPlaneHybrid (room0_hybrid): the planes through T and U at every
+    # case of the slice but the lattice (the planes' lattice is the plain
+    # separable encode), each table gradient held to its sum-order bound;
+    # the 3 dense levels (115,721 rows, no hashed level) through A and B
+    # at every case.
+    _phase(f"kernels against the plain versions: {tk.source}, the "
+           f"tri-plane (T, U) at room0_hybrid's planes "
+           f"({tk.spec.total_entries} rows)")
+    hybrid_cases = main_path_cases(hybrid_cfg, N_FRAMES)
+    for name, rec in check_kernels(
+            device, tk, [c for c in hybrid_cases if c[0] != "lattice"],
+            rays["_hybrid"], None, sum_order=True).items():
+        measured[name] = {"source": tk.source, **tk.record[name], **rec}
+    hybrid_dense = JointEncoding(hybrid_cfg, hybrid_cfg["mapping"]["bound"],
+                                 device).grid_spec[0]
+    assert hybrid_dense.n_levels == 3 and not any(hybrid_dense.hashed)
+    hd = HashKernels(device, rng(0), hybrid_dense)
+    _phase(f"kernels against the plain versions: {hd.source}, "
+           f"room0_hybrid's dense levels ({hybrid_dense.total_entries} rows)")
+    for name, rec in check_kernels(device, hd, hybrid_cases, rays["_hybrid"],
+                                   l2, sum_order=True).items():
+        measured[name]["max_abs_err"] = max(
+            measured[name]["max_abs_err"], rec.pop("max_abs_err"))
+        measured[name]["hybrid_dense"] = rec
+    del hd
+
     from coslam_torch.ops import hash_packed as HP
     from coslam_torch.ops import tensovm as VM
+    from coslam_torch.ops import triplane as TP
 
     for k, cfg, ray, serial in ((hk, room0_cfg, rays[""],
                                  HP.grid_encode_bwd_serial),
                                 (vk, vm_cfg, rays["_vm"],
-                                 VM.tensovm_encode_bwd_serial)):
+                                 VM.tensovm_encode_bwd_serial),
+                                (tk, hybrid_cfg, rays["_hybrid"],
+                                 TP.triplane_encode_bwd_serial)):
         _phase(f"the serial mode against the plain version: {k.source}")
         ba1 = [c for c in main_path_cases(cfg, N_FRAMES)
                if c[0] == "BA 1 kf"][0]
@@ -1393,9 +1538,12 @@ def main() -> int:
         (xor_cfg, [xk.fwd_fn, xk.bwd_fn], [SS.row_accum_segmented], None),
         (room0_xor_config(out, H, W, N_FRAMES, exp_name="chip_smoke_scatter",
                           grad_impl="scatter"),
-         [xk.fwd_fn, xk.bwd_fn], [SS.row_accum_atomic], 6)]
+         [xk.fwd_fn, xk.bwd_fn], [SS.row_accum_atomic], 6),
+        (room0_hybrid_config(out, H, W, N_FRAMES,
+                             exp_name="chip_smoke_hybrid"),
+         [hk.fwd_fn, hk.bwd_fn, tk.fwd_fn, tk.bwd_fn], [], None)]
     wrappers = [hk.fwd_fn, hk.bwd_fn, vk.fwd_fn, vk.bwd_fn, xk.fwd_fn,
-                xk.bwd_fn, *accum]
+                xk.bwd_fn, tk.fwd_fn, tk.bwd_fn, *accum]
 
     for cfg, own, table_own, n_frames in slices:
         t = _phase(f"slice: CoSLAM.run at {cfg['data']['exp_name']} "
@@ -1407,20 +1555,25 @@ def main() -> int:
         print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
         for fn in (*own, *table_own):
             launches.setdefault(fn.__name__, counts[fn.__name__])
-    serial = (HP.grid_encode_bwd_serial, VM.tensovm_encode_bwd_serial)
+    serial = (HP.grid_encode_bwd_serial, VM.tensovm_encode_bwd_serial,
+              TP.triplane_encode_bwd_serial)
     for cfg, frames, own, atomic in (
             (room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke_det"),
-             N_FRAMES, serial[0], hk.bwd_fn),
+             N_FRAMES, [serial[0]], [hk.bwd_fn]),
             (room0_vm_config(out, H, W, N_FRAMES,
-                             exp_name="chip_smoke_vm_det"), 10, serial[1],
-             vk.bwd_fn)):
+                             exp_name="chip_smoke_vm_det"), 10, [serial[1]],
+             [vk.bwd_fn]),
+            (room0_hybrid_config(out, H, W, N_FRAMES,
+                                 exp_name="chip_smoke_hybrid_det"), 10,
+             [serial[0], serial[2]], [hk.bwd_fn, tk.bwd_fn])):
         t = _phase(f"resume: {cfg['data']['exp_name']} ({cfg['grid']['enc']}"
                    f", {frames} frames) under "
                    "torch.use_deterministic_algorithms(True)")
         counts = run_resume(device, cfg, data, frames, 5, own, atomic,
                             [*wrappers, *serial])
         print(f"  resume {time.perf_counter() - t:.1f} s", flush=True)
-        launches[own.__name__] = counts[own.__name__]
+        for fn in own:
+            launches.setdefault(fn.__name__, counts[fn.__name__])
 
     t = _phase("current-frame step: room0, 6 frames, cur_frame_iters 2")
     cur_cfg = room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke_cur")
@@ -1447,7 +1600,8 @@ def main() -> int:
     print(f"  device tracer: largest difference "
           f"{check_device_tracer(device):.3g}", flush=True)
     quality = run_quality(device, wrappers, {
-        "replica": [hk.fwd_fn, hk.bwd_fn], "rgbd": [vk.fwd_fn, vk.bwd_fn]})
+        "replica": [hk.fwd_fn, hk.bwd_fn], "rgbd": [vk.fwd_fn, vk.bwd_fn],
+        "replica_hybrid": [hk.fwd_fn, hk.bwd_fn, tk.fwd_fn, tk.bwd_fn]})
     for label, counts in quality.items():
         for name, n in counts.items():
             if name in measured and n:

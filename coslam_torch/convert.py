@@ -1,10 +1,12 @@
 """Parameters between the JAX package and the port.
 
 The JAX parameter dict ``{"grid": ..., "decoder": {"sdf_net": [w...],
-"color_net": [w...]}}`` (coslam_tpu/models/scene_rep.py:init_params),
-whose grid is one table [T, F] or a dict of tables (TensoVM's
-``{"planes", "lines"}``), becomes the port's dict of tensors with the
-same structure and layouts (weights stay [in, out]), and back. Both
+"color_net": [w...]}}`` (coslam_tpu/models/scene_rep.py:init_params), and
+``"grid_color"`` beside them under ``oneGrid: false``, whose grids are one
+table [T, F] or a dict of tables (TensoVM's ``{"planes", "lines"}``,
+TriPlaneHybrid's ``{"dense", "planes"}``), becomes the port's dict of
+tensors with the same structure and layouts (weights stay [in, out]), and
+back. Both
 directions go through numpy, so neither side needs the other framework.
 The map optimizer's state crosses too: optax's Adam state as a flat
 leaf list (a checkpoint's ``opt_state``) to ``torch.optim.Adam``'s
@@ -21,6 +23,11 @@ import torch
 from .runtime.optim import grid_leaves
 
 
+# The grids of a parameter dict: the SDF grid and, under oneGrid: false,
+# the color grid.
+GRID_KEYS = ("grid", "grid_color")
+
+
 def _map_grid(fn, grid):
     """fn over the grid's tables, keeping a dict grid's keys."""
     if isinstance(grid, dict):
@@ -32,7 +39,7 @@ def check_grid(grid, spec) -> None:
     """Raise unless a hash table [T, F] has its spec's shape. The packed
     and XOR layouts of one configuration differ in rows (room0: 835,977
     packed, 834,097 XOR), so a table is never taken for the other's.
-    Dict grids (TensoVM) are not checked here."""
+    Dict grids (TensoVM, TriPlaneHybrid) are not checked here."""
     if isinstance(grid, dict):
         return
     want = (spec.total_entries, spec.n_features)
@@ -50,9 +57,10 @@ def params_from_numpy(params: Dict, device="cpu", spec=None) -> Dict:
 
     if spec is not None:
         check_grid(params["grid"], spec)
-    return {"grid": _map_grid(t, params["grid"]),
-            "decoder": {k: [t(w) for w in params["decoder"][k]]
-                        for k in ("sdf_net", "color_net")}}
+    out = {k: _map_grid(t, params[k]) for k in GRID_KEYS if k in params}
+    out["decoder"] = {k: [t(w) for w in params["decoder"][k]]
+                      for k in ("sdf_net", "color_net")}
+    return out
 
 
 def params_to_numpy(params: Dict) -> Dict:
@@ -60,9 +68,10 @@ def params_to_numpy(params: Dict) -> Dict:
     def a(x):
         return x.detach().cpu().numpy()
 
-    return {"grid": _map_grid(a, params["grid"]),
-            "decoder": {k: [a(w) for w in params["decoder"][k]]
-                        for k in ("sdf_net", "color_net")}}
+    out = {k: _map_grid(a, params[k]) for k in GRID_KEYS if k in params}
+    out["decoder"] = {k: [a(w) for w in params["decoder"][k]]
+                      for k in ("sdf_net", "color_net")}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -70,22 +79,29 @@ def params_to_numpy(params: Dict) -> Dict:
 # ---------------------------------------------------------------------------
 
 # The JAX map optimizer (coslam_tpu/runtime/optim.py:make_map_optimizer)
-# is optax.multi_transform over the labels "decoder" and "grid" of the
-# top-level keys; its state flattens label by label in sorted order, each
-# as the Adam count, then mu over the label's leaves, then nu over them
-# (the weight-decay and scale transforms hold no arrays). The leaves of a
-# label come in the sorted-key flatten order of the parameters:
-# color_net before sdf_net, a dict grid's tables in sorted-key order.
-# tests/test_torch_integration.py holds this order to
+# is optax.multi_transform over the labels "decoder", "grid" and, under
+# oneGrid: false, "grid_color" (the top-level keys); its state flattens
+# label by label in sorted order, each as the Adam count, then mu over the
+# label's leaves, then nu over them (the weight-decay and scale transforms
+# hold no arrays). The leaves of a label come in the sorted-key flatten
+# order of the parameters: color_net before sdf_net, a dict grid's tables
+# in sorted-key order. tests/test_torch_integration.py holds this order to
 # jax.tree_util.tree_flatten of a live optax state.
-MAP_OPT_LABELS = ("decoder", "grid")
+MAP_OPT_LABELS = ("decoder", "grid", "grid_color")
+
+
+def map_opt_labels(params: Dict) -> List[str]:
+    """The labels of ``params``, in sorted order: the color grid's only
+    when the parameters hold one."""
+    return [label for label in MAP_OPT_LABELS
+            if label == "decoder" or label in params]
 
 
 def label_leaves(params: Dict, label: str) -> List:
     """The tensors of one optax label, in JAX's flatten order."""
     if label == "decoder":
         return [*params["decoder"]["color_net"], *params["decoder"]["sdf_net"]]
-    return grid_leaves(params["grid"])
+    return grid_leaves(params[label])
 
 
 def adam_state_to_jax(opt: torch.optim.Optimizer, params: Dict) -> List:
@@ -96,7 +112,7 @@ def adam_state_to_jax(opt: torch.optim.Optimizer, params: Dict) -> List:
     ``exp_avg_sq`` (nu) of its tensors. Tensors stay on their device;
     a tensor without state (no step taken yet) gives count 0 and zeros."""
     out = []
-    for label in MAP_OPT_LABELS:
+    for label in map_opt_labels(params):
         ps = label_leaves(params, label)
         st = [opt.state.get(p, {}) for p in ps]
         out.append(np.int32(int(st[0]["step"]) if st[0] else 0))
@@ -112,7 +128,7 @@ def adam_state_from_jax(opt: torch.optim.Optimizer, params: Dict,
     from the JAX map optimizer's state leaves (``adam_state_to_jax``'s
     layout, as a checkpoint stores them)."""
     i = 0
-    for label in MAP_OPT_LABELS:
+    for label in map_opt_labels(params):
         ps = label_leaves(params, label)
         count = int(np.asarray(leaves[i]))
         mu = leaves[i + 1:i + 1 + len(ps)]

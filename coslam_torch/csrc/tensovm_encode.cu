@@ -8,6 +8,11 @@
 // with (u, v) = r * clip(x) on the plane's axes ((0,1), (0,2), (1,2) for
 // s = 0, 1, 2) and w = r * clip(x) on the axis the plane drops (2, 1, 0).
 //
+// With unit lines (kUnitLines: no line table, the line factor 1) the same
+// kernels compute the additive tri-plane (grid.enc TriPlane, and the plane
+// part of TriPlaneHybrid): TensoVM with unit lines is the tri-plane
+// (coslam_tpu/models/scene_rep.py relies on it for the TV term).
+//
 // What they replace (no Pallas kernel computes the forward on the TPU):
 //   tensovm_encode_fwd - kernel C, the forward of
 //                        coslam_tpu/ops/tensovm.py make_tensovm_encode:
@@ -23,6 +28,15 @@
 //                        plane_quad.cell_scatter_grad) and whose coarse
 //                        sections go through a two-hot matmul; the line
 //                        gradient (a two-hot matmul); and dx.
+//   triplane_encode_fwd - kernel T, the forward of
+//                        coslam_tpu/ops/triplane.py make_triplane_encode
+//                        (_gather_pairs on the bf16 window mirror and
+//                        _combine, XLA on the TPU); numerically
+//                        triplane_encode_fwd_only.
+//   triplane_encode_bwd - kernel U, that encode's custom VJP: the plane
+//                        table gradient through
+//                        hash_packed._scatter_table_grad, the Pallas pair
+//                        scatter (K2) on the plane table, and dx.
 //
 // Layout. Planes are the LOGICAL [Tp, F] f32 table: section s of level l
 // starts at row plane_off[l] + s * (r+1)^2 and corner (iu, iv) of cell
@@ -107,6 +121,13 @@
 // __fmul_rn / __fadd_rn, one rounding an operation as in the plain
 // version, where FMA contraction moved single-update entries by a few
 // ulp. dx is the atomic mode's.
+//
+// Unit lines (kernels T and U). The line reads, the line factor, the line
+// gradient and dx's line term drop out; U adds the plane gradient as the
+// tri-plane's K2 forms it, v = (g * wu_k) * (1 - wv) at (u corner k, v0)
+// and (g * wu_k) * wv at (u corner k, v1). U's serial mode
+// (triplane_encode_bwd_stream: K2 in its serial order) writes the four
+// plane corners only, m = (k * S + s) * N + n over the plane table [Tp, F].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -151,17 +172,19 @@ struct Section {
   float wu, wv, wl;
 };
 
+// kUnitLines: no line (wl 0, l0 0).
+template <bool kUnitLines>
 __device__ __forceinline__ Section section(const Levels& lv, int l, int res,
                                            int s, const float xs[3]) {
   Section sec;
-  int cu, cv, ci;
+  int cu, cv, ci = 0;
   sec.wu = cell_weight(xs[u_axis(s)], res, &cu);
   sec.wv = cell_weight(xs[v_axis(s)], res, &cv);
-  sec.wl = cell_weight(xs[line_axis(s)], res, &ci);
+  sec.wl = kUnitLines ? 0.0f : cell_weight(xs[line_axis(s)], res, &ci);
   sec.r1 = res + 1;
   const int64_t r1 = sec.r1;
   sec.e00 = lv.plane_row(l) + s * r1 * r1 + cu * r1 + cv;
-  sec.l0 = lv.line_row(l) + s * r1 + ci;
+  sec.l0 = kUnitLines ? 0 : lv.line_row(l) + s * r1 + ci;
   return sec;
 }
 
@@ -228,11 +251,13 @@ __device__ __forceinline__ void add_line_rows(float* acc, int key, float v[4]) {
 
 constexpr int kThreads = 256;
 
-// Kernel C. Block b takes the tile of `tile` consecutive points from
+// Kernel C, and with kUnitLines kernel T (lines unread, may be null).
+// Block b takes the tile of `tile` consecutive points from
 // b * tile (tile_points: 64 at L = 3), thread t = l * tile + p, so each
 // warp walks one level across 32 points. Dynamic shared memory, in floats:
 // the tile's x [tile * 3], then its outputs [tile, L * F + 1] (one float of
 // padding a row, so the lanes' row stores fall in different banks).
+template <bool kUnitLines>
 __global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ planes,
     const float* __restrict__ lines, float* __restrict__ out,
@@ -257,11 +282,12 @@ __global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
     float acc[F] = {0.0f, 0.0f};
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
-      const Section sec = section(lv, l, res, s, xv);
-      float2 p00, p01, p10, p11, v0, v1;
+      const Section sec = section<kUnitLines>(lv, l, res, s, xv);
+      float2 p00, p01, p10, p11;
+      float2 v0 = make_float2(1.0f, 1.0f), v1 = v0;
       load_pair(planes, sec.e00, &p00, &p01);
       load_pair(planes, sec.e00 + sec.r1, &p10, &p11);
-      load_pair(lines, sec.l0, &v0, &v1);
+      if (!kUnitLines) load_pair(lines, sec.l0, &v0, &v1);
       const float a[F][6] = {{p00.x, p01.x, p10.x, p11.x, v0.x, v1.x},
                              {p00.y, p01.y, p10.y, p11.y, v0.y, v1.y}};
 #pragma unroll
@@ -269,7 +295,8 @@ __global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
         const float featv0 = a[f][0] * (1.0f - sec.wv) + a[f][1] * sec.wv;
         const float featv1 = a[f][2] * (1.0f - sec.wv) + a[f][3] * sec.wv;
         const float plane = featv0 * (1.0f - sec.wu) + featv1 * sec.wu;
-        const float line = a[f][4] * (1.0f - sec.wl) + a[f][5] * sec.wl;
+        const float line =
+            kUnitLines ? 1.0f : a[f][4] * (1.0f - sec.wl) + a[f][5] * sec.wl;
         acc[f] += plane * line;
       }
     }
@@ -298,7 +325,10 @@ inline int tile_points(int n_levels) {
 // kStream: the serial mode; keys and vals (float2) take the updates (the
 // header's order), line rows keyed from line_key0 = Tp, and dplanes and
 // dlines are null.
-template <bool kStream>
+//
+// kUnitLines: kernel U, the tri-plane's backward (lines and dlines null,
+// no line term in dx; the stream holds the 4 plane corners only).
+template <bool kStream, bool kUnitLines>
 __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
                                    const float* __restrict__ planes,
                                    const float* __restrict__ lines,
@@ -351,12 +381,13 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
       int key = -1;
       float lv4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (active) {
-        const Section sec = section(lv, l, res, s, xv);
+        const Section sec = section<kUnitLines>(lv, l, res, s, xv);
         const float wu = sec.wu, wv = sec.wv, wl = sec.wl;
-        float2 p00, p01, p10, p11, v0, v1;
+        float2 p00, p01, p10, p11;
+        float2 v0 = make_float2(1.0f, 1.0f), v1 = v0;
         load_pair(planes, sec.e00, &p00, &p01);
         load_pair(planes, sec.e00 + sec.r1, &p10, &p11);
-        load_pair(lines, sec.l0, &v0, &v1);
+        if (!kUnitLines) load_pair(lines, sec.l0, &v0, &v1);
         const float a[F][6] = {{p00.x, p01.x, p10.x, p11.x, v0.x, v1.x},
                                {p00.y, p01.y, p10.y, p11.y, v0.y, v1.y}};
         float gp[F], gq[F];
@@ -366,15 +397,34 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
           const float featv0 = a[f][0] * (1.0f - wv) + a[f][1] * wv;
           const float featv1 = a[f][2] * (1.0f - wv) + a[f][3] * wv;
           const float plane = featv0 * (1.0f - wu) + featv1 * wu;
-          const float line = a[f][4] * (1.0f - wl) + a[f][5] * wl;
+          const float line =
+              kUnitLines ? 1.0f : a[f][4] * (1.0f - wl) + a[f][5] * wl;
           gp[f] = gl[f] * line;   // d out / d plane feature
           gq[f] = gl[f] * plane;  // d out / d line value
           du += gp[f] * (featv1 - featv0);
           dv += gp[f] * ((a[f][1] - a[f][0]) * (1.0f - wu) +
                          (a[f][3] - a[f][2]) * wu);
-          dw += gq[f] * (a[f][5] - a[f][4]);
+          if (!kUnitLines) dw += gq[f] * (a[f][5] - a[f][4]);
         }
-        if (kStream) {
+        const int64_t S = 3 * static_cast<int64_t>(L);
+        const int64_t m0 = (3 * static_cast<int64_t>(l) + s) * n_points +
+                           n0 + p;
+        const int64_t step = S * n_points;  // one corner or line row
+        const int64_t corner[4] = {sec.e00, sec.e00 + 1, sec.e00 + sec.r1,
+                                   sec.e00 + sec.r1 + 1};
+        if (kStream && kUnitLines) {
+          // K2's values, one rounding an operation: (g * wu_k) * (1 - wv)
+          // at corner (k, v0) and (g * wu_k) * wv at (k, v1).
+          const float wuk[2] = {1.0f - wu, wu}, wvj[2] = {1.0f - wv, wv};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float w = wuk[k >> 1];
+            keys[m0 + k * step] = static_cast<int>(corner[k]);
+            vals[m0 + k * step] =
+                make_float2(__fmul_rn(__fmul_rn(gl[0], w), wvj[k & 1]),
+                            __fmul_rn(__fmul_rn(gl[1], w), wvj[k & 1]));
+          }
+        } else if (kStream) {
           // The plain version's values, one rounding an operation.
           float gpe[F], gqe[F];
 #pragma unroll
@@ -393,12 +443,6 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
           const float w[4] = {__fmul_rn(1.0f - wu, 1.0f - wv),
                               __fmul_rn(1.0f - wu, wv),
                               __fmul_rn(wu, 1.0f - wv), __fmul_rn(wu, wv)};
-          const int64_t corner[4] = {sec.e00, sec.e00 + 1, sec.e00 + sec.r1,
-                                     sec.e00 + sec.r1 + 1};
-          const int64_t S = 3 * static_cast<int64_t>(L);
-          const int64_t m0 = (3 * static_cast<int64_t>(l) + s) * n_points +
-                             n0 + p;
-          const int64_t step = S * n_points;  // one corner or line row
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             keys[m0 + k * step] = static_cast<int>(corner[k]);
@@ -413,6 +457,16 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
             vals[m0 + (4 + j) * step] = make_float2(
                 __fmul_rn(gqe[0], wlk[j]), __fmul_rn(gqe[1], wlk[j]));
           }
+        } else if (dplanes != nullptr && kUnitLines) {
+          const float2 gu0 = make_float2(gp[0] * (1.0f - wu),
+                                         gp[1] * (1.0f - wu));
+          const float2 gu1 = make_float2(gp[0] * wu, gp[1] * wu);
+          add_pair(dplanes, sec.e00,
+                   make_float2(gu0.x * (1.0f - wv), gu0.y * (1.0f - wv)),
+                   make_float2(gu0.x * wv, gu0.y * wv));
+          add_pair(dplanes, sec.e00 + sec.r1,
+                   make_float2(gu1.x * (1.0f - wv), gu1.y * (1.0f - wv)),
+                   make_float2(gu1.x * wv, gu1.y * wv));
         } else if (dplanes != nullptr) {
           const float w00 = (1.0f - wu) * (1.0f - wv), w01 = (1.0f - wu) * wv;
           const float w10 = wu * (1.0f - wv), w11 = wu * wv;
@@ -430,9 +484,9 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
         // d pos / d x = r on each axis.
         dxa[u_axis(s)] += du * r;
         dxa[v_axis(s)] += dv * r;
-        dxa[line_axis(s)] += dw * r;
+        if (!kUnitLines) dxa[line_axis(s)] += dw * r;
       }
-      if (dlines != nullptr) add_line_rows(dl, key, lv4);
+      if (!kUnitLines && dlines != nullptr) add_line_rows(dl, key, lv4);
     }
     if (dx != nullptr) {
 #pragma unroll
@@ -451,7 +505,7 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
     }
   }
 
-  if (dlines != nullptr) {
+  if (!kUnitLines && dlines != nullptr) {
     __syncthreads();
     for (int i = threadIdx.x; i < n_line; i += blockDim.x) {
       const float v = dl[i];
@@ -486,7 +540,7 @@ cudaError_t resident_blocks(int threads, size_t smem, int64_t* wave) {
                                  device);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, tensovm_bwd_kernel<false>, threads, smem);
+          &per_sm, tensovm_bwd_kernel<false, false>, threads, smem);
     if (err != cudaSuccess) return err;
     last_device = device;
     last_threads = threads;
@@ -518,8 +572,9 @@ int tensovm_encode_fwd(const float* x, const float* planes,
   const size_t smem = static_cast<size_t>(tile) *
                       (3 + n_levels * kFeatures + 1) * sizeof(float);
   const int64_t blocks = (n_points + tile - 1) / tile;
-  tensovm_fwd_kernel<<<static_cast<unsigned int>(blocks), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  tensovm_fwd_kernel<false>
+      <<<static_cast<unsigned int>(blocks), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
       x, planes, lines, out, n_points, Levels{levels, n_levels}, tile);
   return cudaGetLastError();
 }
@@ -552,7 +607,7 @@ int tensovm_encode_bwd(const float* x, const float* planes,
   if (smem > 48 * 1024) {
     // Above 48 KB a block gets shared memory only when asked for (at most
     // 227 KB on Hopper; a larger line table is refused at launch).
-    err = cudaFuncSetAttribute(tensovm_bwd_kernel<false>,
+    err = cudaFuncSetAttribute(tensovm_bwd_kernel<false, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -565,7 +620,7 @@ int tensovm_encode_bwd(const float* x, const float* planes,
     if (err != cudaSuccess) return err;
     if (blocks > wave) blocks = wave;
   }
-  tensovm_bwd_kernel<false>
+  tensovm_bwd_kernel<false, false>
       <<<static_cast<unsigned int>(blocks), threads, smem,
          static_cast<cudaStream_t>(stream)>>>(
           x, planes, lines, g, dplanes, dlines, nullptr, nullptr, 0, dx,
@@ -598,17 +653,93 @@ int tensovm_encode_bwd_stream(const float* x, const float* planes,
       sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tensovm_bwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tensovm_bwd_kernel<true, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int64_t blocks = (n_points + tile - 1) / tile;
-  tensovm_bwd_kernel<true>
+  tensovm_bwd_kernel<true, false>
       <<<static_cast<unsigned int>(blocks), threads, smem,
          static_cast<cudaStream_t>(stream)>>>(
           x, planes, lines, g, nullptr, nullptr, keys,
           reinterpret_cast<float2*>(vals), n_plane_rows, dx, n_points,
           Levels{levels, n_levels}, n_line_rows, tile);
+  return cudaGetLastError();
+}
+
+// Kernels T and U: the tri-plane (unit lines), with the arguments of their
+// TensoVM counterparts less the line table. planes and dplanes must be
+// 16-byte aligned.
+int triplane_encode_fwd(const float* x, const float* planes, float* out,
+                        int64_t n_points, int n_features, const int* levels,
+                        int n_levels, void* stream) {
+  if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
+      misaligned(planes))
+    return cudaErrorInvalidValue;
+  if (n_points == 0) return cudaSuccess;
+  const int tile = tile_points(n_levels);
+  const size_t smem = static_cast<size_t>(tile) *
+                      (3 + n_levels * kFeatures + 1) * sizeof(float);
+  const int64_t blocks = (n_points + tile - 1) / tile;
+  tensovm_fwd_kernel<true>
+      <<<static_cast<unsigned int>(blocks), n_levels * tile, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          x, planes, nullptr, out, n_points, Levels{levels, n_levels}, tile);
+  return cudaGetLastError();
+}
+
+// dplanes ([Tp, F], zeroed) and dx ([N, 3], every entry written) may each
+// be null.
+int triplane_encode_bwd(const float* x, const float* planes, const float* g,
+                        float* dplanes, float* dx, int64_t n_points,
+                        int n_features, const int* levels, int n_levels,
+                        void* stream) {
+  if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
+      misaligned(planes) || misaligned(dplanes))
+    return cudaErrorInvalidValue;
+  if (n_points == 0 || (dplanes == nullptr && dx == nullptr))
+    return cudaSuccess;
+  const int tile = tile_points(n_levels);
+  const size_t smem =
+      (static_cast<size_t>(tile) * (3 + n_levels * kFeatures) +
+       (dx != nullptr ? static_cast<size_t>(n_levels) * tile * 3 : 0)) *
+      sizeof(float);
+  const int64_t blocks = (n_points + tile - 1) / tile;
+  tensovm_bwd_kernel<false, true>
+      <<<static_cast<unsigned int>(blocks), n_levels * tile, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          x, planes, nullptr, g, dplanes, nullptr, nullptr, nullptr, 0, dx,
+          n_points, Levels{levels, n_levels}, 0, tile);
+  return cudaGetLastError();
+}
+
+// U's serial mode: keys (int32 [4 * 3L * N]) and vals (float2, 8-byte
+// aligned, as many) take every update of dplanes at its index m (the
+// header's order); dx as in triplane_encode_bwd (may be null). The caller
+// keeps 12 L N and the plane rows below 2^31.
+int triplane_encode_bwd_stream(const float* x, const float* planes,
+                               const float* g, int* keys, float* vals,
+                               float* dx, int64_t n_points, int n_features,
+                               const int* levels, int n_levels,
+                               void* stream) {
+  if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
+      misaligned(planes) || keys == nullptr ||
+      reinterpret_cast<uintptr_t>(vals) % 8 != 0)
+    return cudaErrorInvalidValue;
+  if (n_points == 0) return cudaSuccess;
+  const int tile = tile_points(n_levels);
+  const size_t smem =
+      (static_cast<size_t>(tile) * (3 + n_levels * kFeatures) +
+       (dx != nullptr ? static_cast<size_t>(n_levels) * tile * 3 : 0)) *
+      sizeof(float);
+  const int64_t blocks = (n_points + tile - 1) / tile;
+  tensovm_bwd_kernel<true, true>
+      <<<static_cast<unsigned int>(blocks), n_levels * tile, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+          x, planes, nullptr, g, nullptr, nullptr, keys,
+          reinterpret_cast<float2*>(vals), 0, dx, n_points,
+          Levels{levels, n_levels}, 0, tile);
   return cudaGetLastError();
 }
 

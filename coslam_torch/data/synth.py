@@ -1514,6 +1514,18 @@ def room0_vm_config(output: str, H: int = 480, W: int = 640,
     return cfg
 
 
+def room0_hybrid_config(output: str, H: int = 480, W: int = 640,
+                        n_frames: int = 15,
+                        exp_name: str = "room0_hybrid_synth") -> Dict:
+    """room0_config with what configs/Replica/room0_hybrid.yaml changes:
+    the TriPlaneHybrid grid, 3 dense levels (16/26/44, 115,721 rows) and
+    a 4-level tri-plane pyramid (32/68/146/311, 374,409 rows) at
+    voxel_sdf 400."""
+    cfg = room0_config(output, H, W, n_frames, exp_name)
+    cfg["grid"]["enc"] = "TriPlaneHybrid"
+    return cfg
+
+
 def room0_xor_config(output: str, H: int = 480, W: int = 640,
                      n_frames: int = 15,
                      exp_name: str = "room0_xor_synth",

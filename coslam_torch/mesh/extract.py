@@ -71,13 +71,21 @@ def extract_mesh(model, params, config: Dict, bounding_box: np.ndarray,
                 - config["data"]["translation"])
 
     vertex_colors = None
-    if color_func is not None:
-        if config["mesh"]["render_color"]:
-            raise NotImplementedError("mesh.render_color is not ported yet")
+    if color_func is not None and not config["mesh"]["render_color"]:
         vert_norm = ((vertices - bb[:, 0]) / (bb[:, 1] - bb[:, 0])
                      ).astype(np.float32)
         vertex_colors = _chunked_query(lambda p: color_func(params, p),
                                        vert_norm, model.device)
+    elif color_func is not None:
+        # mesh.render_color: color_func(params, vertices [n, 3], normals
+        # [n, 3]) renders along the area-weighted vertex normals in metric
+        # coordinates (the model's render_surface_color).
+        normals = TriMesh(vertices, triangles).vertex_normals.astype(
+            np.float32)
+        both = np.concatenate([vertices.astype(np.float32), normals], 1)
+        vertex_colors = _chunked_query(
+            lambda vn: color_func(params, vn[:, :3], vn[:, 3:]), both,
+            model.device)
     mesh = TriMesh(vertices, triangles, vertex_colors)
     if mesh_savepath:
         mesh.export(mesh_savepath)

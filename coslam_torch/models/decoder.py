@@ -8,7 +8,7 @@ per net), so converted JAX parameters drop in unchanged; the products are
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -38,18 +38,25 @@ def _layer_dims(in_dim: int, hidden: int, out_dim: int, n_layers: int):
 
 
 class ColorSDFDecoder:
-    """One-grid decoder: sdf_net([embed, embed_pos]) -> [sdf, geo_feat];
-    color_net([embed_pos, geo_feat]) -> rgb logits. Output [rgb(3), sdf]."""
+    """One-grid decoder (``oneGrid: true``): sdf_net([embed, embed_pos])
+    -> [sdf, geo_feat]; color_net([embed_pos, geo_feat]) -> rgb logits.
+    Two grids (``oneGrid: false``): color_net([embed_pos, embed_color,
+    geo_feat]), embed_color the color grid's encoding. Output [rgb(3),
+    sdf]."""
 
-    def __init__(self, config: Dict, input_ch: int, input_ch_pos: int):
+    def __init__(self, config: Dict, input_ch: int, input_ch_pos: int,
+                 input_ch_color: int = 0, one_grid: bool = True):
         dec = config["decoder"]
         if dec.get("dtype", "float32") != "float32":
             raise NotImplementedError("the port's decoder runs in float32")
+        self.one_grid = one_grid
         self.geo_feat_dim = dec["geo_feat_dim"]
         self.sdf_dims = _layer_dims(input_ch + input_ch_pos, dec["hidden_dim"],
                                     1 + dec["geo_feat_dim"], dec["num_layers"])
-        self.color_dims = _layer_dims(input_ch_pos + dec["geo_feat_dim"],
-                                      dec["hidden_dim_color"], 3,
+        color_in = input_ch_pos + dec["geo_feat_dim"]
+        if not one_grid:
+            color_in += input_ch_color
+        self.color_dims = _layer_dims(color_in, dec["hidden_dim_color"], 3,
                                       dec["num_layers_color"])
 
     def init(self, generator: torch.Generator, device=None) -> Dict:
@@ -63,8 +70,11 @@ class ColorSDFDecoder:
         return mlp_apply(params["color_net"], x)
 
     def __call__(self, params: Dict, embed: torch.Tensor,
-                 embed_pos: torch.Tensor) -> torch.Tensor:
+                 embed_pos: torch.Tensor,
+                 embed_color: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.sdf_net(params, torch.cat([embed, embed_pos], -1))
         sdf, geo_feat = h[..., :1], h[..., 1:]
-        rgb = self.color_net(params, torch.cat([embed_pos, geo_feat], -1))
+        cin = ([embed_pos, geo_feat] if self.one_grid
+               else [embed_pos, embed_color, geo_feat])
+        rgb = self.color_net(params, torch.cat(cin, -1))
         return torch.cat([rgb, sdf], -1)

@@ -1,17 +1,21 @@
-"""Joint scene representation: hash grid or TensoVM + OneBlob -> SDF / color.
+"""Joint scene representation: a parametric grid + a coordinate encoding
+-> SDF / color.
 
-Counterpart of coslam_tpu/models/scene_rep.py:JointEncoding for the
-HashGrid (or Dense, 4 dense levels, or Tiled) + OneBlob and TensoVM +
-OneBlob, ``oneGrid: true`` models; the
-hash grid is the packed layout or, with ``grid.grad_impl`` pallas,
-scatter or onehot, the XOR hash (ops/hash_pallas.py). As in
-the JAX package the class holds only static configuration; the learnable
-state is an explicit parameter dict ``{"grid": ..., "decoder":
-{"sdf_net": [...], "color_net": [...]}}`` of tensors, where the grid is
-the hash table [T, F] or TensoVM's ``{"planes", "lines"}``, and every
-method is a function of (params, inputs). Random draws come in as
-arguments (the stratified perturbation ``t``, the smoothness sample) or
-from an explicit ``torch.Generator``.
+Counterpart of coslam_tpu/models/scene_rep.py:JointEncoding for every
+grid the JAX model accepts: the hash grid (HashGrid, Dense: 4 dense
+levels, or Tiled; the packed layout or, with ``grid.grad_impl`` pallas,
+scatter or onehot, the XOR hash of ops/hash_pallas.py), TensoVM,
+TriPlaneHybrid and TriPlane, with any coordinate encoding (OneBlob,
+Frequency, SphericalHarmonics, Identity), and with ``grid.oneGrid:
+false``, a second grid of the same kind at ``grid.voxel_color`` for the
+color. As in the JAX package the class holds only static configuration;
+the learnable state is an explicit parameter dict ``{"grid": ...,
+"decoder": {"sdf_net": [...], "color_net": [...]}[, "grid_color": ...]}``
+of tensors, where a grid is a table [T, F] or a dict of tables
+(TensoVM's ``{"planes", "lines"}``, TriPlaneHybrid's ``{"dense",
+"planes"}``), and every method is a function of (params, inputs). Random
+draws come in as arguments (the stratified perturbation ``t``, the
+smoothness sample) or from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -22,16 +26,20 @@ import numpy as np
 import torch
 
 from ..ops import encodings as enc
+from ..ops import hash_packed as HP
 from ..ops import losses as L
 from ..ops import render as R
 from ..ops import tensovm as VM
+from ..ops import triplane as TP
 from .decoder import ColorSDFDecoder
 
 
-def is_tensovm(config: Dict) -> bool:
-    """Whether the grid is TensoVM (its smoothness term is the analytic
-    TV over lattice axes, which encodes no points)."""
-    return "vm" in str(config["grid"]["enc"]).lower()
+def is_factorized(config: Dict) -> bool:
+    """Whether the grid is TensoVM, TriPlaneHybrid or TriPlane: its
+    smoothness term reads the lattice's axes, not its points, and its
+    pyramid takes grid.triplane_levels and grid.triplane_features."""
+    name = str(config["grid"]["enc"]).lower()
+    return "vm" in name or "plane" in name
 
 
 def check_supported(config: Dict) -> None:
@@ -41,14 +49,9 @@ def check_supported(config: Dict) -> None:
     # levels), in the packed or the XOR layout.
     is_grid = any(k in enc_name for k in ("dense", "hash", "tiled"))
     unsupported = {
-        "grid.enc other than HashGrid, Dense, Tiled or TensoVM":
-            not (is_grid or is_tensovm(config)),
         "grid.grad_impl other than auto, packed, pallas, scatter or onehot":
             is_grid and config["grid"].get("grad_impl", "auto") not in (
                 "auto", "packed", *enc.XOR_GRAD_IMPLS),
-        "grid.oneGrid: false": not config["grid"]["oneGrid"],
-        "pos.enc other than OneBlob":
-            "blob" not in str(config["pos"]["enc"]).lower(),
         "training.n_importance > 0": config["training"]["n_importance"] > 0,
         "training.frame_align": bool(config["training"].get("frame_align")),
     }
@@ -68,34 +71,79 @@ class JointEncoding:
         dim_max = float((bb[:, 1] - bb[:, 0]).max())
         vs = config["grid"]["voxel_sdf"]
         self.resolution_sdf = int(vs) if vs > 10 else int(dim_max / vs)
+        vc = config["grid"]["voxel_color"]
+        self.resolution_color = int(vc) if vc > 10 else int(dim_max / vc)
 
         (self._pos_init, self._pos_apply, self.input_ch_pos, _
          ) = enc.make_encoder(config["pos"]["enc"],
                               n_bins=config["pos"]["n_bins"])
-        vm = is_tensovm(config)
         grid_kw = {}
-        if vm:
+        if is_factorized(config):
             # Pyramid depth and features per level (no reference
             # counterpart; the JAX package's defaults).
             grid_kw = dict(
                 n_levels=int(config["grid"].get("triplane_levels", 4)),
                 level_dim=int(config["grid"].get("triplane_features", 2)))
+        grad_impl = config["grid"].get("grad_impl", "auto")
         (self._grid_init, self._grid_apply, self.input_ch, self.grid_spec
          ) = enc.make_encoder(config["grid"]["enc"],
                               log2_hashmap_size=config["grid"]["hash_size"],
                               desired_resolution=self.resolution_sdf,
-                              grad_impl=config["grid"].get("grad_impl",
-                                                           "auto"),
-                              **grid_kw)
-        self._grid_tv = (VM.make_tensovm_lattice_tv(self.grid_spec) if vm
-                         else None)
+                              grad_impl=grad_impl, **grid_kw)
+        self._grid_tv = self._make_lattice_tv(config)
+        self.one_grid = bool(config["grid"]["oneGrid"])
+        self.input_ch_color = 0
+        if not self.one_grid:
+            # The color grid: the same encoding at grid.voxel_color, with
+            # the encoder's default pyramid (as the JAX model builds it).
+            (self._cgrid_init, self._cgrid_apply, self.input_ch_color,
+             self.color_grid_spec) = enc.make_encoder(
+                config["grid"]["enc"],
+                log2_hashmap_size=config["grid"]["hash_size"],
+                desired_resolution=self.resolution_color,
+                grad_impl=grad_impl)
         self.decoder = ColorSDFDecoder(config, self.input_ch,
-                                       self.input_ch_pos)
+                                       self.input_ch_pos, self.input_ch_color,
+                                       self.one_grid)
+
+    def _make_lattice_tv(self, config: Dict):
+        """The smoothness term of a factorized grid as fn(grid params,
+        axes [3, g], sample_points) -> scalar, or None for the hash grids
+        (whose lattice points are encoded). TensoVM and TriPlane: the
+        analytic separable TV (TriPlane's with unit lines); TriPlaneHybrid:
+        smoothness_tv of its lattice's feature volume, the dense part
+        encoded at the lattice's points through kernels A and B (constant
+        points: the backward computes no dx), the planes by
+        triplane_lattice_encode (coslam_tpu's JointEncoding
+        ._make_lattice_fn)."""
+        name = str(config["grid"]["enc"]).lower()
+        if "vm" in name:
+            return VM.make_tensovm_lattice_tv(self.grid_spec)
+        if "hybrid" in name:
+            dspec, pspec = self.grid_spec
+
+            def hybrid_tv(p, axes, sample_points):
+                g = axes.shape[1]
+                pts = torch.stack(torch.meshgrid(*axes, indexing="ij"),
+                                  -1).reshape(-1, 3)
+                dense = HP.encode(dspec, p["dense"], pts).reshape(g, g, g, -1)
+                planes = TP.triplane_lattice_encode(pspec, p["planes"], axes)
+                return L.smoothness_tv(torch.cat([dense, planes], -1),
+                                       sample_points)
+
+            return hybrid_tv
+        if "plane" in name:
+            return VM.make_triplane_lattice_tv(self.grid_spec)
+        return None
 
     def init_params(self, generator: torch.Generator) -> Dict:
-        """Fresh parameters on the model's device, drawn from generator."""
-        return {"grid": self._grid_init(generator, self.device),
-                "decoder": self.decoder.init(generator, self.device)}
+        """Fresh parameters on the model's device, drawn from generator
+        (the grid, the decoder, then the color grid)."""
+        params = {"grid": self._grid_init(generator, self.device),
+                  "decoder": self.decoder.init(generator, self.device)}
+        if not self.one_grid:
+            params["grid_color"] = self._cgrid_init(generator, self.device)
+        return params
 
     @property
     def n_z_samples(self) -> int:
@@ -114,7 +162,10 @@ class JointEncoding:
     def query_color_sdf(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         """[N, 3] -> raw [N, 4] = [rgb logits, sdf]."""
         embed = self._grid_apply(params["grid"], x)
-        return self.decoder(params["decoder"], embed, self._pos_apply(None, x))
+        embed_color = (None if self.one_grid
+                       else self._cgrid_apply(params["grid_color"], x))
+        return self.decoder(params["decoder"], embed, self._pos_apply(None, x),
+                            embed_color)
 
     def query_sdf(self, params: Dict, x: torch.Tensor, embed: bool = False):
         """SDF (or, with embed=True, the grid embedding) at x [..., 3]."""
@@ -139,6 +190,22 @@ class JointEncoding:
         return raw.reshape(pts.shape[:-1] + (raw.shape[-1],))
 
     # -- rendering ------------------------------------------------------------
+
+    def render_surface_color(self, params: Dict, rays_o: torch.Tensor,
+                             normal: torch.Tensor) -> torch.Tensor:
+        """Color rendered along vertex normals (mesh.render_color): rays
+        from rays_o [N, 3] along normal [N, 3] through n_range_d samples
+        evenly in [-trunc, trunc] (coslam_tpu's
+        JointEncoding.render_surface_color) -> rgb [N, 3]."""
+        tr = self.config["training"]
+        z_vals = torch.linspace(-tr["trunc"], tr["trunc"], tr["n_range_d"],
+                                device=rays_o.device)
+        z_vals = z_vals.expand(rays_o.shape[0], -1)
+        pts = rays_o[..., None, :] + normal[..., None, :] * z_vals[..., None]
+        raw = self.run_network(params, pts)
+        return R.raw2outputs(raw, z_vals, tr["trunc"],
+                             self.config["data"]["sc_factor"],
+                             tr["white_bkgd"])[0]
 
     def render_rays(self, params: Dict, rays_o: torch.Tensor,
                     rays_d: torch.Tensor,
@@ -243,19 +310,22 @@ class JointEncoding:
     def smoothness_sample(self, generator: torch.Generator,
                           sample_points: int, voxel_size: float,
                           margin: float) -> torch.Tensor:
-        """What :meth:`smoothness` takes: the lattice's axes for TensoVM,
-        its points otherwise."""
+        """What :meth:`smoothness` takes: the lattice's axes for the
+        factorized grids (TensoVM, TriPlaneHybrid, TriPlane), its points
+        for the hash grids."""
         draw = (self.smoothness_axes if self._grid_tv is not None
                 else self.smoothness_points)
         return draw(generator, sample_points, voxel_size, margin)
 
     def smoothness(self, params: Dict, sample: torch.Tensor,
                    sample_points: int) -> torch.Tensor:
-        """TV of the grid features on the lattice. TensoVM: ``sample`` is
-        the axes [3, g] and the TV is the analytic separable sum (no point
-        is encoded). Hash grid: ``sample`` is the points [g^3, 3], encoded
-        as constants (the encode backward computes no dx), in the packed
-        and the XOR layout alike."""
+        """TV of the grid features on the lattice. Factorized grids:
+        ``sample`` is the axes [3, g]; TensoVM and TriPlane take the
+        analytic separable sum (no point is encoded), TriPlaneHybrid its
+        lattice's features (:meth:`_make_lattice_tv`). Hash grid:
+        ``sample`` is the points [g^3, 3], encoded as constants (the
+        encode backward computes no dx), in the packed and the XOR layout
+        alike."""
         if self._grid_tv is not None:
             return self._grid_tv(params["grid"], sample, sample_points)
         g = sample_points - 1

@@ -114,6 +114,12 @@ def library() -> ctypes.CDLL:
                                        ctypes.c_int64, ctypes.c_int, _P,
                                        ctypes.c_int, ctypes.c_int, _P]
     lib.tensovm_encode_bwd.restype = ctypes.c_int
+    lib.triplane_encode_fwd.argtypes = [_P, _P, _P, _I64, _I32, _P, _I32,
+                                        _P]
+    lib.triplane_encode_bwd.argtypes = [_P, _P, _P, _P, _P, _I64, _I32, _P,
+                                        _I32, _P]
+    lib.triplane_encode_bwd_stream.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
+                                               _I32, _P, _I32, _P]
     lib.xor_grid_encode_fwd.argtypes = [_P, _P, _P, _I64, _I32, _P, _I32,
                                         _U32, _P]
     lib.xor_grid_encode_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32,
@@ -129,7 +135,8 @@ def library() -> ctypes.CDLL:
     lib.probe_accum_run_merge.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
                                           _I32, _I32, _P]
     for fn in (lib.grid_encode_bwd_stream, lib.tensovm_encode_bwd_stream,
-               lib.xor_grid_encode_fwd, lib.xor_grid_encode_bwd,
+               lib.triplane_encode_fwd, lib.triplane_encode_bwd,
+               lib.triplane_encode_bwd_stream, lib.xor_grid_encode_fwd, lib.xor_grid_encode_bwd,
                lib.row_accum_sort, lib.row_accum_starts, lib.row_accum_walk,
                lib.probe_accum,
                lib.probe_accum_pair_merged, lib.probe_accum_run_merge):

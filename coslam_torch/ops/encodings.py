@@ -1,14 +1,15 @@
-"""Input encodings of the port: the hash grids, TensoVM and OneBlob.
+"""Input encodings of the port: the hash grids, TensoVM, the tri-planes,
+OneBlob, frequency, spherical harmonics and identity.
 
-Counterpart of coslam_tpu/ops/encodings.py for the names the ported
-paths use (``HashGrid``/``Dense`` or ``TensoVM`` for the grid,
-``OneBlob`` for coordinates). The hash grid comes in two layouts, picked
+Counterpart of coslam_tpu/ops/encodings.py; every name its make_encoder
+routes is routed here. The hash grid comes in two layouts, picked
 by ``grad_impl`` as in the JAX package: the packed z-linear layout
 (``auto``/``packed``, ops/hash_packed.py) and the XOR-hash layout of
 Instant-NGP and tiny-cuda-nn (``pallas``/``scatter``/``onehot``), whose
 static layout and plain forward live here and whose kernels and autograd
-Function live in ops/hash_pallas.py. The other encodings wait for later
-slices and raise here.
+Function live in ops/hash_pallas.py. TensoVM lives in ops/tensovm.py,
+the tri-plane in ops/triplane.py; TriPlaneHybrid concatenates a
+3-level dense packed grid and a tri-plane pyramid.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from . import hash_packed as HP
 from . import tensovm as VM
+from . import triplane as TP
 
 # Instant-NGP spatial-hash primes of the XOR hash, for x, y and z.
 _PRIMES = (1, 2654435761, 805459861)
@@ -182,16 +184,61 @@ def oneblob_encode(x: torch.Tensor, n_bins: int = 16) -> torch.Tensor:
     return (cdf[..., 1:] - cdf[..., :-1]).reshape(x.shape[0], -1)
 
 
-def make_encoder(encoding: str, input_dim: int = 3, n_bins: int = 16,
+def freq_encode(x: torch.Tensor, n_frequencies: int = 12) -> torch.Tensor:
+    """NeRF frequency encoding [sin, cos](2^k pi x): x [N, D] ->
+    [N, D * n_frequencies * 2], per coordinate the sines then the cosines
+    (coslam_tpu.ops.encodings.freq_encode)."""
+    freqs = (2.0 ** torch.arange(n_frequencies, dtype=x.dtype,
+                                 device=x.device)) * math.pi
+    ang = x[..., None] * freqs                            # [N, D, K]
+    return torch.cat([ang.sin(), ang.cos()], -1).reshape(x.shape[0], -1)
+
+
+def sh_encode(d: torch.Tensor, degree: int = 4) -> torch.Tensor:
+    """Real spherical-harmonics basis of the directions d [N, 3]
+    (normalized here) up to ``degree`` (<= 4): [N, degree**2], the bands
+    and constants of coslam_tpu.ops.encodings.sh_encode."""
+    if degree > 4:
+        raise NotImplementedError("SH degree > 4")
+    d = d / d.norm(dim=-1, keepdim=True).clamp_min(1e-8)
+    x, y, z = d.unbind(-1)
+    out = [torch.full_like(x, 0.28209479177387814)]
+    if degree > 1:
+        out += [-0.48860251190291987 * y, 0.48860251190291987 * z,
+                -0.48860251190291987 * x]
+    if degree > 2:
+        xy, yz, xz = x * y, y * z, x * z
+        x2, y2, z2 = x * x, y * y, z * z
+        out += [1.0925484305920792 * xy, -1.0925484305920792 * yz,
+                0.94617469575755997 * z2 - 0.31539156525251999,
+                -1.0925484305920792 * xz, 0.54627421529603959 * (x2 - y2)]
+    if degree > 3:
+        out += [0.59004358992664352 * y * (-3.0 * x2 + y2),
+                2.8906114426405538 * xy * z,
+                0.45704579946446572 * y * (1.0 - 5.0 * z2),
+                0.3731763325901154 * z * (5.0 * z2 - 3.0),
+                0.45704579946446572 * x * (1.0 - 5.0 * z2),
+                1.4453057213202769 * z * (x2 - y2),
+                0.59004358992664352 * x * (-x2 + 3.0 * y2)]
+    return torch.stack(out, -1)
+
+
+def make_encoder(encoding: str, input_dim: int = 3, degree: int = 4,
+                 n_bins: int = 16, n_frequencies: int = 12,
                  n_levels: int = 16, level_dim: int = 2,
                  base_resolution: int = 16, log2_hashmap_size: int = 19,
                  desired_resolution: int = 512, grad_impl: str = "auto"):
     """(init_fn(generator, device) -> params | None, apply_fn(params, x),
-    out_dim, spec) for 'HashGrid' and 'Dense' (4 dense levels), 'TensoVM'
-    (params {'planes', 'lines'}, at most 8 pyramid levels of
-    ``level_dim`` features) or 'OneBlob' (coslam_tpu.ops.encodings
-    .make_encoder for those names). The grids' grad_impl routes as the JAX
-    package's _grid_apply_fn: 'auto'/'packed' to the packed layout,
+    out_dim, spec), routed by case-insensitive substring as
+    coslam_tpu.ops.encodings.make_encoder, in its order: 'HashGrid' and
+    'Dense' (4 dense levels) or 'Tiled'; 'TensoVM' (params {'planes',
+    'lines'}), 'TriPlaneHybrid' (params {'dense', 'planes'}: 3 dense
+    packed levels from resolution 16 to min(resolution, 44) and a
+    tri-plane pyramid; spec (dense spec, plane spec)) and 'TriPlane'
+    (one plane table), each pyramid at most 8 levels of ``level_dim``
+    features; then 'SphericalHarmonics', 'OneBlob', 'Frequency' and
+    'Identity'. The grids' grad_impl routes as the JAX package's
+    _grid_apply_fn: 'auto'/'packed' to the packed layout,
     'pallas'/'scatter'/'onehot' to the XOR hash, whose table gradient is
     deterministic for 'pallas' and atomic otherwise."""
     name = encoding.lower()
@@ -213,16 +260,45 @@ def make_encoder(encoding: str, input_dim: int = 3, n_bins: int = 16,
         return (lambda gen, device: init_hashgrid(spec, gen, device),
                 lambda p, x: hash_pallas.encode(spec, p, x, det),
                 spec.out_dim, spec)
+    pyramid = dict(n_levels=min(n_levels, 8), n_features=level_dim)
     if "vm" in name:
-        spec = VM.make_tensovm_spec(desired_resolution,
-                                    n_levels=min(n_levels, 8),
-                                    n_features=level_dim)
+        spec = VM.make_tensovm_spec(desired_resolution, **pyramid)
         return (lambda gen, device: VM.init_tensovm(spec, gen, device),
                 lambda p, x: VM.encode(spec, p, x), spec.out_dim, spec)
+    if "hybrid" in name:
+        # The dense top level is capped at 44 (45^3 rows), the JAX
+        # package's choice for its scatter kernel's accumulator.
+        dspec = HP.make_packed_spec(min(desired_resolution, 44),
+                                    log2_hashmap_size, n_levels=3,
+                                    n_features=level_dim, base_resolution=16,
+                                    dense_only=True)
+        pspec = TP.make_triplane_spec(desired_resolution, **pyramid)
+
+        def hybrid_init(gen, device):
+            return {"dense": HP.init_packed(dspec, gen, device),
+                    "planes": TP.init_triplane(pspec, gen, device)}
+
+        def hybrid_apply(p, x):
+            return torch.cat([HP.encode(dspec, p["dense"], x),
+                              TP.encode(pspec, p["planes"], x)], -1)
+
+        return (hybrid_init, hybrid_apply, dspec.out_dim + pspec.out_dim,
+                (dspec, pspec))
+    if "plane" in name:
+        spec = TP.make_triplane_spec(desired_resolution, **pyramid)
+        return (lambda gen, device: TP.init_triplane(spec, gen, device),
+                lambda p, x: TP.encode(spec, p, x), spec.out_dim, spec)
+    if "spherical" in name:
+        return (lambda gen, device: None, lambda p, x: sh_encode(x, degree),
+                degree ** 2, None)
     if "blob" in name:
         return (lambda gen, device: None,
                 lambda p, x: oneblob_encode(x, n_bins),
                 input_dim * n_bins, None)
-    raise NotImplementedError(
-        f"encoding {encoding!r} is not ported yet (HashGrid, TensoVM and "
-        "OneBlob are)")
+    if "freq" in name:
+        return (lambda gen, device: None,
+                lambda p, x: freq_encode(x, n_frequencies),
+                input_dim * n_frequencies * 2, None)
+    if "identity" in name:
+        return (lambda gen, device: None, lambda p, x: x, input_dim, None)
+    raise ValueError(f"Unknown encoding: {encoding}")

@@ -1,7 +1,8 @@
 """SE(3) / rotation parameterizations in PyTorch.
 
-Counterpart of coslam_tpu/ops/pose.py for the axis-angle and quaternion
-paths of ``get_pose_representation``, with the same small-angle guards
+Counterpart of coslam_tpu/ops/pose.py: the axis-angle and quaternion
+paths of ``get_pose_representation``, the continuous 6D rotation (Zhou
+et al.) and the closed-form SE(3) inverse, with the same small-angle guards
 (the exponential map is Taylor-safe at theta -> 0, and so is the log
 map's theta / sin(theta/2)).
 """
@@ -90,6 +91,23 @@ def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
     return quaternion_to_axis_angle(matrix_to_quaternion(R))
 
 
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """Continuous 6D rotation representation [..., 6] -> [..., 3, 3]:
+    Gram-Schmidt of the two 3-vectors, which become the first two
+    columns."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / a1.norm(dim=-1, keepdim=True)
+    b2 = a2 - (b1 * a2).sum(-1, keepdim=True) * b1
+    b2 = b2 / b2.norm(dim=-1, keepdim=True)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def matrix_to_rotation_6d(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> 6D representation (its first two columns)."""
+    return torch.cat([R[..., :, 0], R[..., :, 1]], -1)
+
+
 def _compose_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype,
                          device=R.device)
@@ -107,6 +125,18 @@ def qt_to_transform_matrix(rot: torch.Tensor,
                            trans: torch.Tensor) -> torch.Tensor:
     """(quaternion [..., 4], translation [..., 3]) -> SE(3) [..., 4, 4]."""
     return _compose_se3(quaternion_to_matrix(rot), trans)
+
+
+def six_t_to_transform_matrix(rot: torch.Tensor,
+                              trans: torch.Tensor) -> torch.Tensor:
+    """(6D rotation [..., 6], translation [..., 3]) -> SE(3) [..., 4, 4]."""
+    return _compose_se3(rotation_6d_to_matrix(rot), trans)
+
+
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of SE(3) matrices [..., 4, 4]: (R^T, -R^T t)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return _compose_se3(Rt, -(Rt @ T[..., :3, 3, None])[..., 0])
 
 
 def get_pose_representation(rot_rep: str):

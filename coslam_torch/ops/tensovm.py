@@ -35,19 +35,20 @@ CPU tensors take the plain versions (:func:`tensovm_encode_fwd_ref`,
 call raises. :class:`TensoVMEncode` asks kernel D only for what autograd
 needs. The BA smoothness term is the analytic separable TV of
 :func:`make_tensovm_lattice_tv`, plain tensor contractions as in the
-JAX package (which runs it outside any Pallas kernel too).
+JAX package (which runs it outside any Pallas kernel too); with unit
+lines it is the tri-plane's (:func:`make_triplane_lattice_tv`). The
+lattice's feature volume itself is :func:`tensovm_lattice_encode`.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from . import _kernels
 from . import serial_scatter as SS
-from .triplane import _PLANES, TriPlaneSpec, cell_project, make_triplane_spec
+from .triplane import (_PLANES, TriPlaneSpec, _broadcast_plane, _level_table,
+                       _line_offsets, _plane_grid_feats, cell_project,
+                       make_triplane_spec)
 
 # Line axis per plane section: the coordinate axis plane (u, v) drops.
 _LINE_AXES = (2, 1, 0)   # planes (0,1), (0,2), (1,2)
@@ -65,15 +66,6 @@ def make_tensovm_spec(desired_resolution: int, n_levels: int = 4,
 
 def line_total_rows(spec: TriPlaneSpec) -> int:
     return sum(r + 1 for r in spec.resolutions)
-
-
-def _line_offsets(spec: TriPlaneSpec):
-    """Start row of every section's line block in the flat line table."""
-    offs, off = [], 0
-    for r in spec.resolutions:
-        offs.append(off)
-        off += r + 1
-    return tuple(offs)
 
 
 def init_tensovm(spec: TriPlaneSpec, generator: torch.Generator,
@@ -237,18 +229,6 @@ def tensovm_encode_bwd_streams_ref(spec: TriPlaneSpec, planes: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _level_table(spec: TriPlaneSpec, device: torch.device) -> torch.Tensor:
-    """int32 [3, L] (resolution, plane row and line row of the level's
-    first section) on the kernel's device."""
-    sec0 = range(0, spec.n_levels, 3)
-    lines = _line_offsets(spec)
-    arr = np.array([[spec.resolutions[s] for s in sec0],
-                    [spec.offsets[s] for s in sec0],
-                    [lines[s] for s in sec0]], np.int32)
-    return torch.from_numpy(arr).to(device)
-
 
 def _check_cuda(spec: TriPlaneSpec, planes, lines, x, *more) -> None:
     _kernels.check_tensors("tensovm encode", x.device,
@@ -481,3 +461,52 @@ def make_tensovm_lattice_tv(spec: TriPlaneSpec):
         return total / (sample_points ** 3)
 
     return tv
+
+
+def make_triplane_lattice_tv(spec: TriPlaneSpec):
+    """tv(table, axes [3, g], sample_points) -> scalar: the tri-plane's
+    smoothness TV, the TensoVM TV with unit lines (the JAX JointEncoding's
+    plane_tv for grid.enc TriPlane)."""
+    tv = make_tensovm_lattice_tv(spec)
+    n_rows = line_total_rows(spec)
+
+    def plane_tv(table, axes, sample_points):
+        ones = torch.ones((n_rows, spec.n_features), dtype=table.dtype,
+                          device=table.device)
+        return tv({"planes": table, "lines": ones}, axes, sample_points)
+
+    return plane_tv
+
+
+# ---------------------------------------------------------------------------
+# The separable lattice's feature volume (plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def tensovm_lattice_encode(spec: TriPlaneSpec, params,
+                           axes: torch.Tensor) -> torch.Tensor:
+    """TensoVM encoding of the separable lattice of axes [3, g] ->
+    [g, g, g, L*F]: the planes at their g^2 unique projections, the lines
+    at their g coordinates, broadcast-multiplied
+    (coslam_tpu.ops.tensovm.tensovm_lattice_encode)."""
+    g = axes.shape[1]
+    pfeats = _plane_grid_feats(spec, params["planes"], axes)
+    lvals = _lattice_line_vals(spec, params["lines"], axes)
+    # The line of section s_mod runs along x, y or z of the lattice.
+    line_view = (lambda v: v[None, None], lambda v: v[None, :, None],
+                 lambda v: v[:, None, None])
+    levels = []
+    for lvl in range(spec.pyr_levels):
+        acc = 0.0
+        for s_mod in range(3):
+            s = 3 * lvl + s_mod
+            acc = acc + (_broadcast_plane(s_mod, pfeats[s])
+                         * line_view[s_mod](lvals[s]))
+        levels.append(acc.expand(g, g, g, spec.n_features))
+    return torch.cat(levels, dim=-1)
+
+
+def make_tensovm_lattice(spec: TriPlaneSpec):
+    """fn(params, axes) -> the lattice's feature volume
+    (coslam_tpu.ops.tensovm.make_tensovm_lattice with fast=False; its fast
+    route is the TPU's plane_quad kernel)."""
+    return lambda params, axes: tensovm_lattice_encode(spec, params, axes)

@@ -1,20 +1,52 @@
-"""Tri-plane pyramid layout shared by the factorized encodings (PyTorch port).
+"""TriPlane multiresolution encoding (PyTorch port).
 
-Counterpart of coslam_tpu/ops/triplane.py for what TensoVM needs: the
-spec (a pyramid of dense (r+1)^2 planes, three sections per level, all in
-one logical [T, F] table) and the projection of a point onto a section's
-bilinear cell. The JAX spec's packed-storage fields (``row_offsets``,
+Counterpart of coslam_tpu/ops/triplane.py: a pyramid of dense (r+1)^2
+feature planes, three sections per level (the xy, xz and yz planes), all
+in one logical [T, F] table. feature_l(x) is the sum over the level's
+three sections of the bilinear interpolation of the plane at x's
+projection; the levels are concatenated (out_dim = L * F). The same spec
+is TensoVM's plane layout (ops/tensovm.py): the tri-plane is TensoVM
+with unit lines.
+
+The TPU gathered each section's two u-corner row pairs from a bf16
+window mirror (XLA) and added the table gradient with the Pallas pair
+scatter (K2, hash_packed._pair_scatter_kernel, through
+_scatter_table_grad). On the GPU kernels C and D of
+coslam_torch/csrc/tensovm_encode.cu, with unit lines (no line table),
+read and atomically update the corner row pairs of the logical f32
+table directly:
+
+- :func:`triplane_encode_fwd`: kernel T, the encode forward;
+- :func:`triplane_encode_bwd`: kernel U, the table gradient and/or dx;
+- :func:`triplane_encode_bwd_serial`: kernel U's serial mode (K2 in its
+  serial order), which :func:`triplane_encode_bwd` takes for the table
+  gradient when ``torch.are_deterministic_algorithms_enabled()``: U
+  writes every update as a (row, value) stream in the plain version's
+  order (:func:`triplane_encode_bwd_streams_ref`) and kernel H's sort and
+  walk sum each row in that order, so both are the same bits on every
+  run.
+
+CPU tensors take the plain versions (:func:`triplane_encode_fwd_ref`,
+:func:`triplane_encode_bwd_ref`); CUDA tensors take the kernels or the
+call raises. The separable-lattice encode of the smoothness term
+(:func:`triplane_lattice_encode`) is plain PyTorch, as it is plain XLA in
+the JAX package. The JAX spec's packed-storage fields (``row_offsets``,
 ``n_rows``, ``total_rows``) address the TPU's window mirror and have no
 counterpart here.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
+import numpy as np
 import torch
+
+from . import _kernels
+from . import serial_scatter as SS
 
 # Projection axes per plane section: (u axis, v axis).
 _PLANES = ((0, 1), (0, 2), (1, 2))
@@ -90,3 +122,326 @@ def cell_project(spec: TriPlaneSpec, x: torch.Tensor):
     cv = torch.minimum(v.floor().long().clamp_min(0), resi - 1)
     return cu, cv, u - cu.to(x.dtype), v - cv.to(x.dtype)
 
+
+
+def init_triplane(spec: TriPlaneSpec, generator: torch.Generator,
+                  device=None) -> torch.Tensor:
+    """U(-1e-4, 1e-4) [T, F] (the hash table's scale), drawn on the
+    generator's device and moved to ``device``."""
+    u = torch.rand((spec.total_entries, spec.n_features), generator=generator,
+                   device=generator.device)
+    return ((u * 2.0 - 1.0) * 1e-4).to(device or generator.device)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path, and the oracle for the kernels)
+# ---------------------------------------------------------------------------
+
+# Point axis innermost ([S, N], [F, S, N]) as in the JAX package.
+
+def _corners(spec: TriPlaneSpec, x: torch.Tensor):
+    """x [N, 3] -> (e00, e10 int64 [S, N], wu, wv [S, N]): the rows of
+    cell corners (cu, cv) and (cu + 1, cv); the v corners are the next
+    rows (coslam_tpu.ops.triplane._project, whose second u corner
+    min(cu + 1, r) is cu + 1 because cu <= r - 1)."""
+    cu, cv, wu, wv = cell_project(spec, x)
+    r1 = torch.tensor(spec.resolutions, device=x.device)[:, None] + 1
+    offs = torch.tensor(spec.offsets, device=x.device)[:, None]
+    e00 = offs + cu * r1 + cv
+    return e00, e00 + r1, wu, wv
+
+
+def _rows(table: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Rows e [S, N] of a [T, F] table -> [F, S, N]."""
+    return table.T.index_select(1, e.reshape(-1)).view(-1, *e.shape)
+
+
+def _section_grad(spec: TriPlaneSpec, g: torch.Tensor) -> torch.Tensor:
+    """g [N, L*F] -> [F, S, N]: a level's cotangent on each of its three
+    sections (they were summed)."""
+    n = g.shape[0]
+    return g.reshape(n, spec.pyr_levels, spec.n_features).permute(
+        2, 1, 0).repeat_interleave(3, dim=1)
+
+
+def triplane_encode_fwd_ref(spec: TriPlaneSpec, table: torch.Tensor,
+                            x: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel T: x [N, 3] -> [N, L*F], column l*F + f
+    (coslam_tpu.ops.triplane.triplane_encode_fwd_only: per section the v,
+    then the u interpolation, the three sections of a level summed)."""
+    e00, e10, wu, wv = _corners(spec, x)
+    featv0 = _rows(table, e00) * (1 - wv) + _rows(table, e00 + 1) * wv
+    featv1 = _rows(table, e10) * (1 - wv) + _rows(table, e10 + 1) * wv
+    feats = featv0 * (1 - wu) + featv1 * wu                    # [F, S, N]
+    F, _, n = feats.shape
+    per_level = feats.view(F, spec.pyr_levels, 3, n).sum(2)
+    return per_level.permute(2, 1, 0).reshape(n, -1)
+
+
+def _updates(spec: TriPlaneSpec, x: torch.Tensor, g: torch.Tensor):
+    """The table gradient's updates in K2's form, [(rows [S, N], values
+    [F, S, N])] for the corners (u0, v0), (u0, v1), (u1, v0), (u1, v1):
+    (g wu_k) (1 - wv) and (g wu_k) wv (make_triplane_encode's v0, v1)."""
+    e00, e10, wu, wv = _corners(spec, x)
+    gs = _section_grad(spec, g)
+    out = []
+    for e, w in ((e00, 1 - wu), (e10, wu)):
+        gw = gs * w
+        out += [(e, gw * (1 - wv)), (e + 1, gw * wv)]
+    return out
+
+
+def triplane_encode_bwd_ref(spec: TriPlaneSpec, table: torch.Tensor,
+                            x: torch.Tensor, g: torch.Tensor,
+                            need_dtable: bool, need_dx: bool):
+    """Plain version of kernel U: the gradients of sum(encode * g).
+    dtable: the pair updates of make_triplane_encode's backward (K2's
+    streams), added by ``index_add_`` corner by corner; dx: that
+    backward's chain (featv and the v-differences of the two u corners
+    times r), zeroed where x lies outside [0, 1]. Returns (dtable [T, F],
+    dx [N, 3]), None where not asked for."""
+    n, F = x.shape[0], spec.n_features
+    dtable = dx = None
+    if need_dtable:
+        dt = torch.zeros((F, table.shape[0]), dtype=table.dtype,
+                         device=table.device)
+        for e, v in _updates(spec, x, g):
+            dt.index_add_(1, e.reshape(-1), v.reshape(F, -1))
+        dtable = dt.T.contiguous()
+    if need_dx:
+        e00, e10, wu, wv = _corners(spec, x)
+        gs = _section_grad(spec, g)
+        p00, p01 = _rows(table, e00), _rows(table, e00 + 1)
+        p10, p11 = _rows(table, e10), _rows(table, e10 + 1)
+        featv0 = p00 * (1 - wv) + p01 * wv
+        featv1 = p10 * (1 - wv) + p11 * wv
+        res = torch.tensor(spec.resolutions, dtype=x.dtype,
+                           device=x.device)[:, None]
+        du = ((featv1 * gs).sum(0) - (featv0 * gs).sum(0)) * res   # [S, N]
+        dv = (((p01 - p00) * gs).sum(0) * (1 - wu)
+              + ((p11 - p10) * gs).sum(0) * wu) * res
+        dxt = torch.zeros((3, n), dtype=x.dtype, device=x.device)
+        for s_mod, (a, b) in enumerate(_PLANES):
+            dxt[a] += du[s_mod::3].sum(0)
+            dxt[b] += dv[s_mod::3].sum(0)
+        dx = dxt.T * ((x >= 0.0) & (x <= 1.0)).to(x.dtype)
+    return dtable, dx
+
+
+def triplane_encode_bwd_streams_ref(spec: TriPlaneSpec, table: torch.Tensor,
+                                    x: torch.Tensor, g: torch.Tensor):
+    """The table gradient's updates in the order triplane_encode_bwd_ref
+    adds them: corners (u0, v0), (u0, v1), (u1, v0), (u1, v1), each over
+    [S, N] -> (rows int32 [M], values [M, F]), M = 4 S N.
+    serial_scatter.row_accum_ref of them is triplane_encode_bwd_ref's
+    dtable bit for bit on the CPU; kernel U's serial mode writes the same
+    stream on the card."""
+    del table  # the updates do not read it
+    F = spec.n_features
+    ups = _updates(spec, x, g)
+    idx = torch.cat([e.reshape(-1) for e, _ in ups]).to(torch.int32)
+    vals = torch.cat([v.reshape(F, -1) for _, v in ups], 1)
+    return idx, vals.T.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
+# ---------------------------------------------------------------------------
+
+def _line_offsets(spec: TriPlaneSpec):
+    """Start row of every section's line block in TensoVM's flat line
+    table (one (r + 1)-row block per section)."""
+    offs, off = [], 0
+    for r in spec.resolutions:
+        offs.append(off)
+        off += r + 1
+    return tuple(offs)
+
+
+@functools.lru_cache(maxsize=None)
+def _level_table(spec: TriPlaneSpec, device: torch.device) -> torch.Tensor:
+    """int32 [3, L] (resolution, plane row and line row of the level's
+    first section) on the kernel's device: kernels C and D read all
+    three, T and U (unit lines) the first two."""
+    sec0 = range(0, spec.n_levels, 3)
+    lines = _line_offsets(spec)
+    arr = np.array([[spec.resolutions[s] for s in sec0],
+                    [spec.offsets[s] for s in sec0],
+                    [lines[s] for s in sec0]], np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def _check_cuda(spec: TriPlaneSpec, table, x, g=None) -> None:
+    more = {} if g is None else {"g": g}
+    _kernels.check_tensors("triplane encode", x.device, table=table, x=x,
+                           **more)
+    if x.dim() != 2 or x.shape[1] != 3:
+        raise ValueError(f"triplane encode: x must be [N, 3], got "
+                         f"{tuple(x.shape)}")
+    if tuple(table.shape) != (spec.total_entries, spec.n_features):
+        raise ValueError(f"triplane encode: table {tuple(table.shape)} does "
+                         f"not match the spec ({spec.total_entries}, "
+                         f"{spec.n_features})")
+    if g is not None and tuple(g.shape) != (x.shape[0], spec.out_dim):
+        raise ValueError(f"triplane encode: g {tuple(g.shape)} is not "
+                         f"[{x.shape[0]}, {spec.out_dim}]")
+
+
+def triplane_encode_fwd(spec: TriPlaneSpec, table: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """Encode forward: x [N, 3] (normalized) -> [N, L*F]."""
+    if _kernels.on_cpu(table, x):
+        return triplane_encode_fwd_ref(spec, table, x)
+    _check_cuda(spec, table, x)
+    n = x.shape[0]
+    out = x.new_empty((n, spec.out_dim))
+    if n == 0:
+        return out
+    _kernels.check(_kernels.library().triplane_encode_fwd(
+        x.data_ptr(), table.data_ptr(), out.data_ptr(), n, spec.n_features,
+        _level_table(spec, x.device).data_ptr(), spec.pyr_levels,
+        _kernels.stream(x.device)), "triplane_encode_fwd")
+    triplane_encode_fwd.launches += 1
+    return out
+
+
+def triplane_encode_bwd(spec: TriPlaneSpec, table: torch.Tensor,
+                        x: torch.Tensor, g: torch.Tensor, need_dtable: bool,
+                        need_dx: bool):
+    """Encode backward: (dtable [T, F] or None, dx [N, 3] or None). On
+    the card, kernel U: each u corner's row pair added with one float4
+    atomic (first row even) or two float2, and dx summed over a point's
+    levels in the block and stored once (no zero fill)."""
+    if _kernels.on_cpu(table, x, g):
+        return triplane_encode_bwd_ref(spec, table, x, g, need_dtable,
+                                       need_dx)
+    if not (need_dtable or need_dx):
+        return None, None
+    if need_dtable and torch.are_deterministic_algorithms_enabled():
+        return triplane_encode_bwd_serial(spec, table, x, g, need_dx)
+    _check_cuda(spec, table, x, g)
+    dtable = torch.zeros_like(table) if need_dtable else None
+    dx = torch.empty_like(x) if need_dx else None      # every entry written
+    _kernels.check(_kernels.library().triplane_encode_bwd(
+        x.data_ptr(), table.data_ptr(), g.data_ptr(), _kernels.ptr(dtable),
+        _kernels.ptr(dx), x.shape[0], spec.n_features,
+        _level_table(spec, x.device).data_ptr(), spec.pyr_levels,
+        _kernels.stream(x.device)), "triplane_encode_bwd")
+    triplane_encode_bwd.launches += 1
+    return dtable, dx
+
+
+def triplane_encode_bwd_serial(spec: TriPlaneSpec, table: torch.Tensor,
+                               x: torch.Tensor, g: torch.Tensor,
+                               need_dx: bool):
+    """Kernel U's serial mode: (dtable [T, F], dx [N, 3] or None). U
+    writes the table gradient's M = 4 S N updates, in the order of
+    :func:`triplane_encode_bwd_streams_ref`, into a stream of (row, value)
+    pairs (:func:`serial_scatter.stream_scratch`), and kernel H's sort,
+    run starts and walk sum every row in increasing m from 0.0: K2's
+    serial order, so dtable is the same bits on every run and
+    triplane_encode_bwd_ref's on the host. dx as in
+    :func:`triplane_encode_bwd`. CUDA tensors only."""
+    _check_cuda(spec, table, x, g)
+    n, rows = x.shape[0], spec.total_entries
+    m = 4 * spec.n_levels * n
+    if m >= 2 ** 31 or rows >= 2 ** 31 - 1:
+        raise ValueError(f"triplane encode: {m} updates into {rows} rows "
+                         "are out of the serial mode's int32 range")
+    dx = torch.empty_like(x) if need_dx else None      # every entry written
+    if n == 0:
+        return torch.zeros_like(table), dx
+    keys, vals, plan = SS.stream_scratch(m, rows, x.device)
+    _kernels.check(_kernels.library().triplane_encode_bwd_stream(
+        x.data_ptr(), table.data_ptr(), g.data_ptr(), keys.data_ptr(),
+        vals.data_ptr(), _kernels.ptr(dx), n, spec.n_features,
+        _level_table(spec, x.device).data_ptr(), spec.pyr_levels,
+        _kernels.stream(x.device)), "triplane_encode_bwd_stream")
+    dtable = SS.serial_sum(plan)[:rows]
+    triplane_encode_bwd_serial.launches += 1
+    return dtable, dx
+
+
+# Launch counts of the kernels (the CPU path never adds to them).
+triplane_encode_fwd.launches = 0
+triplane_encode_bwd.launches = 0
+triplane_encode_bwd_serial.launches = 0
+
+
+class TriPlaneEncode(torch.autograd.Function):
+    """Tri-plane encode with the kernel backward; the gradients asked of
+    kernel U follow ``ctx.needs_input_grad`` (tracking: dx only; the
+    map's fixed-pose iterations: the table only)."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, x: torch.Tensor,
+                spec: TriPlaneSpec) -> torch.Tensor:
+        ctx.spec = spec
+        ctx.save_for_backward(table, x)
+        return triplane_encode_fwd(spec, table, x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        table, x = ctx.saved_tensors
+        return (*triplane_encode_bwd(ctx.spec, table, x, g.contiguous(),
+                                     *ctx.needs_input_grad[:2]), None)
+
+
+def encode(spec: TriPlaneSpec, table: torch.Tensor,
+           x: torch.Tensor) -> torch.Tensor:
+    """Differentiable tri-plane encode of normalized points x [N, 3]."""
+    return TriPlaneEncode.apply(table, x.contiguous(), spec)
+
+
+# ---------------------------------------------------------------------------
+# Separable lattice (the BA smoothness term): plain PyTorch
+# ---------------------------------------------------------------------------
+
+def _plane_grid_feats(spec: TriPlaneSpec, table: torch.Tensor,
+                      axes: torch.Tensor) -> List[torch.Tensor]:
+    """Bilinear plane features on the separable lattice axes[0] x axes[1]
+    x axes[2] (axes [3, g] normalized): each section at its g^2 unique
+    projections. Returns a list over sections of [g_u, g_v, F]
+    (coslam_tpu.ops.triplane._plane_grid_feats)."""
+    ax = axes.clamp(0.0, 1.0)
+    feats = []
+    for s in range(spec.n_levels):
+        ua, va = _PLANES[s % 3]
+        r = spec.resolutions[s]
+        u, v = ax[ua] * r, ax[va] * r                          # [g]
+        cu = u.floor().long().clamp(0, r - 1)
+        cv = v.floor().long().clamp(0, r - 1)
+        wu = (u - cu)[:, None, None]                           # [g, 1, 1]
+        wv = (v - cv)[None, :, None]                           # [1, g, 1]
+        r1 = r + 1
+        e00 = spec.offsets[s] + cu[:, None] * r1 + cv[None, :]  # [g, g]
+        p00, p01 = table[e00], table[e00 + 1]
+        p10, p11 = table[e00 + r1], table[e00 + r1 + 1]
+        feats.append((p00 * (1 - wu) + p10 * wu) * (1 - wv)
+                     + (p01 * (1 - wu) + p11 * wu) * wv)       # [g, g, F]
+    return feats
+
+
+def _broadcast_plane(s_mod: int, pf: torch.Tensor) -> torch.Tensor:
+    """[g_u, g_v, F] plane grid -> a view broadcastable to [g, g, g, F]."""
+    if s_mod == 0:                                             # (x, y)
+        return pf[:, :, None, :]
+    if s_mod == 1:                                             # (x, z)
+        return pf[:, None, :, :]
+    return pf[None, :, :, :]                                   # (y, z)
+
+
+def triplane_lattice_encode(spec: TriPlaneSpec, table: torch.Tensor,
+                            axes: torch.Tensor) -> torch.Tensor:
+    """Tri-plane encoding of the separable lattice of axes [3, g] ->
+    [g, g, g, L*F], the pointwise encoding of its meshgrid up to the sum
+    order (coslam_tpu.ops.triplane.triplane_lattice_encode)."""
+    g = axes.shape[1]
+    feats = _plane_grid_feats(spec, table, axes)
+    levels = []
+    for lvl in range(spec.pyr_levels):
+        acc = 0.0
+        for s_mod in range(3):
+            acc = acc + _broadcast_plane(s_mod, feats[3 * lvl + s_mod])
+        levels.append(acc.expand(g, g, g, spec.n_features))
+    return torch.cat(levels, dim=-1)

@@ -5,8 +5,10 @@ with the same file keys:
 
 - ``leaf_i``: the parameter tensors in the JAX package's sorted-key
   flatten order (``param_leaves``: ``decoder.color_net[*]``, then
-  ``decoder.sdf_net[*]``, then the grid, TensoVM's ``lines`` before its
-  ``planes``), and ``n_leaves``;
+  ``decoder.sdf_net[*]``, then the grid, a dict grid's tables in
+  sorted-key order (TensoVM's ``lines`` before its ``planes``,
+  TriPlaneHybrid's ``dense`` before its ``planes``), then the color grid
+  under ``oneGrid: false``), and ``n_leaves``;
 - ``pose`` (the absolute pose table), ``pose_rel_keys`` and
   ``pose_rel_vals`` (the keyframe-relative poses);
 - ``extra_<k>`` for an array of the resume state, and ``exn_<k>`` with
@@ -40,15 +42,16 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..convert import MAP_OPT_LABELS, label_leaves
+from ..convert import label_leaves, map_opt_labels
 
 
 def param_leaves(params: Dict) -> List:
     """The parameters in the JAX package's sorted-key flatten order, the
     optax labels' leaves label by label: ``decoder`` (``color_net`` then
-    ``sdf_net``) before ``grid``, a dict grid's tables in sorted-key
-    order."""
-    return [p for label in MAP_OPT_LABELS for p in label_leaves(params, label)]
+    ``sdf_net``) before ``grid`` before ``grid_color``, a dict grid's
+    tables in sorted-key order."""
+    return [p for label in map_opt_labels(params)
+            for p in label_leaves(params, label)]
 
 
 def _is_tree(v) -> bool:
@@ -123,12 +126,16 @@ def params_from_leaves(like: Dict, leaves: List[np.ndarray]) -> Dict:
                              f"match the model's {tuple(ref.shape)}")
     dec = like["decoder"]
     nc, ns = len(dec["color_net"]), len(dec["sdf_net"])
-    grid = like["grid"]
-    rest = leaves[nc + ns:]
-    return {"decoder": {"color_net": list(leaves[:nc]),
-                        "sdf_net": list(leaves[nc:nc + ns])},
-            "grid": (dict(zip(sorted(grid), rest)) if isinstance(grid, dict)
-                     else rest[0])}
+    out = {"decoder": {"color_net": list(leaves[:nc]),
+                       "sdf_net": list(leaves[nc:nc + ns])}}
+    i = nc + ns
+    for label in map_opt_labels(like)[1:]:
+        grid = like[label]
+        k = len(grid) if isinstance(grid, dict) else 1
+        out[label] = (dict(zip(sorted(grid), leaves[i:i + k]))
+                      if isinstance(grid, dict) else leaves[i])
+        i += k
+    return out
 
 
 def save_ckpt(path: str, params: Dict, est_c2w, est_c2w_rel: Dict,

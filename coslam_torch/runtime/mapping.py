@@ -18,7 +18,7 @@ import torch
 
 from ..ops import losses as L
 from ..ops import pose as P
-from .optim import make_pose_optimizer
+from .optim import detached, make_pose_optimizer
 
 
 def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam):
@@ -74,10 +74,9 @@ def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam):
     def run(params, c2w, frame_rays, generator, draws=None):
         dev = frame_rays.device
         Rm, tv = c2w[:3, :3], c2w[:3, 3]
-        # Gradients for the grid only: the decoder enters as constants.
-        p = {"grid": params["grid"],
-             "decoder": {k: [w.detach() for w in v]
-                         for k, v in params["decoder"].items()}}
+        # Gradients for the grid only: the decoder (and a color grid)
+        # enter as constants.
+        p = {**detached(params), "grid": params["grid"]}
         loss = None
         cur_opt.zero_grad(set_to_none=True)
         for it in range(n_iters):
@@ -149,7 +148,8 @@ class BundleAdjust:
              t: Optional[torch.Tensor]) -> torch.Tensor:
         """BA loss of rays ray_data [N, 7] seen from poses[ray_ids], plus
         the smoothness TV on the lattice smooth_sample (the model's
-        smoothness_sample: points for the hash grid, axes for TensoVM)."""
+        smoothness_sample: points for the hash grids, axes for the
+        factorized ones)."""
         pose_rows = poses[ray_ids]                          # [N, 4, 4]
         rays_d = (pose_rows[:, :3, :3] @ ray_data[:, :3, None])[..., 0]
         ret = self.model.forward(params, pose_rows[:, :3, 3], rays_d,

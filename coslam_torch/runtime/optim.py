@@ -15,44 +15,61 @@ import torch
 
 def grid_leaves(grid) -> List[torch.Tensor]:
     """The grid's tensors: the hash table, or a dict grid's values
-    (TensoVM's lines and planes) in sorted-key order, the order of JAX's
-    tree leaves."""
+    (TensoVM's lines and planes, TriPlaneHybrid's dense and planes) in
+    sorted-key order, the order of JAX's tree leaves."""
     if isinstance(grid, dict):
         return [grid[k] for k in sorted(grid)]
     return [grid]
 
 
 def map_param_list(params: Dict) -> List[torch.Tensor]:
+    """The grid's tensors, the decoder's, then the color grid's
+    (``oneGrid: false``)."""
     return [*grid_leaves(params["grid"]), *params["decoder"]["sdf_net"],
-            *params["decoder"]["color_net"]]
+            *params["decoder"]["color_net"],
+            *grid_leaves(params.get("grid_color", {}))]
+
+
+def detach_grid(grid):
+    """A grid (a table or a dict of tables) without autograd."""
+    if isinstance(grid, dict):
+        return {k: v.detach() for k, v in grid.items()}
+    return grid.detach()
 
 
 def detached(params: Dict) -> Dict:
     """The same tensors without autograd (a frozen map for tracking: the
     encode backward then computes dx only)."""
-    grid = params["grid"]
-    return {"grid": ({k: v.detach() for k, v in grid.items()}
-                     if isinstance(grid, dict) else grid.detach()),
-            "decoder": {k: [w.detach() for w in v]
-                        for k, v in params["decoder"].items()}}
+    out = {"grid": detach_grid(params["grid"]),
+           "decoder": {k: [w.detach() for w in v]
+                       for k, v in params["decoder"].items()}}
+    if "grid_color" in params:
+        out["grid_color"] = detach_grid(params["grid_color"])
+    return out
 
 
 def make_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:
     """Grid (every grid tensor, TensoVM's planes and lines alike, at
     lr_embed): betas (0.9, 0.99), eps 1e-15; decoder: betas (0.9, 0.99),
-    eps 1e-8, weight_decay 1e-6. The grid's eps matters: with the default
-    1e-8 the first steps on near-zero table rows differ. Marks the
-    parameters trainable."""
+    eps 1e-8, weight_decay 1e-6; the color grid (``oneGrid: false``) as
+    the grid at mapping.lr_embed_color (default lr_embed). The grid's eps
+    matters: with the default 1e-8 the first steps on near-zero table rows
+    differ. Marks the parameters trainable."""
     m = config["mapping"]
     for p in map_param_list(params):
         p.requires_grad_(True)
     dec = [*params["decoder"]["sdf_net"], *params["decoder"]["color_net"]]
-    return torch.optim.Adam([
+    groups = [
         {"params": grid_leaves(params["grid"]), "lr": m["lr_embed"],
          "eps": 1e-15},
         {"params": dec, "lr": m["lr_decoder"], "eps": 1e-8,
          "weight_decay": 1e-6},
-    ], betas=(0.9, 0.99))
+    ]
+    if "grid_color" in params:
+        groups.append({"params": grid_leaves(params["grid_color"]),
+                       "lr": m.get("lr_embed_color", m["lr_embed"]),
+                       "eps": 1e-15})
+    return torch.optim.Adam(groups, betas=(0.9, 0.99))
 
 
 def make_cur_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:

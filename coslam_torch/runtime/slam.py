@@ -234,7 +234,10 @@ class CoSLAM:
         mesh = extract_mesh(self.model, self.params, self.config,
                             self.bounding_box,
                             marching_cube_bound=self.marching_cube_bound,
-                            color_func=self.model.query_color,
+                            color_func=(
+                                self.model.render_surface_color
+                                if self.config["mesh"]["render_color"]
+                                else self.model.query_color),
                             voxel_size=voxel_size,
                             mesh_savepath=os.path.join(
                                 out, f"mesh_track{i}.ply"))

@@ -2,8 +2,8 @@
 uniform and ray-ordered points.
 
     python -m coslam_torch.tools.kernel_times [--points FILE]
-        [--xor-points FILE --vm-points FILE] [--host-us] [--out FILE]
-        [--profile]
+        [--xor-points FILE --vm-points FILE] [--hybrid FILE] [--host-us]
+        [--out FILE] [--profile]
 
 Times kernel B (``hash_packed.grid_encode_bwd`` at the room0 spec, the
 table gradient alone, as the BA 1-keyframe call asks) and kernel H
@@ -35,6 +35,12 @@ on the ray-ordered points; beside each time of E, A, C and D its L2 figure
 (``l2_rate``, ``e_l2_sectors``, ``a_l2_sectors``, ``c_l2_sectors``,
 ``d_l2_sectors``). A and C are held to their plain versions on every set
 of points before they are timed.
+
+With ``--hybrid`` (the ray-ordered points of the room0_hybrid slice's
+first BA call, ``output/ba_points_hybrid.npy`` from ``chip_smoke.py``) it
+times kernels T and U, U also in its serial mode, at every case of that
+slice and on those points, and A and B at the hybrid's dense levels
+(``time_t_and_u``).
 
 With ``--host-us`` it also measures the host's cost of the A and C
 wrappers (``wrapper_host_us``): microseconds per call of the whole
@@ -159,10 +165,12 @@ def main_path_cases(cfg: dict, frames: int) -> list:
     tracking ask for dx; a BA call's current-frame quota is
     max(sample // kf_count, min_pixels_cur), with the keyframe count
     before that frame's keyframe is added; the hash grid's smoothness
-    lattice is encoded as constant points (TensoVM's analytic TV encodes
-    none); the mesh only queries."""
+    lattice is encoded as constant points, and so is TriPlaneHybrid's
+    dense part (TensoVM's and TriPlane's analytic TV encodes none, and
+    the hybrid's planes take the plain lattice encode); the mesh only
+    queries."""
     from coslam_torch.mesh.extract import CHUNK
-    from coslam_torch.models.scene_rep import is_tensovm
+    from coslam_torch.models.scene_rep import is_factorized
 
     tr, mc = cfg["training"], cfg["mapping"]
     z = tr["n_samples_d"] + tr["n_range_d"]
@@ -174,7 +182,8 @@ def main_path_cases(cfg: dict, frames: int) -> list:
     for kf in kf_counts:
         quota = min(max(S // kf, mc["min_pixels_cur"]), S)
         cases.append((f"BA {kf} kf", (S + quota) * z, True, kf >= 2))
-    if not is_tensovm(cfg):
+    if (not is_factorized(cfg)
+            or "hybrid" in str(cfg["grid"]["enc"]).lower()):
         cases.append(("lattice", (tr["smooth_pts"] - 1) ** 3, True, False))
     cases.append(("mesh chunk", CHUNK, False, False))
     return cases
@@ -521,6 +530,67 @@ def wrapper_host_us(device, calls: int = 10_000, n: int = 1024) -> dict:
     return out
 
 
+def time_t_and_u(device, ray: torch.Tensor) -> dict:
+    """{"T": {case: times}, "U": {case: times}, "U_serial": {case: times},
+    "A": {set: times}, "B": {set: times}} at room0_hybrid's grid: kernel T
+    (``triplane.triplane_encode_fwd``) and U (``triplane_encode_bwd``, and
+    its serial mode where the case asks for the table gradient) at every
+    case of the slice that encodes through them (``main_path_cases``
+    without the lattice, uniform points, seed 2) and at the BA 1-keyframe
+    case on `ray` (room0_hybrid's ray-ordered points); kernels A and B at
+    the hybrid's dense spec (3 dense levels, 115,721 rows) at the BA
+    1-keyframe case, uniform and on `ray`. Plane table 0.1 x noise, dense
+    table unit normal (seed 0), cotangents unit normal (seed 1); T is held
+    to its plain version first."""
+    from coslam_torch.data.synth import room0_hybrid_config
+    from coslam_torch.models.scene_rep import JointEncoding
+    from coslam_torch.ops import hash_packed as HP
+    from coslam_torch.ops import triplane as TP
+
+    cfg = room0_hybrid_config("output", 48, 64, 15)
+    dspec, pspec = JointEncoding(cfg, cfg["mapping"]["bound"],
+                                 device).grid_spec
+    rng = np.random.default_rng(0)
+
+    def tensor(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    planes = tensor(0.1 * rng.standard_normal((pspec.total_entries, 2)))
+    dense = tensor(rng.standard_normal((dspec.total_entries, 2)))
+    out = {"T": {}, "U": {}, "U_serial": {}, "A": {}, "B": {}}
+    cases = [c for c in main_path_cases(cfg, 15) if c[0] != "lattice"]
+    ba1 = [c for c in cases if c[0] == "BA 1 kf"][0]
+    runs = [(label, n, dt, dx, None) for label, n, dt, dx in cases]
+    runs.append(("BA 1 kf ray-ordered", ray.shape[0], True, False, ray))
+    for label, n, need_dt, need_dx, x in runs:
+        if x is None:
+            x = tensor(np.random.default_rng(2).uniform(0, 1, (n, 3)))
+        g = tensor(np.random.default_rng(1).standard_normal(
+            (n, pspec.out_dim)))
+        torch.testing.assert_close(
+            TP.triplane_encode_fwd(pspec, planes, x),
+            TP.triplane_encode_fwd_ref(pspec, planes, x), rtol=1e-5,
+            atol=1e-5)
+        out["T"][label] = {"points": n, **both_ms(
+            lambda: TP.triplane_encode_fwd(pspec, planes, x))}
+        if need_dt or need_dx:
+            out["U"][label] = both_ms(lambda: TP.triplane_encode_bwd(
+                pspec, planes, x, g, need_dt, need_dx))
+        if need_dt:
+            out["U_serial"][label] = both_ms(
+                lambda: TP.triplane_encode_bwd_serial(pspec, planes, x, g,
+                                                      need_dx))
+        if label in (ba1[0], "BA 1 kf ray-ordered"):
+            gd = tensor(np.random.default_rng(1).standard_normal(
+                (n, dspec.out_dim)))
+            out["A"][label] = both_ms(
+                lambda: HP.grid_encode_fwd(dspec, dense, x))
+            out["B"][label] = both_ms(lambda: HP.grid_encode_bwd(
+                dspec, dense, x, gd, True, False))
+        torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--points",
@@ -529,6 +599,9 @@ def main(argv=None) -> int:
                     help="room0_xor's ray-ordered points (times E, A, C, D)")
     ap.add_argument("--vm-points",
                     help="room0_vm's ray-ordered points (with --xor-points)")
+    ap.add_argument("--hybrid",
+                    help="room0_hybrid's ray-ordered points (times T, U and "
+                         "A, B at its dense levels)")
     ap.add_argument("--host-us", action="store_true",
                     help="also the host's us per call of the A and C wrappers")
     ap.add_argument("--out", help="also write the JSON line here")
@@ -562,6 +635,8 @@ def main(argv=None) -> int:
         rec["l2_gather"] = l2_rate(device)
         rec.update(time_e_and_d(device, load(args.xor_points),
                                 load(args.vm_points), rec["l2_gather"]))
+    if args.hybrid:
+        rec["hybrid"] = time_t_and_u(device, load(args.hybrid))
     line = json.dumps(rec)
     print(line, flush=True)
     if args.out:

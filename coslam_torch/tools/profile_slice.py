@@ -1,11 +1,12 @@
 """Where the slice's time goes: per-phase walls and a device profile.
 
     python -m coslam_torch.tools.profile_slice [--device cuda|cpu]
-        [--vm | --xor] [--deterministic] [--small] [--out DIR]
+        [--vm | --xor | --hybrid] [--deterministic] [--small] [--out DIR]
 
 Drives the same CoSLAM as chip_smoke.py (room0's model and recipe, with
-``--vm`` room0_vm's TensoVM model and recipe, or with ``--xor``
-room0_xor's XOR-hash grid with grad_impl pallas, on the in-memory
+``--vm`` room0_vm's TensoVM model and recipe, with ``--xor``
+room0_xor's XOR-hash grid with grad_impl pallas, or with ``--hybrid``
+room0_hybrid's TriPlaneHybrid grid, on the in-memory
 analytic scene, 480 x 640, 11 frames): first-frame mapping,
 tracking of frames 1-9, a keyframe at frame 5, then BA calls on frame 10
 with 2 keyframes, then the final mesh. It reports
@@ -45,7 +46,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ..data.synth import (SyntheticFrames, room0_config, room0_vm_config,
+from ..data.synth import (SyntheticFrames, room0_config,
+                          room0_hybrid_config, room0_vm_config,
                           room0_xor_config)
 from ..mesh import extract as E
 from ..ops import _kernels
@@ -53,6 +55,7 @@ from ..ops import hash_packed as HP
 from ..ops import hash_pallas as XP
 from ..ops import serial_scatter as SS
 from ..ops import tensovm as VM
+from ..ops import triplane as TP
 from ..runtime.slam import CoSLAM
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -103,6 +106,10 @@ def main(argv=None) -> Dict:
                       help="room0_vm's TensoVM grid, not room0's hash grid")
     grid.add_argument("--xor", action="store_true",
                       help="room0_xor's XOR-hash grid (grad_impl pallas)")
+    grid.add_argument("--hybrid", action="store_true",
+                      help="room0_hybrid's TriPlaneHybrid grid (kernels A "
+                           "and B on its dense levels, T and U on its "
+                           "planes)")
     ap.add_argument("--deterministic", action="store_true",
                     help="under torch.use_deterministic_algorithms(True)")
     ap.add_argument("--small", action="store_true")
@@ -149,6 +156,11 @@ def _profile(args) -> Dict:
         (room0_xor_config, (XP.xor_grid_encode_fwd, XP.xor_grid_encode_bwd,
                             SS.row_accum_segmented))
         if args.xor else
+        (room0_hybrid_config, (HP.grid_encode_fwd, HP.grid_encode_bwd,
+                               HP.grid_encode_bwd_serial,
+                               TP.triplane_encode_fwd, TP.triplane_encode_bwd,
+                               TP.triplane_encode_bwd_serial))
+        if args.hybrid else
         (room0_config, (HP.grid_encode_fwd, HP.grid_encode_bwd,
                         HP.grid_encode_bwd_serial)))
     cfg = make_cfg(os.path.join(args.out, "run"), H, W, nf,

@@ -63,7 +63,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--active", action="store_true",
                    help="the ActiveCoSLAM variant (not ported)")
     p.add_argument("--enc", default=None,
-                   help="override grid.enc (TriPlane* is not ported)")
+                   help="override grid.enc (e.g. TriPlaneHybrid, TriPlane)")
     p.add_argument("--samples_d", type=int, default=None,
                    help="override training.n_samples_d")
     p.add_argument("--set", action="append", default=[],
@@ -181,8 +181,6 @@ def main(argv=None):
         raise NotImplementedError("not ported yet: --active (active/)")
     if args.colors_from and args.frames_in != "memory":
         p.error("--colors_from needs --frames_in memory")
-    if args.enc is not None and args.enc.startswith("TriPlane"):
-        raise NotImplementedError(f"not ported yet: --enc {args.enc}")
 
     import numpy as np
 

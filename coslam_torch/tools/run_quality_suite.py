@@ -18,10 +18,18 @@ Per-run JSONs in a subdirectory of ``--results_dir`` are a diagnostic
 arm (the same rows with one thing changed, e.g. tools/bf16_reads.py's
 runs), reported beside the rows.
 
+``--enc`` runs the rows with another grid (quality_bench --enc);
+``--room_table`` writes the room row of each grid the port runs
+(HashGrid, TriPlaneHybrid, TriPlane: results/quality_torch/,
+hybrid/ and triplane/ there) beside the JAX package's rows, the HashGrid
+row also beside the JAX package's own runs on a CPU
+(results/quality_jax_cpu/), into results/BENCH_QUALITY_ROOM_TORCH.{json,md}.
+
 Run from the repository root:
   python -m coslam_torch.tools.run_quality_suite --frames_in memory
       [--device cuda] [--scenes room,thin] [--seeds 0,1,2]
       [--only room_tum:3] [--jobs 4] [--results_dir D] [--merge]
+      [--enc TriPlaneHybrid] [--room_table]
 """
 
 from __future__ import annotations
@@ -116,6 +124,8 @@ def holds(port: dict, jax: dict) -> dict:
 def run_one(key, scene, protocol, extra, frames, seed, args) -> list:
     """The quality_bench command of one (row, seed)."""
     out = os.path.join(args.results_dir, f"result_{key}_s{seed}.json")
+    if args.enc:
+        extra = [*extra, "--enc", args.enc]
     return ([sys.executable, "-m", "coslam_torch.tools.quality_bench",
              "--frames", str(frames or args.frames)]
             + (["--hw", args.hw] if "--hw" not in extra else [])
@@ -377,6 +387,123 @@ def render_md(rows: dict, arms: dict = None) -> str:
     return "\n".join(lines) + "\n"
 
 
+# The JAX package's room rows of the grids beside the hash grid:
+# results/BENCH_QUALITY.md:146-154 (room, 300 frames, 120x160, Co-SLAM
+# culling; one run each on the TPU). Their half-spread is taken as 0.
+JAX_ENC_ROOM = {
+    "TriPlaneHybrid": {"ate_rmse_cm": 0.89, "acc_cm": 2.11, "comp_cm": 1.02,
+                       "comp_ratio_pct": 99.69, "depth_l1_cm": 0.65},
+    "TriPlane": {"ate_rmse_cm": 0.78, "acc_cm": 1.99, "comp_cm": 1.02,
+                 "comp_ratio_pct": 99.52, "depth_l1_cm": 3.19},
+}
+# The port's per-run JSONs of each grid's room row, under results/.
+ROOM_DIRS = {"HashGrid": "quality_torch", "TriPlaneHybrid":
+             "quality_torch/hybrid", "TriPlane": "quality_torch/triplane"}
+# The JAX package's own runs of the same rows on a CPU (f32 tables).
+JAX_CPU_DIRS = {"HashGrid": "quality_jax_cpu", "TriPlaneHybrid":
+                "quality_jax_cpu/hybrid", "TriPlane": "quality_jax_cpu/triplane"}
+ROOM_STEM = os.path.join(REPO, "results", "BENCH_QUALITY_ROOM_TORCH")
+
+
+def _room_runs(sub: str) -> list:
+    d = os.path.join(REPO, "results", sub)
+    runs = []
+    for seed in range(8):
+        path = os.path.join(d, f"result_room_s{seed}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                runs.append(json.load(f))
+    return runs
+
+
+def room_table() -> dict:
+    """The room row (300 frames, 120x160) of every grid the port runs,
+    beside the JAX package's: HashGrid against its seeds on the TPU
+    (BENCH_QUALITY_MULTI.json), TriPlaneHybrid and TriPlane against the
+    one TPU run of each (JAX_ENC_ROOM), and each grid against the JAX
+    package's own runs on a CPU where there are some (JAX_CPU_DIRS, its
+    f32 path), each under the hold rule (``holds``). Writes
+    results/BENCH_QUALITY_ROOM_TORCH.{json,md}."""
+    with open(JAX_TABLE) as f:
+        jax_tpu = json.load(f)["scenes"]["room"]["agg"]
+    refs = {"HashGrid": {"JAX, TPU": jax_tpu}}
+    for enc, row in JAX_ENC_ROOM.items():
+        refs[enc] = {"JAX, TPU": {m: {"mean": v, "half_spread": 0.0}
+                                  for m, v in row.items()}}
+    cpu_seeds = {}
+    for enc, sub in JAX_CPU_DIRS.items():
+        cpu = _room_runs(sub)
+        cpu_seeds[enc] = [r["seed"] for r in cpu]
+        if cpu:
+            refs[enc]["JAX, CPU"] = _agg(cpu)
+    rows = {}
+    for enc, sub in ROOM_DIRS.items():
+        runs = _room_runs(sub)
+        agg = _agg(runs) if runs else None
+        row = {"seeds": [r["seed"] for r in runs], "agg": agg,
+               "device": sorted({str(r.get("device")) for r in runs}),
+               "refs": {}}
+        for name, ref in refs[enc].items():
+            verdict = holds(agg, ref) if agg else {}
+            row["refs"][name] = {
+                "agg": ref,
+                "holds": {m: {"holds": h, "gap": g, "allowed": a}
+                          for m, (h, g, a) in verdict.items()},
+                "row_holds": bool(verdict) and all(
+                    h for h, _, _ in verdict.values())}
+        rows[enc] = row
+    table = {"rows": rows, "jax_cpu_seeds": cpu_seeds,
+             "rule": "port mean within reference mean +- (reference "
+                     "half-spread + port half-spread + 10% of reference "
+                     "mean) for " + ", ".join(HOLD_METRICS)}
+    with open(ROOM_STEM + ".json", "w") as f:
+        json.dump(table, f, indent=2)
+    with open(ROOM_STEM + ".md", "w") as f:
+        f.write(render_room_md(table))
+    return table
+
+
+def render_room_md(table: dict) -> str:
+    lines = [
+        "# The room row of every grid: coslam_torch beside the JAX package",
+        "",
+        "Room, replica protocol, 300 frames, 120x160, Co-SLAM culling, 200 "
+        "eval views (`python -m coslam_torch.tools.run_quality_suite "
+        "--room_table`; mean ± half-spread over seeds). Port: the "
+        "per-run JSONs under `results/quality_torch/` (HashGrid), "
+        "`hybrid/` and `triplane/` there (`--enc`). JAX, TPU: "
+        "`results/BENCH_QUALITY_MULTI.json` (HashGrid, 3 seeds) and "
+        "`results/BENCH_QUALITY.md:146-154` (one run each). JAX, CPU: "
+        "`python -m coslam_tpu.tools.quality_bench` under "
+        "`JAX_PLATFORMS=cpu`, the port's flags (and `--enc`), f32 tables "
+        "(`results/quality_jax_cpu/`, `hybrid/` and `triplane/` there).",
+        "",
+        "Hold rule: " + table["rule"] + ".",
+        "",
+        "| grid | port seeds | reference | ATE (cm) port / ref | Acc (cm) "
+        "port / ref | Comp (cm) port / ref | Ratio (%) port / ref | "
+        "Depth-L1 (cm) port / ref | holds |",
+        "|---|---|---|---|---|---|---|---|---|",
+    ]
+    for enc, r in table["rows"].items():
+        for name, ref in r["refs"].items():
+            cells = [f"{_fmt(r['agg'], m)} / {_fmt(ref['agg'], m)}"
+                     for m in METRICS[:5]]
+            if r["agg"] is None:
+                verdict = "not run"
+            else:
+                bad = [m for m, v in ref["holds"].items() if not v["holds"]]
+                verdict = "yes" if ref["row_holds"] else (
+                    "no (" + ", ".join(bad) + ")")
+            lines.append(f"| {enc} | {','.join(map(str, r['seeds'])) or '—'}"
+                         f" | {name} | " + " | ".join(cells)
+                         + f" | {verdict} |")
+    lines += ["", "Port runs' card: " + "; ".join(
+        f"{enc} {', '.join(r['device']) or '—'}"
+        for enc, r in table["rows"].items()) + "."]
+    return "\n".join(lines) + "\n"
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--frames", type=int, default=300)
@@ -399,12 +526,25 @@ def main(argv=None):
                    help="runs at once (one process each)")
     p.add_argument("--merge", action="store_true",
                    help="only aggregate the per-run JSONs present")
+    p.add_argument("--enc", default=None,
+                   help="grid.enc of every run (quality_bench --enc, e.g. "
+                        "TriPlaneHybrid); the runs are not merged into the "
+                        "HashGrid table (see --room_table)")
+    p.add_argument("--room_table", action="store_true",
+                   help="only write the room rows of every grid beside the "
+                        "JAX package's (room_table)")
     args = p.parse_args(argv)
+    if args.room_table:
+        table = room_table()
+        print(render_room_md(table))
+        return table
     args.results_dir = args.results_dir or args.workdir
     os.makedirs(args.results_dir, exist_ok=True)
     os.makedirs(args.workdir, exist_ok=True)
     if not args.merge:
         run_all(args)
+    if args.enc:
+        return None
     table = merge(args.results_dir, args.frames)
     print(render_md(table["rows"], table["arms"]))
     return table

@@ -57,8 +57,24 @@ assert "coslam_torch.tools.bench._bench_run_merge" in names, names
 assert "coslam_torch.runtime.checkpoint" in names, names
 for new in ("mesh.raster", "eval.recon", "eval.cull", "eval.benchmark",
             "eval.cli", "tools.virtual_cameras", "tools.quality_bench",
-            "tools.run_quality_suite"):
+            "tools.run_quality_suite", "ops.triplane", "ops.encodings",
+            "ops.tensovm", "ops.pose", "models.scene_rep", "models.decoder",
+            "mesh.extract"):
     assert "coslam_torch." + new in names, new
+# The tri-plane and the encodings, 6D poses and lattices this port added.
+from coslam_torch.ops import encodings, pose, tensovm, triplane
+for mod, attrs in ((triplane, ("triplane_encode_fwd", "triplane_encode_bwd",
+                               "triplane_encode_bwd_serial", "TriPlaneEncode",
+                               "triplane_lattice_encode", "init_triplane")),
+                   (tensovm, ("tensovm_lattice_encode",
+                              "make_tensovm_lattice",
+                              "make_triplane_lattice_tv")),
+                   (encodings, ("freq_encode", "sh_encode")),
+                   (pose, ("rotation_6d_to_matrix", "se3_inverse"))):
+    assert all(hasattr(mod, a) for a in attrs), mod.__name__
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("coslam_tpu", "jax", "jaxlib"))
+assert not bad, bad
 print(len(names))
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")

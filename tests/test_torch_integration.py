@@ -40,11 +40,12 @@ from coslam_tpu.ops.rays import get_camera_rays
 from coslam_torch import convert
 from coslam_torch.data.datasets import get_dataset
 from coslam_torch.models.scene_rep import JointEncoding as TModel
-from coslam_torch.models.scene_rep import is_tensovm
+from coslam_torch.models.scene_rep import is_factorized
 from coslam_torch.ops import hash_packed as HP
 from coslam_torch.ops import pose as TP
 from coslam_torch.ops import serial_scatter as SS
 from coslam_torch.ops import tensovm as VM
+from coslam_torch.ops import triplane as TPL
 from coslam_torch.runtime import checkpoint as CK
 from coslam_torch.runtime.mapping import (BundleAdjust, build_poses,
                                           make_current_frame_step,
@@ -59,6 +60,19 @@ torch.set_num_threads(1)
 
 def _vm(cfg):
     cfg["grid"].update(enc="TensoVM", triplane_levels=3)
+    return cfg
+
+
+# Grids beside the hash grid, as config updates: TensoVM, TriPlaneHybrid
+# (dict grid {"dense", "planes"}) and the hash grid with a color grid
+# (oneGrid false).
+GRID_CFGS = {"tensovm": {"enc": "TensoVM", "triplane_levels": 3},
+             "hybrid": {"enc": "TriPlaneHybrid", "triplane_levels": 3},
+             "two_grids": {"oneGrid": False}}
+
+
+def _grid_cfg(cfg, grid):
+    cfg["grid"].update(GRID_CFGS.get(grid, {}))
     return cfg
 
 
@@ -225,6 +239,78 @@ def test_checkpoint_roundtrip(tmp_path, trained_scene):
         CK.save_ckpt(str(tmp_path / "ck.orbax"), params, est, rel)
 
 
+@pytest.mark.parametrize("grid", ["hybrid", "two_grids"])
+def test_checkpoint_and_convert_roundtrip(grid, tmp_path):
+    """A TriPlaneHybrid model (dict grid {"dense", "planes"}) and a
+    two-grid one (grid_color): the JAX package's params -> the port's
+    tensors -> numpy unchanged, and a port checkpoint with the map
+    optimizer's state (adam_state_to_jax) read back into a fresh model
+    and optimizer unchanged."""
+    cfg = _grid_cfg(make_synthetic_config("", "/tmp/unused", H=24, W=32),
+                    grid)
+    bb = np.array(cfg["mapping"]["bound"], np.float32)
+    jm, tm = JModel(cfg, bb), TModel(cfg, bb)
+    np_params = jax.tree_util.tree_map(
+        np.asarray, jm.init_params(jax.random.PRNGKey(0)))
+    params = convert.params_from_numpy(np_params, spec=tm.grid_spec)
+    if grid == "hybrid":
+        assert set(params["grid"]) == {"dense", "planes"}
+        dspec, pspec = tm.grid_spec
+        assert params["grid"]["dense"].shape == (dspec.total_entries, 2)
+        assert params["grid"]["planes"].shape == (pspec.total_entries, 2)
+    else:
+        assert "grid_color" in params
+    for a, b in zip(jax.tree_util.tree_leaves(convert.params_to_numpy(params)),
+                    jax.tree_util.tree_leaves(np_params), strict=True):
+        np.testing.assert_array_equal(a, b)
+
+    opt = make_map_optimizer(cfg, params)
+    for p in map_param_list(params):
+        p.grad = torch.ones_like(p)
+    opt.step()
+    est = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    path = str(tmp_path / "ck.npz")
+    CK.save_ckpt(path, params, est, {},
+                 {"opt_state": convert.adam_state_to_jax(opt, params)})
+    fresh = tm.init_params(torch.Generator().manual_seed(1))
+    loaded, _, _, extra = CK.load_ckpt(path, fresh)
+    _params_equal(params, loaded)
+    loaded = convert.params_from_numpy(loaded)
+    opt2 = make_map_optimizer(cfg, loaded)
+    convert.adam_state_from_jax(opt2, loaded, extra["opt_state"])
+    for a, b in zip(convert.adam_state_to_jax(opt, params),
+                    convert.adam_state_to_jax(opt2, loaded), strict=True):
+        np.testing.assert_array_equal(_np(a), _np(b))
+
+
+def test_mesh_render_color_matches_jax(trained_scene):
+    """mesh.render_color: the vertex colors rendered along the mesh's
+    vertex normals (the model's render_surface_color) equal the JAX
+    JointEncoding.render_surface_color of the same map at the same
+    vertices and normals (rtol 1e-4, atol 1e-5: the query's f32 sums in
+    another order)."""
+    from coslam_torch.mesh.extract import extract_mesh
+    from coslam_torch.mesh.io import TriMesh
+
+    cfg, _, model, params, _, _ = trained_scene
+    cfg = copy.deepcopy(cfg)
+    cfg["mesh"]["render_color"] = True
+    bb = np.array(cfg["mapping"]["bound"], np.float32)
+    mesh = extract_mesh(model, params, cfg, bb,
+                        color_func=model.render_surface_color,
+                        voxel_size=0.2)
+    assert len(mesh.vertices) > 100
+    colors = np.asarray(mesh.vertex_colors)
+    assert colors.shape == (len(mesh.vertices), 3)
+    normals = TriMesh(mesh.vertices, mesh.faces).vertex_normals
+    jparams = jax.tree_util.tree_map(jnp.asarray,
+                                     convert.params_to_numpy(params))
+    ref = JModel(cfg, bb).render_surface_color(
+        jparams, jnp.asarray(mesh.vertices, jnp.float32),
+        jnp.asarray(normals, jnp.float32))
+    np.testing.assert_allclose(colors, np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
 def test_async_checkpoint_snapshot(tmp_path, trained_scene):
     """The writer's file holds the state as of submit, though the caller
     updates the parameters and the pose table in place after it; the
@@ -330,16 +416,17 @@ def _jax_paths(tree):
             jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
-@pytest.mark.parametrize("grid", ["hash", "tensovm"])
+@pytest.mark.parametrize("grid", ["hash", "tensovm", "hybrid",
+                                  "two_grids"])
 def test_leaf_order_matches_jax(grid):
     """The port's leaf_i order is jax.tree_util.tree_flatten's of the JAX
     params, and its optimizer-state layout is the flatten order of a live
-    optax map-optimizer state: each moment lands on its own parameter."""
+    optax map-optimizer state: each moment lands on its own parameter
+    (the color grid's too, under its own label)."""
     from coslam_tpu.runtime.optim import make_map_optimizer as j_map_opt
 
-    cfg = make_synthetic_config("", "/tmp/unused", H=24, W=32)
-    if grid == "tensovm":
-        _vm(cfg)
+    cfg = _grid_cfg(make_synthetic_config("", "/tmp/unused", H=24, W=32),
+                    grid)
     bb = np.array(cfg["mapping"]["bound"], np.float32)
     jm, tm = JModel(cfg, bb), TModel(cfg, bb)
     jparams = jm.init_params(jax.random.PRNGKey(0))
@@ -372,7 +459,8 @@ def test_leaf_order_matches_jax(grid):
 
     n = 0
     for path, leaf in _jax_paths(state):
-        label = "grid" if "inner_states['grid']" in path else "decoder"
+        label = next((k for k in ("grid", "grid_color")
+                      if f"inner_states['{k}']" in path), "decoder")
         first = convert.label_leaves(params, label)[0]
         if path.endswith(".count"):
             assert int(opt.state[first]["step"]) == int(leaf), path
@@ -392,8 +480,8 @@ def test_leaf_order_matches_jax(grid):
 
 
 def test_stream_plain_versions_match_plain_backward():
-    """row_accum_ref of kernel B's and D's serial-order streams equals the
-    plain backward's table gradients bit for bit on the CPU."""
+    """row_accum_ref of kernel B's, U's and D's serial-order streams equals
+    the plain backward's table gradients bit for bit on the CPU."""
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.uniform(-0.05, 1.05, (700, 3)).astype(np.float32))
     spec = HP.make_packed_spec(64, 12, n_levels=8)
@@ -405,6 +493,17 @@ def test_stream_plain_versions_match_plain_backward():
     idx, vals = HP.grid_encode_bwd_streams_ref(spec, table, x, g)
     assert idx.shape == (2 * 8 * 4 * 700,) and vals.shape == (idx.shape[0], 2)
     assert torch.equal(SS.row_accum_ref(idx, vals, spec.total_entries)[:-1],
+                       dtable)
+
+    ts = TPL.make_triplane_spec(64, 3)
+    planes = torch.from_numpy(rng.standard_normal(
+        (ts.total_entries, 2)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(
+        (700, ts.out_dim)).astype(np.float32))
+    dtable, _ = TPL.triplane_encode_bwd_ref(ts, planes, x, g, True, False)
+    idx, vals = TPL.triplane_encode_bwd_streams_ref(ts, planes, x, g)
+    assert idx.shape == (4 * ts.n_levels * 700,)
+    assert torch.equal(SS.row_accum_ref(idx, vals, ts.total_entries)[:-1],
                        dtable)
 
     vs = VM.make_tensovm_spec(64, 3)
@@ -551,7 +650,7 @@ def test_jax_checkpoint_loads_into_port(tmp_path):
                                             cur_rays.shape[0]))
     quota = max(m["sample"] // kf_count, m["min_pixels_cur"])
     smooth_key = jax.random.split(k3)[1]
-    draw = (jslam.model.smoothness_axes if is_tensovm(c)
+    draw = (jslam.model.smoothness_axes if is_factorized(c)
             else jslam.model.smoothness_points)
     smooth = np.asarray(draw(smooth_key, w["smooth_pts"], w["smooth_vox"],
                              w["smooth_margin"]))

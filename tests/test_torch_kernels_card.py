@@ -1,5 +1,6 @@
 """The CUDA kernels of coslam_torch against their plain PyTorch versions,
-on the card: kernels A and B (hash grid), C and D (TensoVM), E and G (XOR
+on the card: kernels A and B (hash grid), C and D (TensoVM), T and U (the
+tri-plane; bottom of the file, with U's serial mode), E and G (XOR
 hash grid; A, C, E and D also on ray-ordered points, E also at the Dense
 grid's 4 levels; A and C also on a side stream, in a CUDA graph, and
 refusing what they do not take), the row accumulate F (atomic) and H
@@ -36,6 +37,7 @@ from coslam_torch.ops import hash_pallas as XP
 from coslam_torch.ops import probe_accum as PA
 from coslam_torch.ops import serial_scatter as SS
 from coslam_torch.ops import tensovm as VM
+from coslam_torch.ops import triplane as TP
 
 torch.set_num_threads(1)
 
@@ -353,16 +355,22 @@ def _ray_points(n_rays, samples, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("levels", [16, 5])
+@pytest.mark.parametrize("levels", [16, 5, 3])
 @pytest.mark.parametrize("need", [(True, True), (False, True), (True, False)])
 def test_grid_bwd_on_ray_ordered_points(cuda_device, levels, need):
     """Kernel B on ray-ordered points (coarse-level rows shared by the
     samples of a ray), with corner rows e both even (float4 atomic) and
     odd (two float2), points outside [0, 1], at L = 16 (dx summed by
-    shuffles in a half-warp) and L = 5 (in shared memory): against
+    shuffles in a half-warp), L = 5 (in shared memory) and L = 3 with no
+    hashed level (TriPlaneHybrid's dense part: 16/26/44): against
     grid_encode_bwd_ref."""
-    spec = HP.make_packed_spec(400 if levels == 16 else 96, 16,
-                               n_levels=levels)
+    if levels == 3:
+        spec = HP.make_packed_spec(44, 16, n_levels=3, base_resolution=16,
+                                   dense_only=True)
+        assert not any(spec.hashed)
+    else:
+        spec = HP.make_packed_spec(400 if levels == 16 else 96, 16,
+                                   n_levels=levels)
     x_np = _ray_points(200, 43, levels)
     cell, _ = HP._cells_and_weights(spec, torch.from_numpy(x_np).float())
     e = HP._corner_entries(spec, cell)
@@ -547,7 +555,11 @@ A_SPECS = {"room0": dict(desired_resolution=400, log2_hashmap_size=16),
            "L5": dict(desired_resolution=96, log2_hashmap_size=16,
                       n_levels=5),
            "dense": dict(desired_resolution=128, log2_hashmap_size=16,
-                         n_levels=4, dense_only=True)}
+                         n_levels=4, dense_only=True),
+           # TriPlaneHybrid's dense part: 3 levels 16/26/44, none hashed.
+           "hybrid_dense": dict(desired_resolution=44, log2_hashmap_size=16,
+                                n_levels=3, base_resolution=16,
+                                dense_only=True)}
 
 
 def _a_inputs(name, device, seed=5):
@@ -565,7 +577,8 @@ def _a_inputs(name, device, seed=5):
 def test_grid_fwd_on_ray_ordered_points(cuda_device, name):
     """Kernel A on ray-ordered points (a warp's lanes share coarse cells),
     with points outside [0, 1], at exactly 0 and 1 and on grid lines, at
-    room0's L = 16, at L = 5 and on a dense-only grid: against
+    room0's L = 16, at L = 5 and on two dense-only grids (L = 4, and the
+    hybrid's L = 3): against
     grid_encode_fwd_ref at N = 8,600 (not a multiple of a 32-point group),
     N - 1 and 1; N = 0 gives an empty output without a launch."""
     spec, table, x = _a_inputs(name, cuda_device)
@@ -929,3 +942,118 @@ def test_deterministic_switch_takes_the_serial_modes(cuda_device):
 
     assert counts(True) == [1, 1, 0, 1, 0, 1]
     assert counts(False) == [2, 0, 1, 0, 1, 0]
+
+
+# -- kernels T and U (the tri-plane) and U's serial mode (K2) ---------------
+
+TP_SPECS = {
+    "small": dict(desired_resolution=96, n_levels=3, base_resolution=16),
+    "room0_hybrid": dict(desired_resolution=400, n_levels=4),
+}
+
+
+def _tp_inputs(spec, kind, n, seed, device):
+    """Table 0.1 x noise, points uniform in [-0.05, 1.05] (16 on the cell
+    edges of the finest level) or ray-ordered, unit-normal cotangent."""
+    rng = np.random.default_rng(seed)
+    x = _serial_points(kind, n, seed)
+    r = spec.resolutions[-1]
+    x[:16] = rng.integers(0, r + 1, (16, 3)) / r
+    arrays = (0.1 * rng.standard_normal((spec.total_entries,
+                                         spec.n_features)),
+              x, rng.standard_normal((x.shape[0], spec.out_dim)))
+    return [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TP_SPECS))
+@pytest.mark.parametrize("kind", ["uniform", "rays"])
+@pytest.mark.parametrize("need", [(True, True), (False, True), (True, False)])
+def test_triplane_kernels_match_plain_versions(cuda_device, name, kind, need):
+    """Kernels T and U against triplane_encode_fwd_ref / _bwd_ref, the
+    table gradient within each entry's sum-order bound (the samples of a
+    ray share coarse rows); one launch each."""
+    from coslam_torch.tools.bench import _common as C
+
+    spec = TP.make_triplane_spec(**TP_SPECS[name])
+    table, x, g = _tp_inputs(spec, kind, 8600, 0, cuda_device)
+    before = TP.triplane_encode_fwd.launches, TP.triplane_encode_bwd.launches
+    torch.testing.assert_close(TP.triplane_encode_fwd(spec, table, x),
+                               TP.triplane_encode_fwd_ref(spec, table, x),
+                               rtol=1e-5, atol=1e-5)
+    got = TP.triplane_encode_bwd(spec, table, x, g, *need)
+    ref = TP.triplane_encode_bwd_ref(spec, table, x, g, *need)
+    torch.cuda.synchronize()
+    if need[0]:
+        idx, vals = TP.triplane_encode_bwd_streams_ref(spec, table, x, g)
+        C.assert_within("dtable", got[0], ref[0],
+                        C.sum_order_tol(idx, vals, spec.total_entries))
+    else:
+        assert got[0] is None
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-3)
+    assert (TP.triplane_encode_fwd.launches,
+            TP.triplane_encode_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TP_SPECS))
+@pytest.mark.parametrize("kind", ["uniform", "rays"])
+def test_triplane_bwd_serial_mode(cuda_device, name, kind):
+    """Kernel U's serial mode: the same bits over two calls, and the host's
+    plain version's bits (its index_add_ adds in the stream's order, and
+    U's updates are the plain version's products); dx as the plain
+    version's."""
+    spec = TP.make_triplane_spec(**TP_SPECS[name])
+    table, x, g = _tp_inputs(spec, kind, 8600, 1, cuda_device)
+    before = TP.triplane_encode_bwd_serial.launches
+    a = TP.triplane_encode_bwd_serial(spec, table, x, g, True)
+    b = TP.triplane_encode_bwd_serial(spec, table, x, g, True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert TP.triplane_encode_bwd_serial.launches == before + 2
+    host, host_dx = TP.triplane_encode_bwd_ref(spec, table.cpu(), x.cpu(),
+                                               g.cpu(), True, True)
+    assert torch.equal(a[0].cpu(), host)
+    torch.testing.assert_close(a[1].cpu(), host_dx, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_triplane_autograd_and_deterministic_switch(cuda_device):
+    """TriPlaneEncode on CUDA tensors: gradients through kernel U equal the
+    plain backward's; under the deterministic switch the table gradient
+    takes U's serial mode and tracking's dx alone the atomic launch."""
+    spec = TP.make_triplane_spec(**TP_SPECS["small"])
+    table, x, g = _tp_inputs(spec, "uniform", 1031, 2, cuda_device)
+    x = x.clamp(0.05, 0.95)
+    t = table.clone().requires_grad_(True)
+    xx = x.clone().requires_grad_(True)
+    (TP.encode(spec, t, xx) * g).sum().backward()
+    r_t, r_x = TP.triplane_encode_bwd_ref(spec, table, x, g, True, True)
+    torch.testing.assert_close(t.grad, r_t, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(xx.grad, r_x, rtol=1e-4, atol=1e-3)
+    fns = (TP.triplane_encode_bwd, TP.triplane_encode_bwd_serial)
+    before = [f.launches for f in fns]
+    torch.use_deterministic_algorithms(True)
+    try:
+        TP.triplane_encode_bwd(spec, table, x, g, True, True)
+        TP.triplane_encode_bwd(spec, table, x, g, False, True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_triplane_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """A CPU/CUDA mix, a wrong dtype and a wrong shape raise before any
+    launch."""
+    spec = TP.make_triplane_spec(**TP_SPECS["small"])
+    table, x, g = _tp_inputs(spec, "uniform", 64, 3, cuda_device)
+    before = TP.triplane_encode_fwd.launches
+    for bad in ((table.cpu(), x), (table.double(), x), (table[:-1], x),
+                (table, x[:, :2].contiguous())):
+        with pytest.raises(ValueError):
+            TP.triplane_encode_fwd(spec, *bad)
+    with pytest.raises(ValueError):
+        TP.triplane_encode_bwd(spec, table, x, g[:, :2].contiguous(), True,
+                               True)
+    assert TP.triplane_encode_fwd.launches == before

@@ -229,3 +229,66 @@ def test_decoder_with_converted_weights_matches_jax():
     for a, b in zip(jax.tree_util.tree_leaves(back["decoder"]),
                     jax.tree_util.tree_leaves(np_params["decoder"])):
         np.testing.assert_array_equal(a, b)
+
+
+def test_two_grid_decoder_matches_jax():
+    """oneGrid false: the color net reads [embed_pos, embed_color,
+    geo_feat]."""
+    cfg = make_synthetic_config("", "/tmp/unused")
+    jdec = JD.ColorSDFDecoder(cfg, input_ch=32, input_ch_pos=48,
+                              input_ch_color=24, one_grid=False)
+    tdec = TD.ColorSDFDecoder(cfg, 32, 48, 24, one_grid=False)
+    assert tdec.color_dims == jdec.color_dims
+    jparams = jdec.init(jax.random.PRNGKey(1))
+    tparams = {k: [_t(w) for w in v] for k, v in jparams.items()}
+    rng = np.random.default_rng(7)
+    emb, pos, col = (rng.normal(size=(40, c)).astype(np.float32)
+                     for c in (32, 48, 24))
+    _close(tdec(tparams, _t(emb), _t(pos), _t(col)),
+           jdec(jparams, *map(jnp.asarray, (emb, pos, col))), rtol=1e-5,
+           atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["Frequency", "SphericalHarmonics",
+                                  "Identity"])
+def test_coordinate_encodings_match_jax(name):
+    """The coordinate encodings through make_encoder, on points in
+    [-0.1, 1.1] (SH on directions, normalized inside): same functions of
+    the same f32 inputs (1e-5; the frequency encoding's angles reach
+    2^11 pi, where a sine's last bit is ~1e-7 of its argument's)."""
+    x = np.random.default_rng(8).uniform(-0.1, 1.1, (64, 3)).astype(
+        np.float32)
+    _, japply, jdim, _ = JE.make_encoder(name)
+    _, tapply, tdim, _ = TE.make_encoder(name)
+    assert tdim == jdim
+    got = tapply(None, _t(x))
+    assert got.shape == (64, tdim)
+    _close(got, japply(None, jnp.asarray(x)), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3, 4])
+def test_sh_degrees_match_jax(degree):
+    d = np.random.default_rng(9).standard_normal((32, 3)).astype(np.float32)
+    _close(TE.sh_encode(_t(d), degree), JE.sh_encode(jnp.asarray(d), degree))
+
+
+def test_rotation_6d_and_se3_inverse_match_jax():
+    """The 6D rotation maps, the 6D + translation transform and the
+    closed-form SE(3) inverse (which inverts: T^-1 T = I)."""
+    R = TP.axis_angle_to_matrix(_t(_rotvecs()))
+    d6 = TP.matrix_to_rotation_6d(R)
+    _close(d6, JP.matrix_to_rotation_6d(jnp.asarray(R.numpy())))
+    noisy = d6.numpy() + np.random.default_rng(10).normal(
+        0, 0.1, d6.shape).astype(np.float32)
+    _close(TP.rotation_6d_to_matrix(_t(noisy)),
+           JP.rotation_6d_to_matrix(jnp.asarray(noisy)), atol=1e-6)
+    _close(TP.rotation_6d_to_matrix(d6), R.numpy(), atol=1e-6)
+    t = _t(_rotvecs()[::-1].copy())
+    T = TP.six_t_to_transform_matrix(_t(noisy), t)
+    _close(T, JP.six_t_to_transform_matrix(jnp.asarray(noisy),
+                                           jnp.asarray(t.numpy())),
+           atol=1e-6)
+    inv = TP.se3_inverse(T)
+    _close(inv, JP.se3_inverse(jnp.asarray(T.numpy())), atol=1e-6)
+    _close(inv @ T, np.broadcast_to(np.eye(4, dtype=np.float32), T.shape),
+           atol=1e-5)

@@ -122,8 +122,27 @@ quality_bench.main(["--frames", "6", "--hw", "24x32", "--device", "cpu",
     assert len(res["dataset_sha1"]) == 40
 
 
-@pytest.mark.parametrize("flags", [["--pipelined"], ["--active"],
-                                   ["--enc", "TriPlaneHybrid"]])
+@pytest.mark.parametrize("enc", ["TriPlaneHybrid", "TriPlane"])
+def test_quality_bench_runs_the_triplane_grids(enc, tmp_path):
+    """--enc TriPlaneHybrid and --enc TriPlane, which the port refused
+    before, run a few frames in memory on the CPU to finite metrics, with
+    the tri-plane grid in the model."""
+    out = tmp_path / "res.json"
+    res = QB.main(["--frames", "4", "--hw", "24x32", "--device", "cpu",
+                   "--frames_in", "memory", "--workdir", str(tmp_path),
+                   "--out", str(out), "--eval_views", "2", "--enc", enc,
+                   "--set", "mapping.first_iters=20",
+                   "--set", "mapping.iters=3",
+                   "--set", "mapping.sample=128",
+                   "--set", "tracking.sample=64",
+                   "--set", "tracking.iter=2"])
+    for key in ("ate_rmse_cm", "acc_cm", "comp_cm", "comp_ratio_pct",
+                "depth_l1_cm"):
+        assert math.isfinite(res[key]), (key, res)
+    assert json.loads(out.read_text())["enc"] == enc
+
+
+@pytest.mark.parametrize("flags", [["--pipelined"], ["--active"]])
 def test_quality_bench_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError):
         QB.main(["--device", "cpu", "--frames_in", "memory"] + flags)
@@ -172,6 +191,53 @@ def test_suite_merge_and_hold_rule(tmp_path, monkeypatch):
     assert RQ.holds(one, ref)["ate_rmse_cm"] == (True, 1.25, 1.25)
     one["ate_rmse_cm"]["mean"] = 1.24
     assert RQ.holds(one, ref)["ate_rmse_cm"][0] is False
+
+
+def test_room_table_and_enc_runs(tmp_path, monkeypatch):
+    """--room_table: the room row of each grid beside its references (the
+    hash grid beside the JAX package's TPU seeds and its CPU runs, the
+    tri-plane grids beside their one TPU run each), under the hold rule;
+    --enc passes the grid to every run's quality_bench command and skips
+    the HashGrid merge."""
+    res = tmp_path / "results"
+    monkeypatch.setattr(RQ, "REPO", str(tmp_path))
+    monkeypatch.setattr(RQ, "ROOM_STEM", str(res / "ROOM"))
+    (res / "quality_torch" / "hybrid").mkdir(parents=True)
+    (res / "quality_jax_cpu").mkdir()
+    with open(RQ.JAX_TABLE) as f:
+        room = json.load(f)["scenes"]["room"]["agg"]
+    hyb = RQ.JAX_ENC_ROOM["TriPlaneHybrid"]
+    for seed in (0, 1):
+        base = {"seed": seed, "device": "card"}
+        for sub, vals in (("quality_torch", {m: room[m]["mean"] + 0.5
+                                             for m in RQ.HOLD_METRICS}),
+                          ("quality_jax_cpu", {m: room[m]["mean"] + 0.5
+                                               for m in RQ.HOLD_METRICS}),
+                          ("quality_torch/hybrid", dict(hyb))):
+            (res / sub / f"result_room_s{seed}.json").write_text(
+                json.dumps({**base, **vals}))
+    table = RQ.room_table()
+    rows = table["rows"]
+    assert table["jax_cpu_seeds"] == {"HashGrid": [0, 1],
+                                      "TriPlaneHybrid": [], "TriPlane": []}
+    assert "JAX, CPU" not in rows["TriPlaneHybrid"]["refs"]
+    assert not rows["HashGrid"]["refs"]["JAX, TPU"]["row_holds"]
+    assert rows["HashGrid"]["refs"]["JAX, CPU"]["row_holds"]
+    assert rows["TriPlaneHybrid"]["refs"]["JAX, TPU"]["row_holds"]
+    assert rows["TriPlane"]["agg"] is None
+    md = (res / "ROOM.md").read_text()
+    assert "| TriPlane | — | JAX, TPU |" in md and "not run" in md
+    assert "| HashGrid | 0,1 | JAX, CPU |" in md
+
+    ns = type("A", (), dict(results_dir=str(tmp_path), enc="TriPlane",
+                            frames=300, hw="120x160", workdir="w",
+                            frames_in="memory", device="cpu"))
+    cmd, _ = RQ.run_one("room", "room", "replica", [], None, 0, ns)
+    assert cmd[-2:] == ["--enc", "TriPlane"]
+    monkeypatch.setattr(RQ, "run_all", lambda a: None)
+    assert RQ.main(["--enc", "TriPlane", "--results_dir",
+                    str(tmp_path / "q"), "--workdir",
+                    str(tmp_path / "w")]) is None
 
 
 def test_bf16_reads_rounds_what_the_encoders_read():

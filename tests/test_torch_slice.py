@@ -37,7 +37,7 @@ from coslam_tpu.runtime.optim import make_map_optimizer as j_map_optimizer
 from coslam_tpu.runtime.tracking import make_tracking_step as j_tracking
 from coslam_torch import convert
 from coslam_torch.models.scene_rep import JointEncoding as TModel
-from coslam_torch.models.scene_rep import is_tensovm
+from coslam_torch.models.scene_rep import is_factorized
 from coslam_torch.ops import pose as TP
 from coslam_torch.runtime.mapping import BundleAdjust, build_poses
 from coslam_torch.runtime.optim import (grid_leaves, make_map_optimizer,
@@ -70,6 +70,13 @@ def _vm(cfg):
     """The TensoVM twin of a synthetic config (room0_vm's grid: a 3-level
     pyramid of 2 features)."""
     cfg["grid"].update(enc="TensoVM", triplane_levels=3)
+    return cfg
+
+
+def _hybrid(cfg):
+    """The TriPlaneHybrid twin of a synthetic config (room0_hybrid's grid:
+    3 dense levels and a 4-level plane pyramid of 2 features)."""
+    cfg["grid"]["enc"] = "TriPlaneHybrid"
     return cfg
 
 
@@ -123,6 +130,11 @@ def test_tracking_step_matches_jax_tensovm():
                                                    W=52)))
 
 
+def test_tracking_step_matches_jax_hybrid():
+    _check_tracking_step(_hybrid(make_synthetic_config("", "/tmp/unused",
+                                                       H=40, W=52)))
+
+
 def test_tracking_step_matches_jax_xor():
     _check_tracking_step(_xor(make_synthetic_config("", "/tmp/unused", H=40,
                                                     W=52)))
@@ -163,8 +175,9 @@ def _check_ba_iteration(cfg):
                                             cur_rays.shape[0]))
     quota = max(m["sample"] // kf_count, m["min_pixels_cur"])
     smooth_key = jax.random.split(k3)[1]
-    # The lattice's points for the hash grid, its axes for TensoVM.
-    draw = jm.smoothness_axes if is_tensovm(cfg) else jm.smoothness_points
+    # The lattice's points for the hash grid, its axes for the factorized
+    # grids.
+    draw = jm.smoothness_axes if is_factorized(cfg) else jm.smoothness_points
     smooth_sample = np.asarray(draw(smooth_key, w["smooth_pts"],
                                     w["smooth_vox"], w["smooth_margin"]))
     ray_data = np.concatenate([kf_rays.reshape(-1, 7)[idx],
@@ -256,6 +269,15 @@ def test_ba_iteration_matches_jax_tensovm():
                                                   W=32)))
 
 
+def test_ba_iteration_matches_jax_hybrid():
+    """The TriPlaneHybrid twin: the dense table's gradient through kernel
+    B's plain version and the planes' through U's, each plus the lattice
+    term's (the dense part encoded at the lattice's points, the planes by
+    the separable lattice encode), on the axes of the JAX draw."""
+    _check_ba_iteration(_hybrid(make_synthetic_config("", "/tmp/unused",
+                                                      H=24, W=32)))
+
+
 def test_ba_iteration_matches_jax_xor():
     """The XOR twin: dtable through kernel H's plain version against the
     JAX gradient through K4 in interpret mode, lattice term included."""
@@ -263,7 +285,8 @@ def test_ba_iteration_matches_jax_xor():
                                                    W=32)))
 
 
-def _check_slam_loop(tmp_path, vm: bool = False, xor: bool = False):
+def _check_slam_loop(tmp_path, vm: bool = False, xor: bool = False,
+                     hybrid: bool = False):
     """CoSLAM.run on the 12-frame 40x52 scene of
     tests/test_integration.py:test_full_slam_loop, with 128-ray batches
     (CPU time), read from disk by the port's loader: ATE < 5 cm and 3
@@ -279,6 +302,8 @@ def _check_slam_loop(tmp_path, vm: bool = False, xor: bool = False):
         _vm(cfg)
     if xor:
         _xor(cfg)
+    if hybrid:
+        _hybrid(cfg)
     cfg["mapping"].update(first_iters=100, sample=128)
     cfg["tracking"]["sample"] = 128
     cfg["mapping"]["first_mesh"] = True
@@ -310,6 +335,15 @@ def test_slam_loop_on_small_scene_tensovm(tmp_path):
     assert set(slam.params["grid"]) == {"planes", "lines"}
 
 
+def test_slam_loop_on_small_scene_hybrid(tmp_path):
+    """The CPU twin of the room0_hybrid slice."""
+    slam = _check_slam_loop(tmp_path, hybrid=True)
+    assert set(slam.params["grid"]) == {"dense", "planes"}
+    dspec, pspec = slam.model.grid_spec
+    assert not any(dspec.hashed) and dspec.n_levels == 3
+    assert slam.params["grid"]["planes"].shape == (pspec.total_entries, 2)
+
+
 def test_slam_loop_on_small_scene_xor(tmp_path):
     from coslam_torch.ops.encodings import HashGridSpec
 
@@ -323,9 +357,10 @@ def test_slam_loop_on_small_scene_xor(tmp_path):
 
 def test_port_runs_without_jax():
     """Importing coslam_torch and running one CPU tracking step, with the
-    packed hash grid, the XOR-hash grid and TensoVM, the XOR grid's
-    lattice encode and TensoVM's smoothness TV with their gradients,
-    leaves jax and the JAX package out of sys.modules."""
+    packed hash grid, the XOR-hash grid, TriPlaneHybrid, TriPlane and
+    TensoVM, the XOR grid's lattice encode and TensoVM's smoothness TV
+    with their gradients, leaves jax and the JAX package out of
+    sys.modules."""
     code = """
 import sys
 import numpy as np, torch
@@ -338,6 +373,7 @@ import coslam_torch.cli, coslam_torch.convert, coslam_torch.mesh.extract
 import coslam_torch.data.synth, coslam_torch.tools.profile_slice
 import coslam_torch.ops.hash_pallas, coslam_torch.ops.serial_scatter
 for enc, impl in (("HashGrid", "auto"), ("HashGrid", "pallas"),
+                  ("TriPlaneHybrid", "auto"), ("TriPlane", "auto"),
                   ("TensoVM", "auto")):
     cfg = make_synthetic_config("", "/tmp/unused", H=24, W=32)
     cfg["grid"].update(enc=enc, triplane_levels=3, grad_impl=impl)
@@ -475,6 +511,25 @@ def test_chip_smoke_uses_room0_xor_settings():
     assert TModel(scatter, _bound(scatter)).grid_spec == spec
 
 
+def test_chip_smoke_uses_room0_hybrid_settings():
+    """The hybrid slice's config (room0_hybrid_config) carries
+    configs/Replica/room0_hybrid.yaml's model and recipe: TriPlaneHybrid,
+    3 dense levels 16/26/44 and planes 32/68/146/311 at resolution 400,
+    and room0's everything else."""
+    from coslam_torch.data import synth
+
+    assert _chip_smoke().room0_hybrid_config is synth.room0_hybrid_config
+    smoke = synth.room0_hybrid_config("/tmp/unused")
+    _check_smoke_settings(smoke, "room0_hybrid.yaml",
+                          ["enc", "hash_size", "oneGrid"])
+    dspec, pspec = TModel(smoke, _bound(smoke)).grid_spec
+    assert dspec.resolutions == (16, 26, 44)
+    assert dspec.total_entries == 115_721
+    assert pspec.resolutions[::3] == (32, 68, 146, 311)
+    assert pspec.total_entries == 374_409
+    assert TModel(smoke, _bound(smoke)).input_ch == 14
+
+
 def test_room0_vm_yaml_builds_the_tensovm_model():
     """configs/Replica/room0_vm.yaml builds the port's TensoVM model: an
     encoding 6 wide over 325,902 plane rows and 1,338 line rows."""
@@ -562,6 +617,28 @@ def test_chip_smoke_checks_the_shapes_of_the_vm_slice(tmp_path, monkeypatch):
                                      65_536]
 
 
+def test_chip_smoke_checks_the_shapes_of_the_hybrid_slice(tmp_path,
+                                                           monkeypatch):
+    """The same for the hybrid slice's planes (kernels T and U): (points,
+    need_dtable, need_dx) of every call, room0's cases without the
+    lattice (the planes' lattice is the plain separable encode; the dense
+    part takes the lattice through A and B)."""
+    from coslam_torch.data.synth import room0_hybrid_config
+    from coslam_torch.ops import triplane as TPL
+
+    cases, fwd, bwd = _recorded_cases(
+        tmp_path, monkeypatch, room0_hybrid_config, TPL,
+        ("triplane_encode_fwd_ref", "triplane_encode_bwd_ref"), n_tables=1)
+    assert [c[0] for c in cases] == ["first frame", "tracking", "BA 1 kf",
+                                     "BA 2 kf", "lattice", "mesh chunk"]
+    planes = [c for c in cases if c[0] != "lattice"]
+    assert bwd == {(n, dt, dx) for _, n, dt, dx in planes if dt or dx}
+    assert {n for _, n, _, _ in planes} <= set(fwd)
+    assert 30 ** 3 not in set(fwd) and 31 ** 3 not in set(fwd)
+    assert [c[1] for c in planes] == [2048 * 43, 1024 * 43, 4096 * 43,
+                                      3072 * 43, 65536]
+
+
 def test_chip_smoke_checks_the_shapes_of_the_xor_slice(tmp_path,
                                                         monkeypatch):
     """The same for the XOR slice: (points, need_streams, need_dx) of
@@ -630,6 +707,16 @@ def test_profile_slice_small_xor_on_cpu(tmp_path):
     assert res["encode_launches"] == {"xor_grid_encode_fwd": 0,
                                       "xor_grid_encode_bwd": 0,
                                       "row_accum_segmented": 0}
+
+
+def test_profile_slice_small_hybrid_on_cpu(tmp_path):
+    """The same with --hybrid: the TriPlaneHybrid slice, the counts of its
+    kernels (A and B on the dense levels, T and U on the planes)."""
+    res = _check_profile_small(tmp_path, "--hybrid")
+    assert res["encode_launches"] == {
+        "grid_encode_fwd": 0, "grid_encode_bwd": 0,
+        "grid_encode_bwd_serial": 0, "triplane_encode_fwd": 0,
+        "triplane_encode_bwd": 0, "triplane_encode_bwd_serial": 0}
 
 
 def test_record_ba_points_gives_the_first_ba_calls_rays(tmp_path):
