@@ -46,10 +46,11 @@ Run from the repository root. Phases, each printing its own lines:
    and U (K2 and K3 in the TPU kernels' serial order) at the BA 1-keyframe
    case and on the ray-ordered points: the same bits over two calls and
    a CUDA graph replay, within the sum-order bound of the plain version,
-   the largest ulp distance from the host's plain version, kernel H's
-   walk over the kernel's own streams equal to np.add.at of them, and
-   their times beside the atomic mode's and deterministic
-   index_put_(accumulate=True)'s on the same streams;
+   the largest ulp distance from the host's plain version, the route's
+   sorted output equal to a stable sort on the host of the plain
+   version's update stream, and their times (and each launch's, from
+   torch.profiler) beside the atomic mode's and deterministic
+   index_put_(accumulate=True)'s on the plain version's stream;
 4. probes: the five scatter-accumulate probes of
    coslam_torch/tools/bench (their entry points, --quick: one setting
    per kernel, at the probes' own shapes; each holds every variant to
@@ -141,7 +142,8 @@ from coslam_torch.data.synth import (  # noqa: E402
 from coslam_torch.tools.bench._common import accum_bound, bound  # noqa: E402
 from coslam_torch.tools.kernel_times import (  # noqa: E402
     a_l2_sectors, c_l2_sectors, d_l2_sectors, e_l2_sectors, h_phases,
-    l2_rate, main_path_cases, packed_dense_spec, record_ba_points)
+    l2_rate, main_path_cases, packed_dense_spec, phase_times,
+    record_ba_points)
 from coslam_torch.tools.kernel_times import (  # noqa: E402
     graph_ms as _graph_ms, time_ms as _time_ms)
 
@@ -208,8 +210,9 @@ class HashKernels:
               "grid_encode_bwd_serial": {
                   "replaces": "coslam_tpu/ops/hash_packed.py:411",
                   "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"],
-                  "mode": "serial order (K2, K3), kernel B's stream and "
-                          "kernel H's sort and walk"}}
+                  "mode": "serial order (K2, K3): B's updates produced "
+                          "inside a radix sort of each level, then kernel "
+                          "H's run starts and walk"}}
 
     def __init__(self, device, rng, spec=None):
         from coslam_torch.ops import hash_packed as HP
@@ -267,15 +270,17 @@ class HashKernels:
         return {"dtable": self.m.grid_encode_bwd_ref(
             self.spec, self.table.cpu(), x.cpu(), g.cpu(), True, False)[0]}
 
-    def serial_stream(self, x):
-        """(keys, vals, tables): the stream buffers the serial mode wrote
-        at x's size, and each table's rows in the concatenated key range."""
+    def serial_sorted(self, x, g):
+        """((keys, vals): the sorted output of the serial mode's last call
+        at x's size, global rows and values; (idx, vals): the plain
+        version's update stream on the host)."""
         from coslam_torch.ops import serial_scatter as SS
 
-        rows = self.spec.total_entries
-        keys, vals, _ = SS.stream_scratch(
-            2 * self.spec.n_levels * 4 * x.shape[0], rows, x.device)
-        return keys, vals, {"dtable": (0, rows)}
+        sorter = SS.serial_sort(self.m.serial_segments(self.spec, x.shape[0]),
+                                self.spec.total_entries,
+                                self.spec.out_dim * x.shape[0], x.device)
+        return ((sorter.keys, sorter.pay), self.m.grid_encode_bwd_streams_ref(
+            self.spec, self.table.cpu(), x.cpu(), g.cpu()))
 
     def l2_sectors(self, x, need_table, need_dx):
         """(kernel A's L2 sector accesses, None): the L2 figure is kept for
@@ -318,8 +323,9 @@ class TensoVMKernels:
               "tensovm_encode_bwd_serial": {
                   "replaces": "coslam_tpu/ops/serial_scatter.py:77",
                   "caller": "coslam_tpu/ops/plane_quad.py:160",
-                  "mode": "serial order (K3), kernel D's stream and "
-                          "kernel H's sort and walk"}}
+                  "mode": "serial order (K3): D's updates produced "
+                          "inside a radix sort of each plane section and "
+                          "the lines, then kernel H's run starts and walk"}}
 
     def __init__(self, device, rng, spec=None):
         from coslam_torch.ops import tensovm as VM
@@ -415,13 +421,17 @@ class TensoVMKernels:
             True, True, False)
         return {"dplanes": dp, "dlines": dl}
 
-    def serial_stream(self, x):
+    def serial_sorted(self, x, g):
         from coslam_torch.ops import serial_scatter as SS
 
-        tp, tl = self.spec.total_entries, self.lines.shape[0]
-        keys, vals, _ = SS.stream_scratch(
-            6 * self.spec.n_levels * x.shape[0], tp + tl, x.device)
-        return keys, vals, {"dplanes": (0, tp), "dlines": (tp, tp + tl)}
+        sorter = SS.serial_sort(
+            self.m.serial_segments(self.spec, x.shape[0]),
+            self.spec.total_entries + self.lines.shape[0],
+            self.spec.out_dim * x.shape[0], x.device)
+        return ((sorter.keys, sorter.pay),
+                self.m.tensovm_encode_bwd_streams_ref(
+                    self.spec, self.planes.cpu(), self.lines.cpu(), x.cpu(),
+                    g.cpu()))
 
     def l2_sectors(self, x, need_table, need_dx):
         """(kernel C's, kernel D's L2 sector accesses)."""
@@ -464,8 +474,9 @@ class TriPlaneKernels:
               "triplane_encode_bwd_serial": {
                   "replaces": "coslam_tpu/ops/hash_packed.py:411",
                   "caller": "coslam_tpu/ops/triplane.py:289",
-                  "mode": "serial order (K2), kernel U's stream and "
-                          "kernel H's sort and walk"}}
+                  "mode": "serial order (K2): U's updates produced "
+                          "inside a radix sort of each plane section, then "
+                          "kernel H's run starts and walk"}}
 
     def __init__(self, device, rng, spec=None):
         from coslam_torch.ops import triplane as TP
@@ -509,13 +520,15 @@ class TriPlaneKernels:
         return {"dtable": self.m.triplane_encode_bwd_ref(
             self.spec, self.table.cpu(), x.cpu(), g.cpu(), True, False)[0]}
 
-    def serial_stream(self, x):
+    def serial_sorted(self, x, g):
         from coslam_torch.ops import serial_scatter as SS
 
-        rows = self.spec.total_entries
-        keys, vals, _ = SS.stream_scratch(4 * self.spec.n_levels * x.shape[0],
-                                          rows, x.device)
-        return keys, vals, {"dtable": (0, rows)}
+        sorter = SS.serial_sort(self.m.serial_segments(self.spec, x.shape[0]),
+                                self.spec.total_entries,
+                                self.spec.out_dim * x.shape[0], x.device)
+        return ((sorter.keys, sorter.pay),
+                self.m.triplane_encode_bwd_streams_ref(
+                    self.spec, self.table.cpu(), x.cpu(), g.cpu()))
 
     def l2_sectors(self, x, need_table, need_dx):
         return None, None     # no L2 figure kept for T and U
@@ -1074,17 +1087,19 @@ def _graph_call(fn):
 
 
 def check_serial(device, kernels, case, ray) -> dict:
-    """The serial mode of kernel B or D (``kernels.serial``: K2 and K3 in
-    the TPU kernels' serial order) at `case` (the BA 1-keyframe case,
+    """The serial mode of kernel B, D or U (``kernels.serial``: K2 and K3
+    in the TPU kernels' serial order) at `case` (the BA 1-keyframe case,
     uniform points) and on the ray-ordered points `ray`: the same bits over
     two calls and from a CUDA graph's replay; within the sum-order bound of
     the plain version on the card (``kernels.table_tol``), with the largest
     ulp distance from the plain version on the host (whose index_add_ adds
-    in the serial mode's order); and H's walk over the kernel's own
-    streams equal to a serial np.add.at of them, bit for bit. Times, at
-    both: the mode (events, graph), the atomic mode beside it, the plain
-    version and deterministic ``index_put_(accumulate=True)`` on the same
-    streams (the library call). Returns the record."""
+    in the serial mode's order); and the route's sorted output (global
+    rows and values) equal, bit for bit, to a stable sort on the host
+    (np.argsort, kind "stable") of the plain version's update stream.
+    Times, at both: the mode (events, graph) and each of its launches
+    (``phase_times``), the atomic mode beside it, the plain version and
+    deterministic ``index_put_(accumulate=True)`` on the plain version's
+    stream (the library call). Returns the record."""
     import torch
 
     from coslam_torch.tools.bench import _common as C
@@ -1119,31 +1134,35 @@ def check_serial(device, kernels, case, ray) -> dict:
             rec["max_ulp"] = max(rec["max_ulp"], u)
             line.append(f"{what} err {e:.3g} (sum-order bound), "
                         f"{u} ulp from the host's plain version")
-        # H's walk over the streams this call wrote, against np.add.at.
-        kernels.serial(x, g)
-        keys, vals, spans = kernels.serial_stream(x)
-        keys_h, vals_h = keys.cpu().numpy(), vals.cpu().numpy()
-        acc = np.zeros((max(hi for _, hi in spans.values()) + 1, 2),
-                       np.float32)
-        np.add.at(acc, keys_h, vals_h)
-        for what, (lo, hi) in spans.items():
-            np.testing.assert_array_equal(got[what].cpu().numpy(),
-                                          acc[lo:hi])
-        line.append(f"H's walk == np.add.at of the kernel's {keys.shape[0]} "
-                    "updates")
+        # The sorted output of this call against the host's stable sort of
+        # the plain version's stream.
+        call()
+        (keys, pay), (idx, vals) = kernels.serial_sorted(x, g)
+        order = np.argsort(idx.numpy(), kind="stable")
+        np.testing.assert_array_equal(keys.cpu().numpy(), idx.numpy()[order])
+        np.testing.assert_array_equal(pay.cpu().numpy(), vals.numpy()[order])
+        line.append(f"sorted output == the host's stable sort of the "
+                    f"{idx.shape[0]} updates")
         times = {"ms": _time_ms(call), "graph_ms": _graph_ms(call),
                  "atomic_ms": _time_ms(lambda: kernels.bwd(x, g, True,
                                                            False)),
                  "plain_ms": _time_ms(lambda: kernels.bwd(x, g, True, False,
                                                           plain=True))}
-        keys_l = keys.long()
-        buf = torch.zeros_like(torch.from_numpy(acc), device=device)
+        keys_l, vals_d = idx.to(device).long(), vals.to(device)
+        buf = torch.zeros((sum(t.shape[0] for t in got.values()) + 1, 2),
+                          device=device)
         with _deterministic():
             times["library_ms"] = _time_ms(lambda: buf.index_put_(
-                (keys_l,), vals, accumulate=True))
+                (keys_l,), vals_d, accumulate=True))
         line += [f"{k} {v:.4f}" for k, v in times.items()]
+        phases = phase_times(call)
+        line.append("phases not measured (no device event in the "
+                    "profiler's traces)" if phases["phases"] is None else
+                    "phases (us) " + ", ".join(
+                        f"{name} {us:.1f}" for name, us in phases["phases"]))
         print("  " + ", ".join(line), flush=True)
         rec.update({key + k: v for k, v in times.items()})
+        rec[key + "phases_us"] = phases["phases"]
         if key == "":
             work = kernels.work(x.shape[0], kernels.touched_bytes(x, g), True,
                                 False)

@@ -67,19 +67,22 @@
 // agrees with a serial sum only to a sum-order tolerance; dx is summed in
 // a fixed order, but not the plain version's.
 //
-// The serial mode (grid_encode_bwd_stream: K2 and K3 in the TPU kernels'
-// serial order). In place of each row-pair atomic, the kernel writes the
-// two updates of the corner, (e, v0) and (e + 1, v1), into a (row key,
-// 2-wide value) stream at the update's index m in the plain version's
-// order (grid_encode_bwd_ref: every v0 over [L, corner, N], then every
-// v1): m = (l * 4 + c) * N + n, and M0 + m for v1, with M0 = L * 4 * N.
-// Kernel H's sort, run starts and walk (row_accum.cu) then sum every row
-// in increasing m from 0.0, so dtable is the same bits on every run. The
-// values are formed with __fmul_rn, one rounding a product as in the plain
-// version. dx is the atomic mode's.
+// The serial mode (grid_encode_bwd_sort: K2 and K3 in the TPU kernels'
+// serial order). The table gradient's updates are produced inside the
+// segmented radix sort of serial_sort.cuh, one segment a level (a corner
+// pair (e, e + 1) stays in its level), in the order of the plain version
+// (grid_encode_bwd_ref: every v0 over [L, corner, N], then every v1)
+// restricted to the level: half v0 / v1, then corner c, then n. No update
+// stream is written; the run bounds and kernel H's walk (row_accum.cu) then
+// sum every row of the sorted output in that order from 0.0, so dtable is the
+// same bits on every run. The values are formed with __fmul_rn, one
+// rounding a product as in the plain version. dx is the atomic mode's
+// launch with dtable null.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "serial_sort.cuh"
 
 namespace {
 
@@ -249,13 +252,10 @@ __global__ void __launch_bounds__(kThreads) grid_encode_fwd_kernel(
 // Thread (point, level): a block holds `ppb` = kThreads / L whole points,
 // their L level-threads adjacent (L = 16: a half-warp each), so a point's
 // dx is summed inside the block and stored once.
-// kStream: the serial mode, which writes the updates into keys [2 * M0]
-// and vals [2 * M0] (float2) instead of adding them into dtable.
-template <int F, bool kStream>
+template <int F>
 __global__ void __launch_bounds__(kThreads) grid_encode_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ table,
     const float* __restrict__ g, float* __restrict__ dtable,
-    int* __restrict__ keys, float2* __restrict__ vals,
     float* __restrict__ dx, int64_t n_points, Levels lv, int ppb) {
   static_assert(F == 2, "the row-pair atomics are written for F = 2");
   __shared__ float part[kThreads][3];
@@ -283,17 +283,7 @@ __global__ void __launch_bounds__(kThreads) grid_encode_bwd_kernel(
     for (int c = 0; c < 4; ++c) {
       const int64_t e = corner_entry(lv, l, res, cell, c);
       const float wxy = xy_weight(w, c);
-      if (kStream) {
-        // (gl wxy)(1 - wz) and (gl wxy) wz, each product rounded once.
-        const float gw0 = __fmul_rn(gl[0], wxy), gw1 = __fmul_rn(gl[1], wxy);
-        const int64_t m = (static_cast<int64_t>(l) * 4 + c) * n_points + n;
-        const int64_t m1 = m + static_cast<int64_t>(L) * 4 * n_points;
-        keys[m] = static_cast<int>(e);
-        vals[m] = make_float2(__fmul_rn(gw0, 1.0f - wz),
-                              __fmul_rn(gw1, 1.0f - wz));
-        keys[m1] = static_cast<int>(e + 1);
-        vals[m1] = make_float2(__fmul_rn(gw0, wz), __fmul_rn(gw1, wz));
-      } else if (dtable != nullptr) {
+      if (dtable != nullptr) {
         float v0[F], v1[F];
 #pragma unroll
         for (int f = 0; f < F; ++f) {
@@ -365,6 +355,59 @@ __global__ void __launch_bounds__(kThreads) grid_encode_bwd_kernel(
 // Instantiate another width together with a configuration that needs it.
 constexpr int kFeatures = 2;
 
+// Kernel B's serial mode as the producer of serial_sort.cuh: segment l is
+// level l, and its update i is (half, corner c, point n) = (i / 4N, i / N
+// mod 4, i mod N): the plain version's order restricted to the level. Its
+// key is the corner's row in the level (e, or e + 1 for the v1 half), its
+// value (g wxy)(1 - wz) or (g wxy) wz, each product rounded once. gt is the
+// cotangent level-major ([L, N, 2]).
+struct PackedSerial {
+  const float* x;
+  const float2* gt;
+  Levels lv;
+  int64_t n;
+
+  template <bool kValue>
+  __device__ __forceinline__ int produce(int l, int64_t i, float2* v) const {
+    // i < 8 N < 2^31: 32-bit division.
+    const unsigned hc = static_cast<unsigned>(i) / static_cast<unsigned>(n);
+    const int64_t pt = i - static_cast<int64_t>(hc) * n;
+    const int c = static_cast<int>(hc & 3), half = static_cast<int>(hc >> 2);
+    const int res = lv.res(l);
+    int cell[3];
+    float w[3];
+    cell_and_weights(x, pt, res, cell, w);
+    const int64_t e = corner_entry(lv, l, res, cell, c);
+    if (kValue) {
+      const float2 gl = __ldg(gt + l * n + pt);
+      const float wxy = xy_weight(w, c);
+      const float gw0 = __fmul_rn(gl.x, wxy), gw1 = __fmul_rn(gl.y, wxy);
+      const float wz = half ? w[2] : 1.0f - w[2];
+      *v = make_float2(__fmul_rn(gw0, wz), __fmul_rn(gw1, wz));
+    }
+    return static_cast<int>(e - lv.offset(l)) + half;
+  }
+
+  // The histogram's units: a point of the level, its 2 x 4 keys.
+  __device__ __forceinline__ int64_t units(int) const { return n; }
+  int64_t host_units(int) const { return n; }
+  template <class Emit>
+  __device__ __forceinline__ void unit_keys(int l, int64_t pt,
+                                            Emit&& emit) const {
+    const int res = lv.res(l);
+    int cell[3];
+    float w[3];
+    cell_and_weights(x, pt, res, cell, w);
+    const int off = lv.offset(l);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int e = static_cast<int>(corner_entry(lv, l, res, cell, c) - off);
+      emit(e);
+      emit(e + 1);
+    }
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -409,34 +452,44 @@ int grid_encode_bwd(const float* x, const float* table, const float* g,
   const int ppb = kThreads / n_levels;
   const unsigned int blocks =
       static_cast<unsigned int>((n_points + ppb - 1) / ppb);
-  grid_encode_bwd_kernel<kFeatures, false>
+  grid_encode_bwd_kernel<kFeatures>
       <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, table, g, dtable, nullptr, nullptr, dx, n_points, lv, ppb);
+          x, table, g, dtable, dx, n_points, lv, ppb);
   return cudaGetLastError();
 }
 
-// The serial mode: keys (int32 [2 * L * 4 * N]) and vals (float2, 8-byte
-// aligned, as many) take every update of the table gradient at its index
-// m (the header's order); dx as in grid_encode_bwd (may be null). The
-// caller keeps 2 * L * 4 * N below 2^31 and every row below 2^31.
-int grid_encode_bwd_stream(const float* x, const float* table, const float* g,
-                           int* keys, float* vals, float* dx,
-                           int64_t n_points, int n_features,
-                           const int* levels, int n_levels,
-                           unsigned int hash_mask, void* stream) {
-  if (n_points == 0) return cudaSuccess;
-  if (n_features != kFeatures || n_levels < 1 || n_levels > kThreads ||
-      keys == nullptr || reinterpret_cast<uintptr_t>(vals) % 8 != 0)
+// The serial mode's sort (serial_sort.cuh): the cotangent g [N, L * F]
+// level-major into gt ([L, N, F] floats), then the histogram and the radix
+// passes of the segments (one a level; serial_scatter.py:SerialSort gives
+// the segment table and the buffers). The sorted (global row, value) pairs
+// land in keys_out and pay_out ([2 * L * 4 * N]) for the run bounds and
+// kernel H's walk (row_accum.cu). The caller keeps the updates and the
+// rows below 2^31.
+int grid_encode_bwd_sort(const float* x, const float* g, float* gt,
+                         int64_t n_points, int n_features, const int* levels,
+                         int n_levels, unsigned int hash_mask, const int* segs,
+                         const int* segs_host, int n_segs, int* keys_a,
+                         float* pay_a, int* keys_b, float* pay_b,
+                         int* keys_out, float* pay_out, unsigned* status,
+                         int64_t status_len, int* hist, int pass_bits,
+                         int passes, void* stream) {
+  if (n_features != kFeatures || n_levels < 1 || n_segs != n_levels ||
+      gt == nullptr)
     return cudaErrorInvalidValue;
-  const Levels lv{levels, n_levels, hash_mask};
-  const int ppb = kThreads / n_levels;
-  const unsigned int blocks =
-      static_cast<unsigned int>((n_points + ppb - 1) / ppb);
-  grid_encode_bwd_kernel<kFeatures, true>
-      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          x, table, g, nullptr, keys, reinterpret_cast<float2*>(vals), dx,
-          n_points, lv, ppb);
-  return cudaGetLastError();
+  if (n_points == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = serial::transpose_levels(g, gt, n_points, n_levels, st);
+  if (err != cudaSuccess) return err;
+  const serial::SortArgs a{segs, segs_host, n_segs,
+                           {keys_a, keys_b},
+                           {reinterpret_cast<float2*>(pay_a),
+                            reinterpret_cast<float2*>(pay_b)},
+                           keys_out, reinterpret_cast<float2*>(pay_out),
+                           status, status_len, hist, pass_bits, passes};
+  return serial::segmented_sort(
+      PackedSerial{x, reinterpret_cast<const float2*>(gt),
+                   Levels{levels, n_levels, hash_mask}, n_points},
+      a, st);
 }
 
 const char* grid_encode_error_string(int code) {

@@ -53,6 +53,12 @@
 //
 // The atomic mode (kernel F) is kernel P of probe_accum.cu with its clip
 // rule: one thread per update, a row of vector atomics.
+//
+// The serial modes of kernels B, D and U (serial_sort.cuh) sort their
+// updates themselves and reuse the walk here: row_accum_bounds writes each
+// non-empty row's run [start, end) in their sorted output, and
+// row_accum_walk_runs walks those runs (the walk kernels read the run's end
+// from `end` there, from the next row's start for H).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -425,6 +431,37 @@ __global__ void run_starts_kernel(const int* __restrict__ keys,
   }
 }
 
+// The serial modes' run bounds (serial_sort.cuh's sorted output): every
+// non-empty row's run [start[r], end[r]) in the sorted keys [m] (start and
+// end zeroed first, so an empty row's run is empty): position p writes the
+// end of row keys[p - 1] and the start of row keys[p] where the two
+// differ. run_starts_kernel writes every row's start, empty rows' too, one
+// thread the whole gap between two keys; on ray-ordered points, whose
+// rows leave long gaps, that loop was most of its time.
+// A thread takes 4 positions with one 16-byte load (keys is 16-byte
+// aligned and padded to a multiple of 4).
+__global__ void __launch_bounds__(kThreads) run_bounds_kernel(
+    const int* __restrict__ keys, int* __restrict__ start,
+    int* __restrict__ end, int64_t m) {
+  const int64_t p0 = 4 * (static_cast<int64_t>(blockIdx.x) * kThreads +
+                          threadIdx.x);
+  if (p0 >= m) return;
+  const int4 v = __ldg(reinterpret_cast<const int4*>(keys + p0));
+  const int k[4] = {v.x, v.y, v.z, v.w};
+  int prev = p0 == 0 ? -1 : __ldg(keys + p0 - 1);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int64_t p = p0 + u;
+    if (p >= m) break;
+    if (k[u] != prev) {
+      start[k[u]] = static_cast<int>(p);
+      if (prev >= 0) end[prev] = static_cast<int>(p);
+    }
+    if (p == m - 1) end[k[u]] = static_cast<int>(m);
+    prev = k[u];
+  }
+}
+
 // The value row of update q: W floats (W = 2: one float2 load).
 template <int W>
 __device__ __forceinline__ void load_row(const float* __restrict__ vals,
@@ -452,8 +489,11 @@ __device__ __forceinline__ void load_entry(const int* __restrict__ perm,
 // appended to long_rows (long_rows[0] the count, then the rows, in no set
 // order: a warp sums each one in row_walk_long_kernel). W > 0: the width
 // at compile time; W == 0: any width, one pass over the run per column.
+// end: null (kernel H: row r's run ends where row r + 1's starts), or
+// each row's own end (row_accum_bounds).
 template <int W>
 __global__ void row_walk_kernel(const int* __restrict__ start,
+                                const int* __restrict__ end,
                                 const int* __restrict__ perm,
                                 const float* __restrict__ vals,
                                 float* __restrict__ out,
@@ -463,7 +503,8 @@ __global__ void row_walk_kernel(const int* __restrict__ start,
                     threadIdx.x;
   const int lane = threadIdx.x & 31;
   const int lo = r <= rows ? __ldg(start + r) : 0;
-  const int hi = r <= rows ? __ldg(start + r + 1) : 0;
+  const int hi = r > rows ? 0
+                 : end != nullptr ? __ldg(end + r) : __ldg(start + r + 1);
   const bool is_long = hi - lo > kLongRun;
   const unsigned longs = __ballot_sync(kFull, is_long);
   if (longs != 0) {
@@ -514,7 +555,8 @@ __global__ void row_walk_kernel(const int* __restrict__ start,
 // time of a run is its chain of dependent adds, not its loads.
 template <int W>
 __global__ void __launch_bounds__(kThreads) row_walk_long_kernel(
-    const int* __restrict__ start, const int* __restrict__ perm,
+    const int* __restrict__ start, const int* __restrict__ end,
+    const int* __restrict__ perm,
     const float* __restrict__ vals, float* __restrict__ out,
     const int* __restrict__ long_rows, int width) {
   constexpr int NW = W > 0 ? W : 1;
@@ -524,7 +566,8 @@ __global__ void __launch_bounds__(kThreads) row_walk_long_kernel(
                      threadIdx.x) >> 5;
   if (i >= long_rows[0]) return;
   const int64_t row = long_rows[1 + i];
-  const int lo = __ldg(start + row), hi = __ldg(start + row + 1);
+  const int lo = __ldg(start + row);
+  const int hi = end != nullptr ? __ldg(end + row) : __ldg(start + row + 1);
   for (int col = 0; col < (W > 0 ? 1 : width); ++col) {
     float acc[NW];
 #pragma unroll
@@ -587,16 +630,16 @@ __global__ void __launch_bounds__(kThreads) row_walk_long_kernel(
 }
 
 template <int W>
-cudaError_t launch_walk(const int* start, const int* perm, const float* vals,
-                        float* out, int* long_rows, int64_t m, int rows,
-                        int width, cudaStream_t s) {
+cudaError_t launch_walk(const int* start, const int* end, const int* perm,
+                        const float* vals, float* out, int* long_rows,
+                        int64_t m, int rows, int width, cudaStream_t s) {
   const int64_t n_rows = int64_t{rows} + 1;
   cudaError_t err = cudaMemsetAsync(long_rows, 0, sizeof(int), s);
   if (err != cudaSuccess) return err;
   row_walk_kernel<W><<<static_cast<unsigned int>(
                            (n_rows + kThreads - 1) / kThreads),
-                       kThreads, 0, s>>>(start, perm, vals, out, long_rows,
-                                         rows, width);
+                       kThreads, 0, s>>>(start, end, perm, vals, out,
+                                         long_rows, rows, width);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // A warp for each row that could be long: at most m / (kLongRun + 1).
@@ -605,7 +648,7 @@ cudaError_t launch_walk(const int* start, const int* perm, const float* vals,
   if (most == 0) return cudaSuccess;
   row_walk_long_kernel<W><<<static_cast<unsigned int>(
                                 (most + kWarps - 1) / kWarps),
-                            kThreads, 0, s>>>(start, perm, vals, out,
+                            kThreads, 0, s>>>(start, end, perm, vals, out,
                                               long_rows, width);
   return cudaGetLastError();
 }
@@ -674,10 +717,40 @@ int row_accum_walk(const int* start, const int* perm, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The grids' 2 features per level get their sums in registers and one
   // float2 load per update; any other width takes the column loop.
-  return width == 2 ? launch_walk<2>(start, perm, vals, out, long_rows, m,
-                                     rows, width, s)
-                    : launch_walk<0>(start, perm, vals, out, long_rows, m,
-                                     rows, width, s);
+  return width == 2 ? launch_walk<2>(start, nullptr, perm, vals, out,
+                                     long_rows, m, rows, width, s)
+                    : launch_walk<0>(start, nullptr, perm, vals, out,
+                                     long_rows, m, rows, width, s);
+}
+
+// The serial modes (serial_sort.cuh): start and end (int32 [rows + 1],
+// zeroed here) take every non-empty row's run in the sorted keys [m]
+// (16-byte aligned, readable up to a multiple of 4).
+int row_accum_bounds(const int* keys, int* start, int* end, int64_t m,
+                     int rows, void* stream) {
+  if (rows < 0 || m < 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = sizeof(int) * (int64_t{rows} + 1);
+  cudaError_t err = cudaMemsetAsync(start, 0, bytes, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(end, 0, bytes, s);
+  if (err != cudaSuccess || m == 0) return err;
+  if (reinterpret_cast<uintptr_t>(keys) % 16 != 0)
+    return cudaErrorInvalidValue;
+  run_bounds_kernel<<<static_cast<unsigned int>(
+                          (m + 4 * kThreads - 1) / (4 * kThreads)),
+                      kThreads, 0, s>>>(keys, start, end, m);
+  return cudaGetLastError();
+}
+
+// out: [rows + 1, 2], every row written: row r sums the sorted value rows
+// vals [m, 2] over [start[r], end[r]) (row_accum_bounds). long_rows as in
+// row_accum_walk.
+int row_accum_walk_runs(const int* start, const int* end, const float* vals,
+                        float* out, int* long_rows, int64_t m, int rows,
+                        void* stream) {
+  if (rows < 0 || m < 0 || end == nullptr) return cudaErrorInvalidValue;
+  return launch_walk<2>(start, end, nullptr, vals, out, long_rows, m, rows,
+                        2, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -107,30 +107,35 @@
 // dlines agree with a serial sum only to a sum-order tolerance; dx is
 // summed in a fixed order, but not the plain version's.
 //
-// The serial mode (tensovm_encode_bwd_stream: K3 in the TPU kernel's serial
-// order). In place of the plane atomics and the line accumulator, the
-// kernel writes every update of dplanes and dlines as a (row key, 2-wide
-// value) pair into one stream over the concatenated table [Tp + Tl, F]
-// (line row i is key Tp + i), at the update's index m in the plain
-// version's order (tensovm_encode_bwd_ref): the plane corners e00,
-// e00 + 1, e10, e10 + 1, each over [S, N] (m = (k * S + s) * N + n), then
-// the line rows i0 and i0 + 1, each over [S, N] (m = 4 S N + (j * S + s) *
-// N + n), with S = 3 L sections. Kernel H's sort, run starts and walk
-// (row_accum.cu) then sum every row in increasing m from 0.0, so dplanes
-// and dlines are the same bits on every run. The values are formed with
-// __fmul_rn / __fadd_rn, one rounding an operation as in the plain
-// version, where FMA contraction moved single-update entries by a few
-// ulp. dx is the atomic mode's.
+// The serial mode (tensovm_encode_bwd_sort: K3 in the TPU kernel's serial
+// order). The updates of dplanes and dlines are produced inside the
+// segmented radix sort of serial_sort.cuh over the concatenated table
+// [Tp + Tl, F] (line row i is row Tp + i): one segment a plane section
+// (its (r + 1)^2 rows) and one for the whole line table. No update stream
+// is written. Each segment keeps the plain version's order
+// (tensovm_encode_bwd_ref: the plane corners e00, e00 + 1, e10, e10 + 1,
+// each over [S, N], then the line rows i0 and i0 + 1, each over [S, N],
+// with S = 3 L sections) restricted to its rows: a section's corner k,
+// then n; the lines' row j, then section s, then n. The run bounds and
+// kernel H's walk (row_accum.cu) then sum every row of the sorted output in
+// that order from 0.0, so dplanes and dlines are the same bits on every
+// run.
+// The values are formed with __fmul_rn / __fadd_rn, one rounding an
+// operation as in the plain version, where FMA contraction moved
+// single-update entries by a few ulp. dx is the atomic mode's launch with
+// dplanes and dlines null.
 //
 // Unit lines (kernels T and U). The line reads, the line factor, the line
 // gradient and dx's line term drop out; U adds the plane gradient as the
 // tri-plane's K2 forms it, v = (g * wu_k) * (1 - wv) at (u corner k, v0)
 // and (g * wu_k) * wv at (u corner k, v1). U's serial mode
-// (triplane_encode_bwd_stream: K2 in its serial order) writes the four
-// plane corners only, m = (k * S + s) * N + n over the plane table [Tp, F].
+// (triplane_encode_bwd_sort: K2 in its serial order) has the plane
+// sections' segments only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "serial_sort.cuh"
 
 namespace {
 
@@ -322,21 +327,15 @@ inline int tile_points(int n_levels) {
 // terms [L * tile * 3] (with dx) and the line accumulator [n_line_rows * 2]
 // (with dlines).
 //
-// kStream: the serial mode; keys and vals (float2) take the updates (the
-// header's order), line rows keyed from line_key0 = Tp, and dplanes and
-// dlines are null.
-//
 // kUnitLines: kernel U, the tri-plane's backward (lines and dlines null,
-// no line term in dx; the stream holds the 4 plane corners only).
-template <bool kStream, bool kUnitLines>
+// no line term in dx).
+template <bool kUnitLines>
 __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
                                    const float* __restrict__ planes,
                                    const float* __restrict__ lines,
                                    const float* __restrict__ g,
                                    float* __restrict__ dplanes,
                                    float* __restrict__ dlines,
-                                   int* __restrict__ keys,
-                                   float2* __restrict__ vals, int line_key0,
                                    float* __restrict__ dx, int64_t n_points,
                                    Levels lv, int n_line_rows, int tile) {
   constexpr int F = 2;
@@ -406,58 +405,7 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
                          (a[f][3] - a[f][2]) * wu);
           if (!kUnitLines) dw += gq[f] * (a[f][5] - a[f][4]);
         }
-        const int64_t S = 3 * static_cast<int64_t>(L);
-        const int64_t m0 = (3 * static_cast<int64_t>(l) + s) * n_points +
-                           n0 + p;
-        const int64_t step = S * n_points;  // one corner or line row
-        const int64_t corner[4] = {sec.e00, sec.e00 + 1, sec.e00 + sec.r1,
-                                   sec.e00 + sec.r1 + 1};
-        if (kStream && kUnitLines) {
-          // K2's values, one rounding an operation: (g * wu_k) * (1 - wv)
-          // at corner (k, v0) and (g * wu_k) * wv at (k, v1).
-          const float wuk[2] = {1.0f - wu, wu}, wvj[2] = {1.0f - wv, wv};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float w = wuk[k >> 1];
-            keys[m0 + k * step] = static_cast<int>(corner[k]);
-            vals[m0 + k * step] =
-                make_float2(__fmul_rn(__fmul_rn(gl[0], w), wvj[k & 1]),
-                            __fmul_rn(__fmul_rn(gl[1], w), wvj[k & 1]));
-          }
-        } else if (kStream) {
-          // The plain version's values, one rounding an operation.
-          float gpe[F], gqe[F];
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            const float featv0 = __fadd_rn(__fmul_rn(a[f][0], 1.0f - wv),
-                                           __fmul_rn(a[f][1], wv));
-            const float featv1 = __fadd_rn(__fmul_rn(a[f][2], 1.0f - wv),
-                                           __fmul_rn(a[f][3], wv));
-            const float plane = __fadd_rn(__fmul_rn(featv0, 1.0f - wu),
-                                          __fmul_rn(featv1, wu));
-            const float line = __fadd_rn(__fmul_rn(a[f][4], 1.0f - wl),
-                                         __fmul_rn(a[f][5], wl));
-            gpe[f] = __fmul_rn(gl[f], line);
-            gqe[f] = __fmul_rn(gl[f], plane);
-          }
-          const float w[4] = {__fmul_rn(1.0f - wu, 1.0f - wv),
-                              __fmul_rn(1.0f - wu, wv),
-                              __fmul_rn(wu, 1.0f - wv), __fmul_rn(wu, wv)};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            keys[m0 + k * step] = static_cast<int>(corner[k]);
-            vals[m0 + k * step] = make_float2(__fmul_rn(gpe[0], w[k]),
-                                              __fmul_rn(gpe[1], w[k]));
-          }
-          const float wlk[2] = {1.0f - wl, wl};
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            keys[m0 + (4 + j) * step] =
-                line_key0 + static_cast<int>(sec.l0) + j;
-            vals[m0 + (4 + j) * step] = make_float2(
-                __fmul_rn(gqe[0], wlk[j]), __fmul_rn(gqe[1], wlk[j]));
-          }
-        } else if (dplanes != nullptr && kUnitLines) {
+        if (dplanes != nullptr && kUnitLines) {
           const float2 gu0 = make_float2(gp[0] * (1.0f - wu),
                                          gp[1] * (1.0f - wu));
           const float2 gu1 = make_float2(gp[0] * wu, gp[1] * wu);
@@ -519,6 +467,130 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
 // needs it.
 constexpr int kFeatures = 2;
 
+// The serial modes of D and U as the producer of serial_sort.cuh. Segment
+// seg < S (= 3 L) is plane section seg (level seg / 3, plane seg % 3),
+// whose update i is (corner k, point n) = (i / N, i mod N): key the
+// corner's row in the section, (cu + (k >> 1)) (r + 1) + cv + (k & 1);
+// value, with unit lines (U), (g * wu_k) * wv_k, else (g * line) * (wu_k *
+// wv_k). Segment S (D only) is the line table, whose update i is (row j,
+// section s, point n) = (i / SN, i / N mod S, i mod N): key the line row
+// i0 + j, value (g * plane) * wl_j. Every operation rounded once, as in
+// the plain version. gt is the cotangent level-major ([L, N, 2]).
+template <bool kUnitLines>
+struct PlaneSerial {
+  const float* x;
+  const float* planes;
+  const float* lines;
+  const float2* gt;
+  Levels lv;
+  int64_t n;
+  int n_sections;
+
+  template <bool kValue>
+  __device__ __forceinline__ int produce(int seg, int64_t i,
+                                         float2* v) const {
+    // Indices below the segment's count, < 2^31: 32-bit division.
+    const bool line = !kUnitLines && seg >= n_sections;
+    const unsigned un = static_cast<unsigned>(n);
+    unsigned rem = static_cast<unsigned>(i);
+    int j = 0, sec_idx = seg;
+    if (line) {
+      const unsigned sn = static_cast<unsigned>(n_sections) * un;
+      j = static_cast<int>(rem / sn);
+      rem -= j * sn;
+      sec_idx = static_cast<int>(rem / un);
+      rem -= sec_idx * un;
+    }
+    const int k = line ? 0 : static_cast<int>(rem / un);
+    const int64_t pt = rem - k * un;
+    const int l = sec_idx / 3, s = sec_idx - 3 * l;
+    const int res = lv.res(l);
+    const float xs[3] = {x[pt * 3], x[pt * 3 + 1], x[pt * 3 + 2]};
+    const Section sec = section<kUnitLines>(lv, l, res, s, xs);
+    const int64_t r1 = sec.r1;
+    if (line) {
+      if (kValue) {
+        const float2 gl = __ldg(gt + l * n + pt);
+        const float wu = sec.wu, wv = sec.wv;
+        float2 p00, p01, p10, p11;
+        load_pair(planes, sec.e00, &p00, &p01);
+        load_pair(planes, sec.e00 + sec.r1, &p10, &p11);
+        const float a[2][4] = {{p00.x, p01.x, p10.x, p11.x},
+                               {p00.y, p01.y, p10.y, p11.y}};
+        const float gf[2] = {gl.x, gl.y};
+        const float wl = j ? sec.wl : 1.0f - sec.wl;
+        float out[2];
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+          const float featv0 = __fadd_rn(__fmul_rn(a[f][0], 1.0f - wv),
+                                         __fmul_rn(a[f][1], wv));
+          const float featv1 = __fadd_rn(__fmul_rn(a[f][2], 1.0f - wv),
+                                         __fmul_rn(a[f][3], wv));
+          const float plane = __fadd_rn(__fmul_rn(featv0, 1.0f - wu),
+                                        __fmul_rn(featv1, wu));
+          out[f] = __fmul_rn(__fmul_rn(gf[f], plane), wl);
+        }
+        *v = make_float2(out[0], out[1]);
+      }
+      return static_cast<int>(sec.l0) + j;
+    }
+    if (kValue) {
+      const float2 gl = __ldg(gt + l * n + pt);
+      const float wuk = (k >> 1) ? sec.wu : 1.0f - sec.wu;
+      const float wvk = (k & 1) ? sec.wv : 1.0f - sec.wv;
+      if (kUnitLines) {
+        *v = make_float2(__fmul_rn(__fmul_rn(gl.x, wuk), wvk),
+                         __fmul_rn(__fmul_rn(gl.y, wuk), wvk));
+      } else {
+        float2 v0, v1;
+        load_pair(lines, sec.l0, &v0, &v1);
+        const float wl = sec.wl;
+        const float line0 = __fadd_rn(__fmul_rn(v0.x, 1.0f - wl),
+                                      __fmul_rn(v1.x, wl));
+        const float line1 = __fadd_rn(__fmul_rn(v0.y, 1.0f - wl),
+                                      __fmul_rn(v1.y, wl));
+        const float w = __fmul_rn(wuk, wvk);
+        *v = make_float2(__fmul_rn(__fmul_rn(gl.x, line0), w),
+                         __fmul_rn(__fmul_rn(gl.y, line1), w));
+      }
+    }
+    return static_cast<int>(sec.e00 - lv.plane_row(l) - s * r1 * r1 +
+                            (k >> 1) * r1 + (k & 1));
+  }
+
+  // The histogram's units: a point of a plane section (its 4 corner
+  // keys), or a (section, point) of the line table (its 2 line rows).
+  __device__ __forceinline__ int64_t units(int seg) const {
+    return !kUnitLines && seg >= n_sections ? n_sections * n : n;
+  }
+  int64_t host_units(int seg) const {
+    return !kUnitLines && seg >= n_sections ? n_sections * n : n;
+  }
+  template <class Emit>
+  __device__ __forceinline__ void unit_keys(int seg, int64_t u,
+                                            Emit&& emit) const {
+    const bool line = !kUnitLines && seg >= n_sections;
+    const int sec_idx = line ? static_cast<int>(static_cast<unsigned>(u) /
+                                                static_cast<unsigned>(n))
+                             : seg;
+    const int64_t pt = line ? u - sec_idx * n : u;
+    const int l = sec_idx / 3, s = sec_idx - 3 * l;
+    const float xs[3] = {x[pt * 3], x[pt * 3 + 1], x[pt * 3 + 2]};
+    const Section sec = section<kUnitLines>(lv, l, lv.res(l), s, xs);
+    if (line) {
+      emit(static_cast<int>(sec.l0));
+      emit(static_cast<int>(sec.l0) + 1);
+      return;
+    }
+    const int e = static_cast<int>(sec.e00 - lv.plane_row(l) -
+                                   s * static_cast<int64_t>(sec.r1) * sec.r1);
+    emit(e);
+    emit(e + 1);
+    emit(e + sec.r1);
+    emit(e + sec.r1 + 1);
+  }
+};
+
 inline bool misaligned(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 != 0;
 }
@@ -540,7 +612,7 @@ cudaError_t resident_blocks(int threads, size_t smem, int64_t* wave) {
                                  device);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, tensovm_bwd_kernel<false, false>, threads, smem);
+          &per_sm, tensovm_bwd_kernel<false>, threads, smem);
     if (err != cudaSuccess) return err;
     last_device = device;
     last_threads = threads;
@@ -607,7 +679,7 @@ int tensovm_encode_bwd(const float* x, const float* planes,
   if (smem > 48 * 1024) {
     // Above 48 KB a block gets shared memory only when asked for (at most
     // 227 KB on Hopper; a larger line table is refused at launch).
-    err = cudaFuncSetAttribute(tensovm_bwd_kernel<false, false>,
+    err = cudaFuncSetAttribute(tensovm_bwd_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
@@ -620,51 +692,11 @@ int tensovm_encode_bwd(const float* x, const float* planes,
     if (err != cudaSuccess) return err;
     if (blocks > wave) blocks = wave;
   }
-  tensovm_bwd_kernel<false, false>
+  tensovm_bwd_kernel<false>
       <<<static_cast<unsigned int>(blocks), threads, smem,
          static_cast<cudaStream_t>(stream)>>>(
-          x, planes, lines, g, dplanes, dlines, nullptr, nullptr, 0, dx,
-          n_points, lv, n_line_rows, tile);
-  return cudaGetLastError();
-}
-
-// The serial mode: keys (int32 [6 * 3L * N]) and vals (float2, 8-byte
-// aligned, as many) take every update of dplanes and dlines at its index m
-// (the header's order), plane rows as they are and line rows from
-// n_plane_rows on; dx as in tensovm_encode_bwd (may be null). One tile a
-// block. The caller keeps 18 L N and n_plane_rows + n_line_rows below
-// 2^31.
-int tensovm_encode_bwd_stream(const float* x, const float* planes,
-                              const float* lines, const float* g, int* keys,
-                              float* vals, float* dx, int64_t n_points,
-                              int n_features, const int* levels, int n_levels,
-                              int n_plane_rows, int n_line_rows,
-                              void* stream) {
-  if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
-      misaligned(planes) || misaligned(lines) || keys == nullptr ||
-      reinterpret_cast<uintptr_t>(vals) % 8 != 0)
-    return cudaErrorInvalidValue;
-  if (n_points == 0) return cudaSuccess;
-  const int tile = tile_points(n_levels);
-  const int threads = n_levels * tile;
-  const size_t smem =
-      (static_cast<size_t>(tile) * (3 + n_levels * kFeatures) +
-       (dx != nullptr ? static_cast<size_t>(n_levels) * tile * 3 : 0)) *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tensovm_bwd_kernel<true, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int64_t blocks = (n_points + tile - 1) / tile;
-  tensovm_bwd_kernel<true, false>
-      <<<static_cast<unsigned int>(blocks), threads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          x, planes, lines, g, nullptr, nullptr, keys,
-          reinterpret_cast<float2*>(vals), n_plane_rows, dx, n_points,
-          Levels{levels, n_levels}, n_line_rows, tile);
+          x, planes, lines, g, dplanes, dlines, dx, n_points, lv,
+          n_line_rows, tile);
   return cudaGetLastError();
 }
 
@@ -706,41 +738,80 @@ int triplane_encode_bwd(const float* x, const float* planes, const float* g,
        (dx != nullptr ? static_cast<size_t>(n_levels) * tile * 3 : 0)) *
       sizeof(float);
   const int64_t blocks = (n_points + tile - 1) / tile;
-  tensovm_bwd_kernel<false, true>
+  tensovm_bwd_kernel<true>
       <<<static_cast<unsigned int>(blocks), n_levels * tile, smem,
          static_cast<cudaStream_t>(stream)>>>(
-          x, planes, nullptr, g, dplanes, nullptr, nullptr, nullptr, 0, dx,
-          n_points, Levels{levels, n_levels}, 0, tile);
+          x, planes, nullptr, g, dplanes, nullptr, dx, n_points,
+          Levels{levels, n_levels}, 0, tile);
   return cudaGetLastError();
 }
 
-// U's serial mode: keys (int32 [4 * 3L * N]) and vals (float2, 8-byte
-// aligned, as many) take every update of dplanes at its index m (the
-// header's order); dx as in triplane_encode_bwd (may be null). The caller
-// keeps 12 L N and the plane rows below 2^31.
-int triplane_encode_bwd_stream(const float* x, const float* planes,
-                               const float* g, int* keys, float* vals,
-                               float* dx, int64_t n_points, int n_features,
-                               const int* levels, int n_levels,
-                               void* stream) {
+// The serial modes' sort (serial_sort.cuh) for D (tensovm_encode_bwd_sort:
+// one segment a plane section, then the line table) and U
+// (triplane_encode_bwd_sort: the plane sections only): the cotangent g [N,
+// L * F] level-major into gt ([L, N, F] floats), then the histogram and
+// the radix passes (serial_scatter.py:SerialSort gives the segment table
+// and the buffers). The sorted (global row, value) pairs, line rows from
+// Tp on, land in keys_out and pay_out for the run bounds and kernel H's
+// walk (row_accum.cu). planes and lines must be 16-byte aligned. The
+// caller keeps the updates and the rows below 2^31.
+int tensovm_encode_bwd_sort(const float* x, const float* planes,
+                            const float* lines, const float* g, float* gt,
+                            int64_t n_points, int n_features,
+                            const int* levels, int n_levels, const int* segs,
+                            const int* segs_host, int n_segs, int* keys_a,
+                            float* pay_a, int* keys_b, float* pay_b,
+                            int* keys_out, float* pay_out, unsigned* status,
+                            int64_t status_len, int* hist, int pass_bits,
+                            int passes, void* stream) {
   if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
-      misaligned(planes) || keys == nullptr ||
-      reinterpret_cast<uintptr_t>(vals) % 8 != 0)
+      n_segs != 3 * n_levels + 1 || misaligned(planes) || misaligned(lines) ||
+      gt == nullptr)
     return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
-  const int tile = tile_points(n_levels);
-  const size_t smem =
-      (static_cast<size_t>(tile) * (3 + n_levels * kFeatures) +
-       (dx != nullptr ? static_cast<size_t>(n_levels) * tile * 3 : 0)) *
-      sizeof(float);
-  const int64_t blocks = (n_points + tile - 1) / tile;
-  tensovm_bwd_kernel<true, true>
-      <<<static_cast<unsigned int>(blocks), n_levels * tile, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          x, planes, nullptr, g, nullptr, nullptr, keys,
-          reinterpret_cast<float2*>(vals), 0, dx, n_points,
-          Levels{levels, n_levels}, 0, tile);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = serial::transpose_levels(g, gt, n_points, n_levels, st);
+  if (err != cudaSuccess) return err;
+  const serial::SortArgs a{segs, segs_host, n_segs,
+                           {keys_a, keys_b},
+                           {reinterpret_cast<float2*>(pay_a),
+                            reinterpret_cast<float2*>(pay_b)},
+                           keys_out, reinterpret_cast<float2*>(pay_out),
+                           status, status_len, hist, pass_bits, passes};
+  return serial::segmented_sort(
+      PlaneSerial<false>{x, planes, lines,
+                         reinterpret_cast<const float2*>(gt),
+                         Levels{levels, n_levels}, n_points, 3 * n_levels},
+      a, st);
+}
+
+int triplane_encode_bwd_sort(const float* x, const float* planes,
+                             const float* g, float* gt, int64_t n_points,
+                             int n_features, const int* levels, int n_levels,
+                             const int* segs, const int* segs_host, int n_segs,
+                             int* keys_a, float* pay_a, int* keys_b,
+                             float* pay_b,
+                             int* keys_out, float* pay_out, unsigned* status,
+                             int64_t status_len, int* hist, int pass_bits,
+                             int passes, void* stream) {
+  if (n_features != kFeatures || n_levels < 1 || n_levels > 32 ||
+      n_segs != 3 * n_levels || misaligned(planes) || gt == nullptr)
+    return cudaErrorInvalidValue;
+  if (n_points == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = serial::transpose_levels(g, gt, n_points, n_levels, st);
+  if (err != cudaSuccess) return err;
+  const serial::SortArgs a{segs, segs_host, n_segs,
+                           {keys_a, keys_b},
+                           {reinterpret_cast<float2*>(pay_a),
+                            reinterpret_cast<float2*>(pay_b)},
+                           keys_out, reinterpret_cast<float2*>(pay_out),
+                           status, status_len, hist, pass_bits, passes};
+  return serial::segmented_sort(
+      PlaneSerial<true>{x, planes, nullptr,
+                        reinterpret_cast<const float2*>(gt),
+                        Levels{levels, n_levels}, n_points, 3 * n_levels},
+      a, st);
 }
 
 }  // extern "C"

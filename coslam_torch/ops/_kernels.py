@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (coslam_torch/csrc/*.cu).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` (one compiler
-process per source, all started together), and the objects are linked
+process per source, all started together; ``serial_sort.cuh`` is included
+by two of them and hashed with them), and the objects are linked
 into one shared library with a plain C interface, loaded with
 ``ctypes``. The build happens at first use, from the repository's own
 sources, into ``build/coslam_torch/`` at the repository root, under a
@@ -31,6 +32,7 @@ _SOURCES = (_PKG / "csrc" / "grid_encode.cu",
             _PKG / "csrc" / "xor_grid_encode.cu",
             _PKG / "csrc" / "row_accum.cu",
             _PKG / "csrc" / "probe_accum.cu")
+_HEADERS = (_PKG / "csrc" / "serial_sort.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "coslam_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -51,7 +53,7 @@ def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library for these exact sources and
     flags exists. Returns the library path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SOURCES:
+    for src in (*_SOURCES, *_HEADERS):
         h.update(src.read_bytes())
     lib = BUILD_DIR / f"coslam_torch_kernels_{h.hexdigest()[:16]}.so"
     if lib.exists():
@@ -102,11 +104,16 @@ def library() -> ctypes.CDLL:
                                     ctypes.c_int, _P, ctypes.c_int,
                                     ctypes.c_uint, _P]
     lib.grid_encode_bwd.restype = ctypes.c_int
-    lib.grid_encode_bwd_stream.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
-                                           _I32, _P, _I32, _U32, _P]
-    lib.tensovm_encode_bwd_stream.argtypes = [_P, _P, _P, _P, _P, _P, _P,
-                                              _I64, _I32, _P, _I32, _I32,
-                                              _I32, _P]
+    # The serial modes' sorts: their producer's arguments, then
+    # serial_scatter.SerialSort.sort_args() and the stream.
+    sort_args = [_P, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _I32,
+                 _I32, _P]
+    lib.grid_encode_bwd_sort.argtypes = [_P, _P, _P, _I64, _I32, _P, _I32,
+                                         _U32, *sort_args]
+    lib.tensovm_encode_bwd_sort.argtypes = [_P, _P, _P, _P, _P, _I64, _I32,
+                                            _P, _I32, *sort_args]
+    lib.triplane_encode_bwd_sort.argtypes = [_P, _P, _P, _P, _I64, _I32, _P,
+                                             _I32, *sort_args]
     lib.tensovm_encode_fwd.argtypes = [_P, _P, _P, _P, ctypes.c_int64,
                                        ctypes.c_int, _P, ctypes.c_int, _P]
     lib.tensovm_encode_fwd.restype = ctypes.c_int
@@ -118,8 +125,6 @@ def library() -> ctypes.CDLL:
                                         _P]
     lib.triplane_encode_bwd.argtypes = [_P, _P, _P, _P, _P, _I64, _I32, _P,
                                         _I32, _P]
-    lib.triplane_encode_bwd_stream.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
-                                               _I32, _P, _I32, _P]
     lib.xor_grid_encode_fwd.argtypes = [_P, _P, _P, _I64, _I32, _P, _I32,
                                         _U32, _P]
     lib.xor_grid_encode_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32,
@@ -128,16 +133,20 @@ def library() -> ctypes.CDLL:
                                    _I64, _I32, _I32, _I32, _P]
     lib.row_accum_starts.argtypes = [_P, _P, _I64, _I32, _P]
     lib.row_accum_walk.argtypes = [_P, _P, _P, _P, _P, _I64, _I32, _I32, _P]
+    lib.row_accum_bounds.argtypes = [_P, _P, _P, _I64, _I32, _P]
+    lib.row_accum_walk_runs.argtypes = [_P, _P, _P, _P, _P, _I64, _I32, _P]
     lib.probe_accum.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32, _I32,
                                 _I32, _I32, _I32, _I32, _I32, _P]
     lib.probe_accum_pair_merged.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
                                             _I32, _I32, _I32, _I32, _P]
     lib.probe_accum_run_merge.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
                                           _I32, _I32, _P]
-    for fn in (lib.grid_encode_bwd_stream, lib.tensovm_encode_bwd_stream,
+    for fn in (lib.grid_encode_bwd_sort, lib.tensovm_encode_bwd_sort,
                lib.triplane_encode_fwd, lib.triplane_encode_bwd,
-               lib.triplane_encode_bwd_stream, lib.xor_grid_encode_fwd, lib.xor_grid_encode_bwd,
+               lib.triplane_encode_bwd_sort, lib.xor_grid_encode_fwd,
+               lib.xor_grid_encode_bwd,
                lib.row_accum_sort, lib.row_accum_starts, lib.row_accum_walk,
+               lib.row_accum_bounds, lib.row_accum_walk_runs,
                lib.probe_accum,
                lib.probe_accum_pair_merged, lib.probe_accum_run_merge):
         fn.restype = ctypes.c_int

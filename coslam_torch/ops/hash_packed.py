@@ -19,9 +19,10 @@ update the row pair of the logical f32 table directly:
 - :func:`grid_encode_bwd_serial`: kernel B's serial mode, K2 and K3 in
   the TPU kernels' serial order, which :func:`grid_encode_bwd` takes for
   the table gradient when ``torch.are_deterministic_algorithms_enabled()``:
-  B writes every update as a (row, value) stream in the plain version's
-  order (:func:`grid_encode_bwd_streams_ref`) and kernel H's sort and walk
-  sum each row in that order, so dtable is the same bits on every run.
+  the updates are produced inside a radix sort of each level
+  (:func:`serial_segments`, in the order of :func:`serial_order`, which
+  keeps the plain order of every row's updates) and kernel H's walk sums
+  each row in that order, so dtable is the same bits on every run.
 
 Dispatch is by the tensors' device: CPU tensors take the plain PyTorch
 versions (:func:`grid_encode_fwd_ref`, :func:`grid_encode_bwd_ref`),
@@ -246,6 +247,28 @@ def grid_encode_bwd_streams_ref(spec: PackedGridSpec, table: torch.Tensor,
     return idx, vals
 
 
+def serial_segments(spec: PackedGridSpec, n: int) -> SS.SegmentPlan:
+    """The serial mode's segments at n points: one a level (its rows; a
+    corner pair (e, e + 1) never leaves its level), 2 x 4 x n updates
+    each."""
+    return SS.segment_plan([(lo, lo + size, 8 * n) for lo, size in
+                            zip(spec.offsets, spec.sizes)])
+
+
+def serial_order(spec: PackedGridSpec, n: int) -> torch.Tensor:
+    """int64 [M]: the index in grid_encode_bwd_streams_ref's stream of
+    every update in the serial sort's order: level l, then half (v0, v1),
+    then corner c, then point. Each row's updates keep their stream
+    order, so a stable sort of the reordered stream by row is the stable
+    sort of the stream, element for element."""
+    L = spec.n_levels
+    level = torch.arange(L)[:, None, None, None]
+    half = torch.arange(2)[None, :, None, None]
+    corner = torch.arange(4)[None, None, :, None]
+    return (half * (L * 4 * n) + (level * 4 + corner) * n
+            + torch.arange(n)).reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
@@ -306,36 +329,38 @@ def grid_encode_bwd(spec: PackedGridSpec, table: torch.Tensor,
 
 def grid_encode_bwd_serial(spec: PackedGridSpec, table: torch.Tensor,
                            x: torch.Tensor, g: torch.Tensor, need_dx: bool):
-    """Kernel B's serial mode: (dtable [T, F], dx [N, 3] or None). B
-    writes the table gradient's M = 2 L 4 N updates, in the order of
-    :func:`grid_encode_bwd_streams_ref`, into a stream of (row, value)
-    pairs (:func:`serial_scatter.stream_scratch`, reused across calls of
-    one shape), and kernel H's sort, run starts and walk sum every row in
-    increasing m from 0.0: the serial order of the TPU's K2 and K3, so
-    dtable is the same bits on every run and, up to each value's rounding,
-    grid_encode_bwd_ref's. dx as in :func:`grid_encode_bwd`. CUDA tensors
-    only: it raises on a CPU tensor (whose plain version is already
-    serial)."""
+    """Kernel B's serial mode: (dtable [T, F], dx [N, 3] or None). The
+    table gradient's M = 2 L 4 N updates are produced inside a radix sort
+    of each level's local rows (:func:`serial_segments`, in the order of
+    :func:`serial_order`; :class:`serial_scatter.SerialSort`, its scratch
+    reused across calls of one shape), and kernel H's walk sums every
+    row's run in plain-stream order from 0.0: the serial order of the
+    TPU's K2 and K3, so dtable is the same bits on every run and, up to
+    each value's rounding, grid_encode_bwd_ref's. dx: kernel B's launch
+    without the table gradient, as in :func:`grid_encode_bwd`. CUDA
+    tensors only: it raises on a CPU tensor (whose plain version is
+    already serial)."""
     _check_cuda(spec, table, x, g)
     if tuple(g.shape) != (x.shape[0], spec.out_dim):
         raise ValueError(f"grid encode: g {tuple(g.shape)} is not "
                          f"[{x.shape[0]}, {spec.out_dim}]")
     n, rows = x.shape[0], spec.total_entries
-    m = 2 * spec.n_levels * 4 * n
-    if m >= 2 ** 31 or rows >= 2 ** 31 - 1:
-        raise ValueError(f"grid encode: {m} updates into {rows} rows are out "
-                         "of the serial mode's int32 range")
     dx = torch.empty_like(x) if need_dx else None      # every entry written
     if n == 0:
         return torch.zeros_like(table), dx
-    keys, vals, plan = SS.stream_scratch(m, rows, x.device)
-    _kernels.check(_kernels.library().grid_encode_bwd_stream(
-        x.data_ptr(), table.data_ptr(), g.data_ptr(), keys.data_ptr(),
-        vals.data_ptr(), _kernels.ptr(dx), n, spec.n_features,
-        _kernels.level_table(spec, x.device).data_ptr(), spec.n_levels,
-        2 ** spec.log2_hashmap_size - 1, _kernels.stream(x.device)),
-        "grid_encode_bwd_stream")
-    dtable = SS.serial_sum(plan)[:rows]
+    plan = serial_segments(spec, n)
+    sorter = SS.serial_sort(plan, rows, spec.out_dim * n, x.device)
+    lib = _kernels.library()
+    levels = _kernels.level_table(spec, x.device).data_ptr()
+    mask = 2 ** spec.log2_hashmap_size - 1
+    if need_dx:
+        _kernels.check(lib.grid_encode_bwd(
+            x.data_ptr(), table.data_ptr(), g.data_ptr(), None, dx.data_ptr(),
+            n, spec.n_features, levels, spec.n_levels, mask,
+            _kernels.stream(x.device)), "grid_encode_bwd")
+    dtable = sorter.run("grid_encode_bwd_sort", x.data_ptr(), g.data_ptr(),
+                        sorter.gt.data_ptr(), n, spec.n_features, levels,
+                        spec.n_levels, mask)[:rows]
     grid_encode_bwd_serial.launches += 1
     return dtable, dx
 

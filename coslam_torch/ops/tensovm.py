@@ -25,10 +25,11 @@ the logical f32 tables directly:
 - :func:`tensovm_encode_bwd_serial`: kernel D's serial mode (K3 in the
   TPU kernel's serial order), which :func:`tensovm_encode_bwd` takes for
   dplanes and dlines when ``torch.are_deterministic_algorithms_enabled()``:
-  D writes every update as a (row, value) stream over the concatenated
-  [planes; lines] table in the plain version's order
-  (:func:`tensovm_encode_bwd_streams_ref`) and kernel H's sort and walk
-  sum each row in that order, so both are the same bits on every run.
+  the updates over the concatenated [planes; lines] table are produced
+  inside a radix sort of each plane section and of the line table
+  (:func:`serial_segments`, in the order of :func:`serial_order`, which
+  keeps the plain order of every row's updates) and kernel H's walk sums
+  each row in that order, so both are the same bits on every run.
 
 CPU tensors take the plain versions (:func:`tensovm_encode_fwd_ref`,
 :func:`tensovm_encode_bwd_ref`); CUDA tensors take the kernels or the
@@ -226,6 +227,31 @@ def tensovm_encode_bwd_streams_ref(spec: TriPlaneSpec, planes: torch.Tensor,
     return idx, torch.cat([v.reshape(F, -1) for v in vals], 1).T.contiguous()
 
 
+def serial_segments(spec: TriPlaneSpec, n: int) -> SS.SegmentPlan:
+    """D's serial mode's segments at n points over the concatenated table
+    [Tp + Tl, F]: one a plane section (its (r + 1)^2 rows, 4 n updates),
+    then the line table (rows Tp to Tp + Tl, 2 S n updates)."""
+    tp, S = spec.total_entries, spec.n_levels
+    return SS.segment_plan([(lo, lo + size, 4 * n) for lo, size in
+                            zip(spec.offsets, spec.sizes)]
+                           + [(tp, tp + line_total_rows(spec), 2 * S * n)])
+
+
+def serial_order(spec: TriPlaneSpec, n: int) -> torch.Tensor:
+    """int64 [M]: the index in tensovm_encode_bwd_streams_ref's stream of
+    every update in the serial sort's order: each plane section's corner
+    k, then point (the stream's m = (k S + s) n + point); then the lines'
+    row j, then section, then point (m = 4 S n + (j S + s) n + point).
+    Each row's updates keep their stream order."""
+    S = spec.n_levels
+    pts = torch.arange(n)
+    sec = torch.arange(S)[:, None, None]
+    planes = (torch.arange(4)[None, :, None] * S + sec) * n + pts
+    lines = 4 * S * n + (torch.arange(2)[:, None, None] * S
+                         + torch.arange(S)[None, :, None]) * n + pts
+    return torch.cat([planes.reshape(-1), lines.reshape(-1)])
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
@@ -305,35 +331,37 @@ def tensovm_encode_bwd_serial(spec: TriPlaneSpec, planes: torch.Tensor,
                               lines: torch.Tensor, x: torch.Tensor,
                               g: torch.Tensor, need_dx: bool):
     """Kernel D's serial mode: (dplanes [Tp, F], dlines [Tl, F], dx [N, 3]
-    or None). D writes dplanes' and dlines' M = 6 S N updates, in the order
-    of :func:`tensovm_encode_bwd_streams_ref`, into one stream of (row,
-    value) pairs over the concatenated table
-    (:func:`serial_scatter.stream_scratch`, reused across calls of one
-    shape), and kernel H's sort, run starts and walk sum every row in
-    increasing m from 0.0: the serial order of the TPU's K3, so both are
-    the same bits on every run and, up to each value's rounding,
-    tensovm_encode_bwd_ref's. dx as in :func:`tensovm_encode_bwd`. CUDA
-    tensors only."""
+    or None). dplanes' and dlines' M = 6 S N updates over the concatenated
+    table are produced inside a radix sort of each plane section's and the
+    line table's local rows (:func:`serial_segments`, in the order of
+    :func:`serial_order`; :class:`serial_scatter.SerialSort`), and kernel
+    H's walk sums every row's run in plain-stream order from 0.0:
+    the serial order of the TPU's K3, so both are the same bits on every
+    run and, up to each value's rounding, tensovm_encode_bwd_ref's. dx:
+    kernel D's launch without the table gradients, as in
+    :func:`tensovm_encode_bwd`. CUDA tensors only."""
     _check_cuda(spec, planes, lines, x, g)
     if tuple(g.shape) != (x.shape[0], spec.out_dim):
         raise ValueError(f"tensovm encode: g {tuple(g.shape)} is not "
                          f"[{x.shape[0]}, {spec.out_dim}]")
     n, tp, tl = x.shape[0], planes.shape[0], lines.shape[0]
-    m = 6 * spec.n_levels * n
-    if m >= 2 ** 31 or tp + tl >= 2 ** 31 - 1:
-        raise ValueError(f"tensovm encode: {m} updates into {tp + tl} rows "
-                         "are out of the serial mode's int32 range")
     dx = torch.empty_like(x) if need_dx else None      # every entry written
     if n == 0:
         return torch.zeros_like(planes), torch.zeros_like(lines), dx
-    keys, vals, plan = SS.stream_scratch(m, tp + tl, x.device)
-    _kernels.check(_kernels.library().tensovm_encode_bwd_stream(
-        x.data_ptr(), planes.data_ptr(), lines.data_ptr(), g.data_ptr(),
-        keys.data_ptr(), vals.data_ptr(), _kernels.ptr(dx), n,
-        spec.n_features, _level_table(spec, x.device).data_ptr(),
-        spec.pyr_levels, tp, tl, _kernels.stream(x.device)),
-        "tensovm_encode_bwd_stream")
-    out = SS.serial_sum(plan)
+    sorter = SS.serial_sort(serial_segments(spec, n), tp + tl,
+                            spec.out_dim * n, x.device)
+    lib = _kernels.library()
+    levels = _level_table(spec, x.device).data_ptr()
+    if need_dx:
+        _kernels.check(lib.tensovm_encode_bwd(
+            x.data_ptr(), planes.data_ptr(), lines.data_ptr(), g.data_ptr(),
+            None, None, dx.data_ptr(), n, spec.n_features, levels,
+            spec.pyr_levels, tl, _kernels.stream(x.device)),
+            "tensovm_encode_bwd")
+    out = sorter.run("tensovm_encode_bwd_sort", x.data_ptr(),
+                     planes.data_ptr(), lines.data_ptr(), g.data_ptr(),
+                     sorter.gt.data_ptr(), n, spec.n_features, levels,
+                     spec.pyr_levels)
     tensovm_encode_bwd_serial.launches += 1
     return out[:tp], out[tp:tp + tl], dx
 

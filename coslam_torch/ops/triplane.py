@@ -244,6 +244,24 @@ def triplane_encode_bwd_streams_ref(spec: TriPlaneSpec, table: torch.Tensor,
     return idx, vals.T.contiguous()
 
 
+def serial_segments(spec: TriPlaneSpec, n: int) -> SS.SegmentPlan:
+    """U's serial mode's segments at n points: one a plane section (its
+    (r + 1)^2 rows), 4 n updates each."""
+    return SS.segment_plan([(lo, lo + size, 4 * n) for lo, size in
+                            zip(spec.offsets, spec.sizes)])
+
+
+def serial_order(spec: TriPlaneSpec, n: int) -> torch.Tensor:
+    """int64 [M]: the index in triplane_encode_bwd_streams_ref's stream of
+    every update in the serial sort's order: section s, then corner k, then
+    point (the stream's m = (k S + s) n + point), which keeps every row's
+    stream order."""
+    S = spec.n_levels
+    sec = torch.arange(S)[:, None, None]
+    corner = torch.arange(4)[None, :, None]
+    return ((corner * S + sec) * n + torch.arange(n)).reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers: CPU tensors -> plain version, CUDA tensors -> kernel
 # ---------------------------------------------------------------------------
@@ -334,30 +352,32 @@ def triplane_encode_bwd(spec: TriPlaneSpec, table: torch.Tensor,
 def triplane_encode_bwd_serial(spec: TriPlaneSpec, table: torch.Tensor,
                                x: torch.Tensor, g: torch.Tensor,
                                need_dx: bool):
-    """Kernel U's serial mode: (dtable [T, F], dx [N, 3] or None). U
-    writes the table gradient's M = 4 S N updates, in the order of
-    :func:`triplane_encode_bwd_streams_ref`, into a stream of (row, value)
-    pairs (:func:`serial_scatter.stream_scratch`), and kernel H's sort,
-    run starts and walk sum every row in increasing m from 0.0: K2's
-    serial order, so dtable is the same bits on every run and
-    triplane_encode_bwd_ref's on the host. dx as in
-    :func:`triplane_encode_bwd`. CUDA tensors only."""
+    """Kernel U's serial mode: (dtable [T, F], dx [N, 3] or None). The
+    table gradient's M = 4 S N updates are produced inside a radix sort of
+    each plane section's local rows (:func:`serial_segments`, in the order
+    of :func:`serial_order`; :class:`serial_scatter.SerialSort`), and
+    kernel H's walk sums every row's run in plain-stream order
+    from 0.0: K2's serial order, so dtable is the same bits on every run
+    and triplane_encode_bwd_ref's on the host. dx: kernel U's launch
+    without the table gradient, as in :func:`triplane_encode_bwd`. CUDA
+    tensors only."""
     _check_cuda(spec, table, x, g)
     n, rows = x.shape[0], spec.total_entries
-    m = 4 * spec.n_levels * n
-    if m >= 2 ** 31 or rows >= 2 ** 31 - 1:
-        raise ValueError(f"triplane encode: {m} updates into {rows} rows "
-                         "are out of the serial mode's int32 range")
     dx = torch.empty_like(x) if need_dx else None      # every entry written
     if n == 0:
         return torch.zeros_like(table), dx
-    keys, vals, plan = SS.stream_scratch(m, rows, x.device)
-    _kernels.check(_kernels.library().triplane_encode_bwd_stream(
-        x.data_ptr(), table.data_ptr(), g.data_ptr(), keys.data_ptr(),
-        vals.data_ptr(), _kernels.ptr(dx), n, spec.n_features,
-        _level_table(spec, x.device).data_ptr(), spec.pyr_levels,
-        _kernels.stream(x.device)), "triplane_encode_bwd_stream")
-    dtable = SS.serial_sum(plan)[:rows]
+    sorter = SS.serial_sort(serial_segments(spec, n), rows, spec.out_dim * n,
+                            x.device)
+    lib = _kernels.library()
+    levels = _level_table(spec, x.device).data_ptr()
+    if need_dx:
+        _kernels.check(lib.triplane_encode_bwd(
+            x.data_ptr(), table.data_ptr(), g.data_ptr(), None,
+            dx.data_ptr(), n, spec.n_features, levels, spec.pyr_levels,
+            _kernels.stream(x.device)), "triplane_encode_bwd")
+    dtable = sorter.run("triplane_encode_bwd_sort", x.data_ptr(),
+                        table.data_ptr(), g.data_ptr(), sorter.gt.data_ptr(),
+                        n, spec.n_features, levels, spec.pyr_levels)[:rows]
     triplane_encode_bwd_serial.launches += 1
     return dtable, dx
 

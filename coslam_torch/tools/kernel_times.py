@@ -3,7 +3,7 @@ uniform and ray-ordered points.
 
     python -m coslam_torch.tools.kernel_times [--points FILE]
         [--xor-points FILE --vm-points FILE] [--hybrid FILE] [--host-us]
-        [--out FILE] [--profile]
+        [--serial [--record]] [--out FILE] [--profile]
 
 Times kernel B (``hash_packed.grid_encode_bwd`` at the room0 spec, the
 table gradient alone, as the BA 1-keyframe call asks) and kernel H
@@ -42,6 +42,15 @@ times kernels T and U, U also in its serial mode, at every case of that
 slice and on those points, and A and B at the hybrid's dense levels
 (``time_t_and_u``).
 
+With ``--serial`` it times the serial modes of kernels B, U and D (the
+table gradient in the TPU kernels' serial order) at the BA 1-keyframe
+case of room0, room0_hybrid and room0_vm, on uniform points and on each
+slice's ray-ordered points (``--points``, ``--hybrid`` and
+``--vm-points``, or, with ``--record``, recorded first by
+``record_points`` and saved under output/), each with every launch's
+device time in launch order (``phase_times``, torch.profiler): the
+phases of whichever route the checkout has (``time_serial``).
+
 With ``--host-us`` it also measures the host's cost of the A and C
 wrappers (``wrapper_host_us``): microseconds per call of the whole
 wrapper and of each part of its card path, over 10,000 calls each.
@@ -49,7 +58,8 @@ wrapper and of each part of its card path, over 10,000 calls each.
 The script calls only what earlier checkouts of the port also have
 (``grid_encode_fwd``, ``grid_encode_bwd``, ``xor_grid_encode_fwd``,
 ``xor_grid_encode_bwd``, ``tensovm_encode_fwd``, ``tensovm_encode_bwd``,
-``row_accum`` and the plain versions), so it also
+``row_accum``, the serial modes' wrappers and the plain versions), so it
+also
 times an earlier checkout's kernels in the same machine: run it by path
 with that checkout's root first on ``PYTHONPATH``. It prints one JSON
 line and writes it to ``--out`` when given. It needs a CUDA card.
@@ -132,6 +142,164 @@ def h_phases(idx, vals, rows: int) -> dict:
     for call in calls.values():
         call()
     return {name: both_ms(call) for name, call in calls.items()}
+
+
+PHASE_RANGE = "phase_times_call"
+
+
+def trace_phases(events: list) -> dict | None:
+    """The phases of the calls in a chrome trace's ``traceEvents``, each
+    call inside a record_function range named PHASE_RANGE: {"phases":
+    [[kernel or memset, median us over the calls], ...], "span_us": the
+    median time from a call's first launch's start to its last one's end,
+    "calls": the calls counted}. A device event belongs to the call whose
+    range on the host holds the launch that issued it (the trace's
+    correlation id); calls whose launch count is not the most common
+    non-zero one are left out. None where no call has a device event."""
+    from collections import Counter
+
+    from coslam_torch.tools.profile_slice import _DEVICE_CATS
+
+    ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("name") == PHASE_RANGE
+                    and e.get("cat") == "user_annotation")
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    per_call = [[] for _ in ranges]
+    for e in sorted((e for e in events if e.get("cat") in _DEVICE_CATS),
+                    key=lambda e: e["ts"]):
+        t = launched.get(e.get("args", {}).get("correlation"))
+        for c, (lo, hi) in enumerate(ranges):
+            if t is not None and lo <= t <= hi:
+                per_call[c].append(e)
+    counts = Counter(len(c) for c in per_call if c)
+    if not counts:
+        return None
+    n = counts.most_common(1)[0][0]
+    per_call = [c for c in per_call if len(c) == n]
+
+    def short(name):
+        name = name.replace("(anonymous namespace)::", "")
+        return "memset" if name.startswith("Memset") else name.split("(")[0]
+
+    phases = [[short(per_call[0][j]["name"]),
+               float(np.median([c[j]["dur"] for c in per_call]))]
+              for j in range(n)]
+    span = float(np.median([c[-1]["ts"] + c[-1]["dur"] - c[0]["ts"]
+                            for c in per_call]))
+    return {"phases": phases, "span_us": span, "calls": len(per_call)}
+
+
+def phase_times(fn, calls: int = 5, tries: int = 3) -> dict:
+    """The card's time of every launch fn makes, in launch order
+    (``trace_phases``), read from a torch.profiler trace of `calls` calls.
+    A trace that holds no device event for the calls (CUPTI recorded
+    none) is taken again, up to `tries` traces; after that the phases are
+    not measured: {"phases": None, "span_us": None, "calls": 0}. Works on
+    any checkout's wrappers."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    os.makedirs("output", exist_ok=True)
+    path = os.path.join("output", "phase_times.json")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                with record_function(PHASE_RANGE):
+                    fn()
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        found = trace_phases(events)
+        if found is not None:
+            return found
+    return {"phases": None, "span_us": None, "calls": 0}
+
+
+def time_serial(device, points: dict) -> dict:
+    """{"B" | "U" | "D": {"uniform" | "ray": times}}: the serial modes of
+    kernel B (room0's packed grid, unit-normal table), U (room0_hybrid's
+    planes, 0.1 x noise) and D (room0_vm's planes 0.1 x noise and lines 1
+    + 0.1 x noise) at the BA 1-keyframe case (the table gradient alone),
+    on uniform points (seed 2) and on the slice's ray-ordered points
+    (``points``: {"B", "U", "D"} -> [N, 3]); cotangents seed 1. Each entry:
+    events and graph ms (``both_ms``) and every launch's device time
+    (``phase_times``)."""
+    from coslam_torch.data.synth import room0_hybrid_config
+    from coslam_torch.models.scene_rep import JointEncoding
+    from coslam_torch.ops import hash_packed as HP
+    from coslam_torch.ops import tensovm as VM
+    from coslam_torch.ops import triplane as TP
+
+    rng = np.random.default_rng(0)
+
+    def tensor(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    hspec = HP.make_packed_spec(400, 16)
+    cfg = room0_hybrid_config("output", 48, 64, 15)
+    pspec = JointEncoding(cfg, cfg["mapping"]["bound"], device).grid_spec[1]
+    vspec = VM.make_tensovm_spec(400, 3)
+    htable = tensor(rng.standard_normal((hspec.total_entries, 2)))
+    ptable = tensor(0.1 * rng.standard_normal((pspec.total_entries, 2)))
+    planes = tensor(0.1 * rng.standard_normal((vspec.total_entries, 2)))
+    lines = tensor(1.0 + 0.1 * rng.standard_normal(
+        (VM.line_total_rows(vspec), 2)))
+    calls = {
+        "B": (hspec, lambda x, g: HP.grid_encode_bwd_serial(
+            hspec, htable, x, g, False)),
+        "U": (pspec, lambda x, g: TP.triplane_encode_bwd_serial(
+            pspec, ptable, x, g, False)),
+        "D": (vspec, lambda x, g: VM.tensovm_encode_bwd_serial(
+            vspec, planes, lines, x, g, False))}
+    out = {}
+    for name, (spec, call) in calls.items():
+        ray = points[name]
+        n = ray.shape[0]
+        g = tensor(np.random.default_rng(1).standard_normal(
+            (n, spec.out_dim)))
+        sets = {"uniform": tensor(np.random.default_rng(2).uniform(
+            0, 1, (n, 3))), "ray": ray}
+        out[name] = {}
+        for label, x in sets.items():
+            fn = lambda: call(x, g)  # noqa: E731
+            out[name][label] = {"points": n, **both_ms(fn),
+                                **phase_times(fn)}
+            torch.cuda.synchronize()
+    return out
+
+
+def record_points(device, out_dir: str = "output") -> dict:
+    """Render the smoke's 15-frame 480x640 scene and record the ray-ordered
+    points of the first BA call of room0, room0_vm and room0_hybrid
+    (``record_ba_points``), saved as chip_smoke.py saves them
+    (ba_points.npy, ba_points_vm.npy, ba_points_hybrid.npy under
+    `out_dir`): {"B", "D", "U"} -> [N, 3]."""
+    import os
+
+    from coslam_torch.data.synth import (SyntheticFrames, room0_config,
+                                         room0_hybrid_config, room0_vm_config)
+
+    os.makedirs(out_dir, exist_ok=True)
+    data = SyntheticFrames(room0_config(out_dir, 480, 640, 15), 15)
+    out = {}
+    for key, name, cfg_fn in (("B", "", room0_config),
+                              ("D", "_vm", room0_vm_config),
+                              ("U", "_hybrid", room0_hybrid_config)):
+        ray = record_ba_points(cfg_fn(out_dir, 480, 640, 15,
+                                      exp_name=f"kernel_times{name}_rays"),
+                               data, device)
+        np.save(os.path.join(out_dir, f"ba_points{name}.npy"),
+                ray.cpu().numpy())
+        out[key] = ray
+    return out
 
 
 def kernel_breakdown(fn, calls: int = 5) -> list:
@@ -602,13 +770,20 @@ def main(argv=None) -> int:
     ap.add_argument("--hybrid",
                     help="room0_hybrid's ray-ordered points (times T, U and "
                          "A, B at its dense levels)")
+    ap.add_argument("--serial", action="store_true",
+                    help="time the serial modes of B, U and D in phases "
+                         "(with --points, --vm-points and --hybrid, or "
+                         "--record)")
+    ap.add_argument("--record", action="store_true",
+                    help="record the ray-ordered points of room0, room0_vm "
+                         "and room0_hybrid first (saved under output/)")
     ap.add_argument("--host-us", action="store_true",
                     help="also the host's us per call of the A and C wrappers")
     ap.add_argument("--out", help="also write the JSON line here")
     ap.add_argument("--profile", action="store_true",
                     help="also each kernel's device time (torch.profiler)")
     args = ap.parse_args(argv)
-    if bool(args.xor_points) != bool(args.vm_points):
+    if bool(args.xor_points) != bool(args.vm_points) and not args.serial:
         ap.error("--xor-points and --vm-points go together")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
@@ -629,6 +804,16 @@ def main(argv=None) -> int:
             0, 1, ray.shape).astype(np.float32)).to(device)
         rec.update(time_b_and_h(device, {"uniform": uniform, "ray": ray},
                                 args.profile))
+    if args.serial:
+        if args.record:
+            pts = record_points(device)
+        elif args.points and args.vm_points and args.hybrid:
+            pts = {"B": load(args.points), "D": load(args.vm_points),
+                   "U": load(args.hybrid)}
+        else:
+            ap.error("--serial needs --record or --points, --vm-points and "
+                     "--hybrid")
+        rec["serial"] = time_serial(device, pts)
     if args.host_us:
         rec["host_us"] = wrapper_host_us(device)
     if args.xor_points:

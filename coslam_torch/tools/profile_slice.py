@@ -23,8 +23,8 @@ with 2 keyframes, then the final mesh. It reports
 ``--deterministic`` runs the slice under
 ``torch.use_deterministic_algorithms(True)`` (with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless the environment sets it), so
-every table gradient takes its serial-order route (kernels B's and D's
-serial modes, H).
+every table gradient takes its serial-order route (kernels B's, D's and
+U's serial modes, H).
 
 The profiler's own overhead lengthens the profiled walls; the unprofiled
 walls are the ones to compare with. The summary goes to stdout and to

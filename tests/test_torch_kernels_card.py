@@ -844,13 +844,26 @@ def _serial_points(kind, n, seed):
     return np.random.default_rng(seed).uniform(-0.05, 1.05, (n, 3))
 
 
+def _assert_sorted_output(module, spec, rows, x, stream):
+    """The serial route's sorted output of its last call at x's size
+    (global rows and values) equals a stable sort on the host of the plain
+    version's update stream `stream` (host tensors), bit for bit."""
+    sorter = SS.serial_sort(module.serial_segments(spec, x.shape[0]), rows,
+                            spec.out_dim * x.shape[0], x.device)
+    idx, vals = (t.numpy() for t in stream)
+    order = np.argsort(idx, kind="stable")
+    np.testing.assert_array_equal(sorter.keys.cpu().numpy(), idx[order])
+    np.testing.assert_array_equal(sorter.pay.cpu().numpy(), vals[order])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SPECS))
 @pytest.mark.parametrize("kind", ["uniform", "rays"])
 def test_grid_bwd_serial_mode(cuda_device, name, kind):
     """Kernel B's serial mode: the same bits over two calls, dtable within
     the sum-order bound of the plain version (and of its own streams'
-    serial sum), dx as the plain version's."""
+    serial sum), dx as the plain version's; its sorted output is the
+    host's stable sort of the plain version's stream."""
     from coslam_torch.tools.bench import _common as C
 
     spec = HP.make_packed_spec(**SPECS[name])
@@ -876,6 +889,9 @@ def test_grid_bwd_serial_mode(cuda_device, name, kind):
     torch.testing.assert_close(
         d1, SS.row_accum_segmented(idx, vals, spec.total_entries)[:-1],
         rtol=0, atol=0)
+    _assert_sorted_output(HP, spec, spec.total_entries, x,
+                          HP.grid_encode_bwd_streams_ref(
+                              spec, table.cpu(), x.cpu(), g.cpu()))
 
 
 @pytest.mark.cuda
@@ -884,7 +900,8 @@ def test_grid_bwd_serial_mode(cuda_device, name, kind):
 def test_tensovm_bwd_serial_mode(cuda_device, name, kind):
     """Kernel D's serial mode: the same bits over two calls, dplanes and
     dlines within the sum-order bound of the plain version, dx as the
-    plain version's."""
+    plain version's; its sorted output is the host's stable sort of the
+    plain version's stream."""
     from coslam_torch.tools.bench import _common as C
 
     spec = VM.make_tensovm_spec(**VM_SPECS[name])
@@ -906,6 +923,10 @@ def test_tensovm_bwd_serial_mode(cuda_device, name, kind):
     C.assert_within("dplanes", a[0], ref[0], tol[:tp])
     C.assert_within("dlines", a[1], ref[1], tol[tp:])
     torch.testing.assert_close(a[2], ref[2], rtol=1e-4, atol=1e-3)
+    _assert_sorted_output(VM, spec, tp + lines.shape[0], x,
+                          VM.tensovm_encode_bwd_streams_ref(
+                              spec, planes.cpu(), lines.cpu(), x.cpu(),
+                              g.cpu()))
 
 
 @pytest.mark.cuda
@@ -1002,7 +1023,8 @@ def test_triplane_bwd_serial_mode(cuda_device, name, kind):
     """Kernel U's serial mode: the same bits over two calls, and the host's
     plain version's bits (its index_add_ adds in the stream's order, and
     U's updates are the plain version's products); dx as the plain
-    version's."""
+    version's; its sorted output is the host's stable sort of the plain
+    version's stream."""
     spec = TP.make_triplane_spec(**TP_SPECS[name])
     table, x, g = _tp_inputs(spec, kind, 8600, 1, cuda_device)
     before = TP.triplane_encode_bwd_serial.launches
@@ -1015,6 +1037,9 @@ def test_triplane_bwd_serial_mode(cuda_device, name, kind):
                                                g.cpu(), True, True)
     assert torch.equal(a[0].cpu(), host)
     torch.testing.assert_close(a[1].cpu(), host_dx, rtol=1e-4, atol=1e-3)
+    _assert_sorted_output(TP, spec, spec.total_entries, x,
+                          TP.triplane_encode_bwd_streams_ref(
+                              spec, table.cpu(), x.cpu(), g.cpu()))
 
 
 @pytest.mark.cuda
