@@ -38,11 +38,14 @@ Run from the repository root. Phases, each printing its own lines:
    bit-identical over two calls
    and bit for bit equal to a serial np.add.at on the host at every case,
    F and H and index_add_ also under a CUDA graph, and H's three phases
-   (sort, run starts, walk) each timed alone; then the probes' kernels P
-   (scalar and float4 atomics), Q, R and S
-   (coslam_torch/csrc/probe_accum.cu) at each probe's main shape against
-   their plain versions, and P's pair form and skip rule, timed on the
-   card alone by CUDA graphs of the calls; then the serial modes of B, D
+   (sort, run starts, walk) each timed alone, and kernel S once on F's
+   ray-ordered stream (W = 2; S's time beside F's and index_add_'s, with
+   the stream's adjacent-duplicate fraction: whether a run flush would
+   pay in F); then the probes' kernels P (scalar and float4 atomics), Q,
+   R, S and V (coslam_torch/csrc/probe_accum.cu) at each probe's main
+   shape against their plain versions (V also bit for bit on a stream
+   where each row takes one run), and P's pair form and skip rule, timed
+   on the card alone by CUDA graphs of the calls; then the serial modes of B, D
    and U (K2 and K3 in the TPU kernels' serial order) at the BA 1-keyframe
    case and on the ray-ordered points: the same bits over two calls and
    a CUDA graph replay, within the sum-order bound of the plain version,
@@ -55,8 +58,8 @@ Run from the repository root. Phases, each printing its own lines:
    coslam_torch/tools/bench (their entry points, --quick: one setting
    per kernel, at the probes' own shapes; each holds every variant to
    its plain version within the sum-order bound and raises beyond it),
-   with the launch counts of P, Q, R and S set to 0 just before and read
-   just after;
+   with the launch counts of P, Q, R, S and V set to 0 just before and
+   read just after;
 5. slices: the sequential SLAM loop (CoSLAM.run) at room0's model width
    and recipe (hash grid), at room0_vm's (TensoVM), at room0_xor's
    (the XOR hash with grad_impl pallas, kernel H) and at room0_hybrid's
@@ -101,12 +104,13 @@ Run from the repository root. Phases, each printing its own lines:
    (A and B, C and D, and A, B, T and U launched), the phase within
    QUALITY_WALL_S.
 
-Every kernel's record carries its time (for P-S, whose calls are short
+Every kernel's record carries its time (for P-V, whose calls are short
 enough that the host's cost per call would show, the card's time from a
 CUDA graph of the calls, and ``call_ms`` with the host's cost), its plain
 version's, the time of one PyTorch call for the same function where
-there is one (``library_ms``; index_add_ for the row accumulates) and
-its bound: the
+there is one (``library_ms``; index_add_ for the row accumulates; for S
+and V also ``library_zeroed_ms``, torch.zeros + index_add_ in one graph,
+the same work as theirs with their zero fill) and its bound: the
 larger of the bytes it must move (each input read once, each output
 written once; table rows counted as those this run's points touch) over
 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
@@ -164,7 +168,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # near 0.
 # Kernel G's update streams are exact: the same selects and correctly
 # rounded products as the plain version. The row accumulates F and H and
-# the probes' kernels P-S are held to their plain versions (index_add_,
+# the probes' kernels P-V are held to their plain versions (index_add_,
 # itself atomic on the card) within the sum-order bound of
 # coslam_torch/tools/bench/_common.sum_order_tol, which no order of f32
 # adds can exceed; H also to a serial np.add.at bit for bit.
@@ -618,8 +622,8 @@ ACCUM_RECORD = {"replaces": "coslam_tpu/ops/hash_pallas.py:84",
                 "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]}
 
 
-# The probes' kernels: P, Q, R and S replace K5-K12, the pallas_calls of
-# the scatter-accumulate probes under tools/bench/.
+# The probes' kernels: P, Q, R, S and V replace K5-K12, the pallas_calls
+# of the scatter-accumulate probes under tools/bench/.
 PROBE_SOURCE = "coslam_torch/csrc/probe_accum.cu"
 PROBE_RECORD = {
     "probe_accum": {
@@ -627,8 +631,7 @@ PROBE_RECORD = {
         "also_replaces": ["tools/bench/_bench_row_rates.py:109",
                           "tools/bench/_bench_cell_merge.py:101",
                           "tools/bench/_bench_chunk_tune.py:81",
-                          "tools/bench/_bench_scatter_variants.py:86",
-                          "tools/bench/_bench_run_merge.py:196"]},
+                          "tools/bench/_bench_scatter_variants.py:86"]},
     "probe_accum_bf16x2": {
         "replaces": "tools/bench/_bench_row_rates.py:126",
         "also_replaces": ["tools/bench/_bench_scatter_variants.py:86"]},
@@ -636,6 +639,8 @@ PROBE_RECORD = {
         "replaces": "tools/bench/_bench_cell_merge.py:124"},
     "probe_accum_run_merge": {
         "replaces": "tools/bench/_bench_run_merge.py:123"},
+    "probe_accum_run_skip": {
+        "replaces": "tools/bench/_bench_run_merge.py:196"},
 }
 
 
@@ -754,9 +759,14 @@ def check_accumulate(device, xk: XorKernels, cases: list, ray) -> dict:
     "ms", "plain_ms", ...}}, the times at the case with the most updates
     (events, and ``graph_ms`` from a CUDA graph of 20 calls), and at the
     ray-ordered case (``ray_ms``, ``ray_graph_ms``); H's per-phase times
-    at both (``phases``, ``ray_phases``)."""
+    at both (``phases``, ``ray_phases``). On the ray-ordered stream kernel
+    S too, held to the same bound, its times and rows of atomics beside
+    the stream's adjacent-duplicate fraction under F's record
+    (``ray_run_merge``): a measurement of whether a run flush would pay
+    in F, which stays as it is."""
     import torch
 
+    from coslam_torch.ops import probe_accum as PA
     from coslam_torch.ops import serial_scatter as SS
     from coslam_torch.tools.bench import _common as C
 
@@ -815,6 +825,21 @@ def check_accumulate(device, xk: XorKernels, cases: list, ray) -> dict:
                 for rec in out.values():
                     rec.update(plain_ms=plain_ms,
                                **accum_bound(m, width, ref.numel()))
+        if label == RAY_CASE:
+            s_call = lambda: PA.probe_accum_run_merge(  # noqa: E731
+                idx, vals, rows + 1)
+            s_rec = {"max_abs_err": C.assert_within(f"{label} S", s_call(),
+                                                    ref, tol),
+                     "ms": _time_ms(s_call), "graph_ms": _graph_ms(s_call),
+                     "tile": PA.TILE, "updates": idx.shape[0],
+                     "adjacent_dup": float((idx[1:] == idx[:-1]).float()
+                                           .mean()),
+                     "row_atomics": PA.adjacent_runs(idx.clamp(0, rows),
+                                                     PA.TILE)}
+            out["row_accum_atomic"]["ray_run_merge"] = s_rec
+            line.append("S err {max_abs_err:.3g}, {ms:.4f} ms, graph "
+                        "{graph_ms:.4f} ms, adjacent-dup {adjacent_dup:.3f}, "
+                        "{row_atomics} rows of atomics".format(**s_rec))
         step = max(idx.shape[0] // 200_000, 1)
         sub_idx, sub_vals = idx[::step].contiguous(), vals[::step].contiguous()
         host = np.zeros((rows + 1, vals.shape[1]), np.float32)
@@ -827,7 +852,7 @@ def check_accumulate(device, xk: XorKernels, cases: list, ray) -> dict:
 
 
 def check_probes(device) -> dict:
-    """Kernels P-S against their plain versions at each probe's main
+    """Kernels P-S and V against their plain versions at each probe's main
     shape, each within the sum-order bound of the plain version
     (``_common.sum_order_tol``: twice the worst-case error of an f32 sum
     of an entry's updates in any order): P (streams, float4 and scalar
@@ -835,13 +860,16 @@ def check_probes(device) -> dict:
     (1,048,576 updates into 65,537 rows); P's pair form at the chunk
     probe's TUM scale (1,859,584 updates, 65,702 rows, float2, 256
     threads, 4 updates per thread, as its --quick run launches it); R on
-    the cell-merge probe's "runs" stream (524,288 updates, W = 8); S and
-    P's skip rule (after the suffix scan) on the run-merge probe's r = 311
-    stream (62,208 updates, W = 8). Returns {kernel name: record}, timed
-    at those shapes: ``ms`` and ``library_ms`` from CUDA graphs of the
-    calls (``_graph_ms``: the card's time, no host cost), ``call_ms`` with
-    the host's (``_time_ms``), ``plain_ms`` likewise (the plain versions
-    wait on the card and cannot be captured)."""
+    the cell-merge probe's "runs" stream (524,288 updates, W = 8); S, V
+    and P's skip rule (after the suffix scan) on the run-merge probe's
+    r = 311 stream (62,208 updates, W = 8), V also bit for bit on a stream
+    where each row takes a single run of 1-40 (its one scanned total added
+    onto 0.0). Returns {kernel name: record}, timed at those shapes:
+    ``ms`` and ``library_ms`` from CUDA graphs of the calls
+    (``_graph_ms``: the card's time, no host cost; for S and V also
+    ``library_zeroed_ms``, torch.zeros + index_add_ in one graph),
+    ``call_ms`` with the host's (``_time_ms``), ``plain_ms`` likewise (the
+    plain versions wait on the card and cannot be captured)."""
     import torch
 
     from coslam_torch.ops import probe_accum as PA
@@ -868,8 +896,8 @@ def check_probes(device) -> dict:
                    library_ms=None if library is None else _graph_ms(library),
                    **bounds, **extra)
         return ", ".join(f"{k} {rec[k]:.4f}" for k in (
-            "ms", "call_ms", "plain_ms", "library_ms", "bound_ms")
-            if rec[k] is not None)
+            "ms", "call_ms", "plain_ms", "library_ms", "library_zeroed_ms",
+            "bound_ms") if rec.get(k) is not None)
 
     # P and Q: the row-rate probe at W = 8.
     rows, m, w = RR.ROWS, RR.M, 8
@@ -936,29 +964,54 @@ def check_probes(device) -> dict:
     print(f"  cell merge runs N={n} ({n2 - taken} of {n2} pairs merged): "
           + ", ".join(line), flush=True)
 
-    # S and P's skip rule: the run-merge probe at r = 311.
+    # S, V and P's skip rule: the run-merge probe at r = 311.
     r = RM.RS[-1]
     rows = r * r
     ids, vals_np = RM.make_stream(r)
     idx, vals = _itensor(device, ids), _tensor(device, vals_np)
     m, w = vals.shape
-    ref = PA.probe_accum_ref(idx, vals, rows + 1)
+    ref = PA.run_merge_ref(idx, vals, rows + 1)
     tol = C.sum_order_tol(idx, vals, rows + 1)
     s_idx, s_vals = PA.run_merge_outside(idx, vals, rows)
     line = [check(PA.probe_accum_run_merge, PA.probe_accum_run_merge(
-        idx, vals, rows + 1, span=16), ref, tol, "S"),
+        idx, vals, rows + 1), ref, tol, "S"),
+        check(PA.probe_accum_run_skip, PA.probe_accum_run_skip(
+            idx, vals, rows + 1), PA.run_skip_ref(idx, vals, rows + 1),
+            C.sum_order_tol(s_idx, s_vals, rows + 1), "V"),
         check(PA.probe_accum, PA.probe_accum(s_idx, s_vals, rows + 1,
                                              rows=True, vec=4), ref, tol,
               "P skip")]
+    heads = rng.permutation(rows)[:3000]
+    single = _itensor(device, np.repeat(heads, rng.integers(1, 41, 3000)))
+    single_vals = _tensor(device, rng.standard_normal((single.shape[0], w)))
+    got = PA.probe_accum_run_skip(single, single_vals, rows + 1)
+    want = PA.run_skip_ref(single, single_vals, rows + 1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        "V differs from its plain version on single runs"
+    line.append(f"V == plain bit for bit on {single.shape[0]} updates in "
+                "single runs")
     buf = torch.zeros_like(ref)
+    library = lambda: buf.index_add_(0, idx, vals)  # noqa: E731
+    zeroed = lambda: torch.zeros_like(ref).index_add_(  # noqa: E731
+        0, idx, vals)
     line.append("S " + timed(
         PA.probe_accum_run_merge,
-        lambda: PA.probe_accum_run_merge(idx, vals, rows + 1, span=16),
-        lambda: PA.probe_accum_ref(idx, vals, rows + 1),
-        lambda: buf.index_add_(0, idx, vals),
+        lambda: PA.probe_accum_run_merge(idx, vals, rows + 1),
+        lambda: PA.run_merge_ref(idx, vals, rows + 1), library,
         accum_bound(m, w, ref.numel()),
-        setting="run merge r=311, span 16, float4",
-        row_atomics=PA.adjacent_runs(idx, 16), updates=m))
+        setting=f"run merge r=311, tile {PA.TILE}, float4",
+        row_atomics=PA.adjacent_runs(idx, PA.TILE), updates=m,
+        library_zeroed_ms=_graph_ms(zeroed)))
+    line.append("V " + timed(
+        PA.probe_accum_run_skip,
+        lambda: PA.probe_accum_run_skip(idx, vals, rows + 1),
+        lambda: PA.run_skip_ref(idx, vals, rows + 1), library,
+        bound(4 * m + 4 * w * m + 4 * ref.numel(),
+              (PA.MAX_ROUNDS + 1) * m * w),
+        setting=f"run skip r=311, {PA.MAX_ROUNDS} rounds, tile {PA.TILE}, "
+                "float4",
+        row_atomics=PA.adjacent_runs(idx), updates=m,
+        library_zeroed_ms=_graph_ms(zeroed)))
     print(f"  run merge r={r} M={m}: " + ", ".join(line), flush=True)
     return out
 
@@ -1544,7 +1597,8 @@ def main() -> int:
     t = _phase("probes: coslam_torch.tools.bench at the probes' shapes")
     launches = run_probes([PA.probe_accum, PA.probe_accum_bf16x2,
                            PA.probe_accum_pair_merged,
-                           PA.probe_accum_run_merge])
+                           PA.probe_accum_run_merge,
+                           PA.probe_accum_run_skip])
     print(f"  probes {time.perf_counter() - t:.1f} s", flush=True)
 
     # (config, kernels that run in every tracking and BA iteration, kernels

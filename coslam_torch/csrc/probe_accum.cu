@@ -12,24 +12,28 @@
 //     _bench_cell_merge.py:_kernel_base (K5), _bench_chunk_tune.py
 //     :kernel (K7, pair form), _bench_row_rates.py:_kernel_vec (K8, rows)
 //     and _kernel_f32 (K9), _bench_scatter_variants.py:_kernel_tuned (K10,
-//     pair form), _bench_run_merge.py:_skip_kernel (K12, skip rule).
+//     pair form).
 //   Q probe_accum_bf16x2 (values as int32 words, two bf16 each, element
 //     2p = the low half): _bench_row_rates.py:_kernel_pk (K9) and
 //     _bench_scatter_variants.py:_kernel_packed_bf16 (K10, pair form).
 //   R probe_accum_pair_merged: _bench_cell_merge.py:_kernel_merged (K6).
 //   S probe_accum_run_merge: _bench_run_merge.py:_merge_kernel (K11).
+//   V probe_accum_run_skip: _bench_run_merge.py:_skip_kernel (K12) with
+//     the segmented suffix scan before it (run_merge_outside) fused in.
 // P, with `clip` set, rows [M, W] and the widest vector atomic dividing W,
 // is also kernel F, the atomic row accumulate of the main path
 // (coslam_torch/ops/serial_scatter.py:row_accum; it replaces K4,
 // coslam_tpu/ops/hash_pallas.py:_scatter_kernel, and K3's generic form).
 //
 // The pair form (K2's shape) is stride = F and W = 2F: rows idx and
-// idx + 1 of an [rows, F] table, contiguous. An update whose idx lies
-// outside [0, max_idx] is skipped (the wrapper sets max_idx so that the
-// whole W-wide row lies inside out); that is K12's sentinel rule, and the
-// other probes clip idx into the slack row before the call, as their JAX
+// idx + 1 of an [rows, F] table, contiguous. P, Q and R skip an update
+// whose idx lies outside [0, max_idx] (the wrapper sets max_idx so that
+// the whole W-wide row lies inside out), the sentinel rule of K12; the
+// probes clip idx into the slack row before the call, as their JAX
 // callers do. With `clip` (kernel F), P clips idx into [0, max_idx]
-// itself: row max_idx is then the caller's slack row.
+// itself: row max_idx is then the caller's slack row. S and V clip idx
+// into [0, max_idx] as K11's and K12's callers do (merge_accum,
+// run_merge_outside).
 //
 // What bounds them on this card: f32 atomics in L2 (the 65,536-98,305-row
 // accumulators of the probes, 0.5-3.1 MB, stay in the 50 MB L2), and
@@ -39,20 +43,42 @@
 // and adds each row with vector atomics where the alignment allows
 // (`vec` 4: atomicAdd on float4, 2: float2, both sm_90 and global memory
 // only; 1: scalar; a launch argument of P and Q, the widest that divides
-// W for R and S). R keeps the pre-pass (equal adjacent pairs merged)
+// W for R, S and V). R keeps the pre-pass (equal adjacent pairs merged)
 // in torch, as it was XLA, and is one thread per pair with the second
-// row's add predicated on take2. S is the GPU's own form of K11's
-// flush-on-change: a thread walks a contiguous span of updates carrying
-// (cur, acc[W]) in registers and issues one row of vector atomics per run
-// boundary and one at the end of its span, so a run of equal adjacent
-// indices costs one row of atomics instead of one per update.
+// row's add predicated on take2.
+//
+// S and V take a tile of `tile` consecutive updates a block (a multiple
+// of 32, at most 512), so the probes' 62,208 updates fill the card with
+// hundreds of blocks. A block stages its tile's rows in shared memory
+// with coalesced float4 loads (`stage_rows`; at W = 8 a warp reads 16
+// rows an instruction) and its clipped indices beside them. S is the
+// GPU's form of K11's flush-on-change: a run of equal adjacent indices
+// is summed once, by its head (the first update of the run in the tile),
+// one thread for each `vec`-wide piece of the row walking the run in
+// shared memory from its first value in update order, then one row of
+// vector atomics for the run (a run that crosses a tile boundary costs one
+// row a piece). V is K12 in one launch: the block also stages the 31 rows
+// after its tile (2^5 - 1, the reach of the scan's 5 rounds; zero values
+// and no link past M), runs the rounds of run_merge_outside's
+// Hillis-Steele suffix scan over them, one thread a position with its row
+// in registers and the shifted row read from shared memory, with the same
+// f32 adds in the same association (v + (link ? v_up : 0), round by
+// round), and each first entry of a run inside the tile adds its scanned
+// row: the others are K12's sentinels and add nothing. A run longer than
+// 2^rounds contributes its first 2^rounds updates, as on the TPU.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kMaxRunWidth = 16;  // S keeps a row in registers
+constexpr int kMaxRunWidth = 16;  // S and V keep a row piece in registers
+constexpr int kMaxTile = 512;     // S and V: updates a block, at most
+constexpr int kRunThreads = 256;  // S: threads a block
+constexpr int kMaxRounds = 5;     // V: scan rounds, at most
+constexpr int kSkipHalo = (1 << kMaxRounds) - 1;  // V: rows staged past a tile
 
 inline unsigned int n_blocks(int64_t n_threads, int threads) {
   return static_cast<unsigned int>((n_threads + threads - 1) / threads);
@@ -150,55 +176,195 @@ __global__ void pair_merged_kernel(const int* __restrict__ idx1,
     add_stream_row<VEC>(out, __ldg(idx2 + i), v2, n, i, width, max_idx);
 }
 
-// Kernel S: thread t walks updates [t * span, (t + 1) * span) of vals
-// rows [M, W]; each run of equal adjacent idx is summed in registers, in
-// update order from its first value, and added with one row of atomics.
+// S and V: out[0:VEC] <- src[0:VEC] from (16-byte aligned for VEC 4)
+// shared memory, one vector access.
 template <int VEC>
-__device__ __forceinline__ void flush_row(float* __restrict__ out, int cur,
-                                          const float* acc, int width,
-                                          int max_idx) {
-  if (cur < 0 || cur > max_idx) return;
-  float* dst = out + static_cast<int64_t>(cur) * width;
-#pragma unroll
-  for (int e = 0; e < kMaxRunWidth; e += VEC)
-    if (e < width) add_vec<VEC>(dst + e, acc + e);
+__device__ __forceinline__ void load_vec(float* dst, const float* src) {
+  if constexpr (VEC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src);
+    dst[0] = x.x, dst[1] = x.y, dst[2] = x.z, dst[3] = x.w;
+  } else if constexpr (VEC == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(src);
+    dst[0] = x.x, dst[1] = x.y;
+  } else {
+    dst[0] = *src;
+  }
 }
 
+// V: dst[0:VEC] <- v[0:VEC] in shared memory, one vector access.
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* dst, const float* v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    *dst = v[0];
+  }
+}
+
+__device__ __forceinline__ int clip_row(int j, int max_idx) {
+  return min(max(j, 0), max_idx);
+}
+
+// S and V: rows [first, first + n) of vals rows [M, W] into s (shared
+// memory, 16-byte aligned), the whole block cooperating: float4 loads
+// where the rows start on 16 bytes (first is a multiple of 32, so that
+// is where vals does), then the tail (or everything) as scalars.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ vals,
+                                           int64_t first, int n, int width,
+                                           float* __restrict__ s) {
+  const float* src = vals + first * width;
+  const int count = n * width;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    float4* s4 = reinterpret_cast<float4*>(s);
+    const int n4 = count >> 2;
+    for (int k = threadIdx.x; k < n4; k += blockDim.x) s4[k] = __ldg(src4 + k);
+    done = n4 << 2;
+  }
+  for (int k = done + threadIdx.x; k < count; k += blockDim.x)
+    s[k] = __ldg(src + k);
+}
+
+// Kernel S: block b takes updates [b * tile, (b + 1) * tile); shared
+// memory holds the tile's rows [tile][W], then its clipped idx [tile].
+// Thread slots are (update i, piece e of VEC floats); a slot whose update
+// heads a run sums the run's piece from its first value in update order
+// and adds it with one vector atomic.
 template <int VEC>
 __global__ void run_merge_kernel(const int* __restrict__ idx,
                                  const float* __restrict__ vals,
                                  float* __restrict__ out, int64_t m,
-                                 int width, int max_idx, int span) {
-  const int64_t first =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * span;
-  if (first >= m) return;
-  const int64_t last = first + span < m ? first + span : m;
-  float acc[kMaxRunWidth];
-  int cur = __ldg(idx + first);
+                                 int width, int max_idx, int tile) {
+  extern __shared__ float4 smem[];
+  float* s_vals = reinterpret_cast<float*>(smem);
+  int* s_idx = reinterpret_cast<int*>(s_vals + tile * width);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * tile;
+  const int n = m - first < tile ? static_cast<int>(m - first) : tile;
+  stage_rows(vals, first, n, width, s_vals);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    s_idx[i] = clip_row(__ldg(idx + first + i), max_idx);
+  __syncthreads();
+  const int pieces = width / VEC;
+  for (int slot = threadIdx.x; slot < n * pieces; slot += blockDim.x) {
+    const int i = slot / pieces;
+    const int e = (slot - i * pieces) * VEC;
+    const int j = s_idx[i];
+    if (i > 0 && s_idx[i - 1] == j) continue;   // inside a run
+    float acc[VEC];
+    load_vec<VEC>(acc, s_vals + i * width + e);
+    for (int k = i + 1; k < n && s_idx[k] == j; ++k) {
+      float x[VEC];
+      load_vec<VEC>(x, s_vals + k * width + e);
 #pragma unroll
-  for (int e = 0; e < kMaxRunWidth; ++e)
-    acc[e] = e < width ? __ldg(vals + first * width + e) : 0.0f;
-  for (int64_t i = first + 1; i < last; ++i) {
-    const int j = __ldg(idx + i);
-    const float* src = vals + i * width;
-    if (j == cur) {
-#pragma unroll
-      for (int e = 0; e < kMaxRunWidth; ++e)
-        if (e < width) acc[e] = __fadd_rn(acc[e], __ldg(src + e));
-    } else {
-      flush_row<VEC>(out, cur, acc, width, max_idx);
-      cur = j;
-#pragma unroll
-      for (int e = 0; e < kMaxRunWidth; ++e)
-        if (e < width) acc[e] = __ldg(src + e);
+      for (int c = 0; c < VEC; ++c) acc[c] = __fadd_rn(acc[c], x[c]);
     }
+    add_vec<VEC>(out + static_cast<int64_t>(j) * width + e, acc);
   }
-  flush_row<VEC>(out, cur, acc, width, max_idx);
+}
+
+// Kernel V: block b takes updates [b * tile, (b + 1) * tile) and stages
+// `span` = tile + kSkipHalo rows from its first (fewer at the end of the
+// stream): their rows [span][W], the clipped idx of positions first - 1
+// to first + span (-1 outside the stream, which equals no clipped idx)
+// and the links [span]. Thread q holds position q's row; round r adds the
+// row 2^r further on where q links to it, as run_merge_outside does. Once
+// no position of the block links on, the rounds left would add only 0.0
+// (turning a -0.0 into +0.0, which the add onto the zeroed output does
+// too), so the block stops there.
+template <int VEC>
+__global__ void run_skip_kernel(const int* __restrict__ idx,
+                                const float* __restrict__ vals,
+                                float* __restrict__ out, int64_t m,
+                                int width, int max_idx, int rounds,
+                                int tile) {
+  extern __shared__ float4 smem[];
+  const int span = tile + kSkipHalo;
+  float* s_vals = reinterpret_cast<float*>(smem);
+  int* s_idx = reinterpret_cast<int*>(s_vals + span * width);
+  unsigned char* s_link = reinterpret_cast<unsigned char*>(s_idx + span + 2);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * tile;
+  const int ns = m - first < span ? static_cast<int>(m - first) : span;
+  stage_rows(vals, first, ns, width, s_vals);
+  for (int k = threadIdx.x; k < ns + 2; k += blockDim.x) {
+    const int64_t g = first - 1 + k;
+    s_idx[k] = g >= 0 && g < m ? clip_row(__ldg(idx + g), max_idx) : -1;
+  }
+  __syncthreads();
+  const int q = threadIdx.x;   // blockDim.x >= span
+  float v[kMaxRunWidth];
+  bool link = false;
+#pragma unroll
+  for (int e = 0; e < kMaxRunWidth; e += VEC)
+    if (e < width) {
+      if (q < ns) {
+        load_vec<VEC>(v + e, s_vals + q * width + e);
+      } else {
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) v[e + c] = 0.0f;
+      }
+    }
+  if (q < ns) link = s_idx[q + 2] == s_idx[q + 1];
+  for (int r = 0; r < rounds; ++r) {
+    const int s = 1 << r;
+    // Every read of the last round is done; stop if nothing links on.
+    if (!__syncthreads_or(link)) break;
+    if (q < ns) {
+#pragma unroll
+      for (int e = 0; e < kMaxRunWidth; e += VEC)
+        if (e < width) store_vec<VEC>(s_vals + q * width + e, v + e);
+      s_link[q] = link;
+    }
+    __syncthreads();
+    const bool inside = q + s < ns;
+    const bool link_up = inside && s_link[q + s];
+#pragma unroll
+    for (int e = 0; e < kMaxRunWidth; e += VEC)
+      if (e < width) {
+        float up[VEC];
+        if (inside) {
+          load_vec<VEC>(up, s_vals + (q + s) * width + e);
+        } else {
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) up[c] = 0.0f;
+        }
+#pragma unroll
+        for (int c = 0; c < VEC; ++c)
+          v[e + c] = __fadd_rn(v[e + c], link ? up[c] : 0.0f);
+      }
+    link = link && link_up;
+  }
+  if (q < min(tile, ns) && s_idx[q + 1] != s_idx[q]) {
+    float* dst = out + static_cast<int64_t>(s_idx[q + 1]) * width;
+#pragma unroll
+    for (int e = 0; e < kMaxRunWidth; e += VEC)
+      if (e < width) add_vec<VEC>(dst + e, v + e);
+  }
 }
 
 bool bad_launch(int64_t m, int width, int vec, int threads) {
   return m < 0 || width <= 0 || (vec != 1 && vec != 2 && vec != 4) ||
          width % vec != 0 || threads < 32 || threads > 1024;
+}
+
+// S and V: a tile is a multiple of 32 updates, at most kMaxTile, and a
+// row at most kMaxRunWidth wide.
+bool bad_tile(int64_t m, int width, int vec, int tile, int max_idx) {
+  return bad_launch(m, width, vec, 32) || width > kMaxRunWidth ||
+         tile < 32 || tile > kMaxTile || tile % 32 != 0 || max_idx < 0;
+}
+
+template <typename Launch>
+int launch_by_vec(int vec, Launch launch) {
+  if (vec == 4)
+    launch(std::integral_constant<int, 4>());
+  else if (vec == 2)
+    launch(std::integral_constant<int, 2>());
+  else
+    launch(std::integral_constant<int, 1>());
+  return cudaGetLastError();
 }
 
 template <int VEC, bool BF16>
@@ -283,26 +449,40 @@ int probe_accum_pair_merged(const int* idx1, const int* take2,
   return cudaGetLastError();
 }
 
-// Kernel S: vals rows [m, width], width <= 16; out [rows, width].
+// Kernel S: vals rows [m, width], width <= 16, idx clipped into
+// [0, max_idx]; out [max_idx + 1, width].
 int probe_accum_run_merge(const int* idx, const float* vals, float* out,
                           int64_t m, int width, int max_idx, int vec,
-                          int span, int threads, void* stream) {
-  if (bad_launch(m, width, vec, threads) || width > kMaxRunWidth ||
-      span < 1)
+                          int tile, void* stream) {
+  if (bad_tile(m, width, vec, tile, max_idx)) return cudaErrorInvalidValue;
+  if (m == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = n_blocks(m, tile);
+  const size_t smem = sizeof(float) * tile * (width + 1);
+  return launch_by_vec(vec, [&](auto v) {
+    run_merge_kernel<decltype(v)::value><<<blocks, kRunThreads, smem, s>>>(
+        idx, vals, out, m, width, max_idx, tile);
+  });
+}
+
+// Kernel V: as S, with `rounds` (at most 5) rounds of the suffix scan
+// before the adds, each run's first entry adding its scanned row.
+int probe_accum_run_skip(const int* idx, const float* vals, float* out,
+                         int64_t m, int width, int max_idx, int vec,
+                         int rounds, int tile, void* stream) {
+  if (bad_tile(m, width, vec, tile, max_idx) || rounds < 0 ||
+      rounds > kMaxRounds)
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = n_blocks((m + span - 1) / span, threads);
-  if (vec == 4)
-    run_merge_kernel<4><<<blocks, threads, 0, s>>>(idx, vals, out, m, width,
-                                                   max_idx, span);
-  else if (vec == 2)
-    run_merge_kernel<2><<<blocks, threads, 0, s>>>(idx, vals, out, m, width,
-                                                   max_idx, span);
-  else
-    run_merge_kernel<1><<<blocks, threads, 0, s>>>(idx, vals, out, m, width,
-                                                   max_idx, span);
-  return cudaGetLastError();
+  const unsigned int blocks = n_blocks(m, tile);
+  const int span = tile + kSkipHalo;
+  const size_t smem = sizeof(float) * span * width +
+                      sizeof(int) * (span + 2) + span;
+  return launch_by_vec(vec, [&](auto v) {
+    run_skip_kernel<decltype(v)::value><<<blocks, tile + 32, smem, s>>>(
+        idx, vals, out, m, width, max_idx, rounds, tile);
+  });
 }
 
 }  // extern "C"

@@ -140,7 +140,9 @@ def library() -> ctypes.CDLL:
     lib.probe_accum_pair_merged.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
                                             _I32, _I32, _I32, _I32, _P]
     lib.probe_accum_run_merge.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
-                                          _I32, _I32, _P]
+                                          _I32, _P]
+    lib.probe_accum_run_skip.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
+                                         _I32, _I32, _P]
     for fn in (lib.grid_encode_bwd_sort, lib.tensovm_encode_bwd_sort,
                lib.triplane_encode_fwd, lib.triplane_encode_bwd,
                lib.triplane_encode_bwd_sort, lib.xor_grid_encode_fwd,
@@ -148,7 +150,8 @@ def library() -> ctypes.CDLL:
                lib.row_accum_sort, lib.row_accum_starts, lib.row_accum_walk,
                lib.row_accum_bounds, lib.row_accum_walk_runs,
                lib.probe_accum,
-               lib.probe_accum_pair_merged, lib.probe_accum_run_merge):
+               lib.probe_accum_pair_merged, lib.probe_accum_run_merge,
+               lib.probe_accum_run_skip):
         fn.restype = ctypes.c_int
     lib.grid_encode_error_string.argtypes = [ctypes.c_int]
     lib.grid_encode_error_string.restype = ctypes.c_char_p

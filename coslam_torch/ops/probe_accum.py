@@ -3,7 +3,7 @@ accumulator at element offset ``idx[m] * stride``.
 
 Counterparts of the Pallas probes of tools/bench/ (K5-K12), each a
 variant of the serial row read-modify-write of K3/K4 that measured the
-TPU; on the card they are four kernels of coslam_torch/csrc/
+TPU; on the card they are five kernels of coslam_torch/csrc/
 probe_accum.cu:
 
 - P :func:`probe_accum`: f32 values as W streams ``[W, M]`` or as rows
@@ -14,27 +14,32 @@ probe_accum.cu:
   ``stack([a, b], -1)`` lays them out);
 - R :func:`probe_accum_pair_merged`: per pair, one row at idx1 and, where
   take2, one at idx2, after the torch pre-pass :func:`merge_pairs`;
-- S :func:`probe_accum_run_merge`: each run of equal adjacent idx summed
-  in registers and added once (flush-on-change).
+- S :func:`probe_accum_run_merge` (K11): each run of equal adjacent idx
+  in a tile of updates summed in shared memory and added once;
+- V :func:`probe_accum_run_skip` (K12): the segmented suffix scan of
+  :func:`run_merge_outside` and the skip of its sentinels in one launch.
 
 P's kernel with its clip rule is also kernel F, the atomic row
 accumulate of the main path (:mod:`.serial_scatter`), through
 :func:`launch_accum`.
 
-Every kernel skips an update whose row would not lie inside the output
+P, Q and R skip an update whose row would not lie inside the output
 (idx < 0 or idx > ``out_rows - W // stride``): K12's sentinel rule; the
-other probes clip idx into their slack row first, in torch, as their JAX
-callers did in XLA. P and Q take the probes' launch settings: ``vec``
-(1, 2 or 4: scalar, float2 or float4 atomics; it must divide W and
-stride), threads per block and ``upt``, the updates each thread adds in
-turn; R and S add with the widest vector atomics that divide W, 256
-threads per block, and S takes ``span``, the updates each thread walks.
+probes clip idx into their slack row first, in torch, as their JAX
+callers did in XLA. S and V clip idx into ``[0, out_rows - 1]``
+themselves, as K11's and K12's callers (``merge_accum``,
+``run_merge_outside``) do. P and Q take the probes' launch settings:
+``vec`` (1, 2 or 4: scalar, float2 or float4 atomics; it must divide W
+and stride), threads per block and ``upt``, the updates each thread adds
+in turn; R, S and V add with the widest vector atomics that divide W, and
+S takes ``tile``, the updates a block takes (V takes ``TILE``, S's
+default).
 
 The plain versions are ``index_add_`` on the rows that lie inside the
 output, in update order (on the CPU that is the serial order of the
 TPU's loop, so K5, K8-K10 and K12 match bit for bit), with a torch unpack
-for bf16. CPU tensors take them; CUDA tensors take the kernels or the
-call raises.
+for bf16, and V's with the scan before it. CPU tensors take them; CUDA
+tensors take the kernels or the call raises.
 """
 
 from __future__ import annotations
@@ -108,14 +113,15 @@ def run_merge_outside(idx: torch.Tensor, vals: torch.Tensor, rows: int,
     return torch.where(first, idx, rows + 1).to(torch.int32), v
 
 
-def adjacent_runs(idx: torch.Tensor, span: int | None = None) -> int:
-    """Rows of atomics kernel S issues on idx: the runs of equal adjacent
-    entries, with a run that crosses a boundary of ``span`` updates (the
-    thread's span) counted once per piece; without ``span``, the runs."""
+def adjacent_runs(idx: torch.Tensor, tile: int | None = None) -> int:
+    """Rows of atomics kernel S issues on idx (in range): the runs of
+    equal adjacent entries, with a run that crosses a boundary of ``tile``
+    updates (a block's tile) counted once per piece; without ``tile``, the
+    runs."""
     start = torch.ones_like(idx, dtype=torch.bool)
     start[1:] = idx[1:] != idx[:-1]
-    if span is not None:
-        start[::span] = True
+    if tile is not None:
+        start[::tile] = True
     return int(start.sum())
 
 
@@ -145,6 +151,22 @@ def probe_accum_ref(idx: torch.Tensor, rows: torch.Tensor, out_rows: int,
     return out.index_add_(0, flat, rows.reshape(-1, stride))
 
 
+def run_merge_ref(idx: torch.Tensor, vals: torch.Tensor, out_rows: int
+                  ) -> torch.Tensor:
+    """Plain version of S: idx clipped into [0, out_rows - 1], then P's
+    plain version on the rows vals f32 [M, W]."""
+    return probe_accum_ref(idx.clamp(0, out_rows - 1), vals, out_rows)
+
+
+def run_skip_ref(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
+                 rounds: int = 5) -> torch.Tensor:
+    """Plain version of V: :func:`run_merge_outside` into rows
+    ``out_rows - 1``, then P's plain version, which skips its sentinels
+    (idx ``out_rows``)."""
+    s_idx, s_vals = run_merge_outside(idx, vals, out_rows - 1, rounds)
+    return probe_accum_ref(s_idx, s_vals, out_rows)
+
+
 def pair_merged_ref(idx1, take2, idx2, v1, v2, out_rows: int
                     ) -> torch.Tensor:
     """Plain version of R: per pair, v1's row at idx1, then, where take2,
@@ -162,7 +184,9 @@ def pair_merged_ref(idx1, take2, idx2, v1, v2, out_rows: int
 
 # -- kernels -------------------------------------------------------------------
 
-_THREADS = 256  # R and S: threads per block
+_THREADS = 256  # R: threads per block
+TILE = 128      # S (by default) and V: updates a block
+MAX_ROUNDS = 5  # V: the 31 rows a block stages past its tile reach 5 rounds
 
 
 def widest_vec(width: int) -> int:
@@ -281,34 +305,66 @@ def probe_accum_pair_merged(idx1: torch.Tensor, take2: torch.Tensor,
     return out
 
 
-def probe_accum_run_merge(idx: torch.Tensor, vals: torch.Tensor,
-                          out_rows: int, span: int = 16) -> torch.Tensor:
-    """Kernel S: out [out_rows, W] f32 with out[idx[m]] += vals[m] (vals
-    f32 rows [M, W], W <= 16); each thread walks ``span`` updates and adds
-    every run of equal adjacent idx once, summed in update order."""
-    if _kernels.on_cpu(idx, vals):
-        return probe_accum_ref(idx, vals, out_rows)
-    what = "probe_accum_run_merge"
+def _launch_tiled(what: str, idx: torch.Tensor, vals: torch.Tensor,
+                  out_rows: int, tile: int, *settings) -> torch.Tensor:
+    """Check and launch kernel S or V (the C entry named ``what``, with
+    ``settings`` before the tile) into a zeroed [out_rows, W] f32
+    output."""
     m, width = vals.shape
     vec = widest_vec(width)
-    _check_cuda(what, width, width, vec, _THREADS, idx=idx, vals=vals)
     _check_dtypes(what, torch.int32, idx=idx)
     _check_dtypes(what, torch.float32, vals=vals)
-    if idx.shape != (m,) or width > 16 or span < 1:
-        raise ValueError(f"{what}: idx [M], vals [M, W <= 16] and span >= 1 "
-                         "expected")
+    if idx.shape != (m,) or width > 16 or out_rows < 1:
+        raise ValueError(f"{what}: idx [M], vals [M, W <= 16] and at least "
+                         "one output row expected")
+    if tile % 32 or not 32 <= tile <= 512:
+        raise ValueError(f"{what}: tile {tile} must be a multiple of 32 in "
+                         "[32, 512]")
+    _check_cuda(what, width, width, vec, _THREADS, idx=idx, vals=vals)
     out = torch.zeros((out_rows, width), dtype=torch.float32,
                       device=vals.device)
-    _kernels.check(_kernels.library().probe_accum_run_merge(
-        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), m, width,
-        _max_idx(out_rows, width, width), vec, span, _THREADS,
-        _kernels.stream(vals.device)), what)
+    entry = getattr(_kernels.library(), what)
+    _kernels.check(entry(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), m,
+                         width, out_rows - 1, vec, *settings, tile,
+                         _kernels.stream(vals.device)), what)
+    return out
+
+
+def probe_accum_run_merge(idx: torch.Tensor, vals: torch.Tensor,
+                          out_rows: int, tile: int = TILE) -> torch.Tensor:
+    """Kernel S: out [out_rows, W] f32 with out[clip(idx[m], 0,
+    out_rows - 1)] += vals[m] (vals f32 rows [M, W], W <= 16); a block
+    takes ``tile`` updates (a multiple of 32, at most 512) and adds every
+    run of equal adjacent idx in it once, summed in update order."""
+    if _kernels.on_cpu(idx, vals):
+        return run_merge_ref(idx, vals, out_rows)
+    out = _launch_tiled("probe_accum_run_merge", idx, vals, out_rows, tile)
     probe_accum_run_merge.launches += 1
     return out
 
 
-# Launch counts of the four kernels (the CPU path never adds to them).
+def probe_accum_run_skip(idx: torch.Tensor, vals: torch.Tensor,
+                         out_rows: int, rounds: int = MAX_ROUNDS
+                         ) -> torch.Tensor:
+    """Kernel V: :func:`run_merge_outside` with ``rounds`` rounds (at most
+    5) into rows ``out_rows - 1``, then each run's first entry's scanned
+    row added at its idx (vals f32 rows [M, W], W <= 16): out [out_rows,
+    W] f32. A run longer than 2^rounds adds its first 2^rounds rows. A
+    block takes ``TILE`` updates."""
+    if not 0 <= rounds <= MAX_ROUNDS:
+        raise ValueError(f"probe_accum_run_skip: {rounds} rounds; the "
+                         f"kernel stages rows for at most {MAX_ROUNDS}")
+    if _kernels.on_cpu(idx, vals):
+        return run_skip_ref(idx, vals, out_rows, rounds)
+    out = _launch_tiled("probe_accum_run_skip", idx, vals, out_rows, TILE,
+                        rounds)
+    probe_accum_run_skip.launches += 1
+    return out
+
+
+# Launch counts of the five kernels (the CPU path never adds to them).
 probe_accum.launches = 0
 probe_accum_bf16x2.launches = 0
 probe_accum_pair_merged.launches = 0
 probe_accum_run_merge.launches = 0
+probe_accum_run_skip.launches = 0

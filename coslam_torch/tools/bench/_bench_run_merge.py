@@ -6,16 +6,21 @@ Counterpart of tools/bench/_bench_run_merge.py (K11 `_merge_kernel`, K12
 projected onto one plane section at r in {140, 311} (r^2 rows, W = 8;
 ``make_stream`` as the JAX probe makes them), where consecutive samples
 of a ray often land in one cell. "shipped" is the port's row accumulate
-(kernel F, atomic; kernel H, deterministic); "merge" is kernel S
-(flush-on-change over each thread's span of updates); "skip" is the
-torch segmented suffix scan (``run_merge_outside``) and kernel P, which
-skips the sentinel entries; "plain" is S's plain version (index_add_).
-Every variant is held to shipped F within the sum-order bound and raises
-beyond it. Prints the adjacent-duplicate fraction and
-run lengths, each variant's largest difference from shipped F, ms,
-M upd/s and speedup, the bound and index_add_'s time on the same
-updates, and the rows of atomics S issues against shipped's one per
-update.
+(kernel F, atomic; kernel H, deterministic); "merge" is kernel S (each
+run of equal adjacent idx in a block's tile of updates summed in shared
+memory and added once), at each tile; "skip" is kernel V (the segmented
+suffix scan and the skip of its sentinels in one launch); "skip (scan +
+P)" is the route V replaced, the torch scan (``run_merge_outside``) and
+kernel P, which skips the sentinels; "plain" is S's plain version
+(index_add_). Every variant is held to shipped F within the sum-order
+bound and raises beyond it. Prints the adjacent-duplicate fraction and
+run lengths, each variant's largest difference from shipped F, ms
+(CUDA events around back-to-back calls, the host's cost included), M
+upd/s and speedup; S's and V's ms on the card alone (a CUDA graph of the
+calls, their zero fill included); the bound, index_add_ into a zeroed
+buffer (events and graph) and torch.zeros + index_add_ (graph: the same
+work as S and V with their zero fill); and the rows of atomics S and V
+issue against shipped's one per update.
 
     python -m coslam_torch.tools.bench._bench_run_merge [--quick]
 """
@@ -27,11 +32,12 @@ import torch
 
 from ...ops import probe_accum as PA
 from ...ops import serial_scatter as SS
+from ..kernel_times import graph_ms
 from . import _common as C
 
 W = 8          # 4 corners x F=2, the cell-scatter width
 RS = (140, 311)
-SPANS = (4, 16, 64)
+TILES = (64, 128, 256, 512)
 SMALL_RAYS = 64
 
 
@@ -60,8 +66,9 @@ def make_stream(r: int, n_rays=2304, n_uniform=16, n_range=11,
     return idx, vals
 
 
-def skip_accum(idx, vals, rows: int):
-    """The suffix scan, then kernel P skipping the sentinel rows + 1."""
+def skip_scan_p(idx, vals, rows: int):
+    """The route kernel V replaced: the suffix scan in torch, then kernel
+    P skipping the sentinel rows + 1."""
     s_idx, s_vals = PA.run_merge_outside(idx, vals, rows)
     return PA.probe_accum(s_idx, s_vals, rows + 1, rows=True, vec=4)
 
@@ -70,7 +77,7 @@ def run(device, quick: bool = False, small: bool = False,
         timed: bool = True) -> dict:
     """Every variant at both resolutions once against shipped F (and
     timed); prints the lines, returns {r: results}."""
-    spans = SPANS[1:2] if quick else SPANS
+    tiles = (PA.TILE,) if quick else TILES
     out = {}
     for r in RS:
         idx_np, vals_np = make_stream(r, n_rays=SMALL_RAYS if small
@@ -87,12 +94,13 @@ def run(device, quick: bool = False, small: bool = False,
         idx, vals = C.tensor(idx_np, device), C.tensor(vals_np, device)
         calls = {"shipped F": lambda: SS.row_accum(idx, vals, rows, False),
                  "shipped H": lambda: SS.row_accum(idx, vals, rows, True)}
-        for span in spans:
-            calls[f"merge span={span}"] = (
-                lambda span=span: PA.probe_accum_run_merge(
-                    idx, vals, rows + 1, span=span))
-        calls["skip"] = lambda: skip_accum(idx, vals, rows)
-        calls["plain"] = lambda: PA.probe_accum_ref(idx, vals, rows + 1)
+        for tile in tiles:
+            calls[f"merge tile={tile}"] = (
+                lambda tile=tile: PA.probe_accum_run_merge(
+                    idx, vals, rows + 1, tile=tile))
+        calls["skip"] = lambda: PA.probe_accum_run_skip(idx, vals, rows + 1)
+        calls["skip (scan + P)"] = lambda: skip_scan_p(idx, vals, rows)
+        calls["plain"] = lambda: PA.run_merge_ref(idx, vals, rows + 1)
         base = calls["shipped F"]()
         res = C.run_variants(calls, base,
                              C.sum_order_tol(idx, vals, rows + 1), timed,
@@ -104,17 +112,34 @@ def run(device, quick: bool = False, small: bool = False,
                 text += f" ({res['shipped F']['ms'] / x['ms']:.2f}x)"
             line.append(text)
         print("  " + "   ".join(line), flush=True)
-        buf = torch.zeros_like(base)
-        library = (C.time_ms(lambda: buf.index_add_(0, idx, vals), quick)
-                   if timed else None)
+        library = {}
+        if timed:
+            for label in [f"merge tile={tile}" for tile in tiles] + ["skip"]:
+                res[label]["graph_ms"] = graph_ms(calls[label])
+            buf = torch.zeros_like(base)
+            add = lambda: buf.index_add_(0, idx, vals)  # noqa: E731
+            library = {"library_ms": C.time_ms(add, quick),
+                       "library_graph_ms": graph_ms(add),
+                       "library_zeroed_ms": graph_ms(
+                           lambda: torch.zeros_like(base).index_add_(
+                               0, idx, vals))}
+            print("  graph " + ", ".join(
+                f"{label} {x['graph_ms']:.4f} ms"
+                for label, x in res.items() if "graph_ms" in x)
+                + f"; index_add_ {library['library_graph_ms']:.4f} ms, "
+                f"torch.zeros + index_add_ "
+                f"{library['library_zeroed_ms']:.4f} ms", flush=True)
         bounds = {"the accumulate": C.accum_bound(m, W, base.numel())}
-        print(C.bound_line(bounds, library), flush=True)
-        flushes = {span: PA.adjacent_runs(idx, span) for span in spans}
-        print("  S rows of atomics: "
-              + ", ".join(f"span {s}: {f} of {m} ({100 * (1 - f / m):.1f} % "
-                          "saved)" for s, f in flushes.items()), flush=True)
-        out[r] = {"adjacent_dup": dup, "flushes": flushes, "m": m, **res,
-                  "bounds": bounds, "library_ms": library}
+        print(C.bound_line(bounds, library.get("library_ms")), flush=True)
+        flushes = {tile: PA.adjacent_runs(idx, tile) for tile in tiles}
+        skip_rows = PA.adjacent_runs(idx)
+        print("  rows of atomics: "
+              + ", ".join(f"S tile {t}: {f}" for t, f in flushes.items())
+              + f", V: {skip_rows}, of {m} updates (S tile {tiles[0]} saves "
+              f"{100 * (1 - flushes[tiles[0]] / m):.1f} %)", flush=True)
+        out[r] = {"adjacent_dup": dup, "flushes": flushes,
+                  "skip_rows": skip_rows, "m": m, **res, "bounds": bounds,
+                  **library}
     return out
 
 

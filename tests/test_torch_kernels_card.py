@@ -5,7 +5,7 @@ hash grid; A, C, E and D also on ray-ordered points, E also at the Dense
 grid's 4 levels; A and C also on a side stream, in a CUDA graph, and
 refusing what they do not take), the row accumulate F (atomic) and H
 (deterministic, also on adversarial streams), and the probes' kernels
-P, Q, R and S (bottom of the file). This file imports no jax, so it also
+P, Q, R, S and V (bottom of the file). This file imports no jax, so it also
 runs on a machine with the card and without the JAX package's
 dependencies:
 
@@ -770,32 +770,99 @@ def test_probe_pair_merged_kernel_matches_plain_version(cuda_device, width):
                                    **TABLE_TOL)
 
 
+def _check_run_skip(got, idx, vals, rows):
+    """Kernel V's output [rows + 1, W] within the sum-order bound of the
+    exact sum of its plain version's scanned first entries (the kernel
+    scans bit for bit, then adds a row's first entries in any order), and
+    at TABLE_TOL to the plain version."""
+    s_idx, s_vals = PA.run_merge_outside(idx, vals, rows)
+    keep = (s_idx <= rows).cpu().numpy()
+    _assert_within_sum_order(got, s_idx.cpu().numpy()[keep],
+                             s_vals.cpu().numpy()[keep], rows)
+    torch.testing.assert_close(got, PA.run_skip_ref(idx, vals, rows + 1),
+                               **TABLE_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [140, 311])
-@pytest.mark.parametrize("width,span", [(8, 16), (8, 1), (6, 64), (3, 7),
-                                        (16, 1000)])
+@pytest.mark.parametrize("width,tile", [(8, 128), (8, 32), (6, 64), (3, 256),
+                                        (16, 512)])
 def test_probe_run_merge_kernel_matches_plain_version(cuda_device, r, width,
-                                                      span):
-    """Kernel S (float4, float2 or scalar atomics, by W) on the run-merge
-    probe's ray-ordered streams: within the sum-order bound and at
-    TABLE_TOL to its plain version; and the skip route (suffix scan +
-    kernel P) likewise."""
+                                                      tile):
+    """Kernel S (float4, float2 or scalar atomics, by W) at each tile on
+    the run-merge probe's ray-ordered streams: within the sum-order bound
+    and at TABLE_TOL to its plain version; kernel V and the route it
+    replaced (suffix scan + kernel P) likewise."""
     from coslam_torch.tools.bench import _bench_run_merge as RM
 
     ids, _ = RM.make_stream(r)
     rows = r * r
     idx = torch.from_numpy(ids).to(cuda_device)
     vals = torch.randn(ids.shape[0], width, device=cuda_device)
-    launches = PA.probe_accum_run_merge.launches
-    got = PA.probe_accum_run_merge(idx, vals, rows + 1, span=span)
+    launches = (PA.probe_accum_run_merge.launches,
+                PA.probe_accum_run_skip.launches)
+    got = PA.probe_accum_run_merge(idx, vals, rows + 1, tile=tile)
+    skip = PA.probe_accum_run_skip(idx, vals, rows + 1)
     torch.cuda.synchronize()
-    assert PA.probe_accum_run_merge.launches == launches + 1
+    assert (PA.probe_accum_run_merge.launches,
+            PA.probe_accum_run_skip.launches) == (launches[0] + 1,
+                                                  launches[1] + 1)
     _assert_within_sum_order(got, ids, vals.cpu().numpy(), rows)
-    ref = PA.probe_accum_ref(idx, vals, rows + 1)
+    ref = PA.run_merge_ref(idx, vals, rows + 1)
     torch.testing.assert_close(got, ref, **TABLE_TOL)
-    s_idx, s_vals = PA.run_merge_outside(idx, vals, rows)
-    skip = PA.probe_accum(s_idx, s_vals, rows + 1, rows=True)
+    _check_run_skip(skip, idx, vals, rows)
     torch.testing.assert_close(skip, ref, **TABLE_TOL)
+    s_idx, s_vals = PA.run_merge_outside(idx, vals, rows)
+    route = PA.probe_accum(s_idx, s_vals, rows + 1, rows=True)
+    torch.testing.assert_close(route, ref, **TABLE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, PA.TILE - 1, PA.TILE, PA.TILE + 1, 62_208])
+@pytest.mark.parametrize("width", [3, 6, 8, 16])
+def test_probe_run_merge_and_skip_at_tile_edges(cuda_device, m, width):
+    """Kernels S and V on runs of 1-100 equal indices that cross the
+    tiles' boundaries (and V's 31-row halo), a few outside [0, rows]
+    (clipped), at M around one tile and at the probe's M: within the
+    sum-order bound and at TABLE_TOL to their plain versions, one launch a
+    call."""
+    rng = np.random.default_rng(width * 7 + m)
+    rows = 50_000
+    ids = np.repeat(rng.integers(-2, rows + 3, m),
+                    rng.integers(1, 101, m))[:m].astype(np.int32)
+    vals_np = rng.standard_normal((m, width)).astype(np.float32)
+    idx = torch.from_numpy(ids).to(cuda_device)
+    vals = torch.from_numpy(vals_np).to(cuda_device)
+    launches = (PA.probe_accum_run_merge.launches,
+                PA.probe_accum_run_skip.launches)
+    got = PA.probe_accum_run_merge(idx, vals, rows + 1)
+    skip = PA.probe_accum_run_skip(idx, vals, rows + 1)
+    torch.cuda.synchronize()
+    assert (PA.probe_accum_run_merge.launches,
+            PA.probe_accum_run_skip.launches) == (launches[0] + 1,
+                                                  launches[1] + 1)
+    _assert_within_sum_order(got, ids, vals_np, rows)
+    torch.testing.assert_close(got, PA.run_merge_ref(idx, vals, rows + 1),
+                               **TABLE_TOL)
+    _check_run_skip(skip, idx, vals, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [5, 3, 0])
+def test_probe_run_skip_bit_for_bit_on_single_runs(cuda_device, rounds):
+    """Kernel V equals its plain version bit for bit where every row takes
+    a single run (each row's one scanned total added onto 0.0): runs of
+    1-40 over distinct rows, so the scan's totals, the truncation at
+    2^rounds included, show exactly."""
+    rng = np.random.default_rng(rounds)
+    rows, n_runs = 200_000, 3000
+    heads = rng.permutation(rows)[:n_runs]
+    ids = np.repeat(heads, rng.integers(1, 41, n_runs)).astype(np.int32)
+    idx = torch.from_numpy(ids).to(cuda_device)
+    vals = torch.randn(ids.shape[0], 8, device=cuda_device)
+    got = PA.probe_accum_run_skip(idx, vals, rows + 1, rounds=rounds)
+    want = PA.run_skip_ref(idx.cpu(), vals.cpu(), rows + 1, rounds)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -811,6 +878,15 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):     # S keeps at most 16 in registers
         PA.probe_accum_run_merge(idx, torch.zeros((8, 17),
                                                   device=cuda_device), 9)
+    with pytest.raises(ValueError):     # S's tile: a multiple of 32
+        PA.probe_accum_run_merge(idx, vals.T.contiguous(), 9, tile=100)
+    rows8 = torch.zeros((8, 8), device=cuda_device)
+    for bad in (dict(vals=torch.zeros((8, 17), device=cuda_device)),
+                dict(idx=idx.long()), dict(rounds=6)):
+        args = dict(idx=idx, vals=rows8) | bad
+        with pytest.raises(ValueError):  # V: as S, and at most 5 rounds
+            PA.probe_accum_run_skip(args.pop("idx"), args.pop("vals"), 9,
+                                    **args)
 
 
 @pytest.mark.cuda
@@ -827,11 +903,13 @@ def test_probe_quick_runs_on_card(cuda_device, name):
     mod = importlib.import_module(f"coslam_torch.tools.bench.{name}")
     before = sum(f.launches for f in (PA.probe_accum, PA.probe_accum_bf16x2,
                                       PA.probe_accum_pair_merged,
-                                      PA.probe_accum_run_merge))
+                                      PA.probe_accum_run_merge,
+                                      PA.probe_accum_run_skip))
     mod.main(["--quick"])
     after = sum(f.launches for f in (PA.probe_accum, PA.probe_accum_bf16x2,
                                      PA.probe_accum_pair_merged,
-                                     PA.probe_accum_run_merge))
+                                     PA.probe_accum_run_merge,
+                                     PA.probe_accum_run_skip))
     assert after > before
 
 

@@ -1,5 +1,5 @@
-"""The probes' kernels (coslam_torch.ops.probe_accum, kernels P, Q, R, S)
-against the JAX package's Pallas probes K5-K12 of tools/bench/.
+"""The probes' kernels (coslam_torch.ops.probe_accum, kernels P, Q, R, S,
+V) against the JAX package's Pallas probes K5-K12 of tools/bench/.
 
 Each probe module is loaded by path (nothing under tools/ is edited) and
 its kernel body wrapped here in a pallas_call with the probe's own
@@ -13,9 +13,9 @@ Tolerance: none for K5, K8, K9 (f32 and packed bf16), K10 and K7's pair
 form: both sides add every row's updates serially in update order from
 0.0, and the port's pair form keeps that order across the two rows of a
 pair. K6 and K12 are exact too (the pre-passes are the same f32 adds,
-and both kernels add in pair or update order). K11 regroups: the TPU
-kernel adds each run's sum, the plain version (index_add_) each update,
-so rtol 1e-5, atol 1e-5.
+and both kernels add in pair or update order; kernel V's plain version is
+K12's scan and skip). K11 regroups: the TPU kernel adds each run's sum,
+the plain version (index_add_) each update, so rtol 1e-5, atol 1e-5.
 """
 
 import importlib.util
@@ -301,6 +301,102 @@ def test_k12_skip_equals_suffix_scan_and_plain_p():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_k11_clip_rule_equals_merge_accum():
+    """Kernel S clips idx into [0, rows] as merge_accum does before K11
+    (a negative idx adds into row 0, one past the slack row into the slack
+    row): indices -3, -1, rows and rows + 5 among a ray-ordered stream,
+    through jnp.clip and _merge_kernel in interpret mode, against S on the
+    CPU, rtol/atol 1e-5."""
+    mod = _probe("_bench_run_merge")
+    r = 14
+    rows = r * r
+    idx, vals = _ray_stream(r)
+    m = idx.shape[0] // CHUNK * CHUNK
+    idx, vals = idx[:m].copy(), vals[:m]
+    idx[[3, 4, 40, 41, 42, 300, 301, 900]] = [-3, -3, -1, 0, rows, rows + 5,
+                                             rows, rows + 5]
+    clipped = np.asarray(jnp.clip(jnp.asarray(idx), 0, rows))
+    want = _interpret(partial(mod._merge_kernel, CHUNK, rows), (rows + 1, 8),
+                      clipped, vals,
+                      scratch=(pltpu.VMEM((1, 8), jnp.float32),
+                               pltpu.SMEM((1,), jnp.int32)))
+    got = PA.probe_accum_run_merge(_t(idx), _t(vals), rows + 1).numpy()
+    np.testing.assert_allclose(got, want, **REGROUPED)
+    # Row 0 and the slack row took the clipped updates.
+    skipped = PA.probe_accum_ref(_t(idx), _t(vals), rows + 1).numpy()
+    assert not np.allclose(got[0], skipped[0])
+    assert not np.allclose(got[rows], skipped[rows])
+
+
+def _skip_stream(name):
+    """The three K12 streams of kernel V's tests, M a multiple of the
+    chunk: the 64-ray stream at r = 14; a stream in runs of 1-5 over 512
+    rows with a run of 40 equal indices at 100 (the scan's 5 rounds reach
+    32 of them); one whose last run of 9 ends at M."""
+    if name == "rays64":
+        idx, vals = _ray_stream(14)
+        m = idx.shape[0] // CHUNK * CHUNK
+        return idx[:m], vals[:m], 14 * 14
+    rows, m = 512, 2 * CHUNK
+    idx = _idx(m, rows, 21, runs=True)
+    if name == "run_of_40":
+        idx[100:140] = rows - 1
+        idx[99] = idx[140] = 7
+    else:
+        idx[-9:] = 5
+        idx[-10] = 6
+    return idx, _streams(8, m, 22).T.copy(), rows
+
+
+@pytest.mark.parametrize("name", ["rays64", "run_of_40", "last_run_ends_at_m"])
+def test_k12_run_skip_equals_jax_scan_and_skip(name):
+    """Kernel V on the CPU (its plain version) against K12 as the JAX probe
+    runs it, run_merge_outside then _skip_kernel in interpret mode, bit
+    for bit: the run of 40 adds only its first 32 updates, as on the
+    TPU."""
+    mod = _probe("_bench_run_merge")
+    idx, vals, rows = _skip_stream(name)
+    j_idx, j_vals = mod.run_merge_outside(jnp.asarray(idx), jnp.asarray(vals),
+                                          rows)
+    want = _interpret(partial(mod._skip_kernel, CHUNK, rows), (rows + 1, 8),
+                      np.asarray(j_idx), np.asarray(j_vals))
+    got = PA.probe_accum_run_skip(_t(idx), _t(vals), rows + 1).numpy()
+    np.testing.assert_array_equal(got, want)
+    if name == "run_of_40":
+        first32 = np.float32(0) + vals[100:132].astype(np.float64).sum(0)
+        np.testing.assert_allclose(got[rows - 1], first32, **REGROUPED)
+        full = PA.run_merge_ref(_t(idx), _t(vals), rows + 1).numpy()
+        assert not np.allclose(got[rows - 1], full[rows - 1], **REGROUPED)
+    if name == "last_run_ends_at_m":
+        np.testing.assert_allclose(got[5], vals[-9:].sum(0), **REGROUPED)
+
+
+def test_run_skip_refuses_what_its_kernel_does_not_take():
+    """Kernel V's wrapper refuses more than 5 rounds on any device (its
+    blocks stage 31 rows past a tile), and, off the CPU, rows wider than
+    16, an int64 index and a tile S does not take; no launch is
+    counted."""
+    idx = torch.zeros(8, dtype=torch.int32)
+    vals = torch.zeros((8, 8))
+    with pytest.raises(ValueError, match="rounds"):
+        PA.probe_accum_run_skip(idx, vals, 9, rounds=6)
+    meta = idx.to("meta"), vals.to("meta")
+    for bad, message in (
+            (dict(vals=torch.empty((8, 17), device="meta")), "W <= 16"),
+            (dict(idx=torch.zeros(8, dtype=torch.int64, device="meta")),
+             "int32"),
+            (dict(rounds=6), "rounds")):
+        args = dict(zip(("idx", "vals"), meta)) | bad
+        with pytest.raises(ValueError, match=message):
+            PA.probe_accum_run_skip(args.pop("idx"), args.pop("vals"), 9,
+                                    **args)
+    for tile in (16, 100, 1024):
+        with pytest.raises(ValueError, match="tile"):
+            PA.probe_accum_run_merge(*meta, 9, tile=tile)
+    assert PA.probe_accum_run_skip.launches == 0
+    assert PA.probe_accum_run_merge.launches == 0
+
+
 def test_skip_rule_and_pair_bounds():
     """An update whose row is not inside the output is skipped: negative
     idx and idx past the last row; in the pair form, idx whose second row
@@ -318,11 +414,11 @@ def test_skip_rule_and_pair_bounds():
 
 def test_adjacent_runs_counts_s_flushes():
     """Kernel S's rows of atomics: one per run, and one more for every
-    run cut by a span boundary."""
+    run cut by a tile boundary."""
     idx = _t(np.array([3, 3, 3, 1, 1, 2, 2, 2, 2, 5], np.int32))
     assert PA.adjacent_runs(idx) == 4
-    assert PA.adjacent_runs(idx, span=4) == 6   # cut at 4 and at 8
-    assert PA.adjacent_runs(idx, span=2) == 8
+    assert PA.adjacent_runs(idx, tile=4) == 6   # cut at 4 and at 8
+    assert PA.adjacent_runs(idx, tile=2) == 8
 
 
 @pytest.mark.parametrize("module", [_bench_row_rates,
@@ -361,9 +457,12 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
         PA.probe_accum_pair_merged(idx, idx, idx, vals, vals, 9)
     with pytest.raises(ValueError):
         PA.probe_accum_run_merge(idx, vals.T, 9)
+    with pytest.raises(ValueError):
+        PA.probe_accum_run_skip(idx, vals.T, 9)
     assert (PA.probe_accum.launches, PA.probe_accum_bf16x2.launches,
             PA.probe_accum_pair_merged.launches,
-            PA.probe_accum_run_merge.launches) == (0, 0, 0, 0)
+            PA.probe_accum_run_merge.launches,
+            PA.probe_accum_run_skip.launches) == (0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("stride", [None, 2])
