@@ -38,14 +38,20 @@ Run from the repository root. Phases, each printing its own lines:
    bit-identical over two calls
    and bit for bit equal to a serial np.add.at on the host at every case,
    F and H and index_add_ also under a CUDA graph, and H's three phases
-   (sort, run starts, walk) each timed alone, and kernel S once on F's
-   ray-ordered stream (W = 2; S's time beside F's and index_add_'s, with
-   the stream's adjacent-duplicate fraction: whether a run flush would
-   pay in F); then the probes' kernels P (scalar and float4 atomics), Q,
-   R, S and V (coslam_torch/csrc/probe_accum.cu) at each probe's main
-   shape against their plain versions (V also bit for bit on a stream
-   where each row takes one run), and P's pair form and skip rule, timed
-   on the card alone by CUDA graphs of the calls; then the serial modes of B, D
+   (sort, run starts, walk) each timed alone; then
+   the probes' kernels P (scalar and float4 atomics), Q, R, S (P with its
+   clip rule) and V
+   (coslam_torch/csrc/probe_accum.cu) at each probe's main shape against
+   their plain versions (V also bit for bit on a stream where each row
+   takes one run), P also at K5's shape on its random and runs streams
+   beside index_add_, and P's pair form and skip rule, timed on the card
+   alone by CUDA graphs of the calls; then the warp merge of P, F and U
+   on inputs built to break it: P in every form and F on streams of one
+   row, runs of 31, 32 and 33 across the warps' steps, a run that ends
+   the stream, and runs outside the rows at both ends, M = 100,003 and W
+   = 1-16, and U on the BA 1-keyframe count of points in one cell of
+   every level (timed), each within the sum-order bound of its plain
+   version; then the serial modes of B, D
    and U (K2 and K3 in the TPU kernels' serial order) at the BA 1-keyframe
    case and on the ray-ordered points: the same bits over two calls and
    a CUDA graph replay, within the sum-order bound of the plain version,
@@ -115,8 +121,13 @@ larger of the bytes it must move (each input read once, each output
 written once; table rows counted as those this run's points touch) over
 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 
-The last three lines are the card's name and power limit as nvidia-smi
-prints them, the kernels' JSON record and
+The rows of atomics that the warp merges of F, P (at K5's shape) and S
+should issue, and U's row-pair adds, are not read from the kernels: they
+come from host models of the merge (``probe_accum.warp_runs``,
+``triplane.row_pair_adds``), worked out from the indices, and are printed
+on a line of their own before the last three, apart from the kernels'
+record. The last three lines are the card's name and power limit as
+nvidia-smi prints them, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Any failure raises: the script then
 exits non-zero before those lines. Without a CUDA device it exits
 non-zero at once.
@@ -152,6 +163,15 @@ from coslam_torch.tools.kernel_times import (  # noqa: E402
     graph_ms as _graph_ms, time_ms as _time_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# {kernel name: {count: value}}: the rows of atomics a kernel's warp merge
+# should issue, from a host model worked out from its indices (not a
+# reading of the kernel); printed apart from the kernels' record.
+HOST_MODEL: dict = {}
+
+
+def _host_model(name: str, **counts) -> None:
+    HOST_MODEL.setdefault(name, {}).update(counts)
 
 # Tolerances against the plain version. Forward: the same products in
 # the same order (FMA contraction moves the last bit). Backward: f32
@@ -537,6 +557,14 @@ class TriPlaneKernels:
     def l2_sectors(self, x, need_table, need_dx):
         return None, None     # no L2 figure kept for T and U
 
+    def row_atomics(self, x, key: str = "") -> dict:
+        """U's row-pair adds at points x (``triplane.row_pair_adds``: a
+        warp's runs of equal cell rows merged) and the 2 S N it would add
+        without the merge."""
+        return {key + "row_pair_adds": self.m.row_pair_adds(self.spec, x),
+                key + "row_pair_adds_unmerged": 2 * self.spec.n_levels
+                * x.shape[0]}
+
     def work(self, n, touched, need_table, need_dx):
         """Per (point, section): the v, then the u interpolation of F
         features (9 F operations) and ~14 for the cell and weights; the
@@ -670,7 +698,9 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None,
     gradient is held to that bound too (grids whose coarse rows take
     hundreds of uniform points each). With `l2` (``l2_rate``'s record), the
     kernels that have an L2 figure (``kernels.l2_sectors``: A, C, E, D) get
-    ``l2_ms`` and ``ray_l2_ms``: their sector accesses over that rate."""
+    ``l2_ms`` and ``ray_l2_ms``: their sector accesses over that rate.
+    For kernels with a host model of their atomics (``kernels.row_atomics``:
+    U) that count at both cases goes to ``HOST_MODEL``."""
     import torch
 
     from coslam_torch.tools.bench import _common as C
@@ -731,6 +761,9 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None,
                     times[name[-3:] + "_l2"] = out[name][key + "l2_ms"]
         line += [f"{k} {v:.4f} ms" for k, v in times.items()]
         print("  " + ", ".join(line), flush=True)
+        if key is not None and need_table and hasattr(kernels,
+                                                      "row_atomics"):
+            _host_model(bwd, **kernels.row_atomics(x, key))
         if label == timed[0]:
             work = kernels.work(n, kernels.touched_bytes(x, g), need_table,
                                 need_dx)
@@ -759,11 +792,9 @@ def check_accumulate(device, xk: XorKernels, cases: list, ray) -> dict:
     "ms", "plain_ms", ...}}, the times at the case with the most updates
     (events, and ``graph_ms`` from a CUDA graph of 20 calls), and at the
     ray-ordered case (``ray_ms``, ``ray_graph_ms``); H's per-phase times
-    at both (``phases``, ``ray_phases``). On the ray-ordered stream kernel
-    S too, held to the same bound, its times and rows of atomics beside
-    the stream's adjacent-duplicate fraction under F's record
-    (``ray_run_merge``): a measurement of whether a run flush would pay
-    in F, which stays as it is."""
+    at both (``phases``, ``ray_phases``). F's rows of atomics at both
+    (``probe_accum.warp_runs``, of the stream's updates) go to
+    ``HOST_MODEL``."""
     import torch
 
     from coslam_torch.ops import probe_accum as PA
@@ -825,21 +856,15 @@ def check_accumulate(device, xk: XorKernels, cases: list, ray) -> dict:
                 for rec in out.values():
                     rec.update(plain_ms=plain_ms,
                                **accum_bound(m, width, ref.numel()))
-        if label == RAY_CASE:
-            s_call = lambda: PA.probe_accum_run_merge(  # noqa: E731
-                idx, vals, rows + 1)
-            s_rec = {"max_abs_err": C.assert_within(f"{label} S", s_call(),
-                                                    ref, tol),
-                     "ms": _time_ms(s_call), "graph_ms": _graph_ms(s_call),
-                     "tile": PA.TILE, "updates": idx.shape[0],
-                     "adjacent_dup": float((idx[1:] == idx[:-1]).float()
-                                           .mean()),
-                     "row_atomics": PA.adjacent_runs(idx.clamp(0, rows),
-                                                     PA.TILE)}
-            out["row_accum_atomic"]["ray_run_merge"] = s_rec
-            line.append("S err {max_abs_err:.3g}, {ms:.4f} ms, graph "
-                        "{graph_ms:.4f} ms, adjacent-dup {adjacent_dup:.3f}, "
-                        "{row_atomics} rows of atomics".format(**s_rec))
+        if measure:
+            counts = {key + "updates": idx.shape[0],
+                      key + "adjacent_dup": float(
+                          (idx[1:] == idx[:-1]).float().mean()),
+                      key + "row_atomics": PA.warp_runs(idx, rows,
+                                                        clip=True)}
+            _host_model("row_accum_atomic", **counts)
+            line.append("F (host model) {} rows of atomics".format(
+                counts[key + "row_atomics"]))
         step = max(idx.shape[0] // 200_000, 1)
         sub_idx, sub_vals = idx[::step].contiguous(), vals[::step].contiguous()
         host = np.zeros((rows + 1, vals.shape[1]), np.float32)
@@ -869,7 +894,10 @@ def check_probes(device) -> dict:
     (``_graph_ms``: the card's time, no host cost; for S and V also
     ``library_zeroed_ms``, torch.zeros + index_add_ in one graph),
     ``call_ms`` with the host's (``_time_ms``), ``plain_ms`` likewise (the
-    plain versions wait on the card and cannot be captured)."""
+    plain versions wait on the card and cannot be captured). P also at
+    K5's shape (the cell-merge probe's random and runs streams, 524,288
+    updates, 8 streams, float4): its graph time beside index_add_'s
+    (``k5``; its rows of atomics go to ``HOST_MODEL``)."""
     import torch
 
     from coslam_torch.ops import probe_accum as PA
@@ -930,6 +958,30 @@ def check_probes(device) -> dict:
         accum_bound(m, w, ref.numel(), 2),
         setting="row rates W=8, 4 word streams, float4"))
     print(f"  row rates M={m} W={w}: " + ", ".join(line), flush=True)
+
+    # P at K5's shape (the cell-merge probe's 8 streams, float4) on its
+    # random and runs streams: the card's time beside index_add_'s, and
+    # P's rows of atomics.
+    vals = _tensor(device, rng.standard_normal((CM.WIDTH, CM.N)))
+    k5 = out["probe_accum"]["k5"] = {}
+    for name, ids in CM.streams(CM.ROWS, CM.N).items():
+        idx = _itensor(device, ids)
+        call = lambda: PA.probe_accum(idx, vals, CM.ROWS + 1,  # noqa: E731
+                                      vec=4)
+        ref = PA.probe_accum_ref(idx, vals.T, CM.ROWS + 1)
+        err = check(PA.probe_accum, call(), ref,
+                    C.sum_order_tol(idx, vals.T, CM.ROWS + 1), f"P K5 {name}")
+        buf = torch.zeros_like(ref)
+        k5[name] = {"ms": _graph_ms(call), "library_ms": _graph_ms(
+                        lambda: buf.index_add_(0, idx, vals.T)),
+                    **accum_bound(CM.N, CM.WIDTH, ref.numel())}
+        rows_k5 = PA.warp_runs(idx, CM.ROWS)
+        _host_model("probe_accum", **{f"k5_{name}_updates": CM.N,
+                                      f"k5_{name}_row_atomics": rows_k5})
+        print(f"  K5 {name} M={CM.N} W={CM.WIDTH}: {err}, graph "
+              f"{k5[name]['ms']:.4f} ms, index_add_ graph "
+              f"{k5[name]['library_ms']:.4f} ms, (host model) {rows_k5} "
+              "rows of atomics", flush=True)
 
     # P's pair form: the chunk probe at its larger scale, as --quick runs it.
     rows, m = CT.ROWS, CT.MS[-1]
@@ -999,9 +1051,12 @@ def check_probes(device) -> dict:
         lambda: PA.probe_accum_run_merge(idx, vals, rows + 1),
         lambda: PA.run_merge_ref(idx, vals, rows + 1), library,
         accum_bound(m, w, ref.numel()),
-        setting=f"run merge r=311, tile {PA.TILE}, float4",
-        row_atomics=PA.adjacent_runs(idx, PA.TILE), updates=m,
+        setting="run merge r=311, kernel P with its clip rule, rows, float4",
         library_zeroed_ms=_graph_ms(zeroed)))
+    n_runs = 1 + int((idx[1:] != idx[:-1]).sum())
+    _host_model("probe_accum_run_merge", updates=m,
+                row_atomics=PA.warp_runs(idx, rows, clip=True))
+    _host_model("probe_accum_run_skip", updates=m, row_atomics=n_runs)
     line.append("V " + timed(
         PA.probe_accum_run_skip,
         lambda: PA.probe_accum_run_skip(idx, vals, rows + 1),
@@ -1010,9 +1065,103 @@ def check_probes(device) -> dict:
               (PA.MAX_ROUNDS + 1) * m * w),
         setting=f"run skip r=311, {PA.MAX_ROUNDS} rounds, tile {PA.TILE}, "
                 "float4",
-        row_atomics=PA.adjacent_runs(idx), updates=m,
         library_zeroed_ms=_graph_ms(zeroed)))
     print(f"  run merge r={r} M={m}: " + ", ".join(line), flush=True)
+    return out
+
+
+def check_warp_runs(device, tk: TriPlaneKernels, n_points: int) -> dict:
+    """Kernels P, F and U on inputs built to catch a faulty warp merge
+    (each warp sums its runs of equal rows before its atomics), each held
+    to its plain version within the sum-order bound: P in every form
+    (streams and rows at every vector width that divides W, with 1 and 4
+    updates a thread, the pair form, the skip rule and the clip rule) and
+    F, on each of ``_common.WARP_EDGE_STREAMS`` at M = 100,003 (the last
+    step short) for W = 1, 2, 4, 8 and 16; U, dtable and dx, on
+    `n_points` points that lie in one cell of every plane level (each
+    warp one run a section), timed there (events and graph; its row-pair
+    adds go to ``HOST_MODEL``). Returns {kernel name: {"max_abs_err"} and U's
+    ``one_cell`` record}."""
+    import torch
+
+    from coslam_torch.ops import probe_accum as PA
+    from coslam_torch.ops import serial_scatter as SS
+    from coslam_torch.tools.bench import _common as C
+
+    rng = np.random.default_rng(4)
+    m, rows = 100_003, 5000
+    out = {name: {"max_abs_err": 0.0} for name in (
+        "probe_accum", "row_accum_atomic", tk.bwd_fn.__name__)}
+
+    def held(name, label, got, ref, tol):
+        e = C.assert_within(label, got, ref, tol)
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+
+    for stream in C.WARP_EDGE_STREAMS:
+        idx = _itensor(device, C.warp_edge_stream(stream, m, rows))
+        clipped = idx.clamp(0, rows)
+        calls = 0
+        for width in (1, 2, 4, 8, 16):
+            vals = _tensor(device, rng.standard_normal((m, width)))
+            streams = vals.T.contiguous()
+            ref = PA.probe_accum_ref(idx, vals, rows + 1)
+            tol = C.sum_order_tol(idx, vals, rows + 1)
+            for vec in sorted({1, PA.widest_vec(width)}):
+                for upt, threads in ((1, 256), (4, 128)):
+                    for layout, v in (("streams", streams), ("rows", vals)):
+                        held("probe_accum", f"P {stream} W={width} {layout} "
+                             f"vec{vec} upt={upt}", PA.probe_accum(
+                                 idx, v, rows + 1, rows=layout == "rows",
+                                 vec=vec, upt=upt, threads=threads), ref, tol)
+                        calls += 1
+            if width % 2 == 0:
+                stride = width // 2
+                held("probe_accum", f"P {stream} W={width} pair form",
+                     PA.probe_accum(idx, streams, rows + 1, stride=stride,
+                                    vec=PA.widest_vec(stride)),
+                     PA.probe_accum_ref(idx, vals, rows + 1, stride),
+                     C.sum_order_tol(idx, vals, rows + 1, stride))
+                calls += 1
+            ref = SS.row_accum_ref(idx, vals, rows)
+            tol = C.sum_order_tol(clipped, vals, rows + 1)
+            held("probe_accum", f"P {stream} W={width} clip rule, streams",
+                 PA.launch_accum("probe_accum", idx, streams, width, m,
+                                 rows + 1, width, PA.widest_vec(width), 1,
+                                 256, False, False, clip=True), ref, tol)
+            held("row_accum_atomic", f"F {stream} W={width}",
+                 SS.row_accum_atomic(idx, vals, rows), ref, tol)
+            calls += 2
+        print(f"  {stream} M={m}: {calls} calls of P and F within the "
+              f"sum-order bound; (host model) P {PA.warp_runs(idx, rows)} "
+              f"rows of atomics (skip rule), F "
+              f"{PA.warp_runs(idx, rows, clip=True)}",
+              flush=True)
+
+    # U: points in one cell of every level (a random corner, then within
+    # 1e-6 of it; redrawn until no cell boundary of any level falls in
+    # between).
+    spec = tk.spec
+    while True:
+        x = _tensor(device, C.one_cell_points(n_points, rng))
+        e00 = tk.m._corners(spec, x)[0]
+        if bool((e00 == e00[:, :1]).all()):
+            break
+    g = _tensor(device, rng.standard_normal((n_points, spec.out_dim)))
+    got, ref = tk.bwd(x, g, True, True), tk.bwd(x, g, True, True, plain=True)
+    held(tk.bwd_fn.__name__, "U one cell dtable", got["dtable"],
+         ref["dtable"], tk.table_tol(x, g)["dtable"])
+    torch.testing.assert_close(got["dx"], ref["dx"], **DX_TOL)
+    call = lambda: tk.bwd(x, g, True, False)  # noqa: E731
+    rec = out[tk.bwd_fn.__name__]["one_cell"] = {
+        "points": n_points, "ms": _time_ms(call), "graph_ms": _graph_ms(call)}
+    counts = tk.row_atomics(x, "one_cell_")
+    _host_model(tk.bwd_fn.__name__, **counts)
+    print("  U one cell N={points}: dtable within the sum-order bound, dx "
+          "as the plain version's, {ms:.4f} ms, graph {graph_ms:.4f} ms, "
+          "(host model) {one_cell_row_pair_adds} row-pair adds "
+          "({one_cell_row_pair_adds_unmerged} unmerged)".format(**rec,
+                                                                **counts),
+          flush=True)
     return out
 
 
@@ -1591,6 +1740,12 @@ def main() -> int:
     _phase(f"kernels against the plain versions: {PROBE_SOURCE}")
     for name, rec in check_probes(device).items():
         measured[name] = {"source": PROBE_SOURCE, **PROBE_RECORD[name], **rec}
+    _phase("the warp merge of P, F and U: adversarial streams and points")
+    ba1 = [c for c in hybrid_cases if c[0] == "BA 1 kf"][0]
+    for name, rec in check_warp_runs(device, tk, ba1[1]).items():
+        measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
+                                            rec.pop("max_abs_err"))
+        measured[name].update(rec)
 
     from coslam_torch.ops import probe_accum as PA
 
@@ -1691,6 +1846,9 @@ def main() -> int:
                 **{key: rec[key] for key in first[2:]},
                 **{key: v for key, v in rec.items() if key not in first}}
                for name, rec in measured.items()]
+    print("host model, not read from the kernels: the rows of atomics "
+          "their warp merges should issue, from the indices: "
+          + json.dumps(HOST_MODEL))
     print(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

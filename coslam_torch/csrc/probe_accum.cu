@@ -17,11 +17,13 @@
 //     2p = the low half): _bench_row_rates.py:_kernel_pk (K9) and
 //     _bench_scatter_variants.py:_kernel_packed_bf16 (K10, pair form).
 //   R probe_accum_pair_merged: _bench_cell_merge.py:_kernel_merged (K6).
-//   S probe_accum_run_merge: _bench_run_merge.py:_merge_kernel (K11).
+//   S probe_accum_run_merge: _bench_run_merge.py:_merge_kernel (K11),
+//     which is P with its clip rule, rows [M, W] and the widest vector
+//     atomic dividing W (launch_accum): P's warp merge is K11's flush on
+//     change.
 //   V probe_accum_run_skip: _bench_run_merge.py:_skip_kernel (K12) with
 //     the segmented suffix scan before it (run_merge_outside) fused in.
-// P, with `clip` set, rows [M, W] and the widest vector atomic dividing W,
-// is also kernel F, the atomic row accumulate of the main path
+// P in that form is also kernel F, the atomic row accumulate of the main path
 // (coslam_torch/ops/serial_scatter.py:row_accum; it replaces K4,
 // coslam_tpu/ops/hash_pallas.py:_scatter_kernel, and K3's generic form).
 //
@@ -31,35 +33,43 @@
 // the whole W-wide row lies inside out), the sentinel rule of K12; the
 // probes clip idx into the slack row before the call, as their JAX
 // callers do. With `clip` (kernel F), P clips idx into [0, max_idx]
-// itself: row max_idx is then the caller's slack row. S and V clip idx
-// into [0, max_idx] as K11's and K12's callers do (merge_accum,
-// run_merge_outside).
+// itself: row max_idx is then the caller's slack row, as K11's caller
+// (merge_accum) clips. V clips idx into [0, max_idx] as K12's caller
+// (run_merge_outside) does.
 //
 // What bounds them on this card: f32 atomics in L2 (the 65,536-98,305-row
 // accumulators of the probes, 0.5-3.1 MB, stay in the 50 MB L2), and
-// contention where many updates hit one row. Design: one thread takes
-// `upt` consecutive updates (P, Q: the counterpart of the probes' unroll;
-// the launch's threads per block are the counterpart of their chunk),
-// and adds each row with vector atomics where the alignment allows
-// (`vec` 4: atomicAdd on float4, 2: float2, both sm_90 and global memory
-// only; 1: scalar; a launch argument of P and Q, the widest that divides
-// W for R, S and V). R keeps the pre-pass (equal adjacent pairs merged)
-// in torch, as it was XLA, and is one thread per pair with the second
-// row's add predicated on take2.
+// contention where many updates hit one row: the atomics of one warp
+// instruction that hit one address are serialised there. All add each
+// row with vector atomics where the alignment allows (`vec` 4: atomicAdd
+// on float4, 2: float2, both sm_90 and global memory only; 1: scalar; a
+// launch argument of P and Q, the widest that divides W for R and V).
 //
-// S and V take a tile of `tile` consecutive updates a block (a multiple
-// of 32, at most 512), so the probes' 62,208 updates fill the card with
+// P's design: consecutive lanes of a warp take consecutive updates, so
+// the loads of an index or a value step are coalesced; a warp takes
+// 32 x `upt` updates, a thread its `upt` updates one warp-width apart (`upt`
+// and the launch's threads per block are the counterparts of the probes'
+// unroll and chunk). At each step the lanes compare their clipped (or
+// skipped) index with the previous lane's, and one ballot tells whether
+// the warp holds a run of equal indices (warp_runs.cuh). A warp without
+// one, as on uniform points, adds one row of atomics an update. A warp
+// with runs sums each run's rows in registers by a segmented log-step
+// shuffle sum, and the run's first lane adds one row of atomics for it;
+// a run that crosses a warp boundary costs one row a warp piece. On the
+// ray-ordered streams that F sums (the samples of a ray share the coarse
+// levels' cells) that removes the same-address atomics of a warp.
+// Q keeps the earlier design: one thread takes `upt` consecutive
+// updates. R keeps the pre-pass (equal adjacent pairs merged) in torch,
+// as it was XLA, and is one thread per pair with the second row's add
+// predicated on take2.
+//
+// V takes a tile of `tile` consecutive updates a block (a multiple of
+// 32, at most 512), so the probes' 62,208 updates fill the card with
 // hundreds of blocks. A block stages its tile's rows in shared memory
 // with coalesced float4 loads (`stage_rows`; at W = 8 a warp reads 16
-// rows an instruction) and its clipped indices beside them. S is the
-// GPU's form of K11's flush-on-change: a run of equal adjacent indices
-// is summed once, by its head (the first update of the run in the tile),
-// one thread for each `vec`-wide piece of the row walking the run in
-// shared memory from its first value in update order, then one row of
-// vector atomics for the run (a run that crosses a tile boundary costs one
-// row a piece). V is K12 in one launch: the block also stages the 31 rows
-// after its tile (2^5 - 1, the reach of the scan's 5 rounds; zero values
-// and no link past M), runs the rounds of run_merge_outside's
+// rows an instruction) and its clipped indices beside them, and the 31
+// rows after its tile (2^5 - 1, the reach of the scan's 5 rounds; zero
+// values and no link past M). It runs the rounds of run_merge_outside's
 // Hillis-Steele suffix scan over them, one thread a position with its row
 // in registers and the shifted row read from shared memory, with the same
 // f32 adds in the same association (v + (link ? v_up : 0), round by
@@ -72,11 +82,12 @@
 
 #include <type_traits>
 
+#include "warp_runs.cuh"
+
 namespace {
 
-constexpr int kMaxRunWidth = 16;  // S and V keep a row piece in registers
-constexpr int kMaxTile = 512;     // S and V: updates a block, at most
-constexpr int kRunThreads = 256;  // S: threads a block
+constexpr int kMaxRunWidth = 16;  // V keeps a row piece in registers
+constexpr int kMaxTile = 512;     // V: updates a block, at most
 constexpr int kMaxRounds = 5;     // V: scan rounds, at most
 constexpr int kSkipHalo = (1 << kMaxRounds) - 1;  // V: rows staged past a tile
 
@@ -84,23 +95,14 @@ inline unsigned int n_blocks(int64_t n_threads, int threads) {
   return static_cast<unsigned int>((n_threads + threads - 1) / threads);
 }
 
-// Element e of update i: f32 in streams [W, M] or rows [M, W], or packed
-// bf16 in word streams [W / 2, M] (word p holds element 2p in its low and
-// 2p + 1 in its high half).
-template <bool BF16, bool ROWS>
-__device__ __forceinline__ float value(const void* __restrict__ vals,
-                                       int64_t m, int width, int64_t i,
-                                       int e) {
-  if constexpr (!BF16) {
-    const float* v = static_cast<const float*>(vals);
-    return ROWS ? __ldg(v + i * width + e) : __ldg(v + e * m + i);
-  } else {
-    static_assert(!ROWS, "packed bf16 comes as word streams");
-    const unsigned int* v = static_cast<const unsigned int*>(vals);
-    const unsigned int w = __ldg(v + (e >> 1) * m + i);
-    return (e & 1) ? __uint_as_float(w & 0xffff0000u)
-                   : __uint_as_float(w << 16);
-  }
+// Q: element e of update i of the packed bf16 word streams [W / 2, M]
+// (word p holds element 2p in its low and 2p + 1 in its high half).
+__device__ __forceinline__ float packed_value(const void* __restrict__ vals,
+                                              int64_t m, int64_t i, int e) {
+  const unsigned int* v = static_cast<const unsigned int*>(vals);
+  const unsigned int w = __ldg(v + (e >> 1) * m + i);
+  return (e & 1) ? __uint_as_float(w & 0xffff0000u)
+                 : __uint_as_float(w << 16);
 }
 
 // out[0:VEC] += v[0:VEC] as one vector atomic (dst aligned to VEC floats).
@@ -116,13 +118,83 @@ __device__ __forceinline__ void add_vec(float* dst, const float* v) {
   }
 }
 
-// Kernels P (BF16 false) and Q (BF16 true).
-template <int VEC, bool BF16, bool ROWS>
+// Row i's VEC values from e (e a multiple of VEC): f32 streams [W, M] or
+// rows [M, W], the rows by one vector load where vals is aligned to it.
+template <int VEC, bool ROWS>
+__device__ __forceinline__ void load_update(const float* __restrict__ v,
+                                            int64_t m, int width, int64_t i,
+                                            int e, bool aligned, float* x) {
+  if constexpr (ROWS && VEC == 4) {
+    if (aligned) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(v + i * width +
+                                                             e));
+      x[0] = q.x, x[1] = q.y, x[2] = q.z, x[3] = q.w;
+      return;
+    }
+  } else if constexpr (ROWS && VEC == 2) {
+    if (aligned) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(v + i * width +
+                                                             e));
+      x[0] = q.x, x[1] = q.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k)
+    x[k] = ROWS ? __ldg(v + i * width + e + k) : __ldg(v + (e + k) * m + i);
+}
+
+// Kernel P: f32 values, streams [W, M] or rows [M, W] (ROWS). Warp w
+// takes updates [32 upt w, 32 upt (w + 1)), 32 a step, lane l update
+// 32 k + l of step k; blockDim.x is a multiple of 32. A lane's key is its
+// update's row (clipped, or -1 where the skip rule drops it or past M).
+template <int VEC, bool ROWS>
 __global__ void probe_accum_kernel(const int* __restrict__ idx,
-                                   const void* __restrict__ vals,
+                                   const float* __restrict__ vals,
                                    float* __restrict__ out, int64_t m,
                                    int width, int stride, int max_idx,
                                    int upt, bool clip) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(vals) & (sizeof(float) * VEC - 1)) == 0;
+  for (int k = 0; k < upt; ++k) {
+    const int64_t first = (warp * upt + k) * 32;
+    if (first >= m) break;  // the same for the whole warp
+    const int64_t i = first + lane;
+    int key = -1;
+    if (i < m) {
+      const int j = __ldg(idx + i);
+      if (clip)
+        key = min(max(j, 0), max_idx);
+      else if (j >= 0 && j <= max_idx)
+        key = j;
+    }
+    const warp_runs::Run run(key);
+    for (int e = 0; e < width; e += VEC) {
+      float x[VEC];
+      if (key >= 0) {
+        load_update<VEC, ROWS>(vals, m, width, i, e, aligned, x);
+      } else {
+#pragma unroll
+        for (int c = 0; c < VEC; ++c) x[c] = 0.0f;
+      }
+      run.sum<VEC>(x);
+      if (run.adds) add_vec<VEC>(out + static_cast<int64_t>(key) * stride + e,
+                                 x);
+    }
+  }
+}
+
+// Kernel Q: values as packed bf16 word streams; one thread takes `upt`
+// consecutive updates.
+template <int VEC>
+__global__ void probe_accum_bf16_kernel(const int* __restrict__ idx,
+                                        const void* __restrict__ vals,
+                                        float* __restrict__ out, int64_t m,
+                                        int width, int stride, int max_idx,
+                                        int upt, bool clip) {
   const int64_t first =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * upt;
   const int64_t last = first + upt < m ? first + upt : m;
@@ -137,7 +209,7 @@ __global__ void probe_accum_kernel(const int* __restrict__ idx,
       float x[VEC];
 #pragma unroll
       for (int k = 0; k < VEC; ++k)
-        x[k] = value<BF16, ROWS>(vals, m, width, i, e + k);
+        x[k] = packed_value(vals, m, i, e + k);
       add_vec<VEC>(dst + e, x);
     }
   }
@@ -176,7 +248,7 @@ __global__ void pair_merged_kernel(const int* __restrict__ idx1,
     add_stream_row<VEC>(out, __ldg(idx2 + i), v2, n, i, width, max_idx);
 }
 
-// S and V: out[0:VEC] <- src[0:VEC] from (16-byte aligned for VEC 4)
+// V: out[0:VEC] <- src[0:VEC] from (16-byte aligned for VEC 4)
 // shared memory, one vector access.
 template <int VEC>
 __device__ __forceinline__ void load_vec(float* dst, const float* src) {
@@ -207,7 +279,7 @@ __device__ __forceinline__ int clip_row(int j, int max_idx) {
   return min(max(j, 0), max_idx);
 }
 
-// S and V: rows [first, first + n) of vals rows [M, W] into s (shared
+// V: rows [first, first + n) of vals rows [M, W] into s (shared
 // memory, 16-byte aligned), the whole block cooperating: float4 loads
 // where the rows start on 16 bytes (first is a multiple of 32, so that
 // is where vals does), then the tail (or everything) as scalars.
@@ -226,43 +298,6 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ vals,
   }
   for (int k = done + threadIdx.x; k < count; k += blockDim.x)
     s[k] = __ldg(src + k);
-}
-
-// Kernel S: block b takes updates [b * tile, (b + 1) * tile); shared
-// memory holds the tile's rows [tile][W], then its clipped idx [tile].
-// Thread slots are (update i, piece e of VEC floats); a slot whose update
-// heads a run sums the run's piece from its first value in update order
-// and adds it with one vector atomic.
-template <int VEC>
-__global__ void run_merge_kernel(const int* __restrict__ idx,
-                                 const float* __restrict__ vals,
-                                 float* __restrict__ out, int64_t m,
-                                 int width, int max_idx, int tile) {
-  extern __shared__ float4 smem[];
-  float* s_vals = reinterpret_cast<float*>(smem);
-  int* s_idx = reinterpret_cast<int*>(s_vals + tile * width);
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * tile;
-  const int n = m - first < tile ? static_cast<int>(m - first) : tile;
-  stage_rows(vals, first, n, width, s_vals);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s_idx[i] = clip_row(__ldg(idx + first + i), max_idx);
-  __syncthreads();
-  const int pieces = width / VEC;
-  for (int slot = threadIdx.x; slot < n * pieces; slot += blockDim.x) {
-    const int i = slot / pieces;
-    const int e = (slot - i * pieces) * VEC;
-    const int j = s_idx[i];
-    if (i > 0 && s_idx[i - 1] == j) continue;   // inside a run
-    float acc[VEC];
-    load_vec<VEC>(acc, s_vals + i * width + e);
-    for (int k = i + 1; k < n && s_idx[k] == j; ++k) {
-      float x[VEC];
-      load_vec<VEC>(x, s_vals + k * width + e);
-#pragma unroll
-      for (int c = 0; c < VEC; ++c) acc[c] = __fadd_rn(acc[c], x[c]);
-    }
-    add_vec<VEC>(out + static_cast<int64_t>(j) * width + e, acc);
-  }
 }
 
 // Kernel V: block b takes updates [b * tile, (b + 1) * tile) and stages
@@ -349,7 +384,7 @@ bool bad_launch(int64_t m, int width, int vec, int threads) {
          width % vec != 0 || threads < 32 || threads > 1024;
 }
 
-// S and V: a tile is a multiple of 32 updates, at most kMaxTile, and a
+// V: a tile is a multiple of 32 updates, at most kMaxTile, and a
 // row at most kMaxRunWidth wide.
 bool bad_tile(int64_t m, int width, int vec, int tile, int max_idx) {
   return bad_launch(m, width, vec, 32) || width > kMaxRunWidth ||
@@ -371,16 +406,22 @@ template <int VEC, bool BF16>
 void launch_accum(const int* idx, const void* vals, float* out, int64_t m,
                   int width, int stride, int max_idx, bool rows, int upt,
                   bool clip, int threads, cudaStream_t s) {
-  const unsigned int blocks = n_blocks((m + upt - 1) / upt, threads);
-  if constexpr (!BF16) {
-    if (rows) {
-      probe_accum_kernel<VEC, false, true><<<blocks, threads, 0, s>>>(
-          idx, vals, out, m, width, stride, max_idx, upt, clip);
-      return;
-    }
+  if constexpr (BF16) {
+    const unsigned int blocks = n_blocks((m + upt - 1) / upt, threads);
+    probe_accum_bf16_kernel<VEC><<<blocks, threads, 0, s>>>(
+        idx, vals, out, m, width, stride, max_idx, upt, clip);
+  } else {
+    const int64_t per_warp = 32 * static_cast<int64_t>(upt);
+    const unsigned int blocks =
+        n_blocks((m + per_warp - 1) / per_warp * 32, threads);
+    const float* v = static_cast<const float*>(vals);
+    if (rows)
+      probe_accum_kernel<VEC, true><<<blocks, threads, 0, s>>>(
+          idx, v, out, m, width, stride, max_idx, upt, clip);
+    else
+      probe_accum_kernel<VEC, false><<<blocks, threads, 0, s>>>(
+          idx, v, out, m, width, stride, max_idx, upt, clip);
   }
-  probe_accum_kernel<VEC, BF16, false><<<blocks, threads, 0, s>>>(
-      idx, vals, out, m, width, stride, max_idx, upt, clip);
 }
 
 template <bool BF16>
@@ -405,14 +446,15 @@ extern "C" {
 // Each entry point returns a cudaError_t code (0 = success). out is
 // zeroed by the caller; vec must divide width and stride.
 
-// Kernels P (bf16 = 0, vals f32, streams or rows) and Q (bf16 = 1, vals
-// int32 word streams); clip = 1 clips idx into [0, max_idx] instead of
-// skipping what lies outside (kernel F).
+// Kernels P (bf16 = 0, vals f32, streams or rows; threads a multiple of
+// 32) and Q (bf16 = 1, vals int32 word streams); clip = 1 clips idx into
+// [0, max_idx] instead of skipping what lies outside (kernel F).
 int probe_accum(const int* idx, const void* vals, float* out, int64_t m,
                 int width, int stride, int max_idx, int vec, int bf16,
                 int rows, int upt, int clip, int threads, void* stream) {
   if (bad_launch(m, width, vec, threads) || stride % vec != 0 || upt < 1 ||
-      (bf16 && (width % 2 != 0 || rows)) || (clip && max_idx < 0))
+      (bf16 && (width % 2 != 0 || rows)) || (!bf16 && threads % 32 != 0) ||
+      (clip && max_idx < 0))
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -449,24 +491,10 @@ int probe_accum_pair_merged(const int* idx1, const int* take2,
   return cudaGetLastError();
 }
 
-// Kernel S: vals rows [m, width], width <= 16, idx clipped into
-// [0, max_idx]; out [max_idx + 1, width].
-int probe_accum_run_merge(const int* idx, const float* vals, float* out,
-                          int64_t m, int width, int max_idx, int vec,
-                          int tile, void* stream) {
-  if (bad_tile(m, width, vec, tile, max_idx)) return cudaErrorInvalidValue;
-  if (m == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = n_blocks(m, tile);
-  const size_t smem = sizeof(float) * tile * (width + 1);
-  return launch_by_vec(vec, [&](auto v) {
-    run_merge_kernel<decltype(v)::value><<<blocks, kRunThreads, smem, s>>>(
-        idx, vals, out, m, width, max_idx, tile);
-  });
-}
-
-// Kernel V: as S, with `rounds` (at most 5) rounds of the suffix scan
-// before the adds, each run's first entry adding its scanned row.
+// Kernel V: vals rows [m, width], width <= 16, idx clipped into
+// [0, max_idx], out [max_idx + 1, width]; `rounds` (at most 5) rounds of
+// the suffix scan before the adds, each run's first entry adding its
+// scanned row.
 int probe_accum_run_skip(const int* idx, const float* vals, float* out,
                          int64_t m, int width, int max_idx, int vec,
                          int rounds, int tile, void* stream) {

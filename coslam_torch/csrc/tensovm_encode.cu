@@ -128,14 +128,24 @@
 // Unit lines (kernels T and U). The line reads, the line factor, the line
 // gradient and dx's line term drop out; U adds the plane gradient as the
 // tri-plane's K2 forms it, v = (g * wu_k) * (1 - wv) at (u corner k, v0)
-// and (g * wu_k) * wv at (u corner k, v1). U's serial mode
-// (triplane_encode_bwd_sort: K2 in its serial order) has the plane
-// sections' segments only.
+// and (g * wu_k) * wv at (u corner k, v1). U's atomics meet the
+// level-major warps' contention: on ray-ordered points a warp's 32 points
+// are the samples of one or two rays, which at the coarse planes (level 0:
+// 3 x 33^2 rows) share a cell, so its atomics hit one row pair and are
+// serialised in L2. So before it adds, U merges runs (warp_runs.cuh): per
+// section, the lanes whose corner row e00 equals the previous lane's form
+// a run, one ballot skips the merge where the warp holds none (uniform
+// points), and otherwise each run's 8 values (2 row pairs x F = 2) are
+// summed by a segmented log-step shuffle sum and the run's first lane
+// issues the run's two add_pairs. D keeps its one add_pair per lane. U's
+// serial mode (triplane_encode_bwd_sort: K2 in its serial order) has the
+// plane sections' segments only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "serial_sort.cuh"
+#include "warp_runs.cuh"
 
 namespace {
 
@@ -251,6 +261,21 @@ __device__ __forceinline__ void add_line_rows(float* acc, int key, float v[4]) {
     atomicAdd(acc + key * 2 + 1, v[1]);
     atomicAdd(acc + key * 2 + 2, v[2]);
     atomicAdd(acc + key * 2 + 3, v[3]);
+  }
+}
+
+// Kernel U, warp-collective: lane l adds the row pairs (key, key + 1)
+// and (key + r1, key + r1 + 1) of a section, v = their 4 rows x F = 2
+// values; a negative key adds nothing. The lanes whose key equals the
+// previous lane's form a run with it; where the warp holds one, each run
+// is summed by shuffles and its first lane adds (warp_runs.cuh).
+__device__ __forceinline__ void add_plane_runs(float* dt, int key, int r1,
+                                               float v[8]) {
+  const warp_runs::Run run(key);
+  run.sum<8>(v);
+  if (run.adds) {
+    add_pair(dt, key, make_float2(v[0], v[1]), make_float2(v[2], v[3]));
+    add_pair(dt, key + r1, make_float2(v[4], v[5]), make_float2(v[6], v[7]));
   }
 }
 
@@ -379,6 +404,10 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
     for (int s = 0; s < 3; ++s) {
       int key = -1;
       float lv4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      // kUnitLines: the section's corner (cu, cv) row and its two row
+      // pairs' 8 values, added after the warp's run merge.
+      int pkey = -1, r1 = 0;
+      float pv[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (active) {
         const Section sec = section<kUnitLines>(lv, l, res, s, xv);
         const float wu = sec.wu, wv = sec.wv, wl = sec.wl;
@@ -409,12 +438,12 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
           const float2 gu0 = make_float2(gp[0] * (1.0f - wu),
                                          gp[1] * (1.0f - wu));
           const float2 gu1 = make_float2(gp[0] * wu, gp[1] * wu);
-          add_pair(dplanes, sec.e00,
-                   make_float2(gu0.x * (1.0f - wv), gu0.y * (1.0f - wv)),
-                   make_float2(gu0.x * wv, gu0.y * wv));
-          add_pair(dplanes, sec.e00 + sec.r1,
-                   make_float2(gu1.x * (1.0f - wv), gu1.y * (1.0f - wv)),
-                   make_float2(gu1.x * wv, gu1.y * wv));
+          pv[0] = gu0.x * (1.0f - wv), pv[1] = gu0.y * (1.0f - wv);
+          pv[2] = gu0.x * wv, pv[3] = gu0.y * wv;
+          pv[4] = gu1.x * (1.0f - wv), pv[5] = gu1.y * (1.0f - wv);
+          pv[6] = gu1.x * wv, pv[7] = gu1.y * wv;
+          pkey = static_cast<int>(sec.e00);
+          r1 = sec.r1;
         } else if (dplanes != nullptr) {
           const float w00 = (1.0f - wu) * (1.0f - wv), w01 = (1.0f - wu) * wv;
           const float w10 = wu * (1.0f - wv), w11 = wu * wv;
@@ -433,6 +462,9 @@ __global__ void tensovm_bwd_kernel(const float* __restrict__ x,
         dxa[u_axis(s)] += du * r;
         dxa[v_axis(s)] += dv * r;
         if (!kUnitLines) dxa[line_axis(s)] += dw * r;
+      }
+      if constexpr (kUnitLines) {
+        if (dplanes != nullptr) add_plane_runs(dplanes, pkey, r1, pv);
       }
       if (!kUnitLines && dlines != nullptr) add_line_rows(dl, key, lv4);
     }

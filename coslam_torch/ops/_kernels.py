@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (coslam_torch/csrc/*.cu).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` (one compiler
-process per source, all started together; ``serial_sort.cuh`` is included
-by two of them and hashed with them), and the objects are linked
+process per source, all started together; the headers
+``serial_sort.cuh`` and ``warp_runs.cuh`` are included by two of them each
+and hashed with them), and the objects are linked
 into one shared library with a plain C interface, loaded with
 ``ctypes``. The build happens at first use, from the repository's own
 sources, into ``build/coslam_torch/`` at the repository root, under a
@@ -32,7 +33,8 @@ _SOURCES = (_PKG / "csrc" / "grid_encode.cu",
             _PKG / "csrc" / "xor_grid_encode.cu",
             _PKG / "csrc" / "row_accum.cu",
             _PKG / "csrc" / "probe_accum.cu")
-_HEADERS = (_PKG / "csrc" / "serial_sort.cuh",)
+_HEADERS = (_PKG / "csrc" / "serial_sort.cuh",
+            _PKG / "csrc" / "warp_runs.cuh")
 BUILD_DIR = _PKG.parent / "build" / "coslam_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -139,8 +141,6 @@ def library() -> ctypes.CDLL:
                                 _I32, _I32, _I32, _I32, _I32, _P]
     lib.probe_accum_pair_merged.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
                                             _I32, _I32, _I32, _I32, _P]
-    lib.probe_accum_run_merge.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
-                                          _I32, _P]
     lib.probe_accum_run_skip.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
                                          _I32, _I32, _P]
     for fn in (lib.grid_encode_bwd_sort, lib.tensovm_encode_bwd_sort,
@@ -150,8 +150,7 @@ def library() -> ctypes.CDLL:
                lib.row_accum_sort, lib.row_accum_starts, lib.row_accum_walk,
                lib.row_accum_bounds, lib.row_accum_walk_runs,
                lib.probe_accum,
-               lib.probe_accum_pair_merged, lib.probe_accum_run_merge,
-               lib.probe_accum_run_skip):
+               lib.probe_accum_pair_merged, lib.probe_accum_run_skip):
         fn.restype = ctypes.c_int
     lib.grid_encode_error_string.argtypes = [ctypes.c_int]
     lib.grid_encode_error_string.restype = ctypes.c_char_p

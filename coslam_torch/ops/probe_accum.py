@@ -14,14 +14,17 @@ probe_accum.cu:
   ``stack([a, b], -1)`` lays them out);
 - R :func:`probe_accum_pair_merged`: per pair, one row at idx1 and, where
   take2, one at idx2, after the torch pre-pass :func:`merge_pairs`;
-- S :func:`probe_accum_run_merge` (K11): each run of equal adjacent idx
-  in a tile of updates summed in shared memory and added once;
+- S :func:`probe_accum_run_merge` (K11): out[clip(idx)] += vals, P's
+  kernel with its clip rule on rows, each run of equal adjacent idx inside
+  a warp summed before one row of atomics (K11's flush on change);
 - V :func:`probe_accum_run_skip` (K12): the segmented suffix scan of
   :func:`run_merge_outside` and the skip of its sentinels in one launch.
 
 P's kernel with its clip rule is also kernel F, the atomic row
 accumulate of the main path (:mod:`.serial_scatter`), through
-:func:`launch_accum`.
+:func:`launch_accum`, as S is. P's warps take 32 consecutive updates a step and
+sum each run of equal idx inside the warp before one row of atomics
+(:func:`warp_runs` counts those rows); Q adds one row an update.
 
 P, Q and R skip an update whose row would not lie inside the output
 (idx < 0 or idx > ``out_rows - W // stride``): K12's sentinel rule; the
@@ -30,10 +33,10 @@ callers did in XLA. S and V clip idx into ``[0, out_rows - 1]``
 themselves, as K11's and K12's callers (``merge_accum``,
 ``run_merge_outside``) do. P and Q take the probes' launch settings:
 ``vec`` (1, 2 or 4: scalar, float2 or float4 atomics; it must divide W
-and stride), threads per block and ``upt``, the updates each thread adds
-in turn; R, S and V add with the widest vector atomics that divide W, and
-S takes ``tile``, the updates a block takes (V takes ``TILE``, S's
-default).
+and stride), threads per block (for P a multiple of 32) and ``upt``, the
+updates each thread adds in turn (for P one warp-width apart); R, S and
+V add with the widest vector atomics that divide W, and V's blocks take
+``TILE`` updates each.
 
 The plain versions are ``index_add_`` on the rows that lie inside the
 output, in update order (on the CPU that is the serial order of the
@@ -113,16 +116,24 @@ def run_merge_outside(idx: torch.Tensor, vals: torch.Tensor, rows: int,
     return torch.where(first, idx, rows + 1).to(torch.int32), v
 
 
-def adjacent_runs(idx: torch.Tensor, tile: int | None = None) -> int:
-    """Rows of atomics kernel S issues on idx (in range): the runs of
-    equal adjacent entries, with a run that crosses a boundary of ``tile``
-    updates (a block's tile) counted once per piece; without ``tile``, the
-    runs."""
-    start = torch.ones_like(idx, dtype=torch.bool)
-    start[1:] = idx[1:] != idx[:-1]
-    if tile is not None:
-        start[::tile] = True
-    return int(start.sum())
+WARP = 32   # P: the updates a warp takes a step
+
+
+def warp_runs(idx: torch.Tensor, max_idx: int, clip: bool = False) -> int:
+    """Rows of atomics kernel P issues on idx: an update adds (its run's
+    row) where its row lies in [0, max_idx] (with ``clip``, every update,
+    idx clipped into that range) and it does not continue a run of equal
+    idx inside its warp's step of WARP updates (updates [32 k, 32 k + 32)),
+    so a run that crosses a step boundary costs one row a piece. Kernel F
+    is ``clip`` with max_idx the slack row."""
+    if clip:
+        key = idx.clamp(0, max_idx)
+    else:
+        key = torch.where((idx >= 0) & (idx <= max_idx), idx, -1)
+    start = torch.ones_like(key, dtype=torch.bool)
+    start[1:] = key[1:] != key[:-1]
+    start[::WARP] = True
+    return int((start & (key >= 0)).sum())
 
 
 # -- plain versions ------------------------------------------------------------
@@ -184,8 +195,8 @@ def pair_merged_ref(idx1, take2, idx2, v1, v2, out_rows: int
 
 # -- kernels -------------------------------------------------------------------
 
-_THREADS = 256  # R: threads per block
-TILE = 128      # S (by default) and V: updates a block
+_THREADS = 256  # R and S: threads per block
+TILE = 128      # V: updates a block
 MAX_ROUNDS = 5  # V: the 31 rows a block stages past its tile reach 5 rounds
 
 
@@ -231,6 +242,9 @@ def launch_accum(what, idx, vals, width, m, out_rows, stride, vec, upt,
                          f"stride {stride}")
     _check_cuda(what, width, stride, vec, threads, idx=idx, vals=vals)
     _check_dtypes(what, torch.int32, idx=idx)
+    if not bf16 and threads % WARP:
+        raise ValueError(f"{what}: {threads} threads per block; P's warps "
+                         "take whole steps, so a multiple of 32")
     if idx.shape != (m,):
         raise ValueError(f"{what}: idx {tuple(idx.shape)} for {m} updates")
     out = torch.zeros((out_rows, stride), dtype=torch.float32,
@@ -305,40 +319,20 @@ def probe_accum_pair_merged(idx1: torch.Tensor, take2: torch.Tensor,
     return out
 
 
-def _launch_tiled(what: str, idx: torch.Tensor, vals: torch.Tensor,
-                  out_rows: int, tile: int, *settings) -> torch.Tensor:
-    """Check and launch kernel S or V (the C entry named ``what``, with
-    ``settings`` before the tile) into a zeroed [out_rows, W] f32
-    output."""
-    m, width = vals.shape
-    vec = widest_vec(width)
-    _check_dtypes(what, torch.int32, idx=idx)
-    _check_dtypes(what, torch.float32, vals=vals)
-    if idx.shape != (m,) or width > 16 or out_rows < 1:
-        raise ValueError(f"{what}: idx [M], vals [M, W <= 16] and at least "
-                         "one output row expected")
-    if tile % 32 or not 32 <= tile <= 512:
-        raise ValueError(f"{what}: tile {tile} must be a multiple of 32 in "
-                         "[32, 512]")
-    _check_cuda(what, width, width, vec, _THREADS, idx=idx, vals=vals)
-    out = torch.zeros((out_rows, width), dtype=torch.float32,
-                      device=vals.device)
-    entry = getattr(_kernels.library(), what)
-    _kernels.check(entry(idx.data_ptr(), vals.data_ptr(), out.data_ptr(), m,
-                         width, out_rows - 1, vec, *settings, tile,
-                         _kernels.stream(vals.device)), what)
-    return out
-
-
 def probe_accum_run_merge(idx: torch.Tensor, vals: torch.Tensor,
-                          out_rows: int, tile: int = TILE) -> torch.Tensor:
+                          out_rows: int) -> torch.Tensor:
     """Kernel S: out [out_rows, W] f32 with out[clip(idx[m], 0,
-    out_rows - 1)] += vals[m] (vals f32 rows [M, W], W <= 16); a block
-    takes ``tile`` updates (a multiple of 32, at most 512) and adds every
-    run of equal adjacent idx in it once, summed in update order."""
+    out_rows - 1)] += vals[m] (vals f32 rows [M, W]): kernel P with its
+    clip rule and the widest vector atomic dividing W, one update a
+    thread, whose warps add every run of equal adjacent idx once."""
     if _kernels.on_cpu(idx, vals):
         return run_merge_ref(idx, vals, out_rows)
-    out = _launch_tiled("probe_accum_run_merge", idx, vals, out_rows, tile)
+    what = "probe_accum_run_merge"
+    _check_dtypes(what, torch.float32, vals=vals)
+    m, width = vals.shape
+    out = launch_accum(what, idx, vals, width, m, out_rows, width,
+                       widest_vec(width), 1, _THREADS, False, True,
+                       clip=True)
     probe_accum_run_merge.launches += 1
     return out
 
@@ -351,13 +345,25 @@ def probe_accum_run_skip(idx: torch.Tensor, vals: torch.Tensor,
     row added at its idx (vals f32 rows [M, W], W <= 16): out [out_rows,
     W] f32. A run longer than 2^rounds adds its first 2^rounds rows. A
     block takes ``TILE`` updates."""
+    what = "probe_accum_run_skip"
     if not 0 <= rounds <= MAX_ROUNDS:
-        raise ValueError(f"probe_accum_run_skip: {rounds} rounds; the "
-                         f"kernel stages rows for at most {MAX_ROUNDS}")
+        raise ValueError(f"{what}: {rounds} rounds; the kernel stages rows "
+                         f"for at most {MAX_ROUNDS}")
     if _kernels.on_cpu(idx, vals):
         return run_skip_ref(idx, vals, out_rows, rounds)
-    out = _launch_tiled("probe_accum_run_skip", idx, vals, out_rows, TILE,
-                        rounds)
+    m, width = vals.shape
+    vec = widest_vec(width)
+    _check_dtypes(what, torch.int32, idx=idx)
+    _check_dtypes(what, torch.float32, vals=vals)
+    if idx.shape != (m,) or width > 16 or out_rows < 1:
+        raise ValueError(f"{what}: idx [M], vals [M, W <= 16] and at least "
+                         "one output row expected")
+    _check_cuda(what, width, width, vec, _THREADS, idx=idx, vals=vals)
+    out = torch.zeros((out_rows, width), dtype=torch.float32,
+                      device=vals.device)
+    _kernels.check(_kernels.library().probe_accum_run_skip(
+        idx.data_ptr(), vals.data_ptr(), out.data_ptr(), m, width,
+        out_rows - 1, vec, rounds, TILE, _kernels.stream(vals.device)), what)
     probe_accum_run_skip.launches += 1
     return out
 

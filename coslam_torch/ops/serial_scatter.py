@@ -9,10 +9,16 @@ coslam_tpu/ops/hash_pallas.py (``scatter_add_pallas``): idx [M] and vals
 On the card it runs in one of two modes:
 
 - atomic (kernel F, ``row_accum_atomic``): kernel P of
-  coslam_torch/csrc/probe_accum.cu with its clip rule, one thread per
-  update and a row of the widest vector atomics that divide W (float2 for
-  the grids' 2 features); the order in which a row's updates add changes
-  from run to run;
+  coslam_torch/csrc/probe_accum.cu with its clip rule, a warp taking 32
+  consecutive updates (one a lane, so the loads are coalesced); the lanes
+  whose clipped row equals the previous lane's form a run, whose rows are
+  summed by warp shuffles before its first lane adds one row of the widest
+  vector atomics that divide W (float2 for the grids' 2 features), and a
+  warp without a run adds one row an update
+  (:func:`.probe_accum.warp_runs` counts the rows). On ray-ordered points
+  that removes the same-address atomics of a ray's samples that share a
+  coarse cell. The order in which a row's updates add changes from run to
+  run;
 - deterministic (kernel H, ``row_accum_segmented``,
   coslam_torch/csrc/row_accum.cu): a stable LSD radix sort of the clipped
   row keys over only the bits ``rows`` needs (:func:`sort_plan`), with the

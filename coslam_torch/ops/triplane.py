@@ -17,7 +17,8 @@ read and atomically update the corner row pairs of the logical f32
 table directly:
 
 - :func:`triplane_encode_fwd`: kernel T, the encode forward;
-- :func:`triplane_encode_bwd`: kernel U, the table gradient and/or dx;
+- :func:`triplane_encode_bwd`: kernel U, the table gradient and/or dx,
+  a warp's runs of equal cell rows summed before its atomics;
 - :func:`triplane_encode_bwd_serial`: kernel U's serial mode (K2 in its
   serial order), which :func:`triplane_encode_bwd` takes for the table
   gradient when ``torch.are_deterministic_algorithms_enabled()``: U
@@ -244,6 +245,22 @@ def triplane_encode_bwd_streams_ref(spec: TriPlaneSpec, table: torch.Tensor,
     return idx, vals.T.contiguous()
 
 
+WARP = 32   # U: the points a warp takes at one level
+
+
+def row_pair_adds(spec: TriPlaneSpec, x: torch.Tensor) -> int:
+    """Row-pair adds (each one float4 atomic or two float2) of kernel U's
+    table gradient at points x [N, 3], from the plain version's cell rows:
+    per section, two for every point that does not continue a run of equal
+    corner rows e00 inside its warp's WARP points (points [32 k, 32 k + 32):
+    U's tiles are whole warps). Without the merge it would be 2 S N."""
+    e00 = _corners(spec, x)[0]                                  # [S, N]
+    start = torch.ones_like(e00, dtype=torch.bool)
+    start[:, 1:] = e00[:, 1:] != e00[:, :-1]
+    start[:, ::WARP] = True
+    return 2 * int(start.sum())
+
+
 def serial_segments(spec: TriPlaneSpec, n: int) -> SS.SegmentPlan:
     """U's serial mode's segments at n points: one a plane section (its
     (r + 1)^2 rows), 4 n updates each."""
@@ -327,9 +344,13 @@ def triplane_encode_bwd(spec: TriPlaneSpec, table: torch.Tensor,
                         x: torch.Tensor, g: torch.Tensor, need_dtable: bool,
                         need_dx: bool):
     """Encode backward: (dtable [T, F] or None, dx [N, 3] or None). On
-    the card, kernel U: each u corner's row pair added with one float4
-    atomic (first row even) or two float2, and dx summed over a point's
-    levels in the block and stored once (no zero fill)."""
+    the card, kernel U: a warp takes one level of 32 consecutive points;
+    per section, the lanes whose corner row equals the previous lane's
+    form a run (the samples of a ray in one coarse cell), each run's two
+    u-corner row pairs are summed by warp shuffles, and its first lane
+    adds each pair with one float4 atomic (first row even) or two float2
+    (:func:`row_pair_adds` counts them); dx is summed over a point's levels
+    in the block and stored once (no zero fill)."""
     if _kernels.on_cpu(table, x, g):
         return triplane_encode_bwd_ref(spec, table, x, g, need_dtable,
                                        need_dx)

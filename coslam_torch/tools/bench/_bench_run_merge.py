@@ -6,9 +6,9 @@ Counterpart of tools/bench/_bench_run_merge.py (K11 `_merge_kernel`, K12
 projected onto one plane section at r in {140, 311} (r^2 rows, W = 8;
 ``make_stream`` as the JAX probe makes them), where consecutive samples
 of a ray often land in one cell. "shipped" is the port's row accumulate
-(kernel F, atomic; kernel H, deterministic); "merge" is kernel S (each
-run of equal adjacent idx in a block's tile of updates summed in shared
-memory and added once), at each tile; "skip" is kernel V (the segmented
+(kernel F, atomic; kernel H, deterministic); "merge" is kernel S (kernel
+P with its clip rule, as F: each run of equal adjacent idx inside a warp
+summed by shuffles and added once); "skip" is kernel V (the segmented
 suffix scan and the skip of its sentinels in one launch); "skip (scan +
 P)" is the route V replaced, the torch scan (``run_merge_outside``) and
 kernel P, which skips the sentinels; "plain" is S's plain version
@@ -19,8 +19,9 @@ run lengths, each variant's largest difference from shipped F, ms
 upd/s and speedup; S's and V's ms on the card alone (a CUDA graph of the
 calls, their zero fill included); the bound, index_add_ into a zeroed
 buffer (events and graph) and torch.zeros + index_add_ (graph: the same
-work as S and V with their zero fill); and the rows of atomics S and V
-issue against shipped's one per update.
+work as S and V with their zero fill); and, from a host model of the
+kernels (``probe_accum.warp_runs``, the stream's runs), the rows of
+atomics S and V should issue against one per update.
 
     python -m coslam_torch.tools.bench._bench_run_merge [--quick]
 """
@@ -37,7 +38,6 @@ from . import _common as C
 
 W = 8          # 4 corners x F=2, the cell-scatter width
 RS = (140, 311)
-TILES = (64, 128, 256, 512)
 SMALL_RAYS = 64
 
 
@@ -77,7 +77,6 @@ def run(device, quick: bool = False, small: bool = False,
         timed: bool = True) -> dict:
     """Every variant at both resolutions once against shipped F (and
     timed); prints the lines, returns {r: results}."""
-    tiles = (PA.TILE,) if quick else TILES
     out = {}
     for r in RS:
         idx_np, vals_np = make_stream(r, n_rays=SMALL_RAYS if small
@@ -94,10 +93,8 @@ def run(device, quick: bool = False, small: bool = False,
         idx, vals = C.tensor(idx_np, device), C.tensor(vals_np, device)
         calls = {"shipped F": lambda: SS.row_accum(idx, vals, rows, False),
                  "shipped H": lambda: SS.row_accum(idx, vals, rows, True)}
-        for tile in tiles:
-            calls[f"merge tile={tile}"] = (
-                lambda tile=tile: PA.probe_accum_run_merge(
-                    idx, vals, rows + 1, tile=tile))
+        calls["merge"] = lambda: PA.probe_accum_run_merge(idx, vals,
+                                                          rows + 1)
         calls["skip"] = lambda: PA.probe_accum_run_skip(idx, vals, rows + 1)
         calls["skip (scan + P)"] = lambda: skip_scan_p(idx, vals, rows)
         calls["plain"] = lambda: PA.run_merge_ref(idx, vals, rows + 1)
@@ -114,7 +111,7 @@ def run(device, quick: bool = False, small: bool = False,
         print("  " + "   ".join(line), flush=True)
         library = {}
         if timed:
-            for label in [f"merge tile={tile}" for tile in tiles] + ["skip"]:
+            for label in ("merge", "skip"):
                 res[label]["graph_ms"] = graph_ms(calls[label])
             buf = torch.zeros_like(base)
             add = lambda: buf.index_add_(0, idx, vals)  # noqa: E731
@@ -131,14 +128,12 @@ def run(device, quick: bool = False, small: bool = False,
                 f"{library['library_zeroed_ms']:.4f} ms", flush=True)
         bounds = {"the accumulate": C.accum_bound(m, W, base.numel())}
         print(C.bound_line(bounds, library.get("library_ms")), flush=True)
-        flushes = {tile: PA.adjacent_runs(idx, tile) for tile in tiles}
-        skip_rows = PA.adjacent_runs(idx)
-        print("  rows of atomics: "
-              + ", ".join(f"S tile {t}: {f}" for t, f in flushes.items())
-              + f", V: {skip_rows}, of {m} updates (S tile {tiles[0]} saves "
-              f"{100 * (1 - flushes[tiles[0]] / m):.1f} %)", flush=True)
+        flushes = PA.warp_runs(idx, rows, clip=True)
+        print(f"  rows of atomics (host model): S {flushes}, V {len(runs)}, "
+              f"of {m} updates (S saves {100 * (1 - flushes / m):.1f} %)",
+              flush=True)
         out[r] = {"adjacent_dup": dup, "flushes": flushes,
-                  "skip_rows": skip_rows, "m": m, **res, "bounds": bounds,
+                  "skip_rows": len(runs), "m": m, **res, "bounds": bounds,
                   **library}
     return out
 

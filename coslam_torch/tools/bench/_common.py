@@ -163,3 +163,58 @@ def describe(label: str, r: dict, m: int, err: bool = True) -> str:
     elif err:
         parts.append(f"err {r['err']:.1e}")
     return f"{label} {' '.join(parts)}"
+
+
+# Index streams built to catch a faulty warp merge in kernel P (a warp
+# sums each run of equal idx in its 32-update step before one row of
+# atomics): every update on one row; runs of 31, 32 and 33 after 5 single
+# updates, so that they cross the steps' boundaries at every offset; a run
+# that ends the stream; runs below 0 and past the last row at both ends of
+# the stream and in its middle (skipped by P, clipped into one row each by
+# F, so that runs of different idx become one).
+WARP_EDGE_STREAMS = ("all_equal", "runs_31", "runs_32", "runs_33",
+                     "run_at_end", "clipped_ends")
+
+
+def warp_edge_stream(name: str, m: int, rows: int,
+                     seed: int = 0) -> np.ndarray:
+    """int32 [m] indices of one named stream, in-range ones in [0, rows);
+    give an m that is not a multiple of 32 to leave the last step short."""
+    rng = np.random.default_rng(seed)
+    if name == "all_equal":
+        idx = np.full(m, rows // 2)
+    elif name.startswith("runs_"):
+        run = int(name[len("runs_"):])
+        idx = np.concatenate([rng.integers(0, rows, 5), np.repeat(
+            rng.integers(0, rows, m // run + 1), run)])[:m]
+    elif name == "run_at_end":
+        idx = rng.integers(0, rows, m)
+        idx[-45:] = 3
+    elif name == "clipped_ends":
+        idx = np.repeat(rng.integers(0, rows, m // 8 + 1), 8)[:m]
+        outside = np.concatenate([np.full(20, -1), np.full(17, -6),
+                                  np.full(20, rows), np.full(17, rows + 9)])
+        idx[:37], idx[-37:] = outside[:37], outside[37:]
+        idx[m // 2:m // 2 + 74] = outside
+    else:
+        raise ValueError(name)
+    return idx.astype(np.int32)
+
+
+def ray_points(n_rays: int, samples: int, seed: int) -> np.ndarray:
+    """Ray-ordered points [n_rays * samples, 3]: n_rays rays from inside
+    the unit cube, the samples of one ray adjacent and spaced along it,
+    running out of [0, 1] near their far end."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.2, 0.8, (n_rays, 1, 3))
+    d = rng.standard_normal((n_rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 0.9, (n_rays, samples, 1)), axis=1)
+    return (o + d * t).reshape(-1, 3)
+
+
+def one_cell_points(n: int, rng: np.random.Generator) -> np.ndarray:
+    """n points [n, 3] within 1e-6 of a random point of [0.2, 0.8]^3: in
+    one cell of every level of a grid, unless a cell boundary falls
+    between them (callers check, and draw again)."""
+    return rng.uniform(0.2, 0.8, 3) + rng.uniform(0.0, 1e-6, (n, 3))

@@ -3,17 +3,17 @@ uniform and ray-ordered points.
 
     python -m coslam_torch.tools.kernel_times [--points FILE]
         [--xor-points FILE --vm-points FILE] [--hybrid FILE] [--host-us]
-        [--serial [--record]] [--out FILE] [--profile]
+        [--serial [--record]] [--probes] [--out FILE] [--profile]
 
 Times kernel B (``hash_packed.grid_encode_bwd`` at the room0 spec, the
-table gradient alone, as the BA 1-keyframe call asks) and kernel H
-(``serial_scatter.row_accum``, deterministic, on kernel G's update streams
-at the room0_xor spec) with ``index_add_`` on the same streams, at two
-sets of points of one size: uniform points in the unit cube (seeded),
-and the ray-ordered points of the room0 slice's first BA call, the
+table gradient alone, as the BA 1-keyframe call asks) and kernels F and H
+(``serial_scatter.row_accum``, atomic and deterministic, on kernel G's
+update streams at the room0_xor spec) with ``index_add_`` on the same
+streams, at two sets of points of one size: uniform points in the unit
+cube (seeded), and the ray-ordered points of the room0 slice's first BA call, the
 samples of one ray adjacent (``record_ba_points``; ``chip_smoke.py``
 records them and saves them with ``numpy.save``, and ``--points`` loads
-such a file; without it B and H are not timed). Each time is taken
+such a file; without it B, F and H are not timed). Each time is taken
 twice: CUDA events around 20 back-to-back calls, the median of 5 batches
 (``time_ms``, the host's cost per call included), and a CUDA graph of 20
 calls (``graph_ms``, the card's time alone); where kernel H runs in
@@ -51,6 +51,10 @@ slice's ray-ordered points (``--points``, ``--hybrid`` and
 device time in launch order (``phase_times``, torch.profiler): the
 phases of whichever route the checkout has (``time_serial``).
 
+With ``--probes`` it times kernel P in every form the probes launch, at
+their shapes, on the card alone, and kernel S (P's clip form) at K11's
+(``time_p``).
+
 With ``--host-us`` it also measures the host's cost of the A and C
 wrappers (``wrapper_host_us``): microseconds per call of the whole
 wrapper and of each part of its card path, over 10,000 calls each.
@@ -58,7 +62,8 @@ wrapper and of each part of its card path, over 10,000 calls each.
 The script calls only what earlier checkouts of the port also have
 (``grid_encode_fwd``, ``grid_encode_bwd``, ``xor_grid_encode_fwd``,
 ``xor_grid_encode_bwd``, ``tensovm_encode_fwd``, ``tensovm_encode_bwd``,
-``row_accum``, the serial modes' wrappers and the plain versions), so it
+``row_accum``, ``probe_accum``, ``probe_accum_run_merge``, the serial
+modes' wrappers and the plain versions), so it
 also
 times an earlier checkout's kernels in the same machine: run it by path
 with that checkout's root first on ``PYTHONPATH``. It prints one JSON
@@ -487,7 +492,8 @@ def record_ba_points(cfg: dict, data, device) -> torch.Tensor:
 
 
 def time_b_and_h(device, points: dict, profiled: bool = False) -> dict:
-    """{set name: {"B": times, "H": times, "index_add_": times}} for
+    """{set name: {"B": times, "F": times, "H": times, "index_add_":
+    times}} for
     every [N, 3] point set in `points` (unit-normal tables, seed 0, and
     cotangents, seed 1, as in chip_smoke.py); with `profiled`, also each
     kernel that B and H launch, with its device time per call."""
@@ -517,6 +523,7 @@ def time_b_and_h(device, points: dict, profiled: bool = False) -> dict:
             "points": int(x.shape[0]), "updates": int(idx.shape[0]),
             "B": both_ms(lambda: HP.grid_encode_bwd(hspec, htable, x, g, True,
                                                     False)),
+            "F": both_ms(lambda: SS.row_accum(idx, vals, rows, False)),
             "H": both_ms(lambda: SS.row_accum(idx, vals, rows, True)),
             "index_add_": both_ms(lambda: buf.index_add_(0, idx, vals))}
         if hasattr(SS, "SegmentedPlan"):    # H's phases, where H has them
@@ -527,6 +534,81 @@ def time_b_and_h(device, points: dict, profiled: bool = False) -> dict:
                     hspec, htable, x, g, True, False)),
                 "H": kernel_breakdown(lambda: SS.row_accum(idx, vals, rows,
                                                            True))}
+    return out
+
+
+def time_p(device) -> dict:
+    """{setting: {"ms" (CUDA graph of the calls), "index_add_" where one
+    call computes the same}}: kernel P at each probe's main shape, every
+    form the probes launch (tools/bench: K5's 8 streams on its random and
+    runs streams, float4; K7's pair form at 1,859,584 updates, 256 threads,
+    4 updates a thread; K8's [M, W] rows at W = 4, 8 and 16, float4; K9's
+    8 streams, scalar and float4; K10's pair form, scalar (its "shipped")
+    and float2 at 256 threads and 4 updates a thread), and kernel S at
+    K11's (the run-merge probe's ray-ordered streams at r = 140 and 311,
+    W = 8), each held to its plain version within the sum-order bound
+    first."""
+    from coslam_torch.ops import probe_accum as PA
+    from coslam_torch.tools.bench import _bench_cell_merge as CM
+    from coslam_torch.tools.bench import _bench_chunk_tune as CT
+    from coslam_torch.tools.bench import _bench_row_rates as RR
+    from coslam_torch.tools.bench import _bench_run_merge as RM
+    from coslam_torch.tools.bench import _bench_scatter_variants as SV
+    from coslam_torch.tools.bench import _common as C
+
+    rng = np.random.default_rng(0)
+    out = {}
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def timed(label, idx, rows2d, out_rows, stride, call, library=None):
+        ref = PA.probe_accum_ref(idx, rows2d, out_rows, stride)
+        C.assert_within(label, call(), ref,
+                        C.sum_order_tol(idx, rows2d, out_rows, stride))
+        out[label] = {"updates": int(idx.shape[0]), "ms": graph_ms(call)}
+        if library is not None:
+            buf = torch.zeros_like(ref)
+            out[label]["index_add_"] = graph_ms(
+                lambda: buf.index_add_(0, idx, library))
+
+    vals = tensor(rng.standard_normal((CM.WIDTH, CM.N)).astype(np.float32))
+    for name, ids in CM.streams(CM.ROWS, CM.N).items():
+        idx = tensor(ids)
+        timed(f"K5 {name} W=8 float4", idx, vals.T, CM.ROWS + 1, None,
+              lambda: PA.probe_accum(idx, vals, CM.ROWS + 1, vec=4), vals.T)
+    (threads, upt), = CT.QUICK
+    m = CT.MS[-1]
+    idx = tensor(rng.integers(0, CT.ROWS - 2, m).astype(np.int32))
+    pair = tensor(rng.standard_normal((4, m)).astype(np.float32))
+    timed(f"K7 pair float2 t={threads} u={upt}", idx, pair.T, CT.ROWS + 2, 2,
+          lambda: PA.probe_accum(idx, pair, CT.ROWS + 2, stride=2, vec=2,
+                                 upt=upt, threads=threads))
+    idx = tensor(rng.integers(0, RR.ROWS, RR.M).astype(np.int32))
+    for width in RR.WIDTHS:
+        streams = tensor(rng.standard_normal((width, RR.M)).astype(np.float32))
+        rows2d = streams.T.contiguous()
+        timed(f"K8 rows W={width} float4", idx, rows2d, RR.ROWS + 1, None,
+              lambda: PA.probe_accum(idx, rows2d, RR.ROWS + 1, rows=True,
+                                     vec=4), rows2d)
+        if width == 8:
+            for vec in (1, 4):
+                timed(f"K9 streams W=8 vec{vec}", idx, streams.T,
+                      RR.ROWS + 1, None,
+                      lambda vec=vec: PA.probe_accum(idx, streams,
+                                                     RR.ROWS + 1, vec=vec),
+                      streams.T)
+    idx = tensor(rng.integers(0, SV.N_ROWS - 2, SV.M).astype(np.int32))
+    pair = tensor(rng.standard_normal((4, SV.M)).astype(np.float32))
+    for vec, upt in ((1, 1), (2, 4)):
+        timed(f"K10 pair vec{vec} t=256 u={upt}", idx, pair.T, SV.N_ROWS + 2,
+              2, lambda vec=vec, upt=upt: PA.probe_accum(
+                  idx, pair, SV.N_ROWS + 2, stride=2, vec=vec, upt=upt))
+    for r in RM.RS:
+        ids, rows2d = (tensor(a) for a in RM.make_stream(r))
+        timed(f"K11 run merge r={r} W={RM.W}", ids, rows2d, r * r + 1, None,
+              lambda: PA.probe_accum_run_merge(ids, rows2d, r * r + 1),
+              rows2d)
     return out
 
 
@@ -777,6 +859,8 @@ def main(argv=None) -> int:
     ap.add_argument("--record", action="store_true",
                     help="record the ray-ordered points of room0, room0_vm "
                          "and room0_hybrid first (saved under output/)")
+    ap.add_argument("--probes", action="store_true",
+                    help="also kernel P in every form at the probes' shapes")
     ap.add_argument("--host-us", action="store_true",
                     help="also the host's us per call of the A and C wrappers")
     ap.add_argument("--out", help="also write the JSON line here")
@@ -814,6 +898,8 @@ def main(argv=None) -> int:
             ap.error("--serial needs --record or --points, --vm-points and "
                      "--hybrid")
         rec["serial"] = time_serial(device, pts)
+    if args.probes:
+        rec["probes"] = time_p(device)
     if args.host_us:
         rec["host_us"] = wrapper_host_us(device)
     if args.xor_points:

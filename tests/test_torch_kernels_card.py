@@ -5,9 +5,10 @@ hash grid; A, C, E and D also on ray-ordered points, E also at the Dense
 grid's 4 levels; A and C also on a side stream, in a CUDA graph, and
 refusing what they do not take), the row accumulate F (atomic) and H
 (deterministic, also on adversarial streams), and the probes' kernels
-P, Q, R, S and V (bottom of the file). This file imports no jax, so it also
-runs on a machine with the card and without the JAX package's
-dependencies:
+P, Q, R, S and V (bottom of the file; P and F also on streams built to
+break their warp merge, U on points in one cell). This file imports no
+jax, so it also runs on a machine with the card and without the JAX
+package's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_card.py
 
@@ -38,6 +39,8 @@ from coslam_torch.ops import probe_accum as PA
 from coslam_torch.ops import serial_scatter as SS
 from coslam_torch.ops import tensovm as VM
 from coslam_torch.ops import triplane as TP
+from coslam_torch.tools.bench._common import (WARP_EDGE_STREAMS,
+                                              one_cell_points, ray_points)
 
 torch.set_num_threads(1)
 
@@ -342,18 +345,6 @@ def test_row_accum_segmented_adversarial_streams(cuda_device, name, width):
     assert torch.equal(first, second)
 
 
-def _ray_points(n_rays, samples, seed):
-    """Ray-ordered points: n_rays rays from inside the unit cube, the
-    samples of one ray adjacent and spaced along it, running out of
-    [0, 1] near their far end."""
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(0.2, 0.8, (n_rays, 1, 3))
-    d = rng.standard_normal((n_rays, 1, 3))
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t = np.sort(rng.uniform(0.0, 0.9, (n_rays, samples, 1)), axis=1)
-    return (o + d * t).reshape(-1, 3)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("levels", [16, 5, 3])
 @pytest.mark.parametrize("need", [(True, True), (False, True), (True, False)])
@@ -371,7 +362,7 @@ def test_grid_bwd_on_ray_ordered_points(cuda_device, levels, need):
     else:
         spec = HP.make_packed_spec(400 if levels == 16 else 96, 16,
                                    n_levels=levels)
-    x_np = _ray_points(200, 43, levels)
+    x_np = ray_points(200, 43, levels)
     cell, _ = HP._cells_and_weights(spec, torch.from_numpy(x_np).float())
     e = HP._corner_entries(spec, cell)
     assert (e % 2 == 0).any() and (e % 2 == 1).any()
@@ -396,7 +387,7 @@ def test_autograd_function_on_card_room0_rays(cuda_device):
     CUDA tensors: gradients through kernels A and B equal the plain
     backward's."""
     spec = HP.make_packed_spec(**SPECS["room0"])
-    x = torch.from_numpy(_ray_points(100, 43, 3).astype(np.float32)).to(
+    x = torch.from_numpy(ray_points(100, 43, 3).astype(np.float32)).to(
         cuda_device)
     rng = np.random.default_rng(4)
     table, g = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
@@ -457,7 +448,7 @@ def test_xor_fwd_on_ray_ordered_points(cuda_device, name):
     hashgrid_encode; and on the first N - 1 and 1 points alone."""
     spec = E.make_hashgrid_spec(**E_SPECS[name])
     rng = np.random.default_rng(5)
-    x_np = _edge_points(_ray_points(200, 43, 6), spec.resolutions[-1], rng)
+    x_np = _edge_points(ray_points(200, 43, 6), spec.resolutions[-1], rng)
     assert x_np.shape[0] % 32 and ((x_np < 0) | (x_np > 1)).any()
     table, x = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
                 for a in (rng.standard_normal((spec.total_entries, 2)), x_np))
@@ -477,7 +468,7 @@ def test_xor_autograd_dense_on_card_rays(cuda_device):
     the same Function's on the CPU (dtable bit for bit)."""
     spec = E.make_hashgrid_spec(**E_SPECS["dense4"])
     rng = np.random.default_rng(7)
-    x_np = _ray_points(60, 43, 8).astype(np.float32)
+    x_np = ray_points(60, 43, 8).astype(np.float32)
     table = rng.standard_normal((spec.total_entries, 2)).astype(np.float32)
     g = rng.standard_normal((x_np.shape[0], spec.out_dim)).astype(np.float32)
     outs = []
@@ -497,7 +488,7 @@ def _vm_ray_inputs(spec, seed, device, rays=200):
     """room0_vm-like inputs on ray-ordered points (rays x 27 samples, some
     outside [0, 1], some at 0, 1 and on grid lines)."""
     rng = np.random.default_rng(seed)
-    x = _edge_points(_ray_points(rays, 27, seed + 1), spec.resolutions[-1],
+    x = _edge_points(ray_points(rays, 27, seed + 1), spec.resolutions[-1],
                      rng)
     arrays = (rng.standard_normal((spec.total_entries, spec.n_features)) * 0.1,
               1.0 + 0.1 * rng.standard_normal((VM.line_total_rows(spec),
@@ -565,7 +556,7 @@ A_SPECS = {"room0": dict(desired_resolution=400, log2_hashmap_size=16),
 def _a_inputs(name, device, seed=5):
     spec = HP.make_packed_spec(**A_SPECS[name])
     rng = np.random.default_rng(seed)
-    x_np = _edge_points(_ray_points(200, 43, seed + 1),
+    x_np = _edge_points(ray_points(200, 43, seed + 1),
                         spec.resolutions[-1], rng)
     table, x = (torch.from_numpy(a.astype(np.float32)).to(device)
                 for a in (rng.standard_normal((spec.total_entries, 2)), x_np))
@@ -746,6 +737,55 @@ def test_probe_accum_kernels_match_plain_versions(cuda_device, setting,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("name", WARP_EDGE_STREAMS)
+def test_probe_accum_warp_merge_on_edge_streams(cuda_device, name, width):
+    """Kernel P's warp merge (each run of equal rows in a warp's 32-update
+    step summed before one row of atomics) on the streams of
+    _common.WARP_EDGE_STREAMS at M = 10,007 (the last step short): P in
+    every form (streams and rows at every vector width that divides W,
+    with 1, 3 and 4 updates a thread and 256, 128 and 1024 threads; the
+    pair form; the skip rule; the clip rule) and kernel F, each within
+    the sum-order bound of the exact sum; one launch a call."""
+    from coslam_torch.tools.bench import _common as C
+
+    rows, m = 700, 10_007
+    rng = np.random.default_rng(width)
+    idx_np = C.warp_edge_stream(name, m, rows, seed=width)
+    vals_np = rng.standard_normal((m, width)).astype(np.float32)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    vals = torch.from_numpy(vals_np).to(cuda_device)
+    streams = vals.T.contiguous()
+    launches = PA.probe_accum.launches, SS.row_accum_atomic.launches
+    keys, pieces = _pieces(idx_np, vals_np, rows + 1, width)
+    calls = 0
+    for vec in (v for v in (1, 2, 4) if width % v == 0):
+        for upt, threads in ((1, 256), (3, 128), (4, 1024)):
+            for layout in (streams, vals):
+                got = PA.probe_accum(idx, layout, rows + 1,
+                                     rows=layout is vals, vec=vec, upt=upt,
+                                     threads=threads)
+                _assert_within_sum_order(got, keys, pieces, rows)
+                calls += 1
+    if width % 2 == 0:
+        stride = width // 2
+        got = PA.probe_accum(idx, streams, rows + 1, stride,
+                             vec=PA.widest_vec(stride))
+        _assert_within_sum_order(got, *_pieces(idx_np, vals_np, rows + 1,
+                                               stride), rows)
+        calls += 1
+    clipped = np.clip(idx_np, 0, rows)
+    _assert_within_sum_order(SS.row_accum_atomic(idx, vals, rows), clipped,
+                             vals_np, rows)
+    _assert_within_sum_order(PA.launch_accum(
+        "probe_accum", idx, streams, width, m, rows + 1, width,
+        PA.widest_vec(width), 4, 128, False, False, clip=True), clipped,
+        vals_np, rows)
+    assert (PA.probe_accum.launches, SS.row_accum_atomic.launches) == (
+        launches[0] + calls, launches[1] + 1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("width", [8, 6, 3])
 def test_probe_pair_merged_kernel_matches_plain_version(cuda_device, width):
     """Kernel R after merge_pairs (float4, float2 and scalar atomics, by
@@ -785,13 +825,11 @@ def _check_run_skip(got, idx, vals, rows):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [140, 311])
-@pytest.mark.parametrize("width,tile", [(8, 128), (8, 32), (6, 64), (3, 256),
-                                        (16, 512)])
-def test_probe_run_merge_kernel_matches_plain_version(cuda_device, r, width,
-                                                      tile):
-    """Kernel S (float4, float2 or scalar atomics, by W) at each tile on
-    the run-merge probe's ray-ordered streams: within the sum-order bound
-    and at TABLE_TOL to its plain version; kernel V and the route it
+@pytest.mark.parametrize("width", [8, 6, 3, 16])
+def test_probe_run_merge_kernel_matches_plain_version(cuda_device, r, width):
+    """Kernel S (kernel P with its clip rule; float4, float2 or scalar
+    atomics, by W) on the run-merge probe's ray-ordered streams: within
+    the sum-order bound and at TABLE_TOL to its plain version; kernel V and the route it
     replaced (suffix scan + kernel P) likewise."""
     from coslam_torch.tools.bench import _bench_run_merge as RM
 
@@ -801,7 +839,7 @@ def test_probe_run_merge_kernel_matches_plain_version(cuda_device, r, width,
     vals = torch.randn(ids.shape[0], width, device=cuda_device)
     launches = (PA.probe_accum_run_merge.launches,
                 PA.probe_accum_run_skip.launches)
-    got = PA.probe_accum_run_merge(idx, vals, rows + 1, tile=tile)
+    got = PA.probe_accum_run_merge(idx, vals, rows + 1)
     skip = PA.probe_accum_run_skip(idx, vals, rows + 1)
     torch.cuda.synchronize()
     assert (PA.probe_accum_run_merge.launches,
@@ -821,8 +859,8 @@ def test_probe_run_merge_kernel_matches_plain_version(cuda_device, r, width,
 @pytest.mark.parametrize("m", [1, PA.TILE - 1, PA.TILE, PA.TILE + 1, 62_208])
 @pytest.mark.parametrize("width", [3, 6, 8, 16])
 def test_probe_run_merge_and_skip_at_tile_edges(cuda_device, m, width):
-    """Kernels S and V on runs of 1-100 equal indices that cross the
-    tiles' boundaries (and V's 31-row halo), a few outside [0, rows]
+    """Kernels S and V on runs of 1-100 equal indices that cross S's warp
+    steps and V's tile boundaries (and its 31-row halo), a few outside [0, rows]
     (clipped), at M around one tile and at the probe's M: within the
     sum-order bound and at TABLE_TOL to their plain versions, one launch a
     call."""
@@ -875,16 +913,13 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         PA.probe_accum(idx.long(), vals, 9)
     with pytest.raises(ValueError):     # a CPU index beside CUDA values
         PA.probe_accum(idx.cpu(), vals, 9)
-    with pytest.raises(ValueError):     # S keeps at most 16 in registers
-        PA.probe_accum_run_merge(idx, torch.zeros((8, 17),
-                                                  device=cuda_device), 9)
-    with pytest.raises(ValueError):     # S's tile: a multiple of 32
-        PA.probe_accum_run_merge(idx, vals.T.contiguous(), 9, tile=100)
+    with pytest.raises(ValueError):     # S: an int64 index
+        PA.probe_accum_run_merge(idx.long(), vals.T.contiguous(), 9)
     rows8 = torch.zeros((8, 8), device=cuda_device)
     for bad in (dict(vals=torch.zeros((8, 17), device=cuda_device)),
                 dict(idx=idx.long()), dict(rounds=6)):
         args = dict(idx=idx, vals=rows8) | bad
-        with pytest.raises(ValueError):  # V: as S, and at most 5 rounds
+        with pytest.raises(ValueError):  # V: W <= 16, int32, 5 rounds
             PA.probe_accum_run_skip(args.pop("idx"), args.pop("vals"), 9,
                                     **args)
 
@@ -918,7 +953,7 @@ def test_probe_quick_runs_on_card(cuda_device, name):
 def _serial_points(kind, n, seed):
     """Uniform points (a few outside [0, 1]) or ray-ordered ones."""
     if kind == "rays":
-        return _ray_points(n // 43, 43, seed)
+        return ray_points(n // 43, 43, seed)
     return np.random.default_rng(seed).uniform(-0.05, 1.05, (n, 3))
 
 
@@ -1092,6 +1127,40 @@ def test_triplane_kernels_match_plain_versions(cuda_device, name, kind, need):
     torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-3)
     assert (TP.triplane_encode_fwd.launches,
             TP.triplane_encode_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TP_SPECS))
+@pytest.mark.parametrize("kind", ["rays", "one_cell"])
+def test_triplane_bwd_merges_runs(cuda_device, name, kind):
+    """Kernel U where its warps hold runs of equal cell rows, which it sums
+    by shuffles before one add a run: ray-ordered points, and 8,600 points
+    that all lie in one cell of every level (each warp one run a
+    section); dtable within each entry's sum-order bound, dx as the plain
+    version's."""
+    from coslam_torch.tools.bench import _common as C
+
+    spec = TP.make_triplane_spec(**TP_SPECS[name])
+    rng = np.random.default_rng(8)
+    if kind == "rays":
+        x_np = _serial_points("rays", 8600, 8)
+    else:
+        x_np = one_cell_points(8600, rng)
+    table, x, g = (torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+                   for a in (0.1 * rng.standard_normal(
+                       (spec.total_entries, spec.n_features)), x_np,
+                       rng.standard_normal((x_np.shape[0], spec.out_dim))))
+    e00 = TP._corners(spec, x)[0]
+    assert (kind == "one_cell") == bool((e00 == e00[:, :1]).all())
+    before = TP.triplane_encode_bwd.launches
+    got = TP.triplane_encode_bwd(spec, table, x, g, True, True)
+    ref = TP.triplane_encode_bwd_ref(spec, table, x, g, True, True)
+    torch.cuda.synchronize()
+    assert TP.triplane_encode_bwd.launches == before + 1
+    idx, vals = TP.triplane_encode_bwd_streams_ref(spec, table, x, g)
+    C.assert_within("dtable", got[0], ref[0],
+                    C.sum_order_tol(idx, vals, spec.total_entries))
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.cuda

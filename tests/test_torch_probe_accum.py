@@ -32,6 +32,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from coslam_tpu.ops.hash_packed import pair_scatter
 from coslam_torch.ops import probe_accum as PA
+from coslam_torch.ops import serial_scatter as SS
 from coslam_torch.tools.bench import (_bench_cell_merge, _bench_chunk_tune,
                                       _bench_row_rates, _bench_run_merge,
                                       _bench_scatter_variants)
@@ -374,8 +375,8 @@ def test_k12_run_skip_equals_jax_scan_and_skip(name):
 def test_run_skip_refuses_what_its_kernel_does_not_take():
     """Kernel V's wrapper refuses more than 5 rounds on any device (its
     blocks stage 31 rows past a tile), and, off the CPU, rows wider than
-    16, an int64 index and a tile S does not take; no launch is
-    counted."""
+    16 and an int64 index; S's (kernel P's launch) tensors on no CUDA
+    device; no launch is counted."""
     idx = torch.zeros(8, dtype=torch.int32)
     vals = torch.zeros((8, 8))
     with pytest.raises(ValueError, match="rounds"):
@@ -390,9 +391,8 @@ def test_run_skip_refuses_what_its_kernel_does_not_take():
         with pytest.raises(ValueError, match=message):
             PA.probe_accum_run_skip(args.pop("idx"), args.pop("vals"), 9,
                                     **args)
-    for tile in (16, 100, 1024):
-        with pytest.raises(ValueError, match="tile"):
-            PA.probe_accum_run_merge(*meta, 9, tile=tile)
+    with pytest.raises(ValueError, match="CUDA device"):
+        PA.probe_accum_run_merge(*meta, 9)
     assert PA.probe_accum_run_skip.launches == 0
     assert PA.probe_accum_run_merge.launches == 0
 
@@ -412,13 +412,40 @@ def test_skip_rule_and_pair_bounds():
         PA.probe_accum(idx, vals[:3], 5, stride=2)
 
 
-def test_adjacent_runs_counts_s_flushes():
-    """Kernel S's rows of atomics: one per run, and one more for every
-    run cut by a tile boundary."""
-    idx = _t(np.array([3, 3, 3, 1, 1, 2, 2, 2, 2, 5], np.int32))
-    assert PA.adjacent_runs(idx) == 4
-    assert PA.adjacent_runs(idx, tile=4) == 6   # cut at 4 and at 8
-    assert PA.adjacent_runs(idx, tile=2) == 8
+@pytest.mark.parametrize("name", C.WARP_EDGE_STREAMS)
+def test_run_merge_is_the_row_accumulate(name):
+    """Kernel S computes kernel F's function (kernel P with its clip rule
+    on rows, one launch for both): out[clip(idx, 0, rows)] += vals. On the
+    CPU, S equals row_accum's plain version bit for bit on the streams
+    built to break a warp merge, indices outside the rows included."""
+    m, rows = 1001, 300
+    idx = _t(C.warp_edge_stream(name, m, rows, seed=5))
+    vals = _t(np.random.default_rng(5).standard_normal((m, 8))
+              .astype(np.float32))
+    got = PA.probe_accum_run_merge(idx, vals, rows + 1)
+    want = SS.row_accum_ref(idx, vals, rows)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert PA.probe_accum_run_merge.launches == 0
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("name", C.WARP_EDGE_STREAMS)
+def test_warp_runs_counts_p_rows_of_atomics(name, clip):
+    """Kernel P's rows of atomics (warp_runs) against a count update by
+    update: an update adds where its row is kept (skip rule) or clipped
+    (clip rule) and it heads its run inside its 32-update step."""
+    m, rows = 2001, 500
+    idx = C.warp_edge_stream(name, m, rows, seed=3)
+    max_idx = rows - 1
+    count, prev = 0, None
+    for i, j in enumerate(idx.tolist()):
+        key = min(max(j, 0), max_idx) if clip else (
+            j if 0 <= j <= max_idx else None)
+        if key is not None and (i % 32 == 0 or key != prev):
+            count += 1
+        prev = key
+    assert PA.warp_runs(_t(idx), max_idx, clip) == count
+    assert count < m
 
 
 @pytest.mark.parametrize("module", [_bench_row_rates,

@@ -83,6 +83,27 @@ def test_scatter_add_equals_scatter_add_pallas(deterministic):
     np.testing.assert_array_equal(out, _np_add_at(idx, vals, n_rows)[:n_rows])
 
 
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_scatter_add_equals_scatter_add_pallas_on_runs(deterministic):
+    """scatter_add = K4 (interpret mode) = np.add.at bit for bit on a
+    run-heavy stream: runs of 1-40 equal indices (the samples of a ray in
+    one coarse cell, which kernel F sums inside a warp on the card), some
+    of them negative or past the last row."""
+    n_rows = 300
+    rng = np.random.default_rng(12)
+    idx = np.repeat(rng.integers(-5, n_rows + 5, 600),
+                    rng.integers(1, 41, 600))[:10_000].astype(np.int32)
+    vals = rng.standard_normal((idx.shape[0], 2)).astype(np.float32)
+    assert np.mean(idx[1:] == idx[:-1]) > 0.9
+    k4 = JHP.scatter_add_pallas(jnp.asarray(idx), (jnp.asarray(vals[:, 0]),
+                                                   jnp.asarray(vals[:, 1])),
+                                n_rows, interpret=True)
+    out = THP.scatter_add(torch.from_numpy(idx), torch.from_numpy(vals),
+                          n_rows, deterministic).numpy()
+    np.testing.assert_array_equal(out, np.asarray(k4))
+    np.testing.assert_array_equal(out, _np_add_at(idx, vals, n_rows)[:n_rows])
+
+
 def test_scatter_add_grouped_drops_negatives():
     """The JAX package's two K4 callers differ on negative indices
     (reference behaviour, not a fault of the port): scatter_add_pallas

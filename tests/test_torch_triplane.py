@@ -102,17 +102,20 @@ def test_forward_matches_jax(points):
         TP.triplane_encode_fwd(ts, *_t(table, x)).numpy(), out)
 
 
-@pytest.mark.parametrize("points", ["uniform", "edges"])
+@pytest.mark.parametrize("points", ["uniform", "edges", "rays"])
 def test_backward_matches_pair_scatter(points):
     """dtable and dx against make_triplane_encode's custom VJP in
     interpret mode: the table gradient through K2's pair scatter, dx
-    masked to 0 <= x <= 1, on points inside and outside [0, 1] and on the
-    cell edges."""
+    masked to 0 <= x <= 1, on points inside and outside [0, 1], on the
+    cell edges, and on ray-ordered points (3 rays of 43 samples, whose
+    runs of equal cell rows kernel U sums inside a warp on the card)."""
     js, ts = _specs()
     table, x, g = _inputs(js, 129, seed=1)
     if points == "edges":
         x = _edge_points(ts.resolutions[0])
         g = g[:x.shape[0]]
+    elif points == "rays":
+        x = C.ray_points(3, 43, 1).astype(np.float32)
     enc = JTP.make_triplane_encode(js, jnp.float32, interpret=True)
     ref_dt, ref_dx = jax.grad(
         lambda t, z: jnp.sum(enc(t, z) * jnp.asarray(g)), argnums=(0, 1))(
@@ -122,6 +125,40 @@ def test_backward_matches_pair_scatter(points):
     C.assert_within("dtable", dt, torch.from_numpy(np.array(ref_dt)),
                     _streams_tol(ts, tx, tg))
     np.testing.assert_allclose(dx.numpy(), ref_dx, **DX_TOL)
+
+
+@pytest.mark.parametrize("points", ["uniform", "rays", "one_cell"])
+def test_row_pair_adds_counts_u_heads(points):
+    """Kernel U's row-pair adds (row_pair_adds) against a count section by
+    section and point by point from the JAX spec's rows: two for each
+    point that does not continue its predecessor's corner row inside its
+    32-point warp; at 200 points (the last warp short)."""
+    js, ts = _specs()
+    n = 200
+    x = {"uniform": lambda: _inputs(js, n, seed=4)[1],
+         "rays": lambda: C.ray_points(5, 40, 4).astype(np.float32),
+         "one_cell": lambda: C.one_cell_points(
+             n, np.random.default_rng(4)).astype(np.float32)}[points]()
+    xc = np.clip(x, 0.0, 1.0)
+    planes = ((0, 1), (0, 2), (1, 2))
+    count = 0
+    for s in range(js.n_levels):
+        r = js.resolutions[s]
+        ua, va = planes[s % 3]
+        prev = None
+        for p in range(x.shape[0]):
+            cu = min(max(int(np.floor(np.float32(r) * xc[p, ua])), 0), r - 1)
+            cv = min(max(int(np.floor(np.float32(r) * xc[p, va])), 0), r - 1)
+            e00 = js.offsets[s] + cu * (r + 1) + cv
+            if p % 32 == 0 or e00 != prev:
+                count += 2
+            prev = e00
+    assert TP.row_pair_adds(ts, torch.from_numpy(x)) == count
+    unmerged = 2 * js.n_levels * x.shape[0]
+    if points == "one_cell":
+        assert count == 2 * js.n_levels * -(-x.shape[0] // 32)
+    elif points == "rays":
+        assert count < unmerged
 
 
 def test_backward_matches_autodiff():
