@@ -27,7 +27,9 @@ Run from the repository root. Phases, each printing its own lines:
    and B, also at the Dense grid (grid.enc: Dense, 4 dense levels, 67 M
    rows: XOR under grad_impl pallas, packed under the default) at the BA
    1-keyframe case; the tri-plane kernels T and U at room0_hybrid's planes
-   at every case of that slice but the lattice, and A and B at its 3
+   at every case of that slice but the lattice, T beside the library
+   route for its function (one grid_sample and a sum, within
+   kernel_times.LIBRARY_TOL), and A and B at its 3
    dense levels at every case, each also on that slice's ray-ordered
    points and each table gradient within its sum-order bound; then the
    row accumulate,
@@ -39,8 +41,8 @@ Run from the repository root. Phases, each printing its own lines:
    and bit for bit equal to a serial np.add.at on the host at every case,
    F and H and index_add_ also under a CUDA graph, and H's three phases
    (sort, run starts, walk) each timed alone; then
-   the probes' kernels P (scalar and float4 atomics), Q, R, S (P with its
-   clip rule) and V
+   the probes' kernels P (scalar and float4 atomics; the scalar pair
+   form at K10's shape), Q, R, S (P with its clip rule) and V
    (coslam_torch/csrc/probe_accum.cu) at each probe's main shape against
    their plain versions (V also bit for bit on a stream where each row
    takes one run), P also at K5's shape on its random and runs streams
@@ -156,17 +158,19 @@ from coslam_torch.data.synth import (  # noqa: E402
     room0_xor_config)
 from coslam_torch.tools.bench._common import accum_bound, bound  # noqa: E402
 from coslam_torch.tools.kernel_times import (  # noqa: E402
-    a_l2_sectors, c_l2_sectors, d_l2_sectors, e_l2_sectors, h_phases,
-    l2_rate, main_path_cases, packed_dense_spec, phase_times,
-    record_ba_points)
+    LIBRARY_TOL, a_l2_sectors, c_l2_sectors, d_l2_sectors, e_l2_sectors,
+    h_phases, l2_rate, main_path_cases, packed_dense_spec, phase_times,
+    record_ba_points, t_l2_sectors, t_library)
 from coslam_torch.tools.kernel_times import (  # noqa: E402
     graph_ms as _graph_ms, time_ms as _time_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # {kernel name: {count: value}}: the rows of atomics a kernel's warp merge
-# should issue, from a host model worked out from its indices (not a
-# reading of the kernel); printed apart from the kernels' record.
+# should issue and the L2 figures of the encodes (their sector accesses,
+# and those over the gather rate measured in the run), from a host model
+# worked out from the indices (not a reading of the kernel); printed apart
+# from the kernels' record.
 HOST_MODEL: dict = {}
 
 
@@ -555,7 +559,16 @@ class TriPlaneKernels:
                     self.spec, self.table.cpu(), x.cpu(), g.cpu()))
 
     def l2_sectors(self, x, need_table, need_dx):
-        return None, None     # no L2 figure kept for T and U
+        """T's L2 figure (``t_l2_sectors``); none kept for U."""
+        return t_l2_sectors(self.spec, x), None
+
+    def fwd_library(self):
+        """The library route for T's function (``t_library``: one
+        grid_sample and a sum over each level's sections), its images
+        built once."""
+        if not hasattr(self, "_library"):
+            self._library = t_library(self.spec, self.table)
+        return self._library
 
     def row_atomics(self, x, key: str = "") -> dict:
         """U's row-pair adds at points x (``triplane.row_pair_adds``: a
@@ -697,10 +710,11 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None,
     ``graph_ms``, ``ray_graph_ms``). With `sum_order`, every case's table
     gradient is held to that bound too (grids whose coarse rows take
     hundreds of uniform points each). With `l2` (``l2_rate``'s record), the
-    kernels that have an L2 figure (``kernels.l2_sectors``: A, C, E, D) get
-    ``l2_ms`` and ``ray_l2_ms``: their sector accesses over that rate.
-    For kernels with a host model of their atomics (``kernels.row_atomics``:
-    U) that count at both cases goes to ``HOST_MODEL``."""
+    L2 figure of the kernels that have one (``kernels.l2_sectors``: A, C,
+    E, D, T), their sector accesses over that rate (``l2_ms``,
+    ``ray_l2_ms``), goes to ``HOST_MODEL``, as does the count of kernels
+    with a host model of their atomics (``kernels.row_atomics``: U) at
+    both cases."""
     import torch
 
     from coslam_torch.tools.bench import _common as C
@@ -753,12 +767,22 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None,
             times["bwd_plain"] = _time_ms(lambda: kernels.bwd(
                 x, g, need_table, need_dx, plain=True))
         key = {timed[0]: "", RAY_CASE: "ray_"}.get(label)
+        if key is not None and hasattr(kernels, "fwd_library"):
+            library = kernels.fwd_library()
+            got_lib, ref = library(x), kernels.fwd(x, plain=True)
+            torch.testing.assert_close(got_lib, ref, **LIBRARY_TOL)
+            line.append("library route err {:.3g}".format(float(
+                (got_lib - ref).abs().max())))
+            times["fwd_library"] = _graph_ms(lambda: library(x))
+            out[fwd][key + "library_ms"] = times["fwd_library"]
         if key is not None and l2 is not None:
             for name, sectors in zip((fwd, bwd), kernels.l2_sectors(
                     x, need_table, need_dx)):
                 if sectors is not None:
-                    out[name][key + "l2_ms"] = sectors / l2["sectors_per_ms"]
-                    times[name[-3:] + "_l2"] = out[name][key + "l2_ms"]
+                    figure = sectors / l2["sectors_per_ms"]
+                    _host_model(name, **{key + "l2_sectors": sectors,
+                                         key + "l2_ms": figure})
+                    times[name[-3:] + "_l2 (model)"] = figure
         line += [f"{k} {v:.4f} ms" for k, v in times.items()]
         print("  " + ", ".join(line), flush=True)
         if key is not None and need_table and hasattr(kernels,
@@ -768,7 +792,8 @@ def check_kernels(device, kernels, cases: list, ray=None, l2=None,
             work = kernels.work(n, kernels.touched_bytes(x, g), need_table,
                                 need_dx)
             out[fwd].update(ms=times["fwd"], plain_ms=times["fwd_plain"],
-                            library_ms=None, **bound(*work[0]))
+                            library_ms=times.get("fwd_library"),
+                            **bound(*work[0]))
             out[bwd].update(ms=times["bwd"], plain_ms=times["bwd_plain"],
                             library_ms=None, **bound(*work[1]))
         if key is not None:
@@ -905,6 +930,7 @@ def check_probes(device) -> dict:
     from coslam_torch.tools.bench import _bench_chunk_tune as CT
     from coslam_torch.tools.bench import _bench_row_rates as RR
     from coslam_torch.tools.bench import _bench_run_merge as RM
+    from coslam_torch.tools.bench import _bench_scatter_variants as SV
     from coslam_torch.tools.bench import _common as C
 
     rng = np.random.default_rng(3)
@@ -944,7 +970,9 @@ def check_probes(device) -> dict:
         lambda: PA.probe_accum_ref(idx, streams.T, rows + 1),
         lambda: buf.index_add_(0, idx, streams.T),
         accum_bound(m, w, ref.numel()), ms_vec1=vec1_ms,
-        setting="row rates W=8 streams, float4 (ms) and scalar (ms_vec1)"))
+        setting="row rates W=8 streams, float4 (ms) and scalar, the lanes "
+                "across the rows (ms_vec1); K10's scalar pair form "
+                "(ms_pair_vec1)"))
     unpacked = PA.unpack_bf16x2(words.T.contiguous())
     q_ref = PA.probe_accum_ref(idx, unpacked, rows + 1)
     line.append(check(PA.probe_accum_bf16x2, PA.probe_accum_bf16x2(
@@ -982,6 +1010,21 @@ def check_probes(device) -> dict:
               f"{k5[name]['ms']:.4f} ms, index_add_ graph "
               f"{k5[name]['library_ms']:.4f} ms, (host model) {rows_k5} "
               "rows of atomics", flush=True)
+
+    # P's scalar pair form: the scatter-variants probe's "shipped" form
+    # (K10: 6,340,608 updates, scalar atomics, one update a thread).
+    rows, m = SV.N_ROWS, SV.M
+    idx = _itensor(device, rng.integers(0, rows - 2, m))
+    pair = _tensor(device, rng.standard_normal((4, m)))
+    call = lambda: PA.probe_accum(idx, pair, rows + 2,  # noqa: E731
+                                  stride=2)
+    err = check(PA.probe_accum, call(),
+                PA.probe_accum_ref(idx, pair.T, rows + 2, stride=2),
+                C.sum_order_tol(idx, pair.T, rows + 2, stride=2),
+                "P pair vec1")
+    out["probe_accum"]["ms_pair_vec1"] = _graph_ms(call)
+    print(f"  K10 pair form M={m}, scalar atomics: {err}, graph "
+          f"{out['probe_accum']['ms_pair_vec1']:.4f} ms", flush=True)
 
     # P's pair form: the chunk probe at its larger scale, as --quick runs it.
     rows, m = CT.ROWS, CT.MS[-1]
@@ -1077,7 +1120,8 @@ def check_warp_runs(device, tk: TriPlaneKernels, n_points: int) -> dict:
     (streams and rows at every vector width that divides W, with 1 and 4
     updates a thread, the pair form, the skip rule and the clip rule) and
     F, on each of ``_common.WARP_EDGE_STREAMS`` at M = 100,003 (the last
-    step short) for W = 1, 2, 4, 8 and 16; U, dtable and dx, on
+    step short) for W = 1, 2, 4, 6, 8 and 16 (scalar atomics: the lanes
+    across the rows, at W = 6 one update a lane); U, dtable and dx, on
     `n_points` points that lie in one cell of every plane level (each
     warp one run a section), timed there (events and graph; its row-pair
     adds go to ``HOST_MODEL``). Returns {kernel name: {"max_abs_err"} and U's
@@ -1101,7 +1145,7 @@ def check_warp_runs(device, tk: TriPlaneKernels, n_points: int) -> dict:
         idx = _itensor(device, C.warp_edge_stream(stream, m, rows))
         clipped = idx.clamp(0, rows)
         calls = 0
-        for width in (1, 2, 4, 8, 16):
+        for width in (1, 2, 4, 6, 8, 16):
             vals = _tensor(device, rng.standard_normal((m, width)))
             streams = vals.T.contiguous()
             ref = PA.probe_accum_ref(idx, vals, rows + 1)
@@ -1699,7 +1743,7 @@ def main() -> int:
     hybrid_cases = main_path_cases(hybrid_cfg, N_FRAMES)
     for name, rec in check_kernels(
             device, tk, [c for c in hybrid_cases if c[0] != "lattice"],
-            rays["_hybrid"], None, sum_order=True).items():
+            rays["_hybrid"], l2, sum_order=True).items():
         measured[name] = {"source": tk.source, **tk.record[name], **rec}
     hybrid_dense = JointEncoding(hybrid_cfg, hybrid_cfg["mapping"]["bound"],
                                  device).grid_spec[0]
@@ -1847,7 +1891,8 @@ def main() -> int:
                 **{key: v for key, v in rec.items() if key not in first}}
                for name, rec in measured.items()]
     print("host model, not read from the kernels: the rows of atomics "
-          "their warp merges should issue, from the indices: "
+          "their warp merges should issue and the encodes' L2 figures, "
+          "from the indices: "
           + json.dumps(HOST_MODEL))
     print(smi)
     print(json.dumps({"kernels": records}))

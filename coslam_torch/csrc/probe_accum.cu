@@ -58,6 +58,17 @@
 // a run that crosses a warp boundary costs one row a warp piece. On the
 // ray-ordered streams that F sums (the samples of a ray share the coarse
 // levels' cells) that removes the same-address atomics of a warp.
+// P with scalar atomics (`vec` 1, its default) lays a warp's lanes across
+// the row instead, column fastest, where W divides 32
+// (probe_accum_lanes_kernel): with one update a lane, each warp
+// instruction's 32 scalar atomics fell on up to 32 rows, about 32 L2
+// sectors an instruction and W instructions an update; with the lanes
+// across the row they fall on 32 / W rows of W contiguous floats (at W = 8
+// four rows, one sector each), the layout that gives index_add_ its time
+// on the same updates. Streams [W, M] are staged in shared memory by
+// coalesced loads so that the transposed read costs no extra sectors;
+// the warp merge compares rows W lanes apart. A W that does not divide 32
+// keeps one update a lane (probe_accum_kernel at `vec` 1).
 // Q keeps the earlier design: one thread takes `upt` consecutive
 // updates. R keeps the pre-pass (equal adjacent pairs merged) in torch,
 // as it was XLA, and is one thread per pair with the second row's add
@@ -144,10 +155,22 @@ __device__ __forceinline__ void load_update(const float* __restrict__ v,
     x[k] = ROWS ? __ldg(v + i * width + e + k) : __ldg(v + (e + k) * m + i);
 }
 
+// P's key for update i: its row, clipped into [0, max_idx] (clip) or -1
+// where the skip rule drops it, and -1 past M.
+__device__ __forceinline__ int update_row(const int* __restrict__ idx,
+                                          int64_t m, int64_t i, int max_idx,
+                                          bool clip) {
+  if (i >= m) return -1;
+  const int j = __ldg(idx + i);
+  if (clip) return min(max(j, 0), max_idx);
+  return j >= 0 && j <= max_idx ? j : -1;
+}
+
 // Kernel P: f32 values, streams [W, M] or rows [M, W] (ROWS). Warp w
 // takes updates [32 upt w, 32 upt (w + 1)), 32 a step, lane l update
 // 32 k + l of step k; blockDim.x is a multiple of 32. A lane's key is its
 // update's row (clipped, or -1 where the skip rule drops it or past M).
+// The vector forms, and the scalar form at a W that does not divide 32.
 template <int VEC, bool ROWS>
 __global__ void probe_accum_kernel(const int* __restrict__ idx,
                                    const float* __restrict__ vals,
@@ -163,15 +186,8 @@ __global__ void probe_accum_kernel(const int* __restrict__ idx,
     const int64_t first = (warp * upt + k) * 32;
     if (first >= m) break;  // the same for the whole warp
     const int64_t i = first + lane;
-    int key = -1;
-    if (i < m) {
-      const int j = __ldg(idx + i);
-      if (clip)
-        key = min(max(j, 0), max_idx);
-      else if (j >= 0 && j <= max_idx)
-        key = j;
-    }
-    const warp_runs::Run run(key);
+    const int key = update_row(idx, m, i, max_idx, clip);
+    const warp_runs::Run<> run(key);
     for (int e = 0; e < width; e += VEC) {
       float x[VEC];
       if (key >= 0) {
@@ -183,6 +199,61 @@ __global__ void probe_accum_kernel(const int* __restrict__ idx,
       run.sum<VEC>(x);
       if (run.adds) add_vec<VEC>(out + static_cast<int64_t>(key) * stride + e,
                                  x);
+    }
+  }
+}
+
+// Kernel P with scalar atomics where W divides 32 (`vec` 1): lanes across
+// a row. Warp w takes the updates of probe_accum_kernel's warp w, 32 a
+// step, and issues each step as W instructions of G = 32 / W updates:
+// lane l takes column l mod W of update j G + l / W of step j, so the 32
+// scalar atomics of an instruction fall on G rows of W contiguous floats.
+// Lane l reads the index of update 32 k + l of its step (coalesced) and
+// each instruction's lanes take their update's from it by a shuffle.
+// Rows [M, W] are read as they lie: instruction j reads 32 contiguous
+// floats. Streams [W, M] are staged first, a warp's own W x 32 floats in
+// shared memory, by W coalesced loads of 32 floats: column e of the
+// step's update q at s[e * kPitch + q]. The G floats of skew a column
+// (kPitch = 32 + G) put an instruction's 32 reads, column c of update u
+// at bank (c G + u + j G) mod 32, in 32 distinct banks. The warp merge
+// compares each update's row with the previous update's, W lanes down
+// (warp_runs::Run<W>), and sums runs by shuffles W lanes apart.
+template <int W, bool ROWS>
+__global__ void probe_accum_lanes_kernel(const int* __restrict__ idx,
+                                         const float* __restrict__ vals,
+                                         float* __restrict__ out, int64_t m,
+                                         int stride, int max_idx, int upt,
+                                         bool clip) {
+  constexpr int G = 32 / W;
+  constexpr int kPitch = 32 + G;
+  extern __shared__ float stage[];  // streams: [warps a block][W][kPitch]
+  const int lane = threadIdx.x & 31;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  float* s = stage + (threadIdx.x >> 5) * (W * kPitch);
+  const int u = lane / W, c = lane % W;
+  for (int k = 0; k < upt; ++k) {
+    const int64_t first = (warp * upt + k) * 32;
+    if (first >= m) break;  // the same for the whole warp
+    const int64_t i = first + lane;
+    const int key = update_row(idx, m, i, max_idx, clip);
+    if constexpr (!ROWS) {
+      __syncwarp();  // the last step's reads of s are done
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        s[e * kPitch + lane] = i < m ? __ldg(vals + e * m + i) : 0.0f;
+      __syncwarp();
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const int q = j * G + u;  // the lane's update in the step
+      const int row = __shfl_sync(warp_runs::kFull, key, q);
+      float x = 0.0f;
+      if (row >= 0)
+        x = ROWS ? __ldg(vals + (first + q) * W + c) : s[c * kPitch + q];
+      const warp_runs::Run<W> run(row);
+      run.template sum<1>(&x);
+      if (run.adds) atomicAdd(out + static_cast<int64_t>(row) * stride + c, x);
     }
   }
 }
@@ -402,10 +473,37 @@ int launch_by_vec(int vec, Launch launch) {
   return cudaGetLastError();
 }
 
+// P with scalar atomics and W dividing 32: the lanes kernel at W; its
+// streams stage W x (32 + 32 / W) floats a warp, above 48 KB (W 16 and 32
+// with many threads) only when asked for.
+template <int W>
+cudaError_t launch_lanes(const int* idx, const float* v, float* out,
+                         int64_t m, int stride, int max_idx, bool rows,
+                         int upt, bool clip, int threads, unsigned int blocks,
+                         cudaStream_t s) {
+  if (rows) {
+    probe_accum_lanes_kernel<W, true><<<blocks, threads, 0, s>>>(
+        idx, v, out, m, stride, max_idx, upt, clip);
+    return cudaGetLastError();
+  }
+  const size_t smem =
+      sizeof(float) * (threads / 32) * W * (32 + 32 / W);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        probe_accum_lanes_kernel<W, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  probe_accum_lanes_kernel<W, false><<<blocks, threads, smem, s>>>(
+      idx, v, out, m, stride, max_idx, upt, clip);
+  return cudaGetLastError();
+}
+
 template <int VEC, bool BF16>
-void launch_accum(const int* idx, const void* vals, float* out, int64_t m,
-                  int width, int stride, int max_idx, bool rows, int upt,
-                  bool clip, int threads, cudaStream_t s) {
+cudaError_t launch_accum(const int* idx, const void* vals, float* out,
+                         int64_t m, int width, int stride, int max_idx,
+                         bool rows, int upt, bool clip, int threads,
+                         cudaStream_t s) {
   if constexpr (BF16) {
     const unsigned int blocks = n_blocks((m + upt - 1) / upt, threads);
     probe_accum_bf16_kernel<VEC><<<blocks, threads, 0, s>>>(
@@ -415,6 +513,26 @@ void launch_accum(const int* idx, const void* vals, float* out, int64_t m,
     const unsigned int blocks =
         n_blocks((m + per_warp - 1) / per_warp * 32, threads);
     const float* v = static_cast<const float*>(vals);
+    if constexpr (VEC == 1) {
+      switch (width) {
+        case 1: return launch_lanes<1>(idx, v, out, m, stride, max_idx, rows,
+                                       upt, clip, threads, blocks, s);
+        case 2: return launch_lanes<2>(idx, v, out, m, stride, max_idx, rows,
+                                       upt, clip, threads, blocks, s);
+        case 4: return launch_lanes<4>(idx, v, out, m, stride, max_idx, rows,
+                                       upt, clip, threads, blocks, s);
+        case 8: return launch_lanes<8>(idx, v, out, m, stride, max_idx, rows,
+                                       upt, clip, threads, blocks, s);
+        case 16: return launch_lanes<16>(idx, v, out, m, stride, max_idx,
+                                         rows, upt, clip, threads, blocks, s);
+        case 32: return launch_lanes<32>(idx, v, out, m, stride, max_idx,
+                                         rows, upt, clip, threads, blocks, s);
+        default: break;  // one update a lane, below
+      }
+    }
+    // The vector forms, and the scalar form at a W that does not divide
+    // 32 (one update a lane, W scalar atomics each; no SLAM path takes
+    // it: F and K3's generic widths add with vec >= 2 where W is even).
     if (rows)
       probe_accum_kernel<VEC, true><<<blocks, threads, 0, s>>>(
           idx, v, out, m, width, stride, max_idx, upt, clip);
@@ -422,21 +540,22 @@ void launch_accum(const int* idx, const void* vals, float* out, int64_t m,
       probe_accum_kernel<VEC, false><<<blocks, threads, 0, s>>>(
           idx, v, out, m, width, stride, max_idx, upt, clip);
   }
+  return cudaGetLastError();
 }
 
 template <bool BF16>
-void dispatch_accum(const int* idx, const void* vals, float* out, int64_t m,
-                    int width, int stride, int max_idx, int vec, bool rows,
-                    int upt, bool clip, int threads, cudaStream_t s) {
+cudaError_t dispatch_accum(const int* idx, const void* vals, float* out,
+                           int64_t m, int width, int stride, int max_idx,
+                           int vec, bool rows, int upt, bool clip,
+                           int threads, cudaStream_t s) {
   if (vec == 4)
-    launch_accum<4, BF16>(idx, vals, out, m, width, stride, max_idx, rows,
-                          upt, clip, threads, s);
-  else if (vec == 2)
-    launch_accum<2, BF16>(idx, vals, out, m, width, stride, max_idx, rows,
-                          upt, clip, threads, s);
-  else
-    launch_accum<1, BF16>(idx, vals, out, m, width, stride, max_idx, rows,
-                          upt, clip, threads, s);
+    return launch_accum<4, BF16>(idx, vals, out, m, width, stride, max_idx,
+                                 rows, upt, clip, threads, s);
+  if (vec == 2)
+    return launch_accum<2, BF16>(idx, vals, out, m, width, stride, max_idx,
+                                 rows, upt, clip, threads, s);
+  return launch_accum<1, BF16>(idx, vals, out, m, width, stride, max_idx,
+                               rows, upt, clip, threads, s);
 }
 
 }  // namespace
@@ -459,12 +578,10 @@ int probe_accum(const int* idx, const void* vals, float* out, int64_t m,
   if (m == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    dispatch_accum<true>(idx, vals, out, m, width, stride, max_idx, vec,
-                         rows != 0, upt, clip != 0, threads, s);
-  else
-    dispatch_accum<false>(idx, vals, out, m, width, stride, max_idx, vec,
-                          rows != 0, upt, clip != 0, threads, s);
-  return cudaGetLastError();
+    return dispatch_accum<true>(idx, vals, out, m, width, stride, max_idx,
+                                vec, rows != 0, upt, clip != 0, threads, s);
+  return dispatch_accum<false>(idx, vals, out, m, width, stride, max_idx, vec,
+                               rows != 0, upt, clip != 0, threads, s);
 }
 
 // Kernel R: n pairs; out [rows, width].

@@ -28,11 +28,11 @@
 //                        plane_quad.cell_scatter_grad) and whose coarse
 //                        sections go through a two-hot matmul; the line
 //                        gradient (a two-hot matmul); and dx.
-//   triplane_encode_fwd - kernel T, the forward of
-//                        coslam_tpu/ops/triplane.py make_triplane_encode
-//                        (_gather_pairs on the bf16 window mirror and
-//                        _combine, XLA on the TPU); numerically
-//                        triplane_encode_fwd_only.
+//   triplane_encode_fwd - kernel T (triplane_fwd_kernel), the
+//                        forward of coslam_tpu/ops/triplane.py
+//                        make_triplane_encode (_gather_pairs on the bf16
+//                        window mirror and _combine, XLA on the TPU);
+//                        numerically triplane_encode_fwd_only.
 //   triplane_encode_bwd - kernel U, that encode's custom VJP: the plane
 //                        table gradient through
 //                        hash_packed._scatter_table_grad, the Pallas pair
@@ -125,6 +125,29 @@
 // single-update entries by a few ulp. dx is the atomic mode's launch with
 // dplanes and dlines null.
 //
+// Kernel T (triplane_fwd_kernel) has a kernel of its own, shaped for the
+// tri-plane's pyramid (room0_hybrid: 4 levels 32/68/146/311, F = 2,
+// 374,409 rows). Its L2 figure at the BA 1-keyframe case (sector
+// accesses over the measured gather rate, kernel_times.t_l2_sectors:
+// 44 us) lies above its time (35 us uniform, 19 us on room0_hybrid's
+// ray-ordered points), so much of T is served by L1 already, and asking
+// L2 for fewer sectors did not help: copying levels 0-1 (140 KB) into
+// each block's shared memory (persistent blocks, one an SM, bulk copies
+// on an mbarrier, also shared by multicast across clusters of 2 and 4)
+// lost at every case. The reading we hold, not checked by any counter
+// (none of L1 wavefronts or L2 sectors was read on the card), is that T
+// is limited by its L1 data path, and that the copy shrank the L1 the
+// fine levels hit in. A thread a point with all its levels (warps of 32
+// points) won on uniform points but lost on rays. So T keeps C's
+// level-major warps (a warp one level of 32 points, the samples of a ray
+// sharing coarse rows inside one load), with each warp's level,
+// resolution and section-0 row read once before the block's first
+// barrier, blocks of 2 tiles x 4 levels (256 threads; 32 registers a
+// thread by ptxas), the level count compiled in for the main path's 4
+// levels, and the tiles' x and outputs staged in shared memory and moved
+// as whole contiguous rows. The tried designs' times are in
+// PERF.md section 6.
+//
 // Unit lines (kernels T and U). The line reads, the line factor, the line
 // gradient and dx's line term drop out; U adds the plane gradient as the
 // tri-plane's K2 forms it, v = (g * wu_k) * (1 - wv) at (u corner k, v0)
@@ -187,10 +210,13 @@ struct Section {
   float wu, wv, wl;
 };
 
-// kUnitLines: no line (wl 0, l0 0).
+// Section s of a level at resolution res whose section 0 starts at plane
+// row plane0 and line row line0. kUnitLines: no line (wl 0, l0 0; line0
+// unread).
 template <bool kUnitLines>
-__device__ __forceinline__ Section section(const Levels& lv, int l, int res,
-                                           int s, const float xs[3]) {
+__device__ __forceinline__ Section section_at(int64_t plane0, int64_t line0,
+                                              int res, int s,
+                                              const float xs[3]) {
   Section sec;
   int cu, cv, ci = 0;
   sec.wu = cell_weight(xs[u_axis(s)], res, &cu);
@@ -198,9 +224,16 @@ __device__ __forceinline__ Section section(const Levels& lv, int l, int res,
   sec.wl = kUnitLines ? 0.0f : cell_weight(xs[line_axis(s)], res, &ci);
   sec.r1 = res + 1;
   const int64_t r1 = sec.r1;
-  sec.e00 = lv.plane_row(l) + s * r1 * r1 + cu * r1 + cv;
-  sec.l0 = kUnitLines ? 0 : lv.line_row(l) + s * r1 + ci;
+  sec.e00 = plane0 + s * r1 * r1 + cu * r1 + cv;
+  sec.l0 = kUnitLines ? 0 : line0 + s * r1 + ci;
   return sec;
+}
+
+template <bool kUnitLines>
+__device__ __forceinline__ Section section(const Levels& lv, int l, int res,
+                                           int s, const float xs[3]) {
+  return section_at<kUnitLines>(lv.plane_row(l),
+                                kUnitLines ? 0 : lv.line_row(l), res, s, xs);
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -271,7 +304,7 @@ __device__ __forceinline__ void add_line_rows(float* acc, int key, float v[4]) {
 // is summed by shuffles and its first lane adds (warp_runs.cuh).
 __device__ __forceinline__ void add_plane_runs(float* dt, int key, int r1,
                                                float v[8]) {
-  const warp_runs::Run run(key);
+  const warp_runs::Run<> run(key);
   run.sum<8>(v);
   if (run.adds) {
     add_pair(dt, key, make_float2(v[0], v[1]), make_float2(v[2], v[3]));
@@ -281,13 +314,11 @@ __device__ __forceinline__ void add_plane_runs(float* dt, int key, int r1,
 
 constexpr int kThreads = 256;
 
-// Kernel C, and with kUnitLines kernel T (lines unread, may be null).
-// Block b takes the tile of `tile` consecutive points from
+// Kernel C. Block b takes the tile of `tile` consecutive points from
 // b * tile (tile_points: 64 at L = 3), thread t = l * tile + p, so each
 // warp walks one level across 32 points. Dynamic shared memory, in floats:
 // the tile's x [tile * 3], then its outputs [tile, L * F + 1] (one float of
 // padding a row, so the lanes' row stores fall in different banks).
-template <bool kUnitLines>
 __global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ planes,
     const float* __restrict__ lines, float* __restrict__ out,
@@ -312,12 +343,11 @@ __global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
     float acc[F] = {0.0f, 0.0f};
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
-      const Section sec = section<kUnitLines>(lv, l, res, s, xv);
-      float2 p00, p01, p10, p11;
-      float2 v0 = make_float2(1.0f, 1.0f), v1 = v0;
+      const Section sec = section<false>(lv, l, res, s, xv);
+      float2 p00, p01, p10, p11, v0, v1;
       load_pair(planes, sec.e00, &p00, &p01);
       load_pair(planes, sec.e00 + sec.r1, &p10, &p11);
-      if (!kUnitLines) load_pair(lines, sec.l0, &v0, &v1);
+      load_pair(lines, sec.l0, &v0, &v1);
       const float a[F][6] = {{p00.x, p01.x, p10.x, p11.x, v0.x, v1.x},
                              {p00.y, p01.y, p10.y, p11.y, v0.y, v1.y}};
 #pragma unroll
@@ -325,8 +355,7 @@ __global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
         const float featv0 = a[f][0] * (1.0f - sec.wv) + a[f][1] * sec.wv;
         const float featv1 = a[f][2] * (1.0f - sec.wv) + a[f][3] * sec.wv;
         const float plane = featv0 * (1.0f - sec.wu) + featv1 * sec.wu;
-        const float line =
-            kUnitLines ? 1.0f : a[f][4] * (1.0f - sec.wl) + a[f][5] * sec.wl;
+        const float line = a[f][4] * (1.0f - sec.wl) + a[f][5] * sec.wl;
         acc[f] += plane * line;
       }
     }
@@ -345,6 +374,77 @@ __global__ void __launch_bounds__(1024) tensovm_fwd_kernel(
 // L * tile threads, thread t = l * tile + p.
 inline int tile_points(int n_levels) {
   return 32 * (n_levels >= kThreads / 32 ? 1 : kThreads / 32 / n_levels);
+}
+
+// One level of point xv at resolution res, its section 0 at table row
+// row0: the sum over its 3 sections of the bilinear plane value, with the
+// sections and fold of kernel C with unit lines (per section the v, then
+// the u interpolation; the sections summed in order).
+__device__ __forceinline__ float2 triplane_level(const float* __restrict__ t,
+                                                 int res, int64_t row0,
+                                                 const float xv[3]) {
+  float acc[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    const Section sec = section_at<true>(row0, 0, res, s, xv);
+    float2 p00, p01, p10, p11;
+    load_pair(t, sec.e00, &p00, &p01);
+    load_pair(t, sec.e00 + sec.r1, &p10, &p11);
+    const float a[2][4] = {{p00.x, p01.x, p10.x, p11.x},
+                           {p00.y, p01.y, p10.y, p11.y}};
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const float featv0 = a[f][0] * (1.0f - sec.wv) + a[f][1] * sec.wv;
+      const float featv1 = a[f][2] * (1.0f - sec.wv) + a[f][3] * sec.wv;
+      acc[f] += featv0 * (1.0f - sec.wu) + featv1 * sec.wu;
+    }
+  }
+  return make_float2(acc[0], acc[1]);
+}
+
+// Kernel T: a block takes `tiles` tiles of 32 consecutive points, each
+// served by L warps, warp w of the block level w mod L of tile w / L (so
+// one gather instruction reads one row pair of one section for 32
+// points). A warp's level, its resolution and its section-0 row are fixed
+// for the block and read before the block's first barrier. kL: the level
+// count at compile time (4: the main path's pyramids, where it makes the
+// warp's level and the output rows' divisions constant), or 0 (lv's).
+// Dynamic shared memory, in floats: the tiles' x [tiles * 32 * 3], then
+// their outputs [tiles * 32, L * 2 + 1] (one float of padding a row, so
+// the lanes' row stores fall in different banks), written out as whole
+// contiguous rows.
+template <int kL>
+__global__ void __launch_bounds__(1024) triplane_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ planes,
+    float* __restrict__ out, int64_t n_points, Levels lv, int tiles) {
+  constexpr int F = 2;
+  extern __shared__ float smem[];
+  const int L = kL > 0 ? kL : lv.n_levels;
+  const int width = L * F, pitch = width + 1;
+  float* xs = smem;
+  float* os = xs + tiles * 32 * 3;
+  const int warp = threadIdx.x >> 5;
+  const int l = warp % L;
+  const int p = (warp / L) * 32 + (threadIdx.x & 31);
+  const int res = lv.res(l);
+  const int64_t row0 = lv.plane_row(l);
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * tiles * 32;
+  const int rows = n_points - n0 < tiles * 32
+                       ? static_cast<int>(n_points - n0) : tiles * 32;
+  for (int i = threadIdx.x; i < rows * 3; i += blockDim.x)
+    xs[i] = __ldg(x + n0 * 3 + i);
+  __syncthreads();
+  if (p < rows) {
+    const float xv[3] = {xs[p * 3], xs[p * 3 + 1], xs[p * 3 + 2]};
+    const float2 v = triplane_level(planes, res, row0, xv);
+    os[p * pitch + l * F] = v.x;
+    os[p * pitch + l * F + 1] = v.y;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+    const int q = i / width;
+    out[n0 * width + i] = os[q * pitch + (i - q * width)];
+  }
 }
 
 // dplanes, dlines and dx may each be null (not asked for). Dynamic shared
@@ -655,6 +755,13 @@ cudaError_t resident_blocks(int threads, size_t smem, int64_t* wave) {
   return cudaSuccess;
 }
 
+// The level count kernel T is compiled for: the main path's tri-plane
+// pyramids (TriPlaneHybrid's and TriPlane's, triplane_levels 4), where on
+// an H100 it is 6-13 % faster on uniform points and 1-2 % on rays than
+// the count read at run time (PERF.md section 6); other counts take the
+// same kernel with the count read at run time.
+constexpr int kTriplaneLevels = 4;
+
 }  // namespace
 
 extern "C" {
@@ -676,7 +783,7 @@ int tensovm_encode_fwd(const float* x, const float* planes,
   const size_t smem = static_cast<size_t>(tile) *
                       (3 + n_levels * kFeatures + 1) * sizeof(float);
   const int64_t blocks = (n_points + tile - 1) / tile;
-  tensovm_fwd_kernel<false>
+  tensovm_fwd_kernel
       <<<static_cast<unsigned int>(blocks), threads, smem,
          static_cast<cudaStream_t>(stream)>>>(
       x, planes, lines, out, n_points, Levels{levels, n_levels}, tile);
@@ -732,9 +839,7 @@ int tensovm_encode_bwd(const float* x, const float* planes,
   return cudaGetLastError();
 }
 
-// Kernels T and U: the tri-plane (unit lines), with the arguments of their
-// TensoVM counterparts less the line table. planes and dplanes must be
-// 16-byte aligned.
+// Kernel T (triplane_fwd_kernel): planes must be 16-byte aligned.
 int triplane_encode_fwd(const float* x, const float* planes, float* out,
                         int64_t n_points, int n_features, const int* levels,
                         int n_levels, void* stream) {
@@ -742,14 +847,24 @@ int triplane_encode_fwd(const float* x, const float* planes, float* out,
       misaligned(planes))
     return cudaErrorInvalidValue;
   if (n_points == 0) return cudaSuccess;
-  const int tile = tile_points(n_levels);
-  const size_t smem = static_cast<size_t>(tile) *
+  // Tiles of 32 points a block: 2 at 4 levels (256 threads, the shape
+  // timed in PERF.md section 6), else as many as keep 256 threads (at
+  // least one tile, so at most 1024 threads at 32 levels).
+  const int tiles = n_levels >= 8 ? 1 : 8 / n_levels;
+  const int threads = 32 * n_levels * tiles;
+  const size_t smem = static_cast<size_t>(tiles) * 32 *
                       (3 + n_levels * kFeatures + 1) * sizeof(float);
-  const int64_t blocks = (n_points + tile - 1) / tile;
-  tensovm_fwd_kernel<true>
-      <<<static_cast<unsigned int>(blocks), n_levels * tile, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-          x, planes, nullptr, out, n_points, Levels{levels, n_levels}, tile);
+  const int64_t points = 32 * static_cast<int64_t>(tiles);
+  const unsigned int blocks =
+      static_cast<unsigned int>((n_points + points - 1) / points);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Levels lv{levels, n_levels};
+  if (n_levels == kTriplaneLevels)
+    triplane_fwd_kernel<kTriplaneLevels><<<blocks, threads, smem, st>>>(
+        x, planes, out, n_points, lv, tiles);
+  else
+    triplane_fwd_kernel<0><<<blocks, threads, smem, st>>>(
+        x, planes, out, n_points, lv, tiles);
   return cudaGetLastError();
 }
 

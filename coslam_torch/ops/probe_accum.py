@@ -24,7 +24,10 @@ P's kernel with its clip rule is also kernel F, the atomic row
 accumulate of the main path (:mod:`.serial_scatter`), through
 :func:`launch_accum`, as S is. P's warps take 32 consecutive updates a step and
 sum each run of equal idx inside the warp before one row of atomics
-(:func:`warp_runs` counts those rows); Q adds one row an update.
+(:func:`warp_runs` counts those rows); with scalar atomics (``vec`` 1)
+and a W that divides 32, a warp's lanes lie across the row, so each warp
+instruction adds 32 / W whole rows and runs are merged within those; Q
+adds one row an update.
 
 P, Q and R skip an update whose row would not lie inside the output
 (idx < 0 or idx > ``out_rows - W // stride``): K12's sentinel rule; the
@@ -120,12 +123,13 @@ WARP = 32   # P: the updates a warp takes a step
 
 
 def warp_runs(idx: torch.Tensor, max_idx: int, clip: bool = False) -> int:
-    """Rows of atomics kernel P issues on idx: an update adds (its run's
-    row) where its row lies in [0, max_idx] (with ``clip``, every update,
-    idx clipped into that range) and it does not continue a run of equal
-    idx inside its warp's step of WARP updates (updates [32 k, 32 k + 32)),
-    so a run that crosses a step boundary costs one row a piece. Kernel F
-    is ``clip`` with max_idx the slack row."""
+    """Rows of atomics kernel P issues on idx in its vector forms: an
+    update adds (its run's row) where its row lies in [0, max_idx] (with
+    ``clip``, every update, idx clipped into that range) and it does not
+    continue a run of equal idx inside its warp's step of WARP updates
+    (updates [32 k, 32 k + 32)), so a run that crosses a step boundary
+    costs one row a piece. Kernel F is ``clip`` with max_idx the slack
+    row."""
     if clip:
         key = idx.clamp(0, max_idx)
     else:
@@ -261,7 +265,9 @@ def probe_accum(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
                 upt: int = 1, threads: int = 256) -> torch.Tensor:
     """Kernel P: out [out_rows, stride] f32 with the row of update m added
     at element offset idx[m] * stride. vals f32 [W, M] (streams) or
-    [M, W] (``rows``); stride defaults to W."""
+    [M, W] (``rows``); stride defaults to W. With ``vec`` 1 and a W that
+    divides 32 a warp's lanes lie across the rows; otherwise a lane takes
+    one update."""
     width, m = vals.shape[::-1] if rows else vals.shape
     if _kernels.on_cpu(idx, vals):
         return probe_accum_ref(idx, vals if rows else vals.T, out_rows,

@@ -11,12 +11,13 @@ with unit lines.
 The TPU gathered each section's two u-corner row pairs from a bf16
 window mirror (XLA) and added the table gradient with the Pallas pair
 scatter (K2, hash_packed._pair_scatter_kernel, through
-_scatter_table_grad). On the GPU kernels C and D of
-coslam_torch/csrc/tensovm_encode.cu, with unit lines (no line table),
-read and atomically update the corner row pairs of the logical f32
-table directly:
+_scatter_table_grad). On the GPU the kernels of
+coslam_torch/csrc/tensovm_encode.cu read and atomically update the corner
+row pairs of the logical f32 table directly: T a kernel of its own, U
+kernel D with unit lines (no line table):
 
-- :func:`triplane_encode_fwd`: kernel T, the encode forward;
+- :func:`triplane_encode_fwd`: kernel T, the encode forward, a warp one
+  level of 32 points, compiled for the main path's 4 levels;
 - :func:`triplane_encode_bwd`: kernel U, the table gradient and/or dx,
   a warp's runs of equal cell rows summed before its atomics;
 - :func:`triplane_encode_bwd_serial`: kernel U's serial mode (K2 in its
@@ -154,7 +155,8 @@ def _corners(spec: TriPlaneSpec, x: torch.Tensor):
 
 def _rows(table: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """Rows e [S, N] of a [T, F] table -> [F, S, N]."""
-    return table.T.index_select(1, e.reshape(-1)).view(-1, *e.shape)
+    return table.T.index_select(1, e.reshape(-1)).view(table.shape[1],
+                                                       *e.shape)
 
 
 def _section_grad(spec: TriPlaneSpec, g: torch.Tensor) -> torch.Tensor:
@@ -176,7 +178,7 @@ def triplane_encode_fwd_ref(spec: TriPlaneSpec, table: torch.Tensor,
     feats = featv0 * (1 - wu) + featv1 * wu                    # [F, S, N]
     F, _, n = feats.shape
     per_level = feats.view(F, spec.pyr_levels, 3, n).sum(2)
-    return per_level.permute(2, 1, 0).reshape(n, -1)
+    return per_level.permute(2, 1, 0).reshape(n, spec.out_dim)
 
 
 def _updates(spec: TriPlaneSpec, x: torch.Tensor, g: torch.Tensor):
@@ -324,7 +326,9 @@ def _check_cuda(spec: TriPlaneSpec, table, x, g=None) -> None:
 
 def triplane_encode_fwd(spec: TriPlaneSpec, table: torch.Tensor,
                         x: torch.Tensor) -> torch.Tensor:
-    """Encode forward: x [N, 3] (normalized) -> [N, L*F]."""
+    """Encode forward: x [N, 3] (normalized) -> [N, L*F]. On the card,
+    kernel T: a block takes tiles of 32 points, a warp one level of a
+    tile; x and the outputs staged in shared memory."""
     if _kernels.on_cpu(table, x):
         return triplane_encode_fwd_ref(spec, table, x)
     _check_cuda(spec, table, x)

@@ -39,7 +39,9 @@ of points before they are timed.
 With ``--hybrid`` (the ray-ordered points of the room0_hybrid slice's
 first BA call, ``output/ba_points_hybrid.npy`` from ``chip_smoke.py``) it
 times kernels T and U, U also in its serial mode, at every case of that
-slice and on those points, and A and B at the hybrid's dense levels
+slice and on those points, T beside its L2 figure (``t_l2_sectors``) and
+the time of the library route for its function (``t_library``: one
+``grid_sample`` and a sum), and A and B at the hybrid's dense levels
 (``time_t_and_u``).
 
 With ``--serial`` it times the serial modes of kernels B, U and D (the
@@ -462,6 +464,57 @@ def d_l2_sectors(spec, x: torch.Tensor, need_table: bool,
     return reads + atomics + streams // SECTOR
 
 
+def t_l2_sectors(spec, x: torch.Tensor) -> int:
+    """Kernel T's sector accesses on points x: d_l2_sectors' count with
+    unit lines, per (point, section) the distinct sectors of its 4 plane
+    rows, x read and the output written."""
+    from coslam_torch.ops import triplane as TP
+
+    n = x.shape[0]
+    e00, e10, _, _ = TP._corners(spec, x)                       # [S, N]
+    plane = torch.stack([e00, e00 + 1, e10, e10 + 1])
+    reads = _distinct(plane * (4 * spec.n_features) // SECTOR, 0)
+    return reads + (12 * n + 4 * n * spec.out_dim) // SECTOR
+
+
+def t_library(spec, table: torch.Tensor):
+    """The library route for kernel T's function: fn(x) -> [N, L F], one
+    ``grid_sample`` over the 3 L sections (each a zero-padded [F, R, R]
+    image, R = the finest r + 1, built here once: rows u, columns v) at
+    per-level scaled grids, then a sum over each level's 3 sections. The
+    grid is built from x inside fn, so a timing of fn runs from x to the
+    output. align_corners=True puts pixel i at -1 + 2 i / (R - 1), so
+    u = r clip(x) maps to 2 u / (R - 1) - 1; the zero padding is never
+    weighted (u <= r)."""
+    import torch.nn.functional as Fn
+    from coslam_torch.ops import triplane as TP
+
+    S, F, L = spec.n_levels, spec.n_features, spec.pyr_levels
+    R = max(spec.resolutions) + 1
+    images = table.new_zeros((S, F, R, R))
+    for s in range(S):
+        r1 = spec.resolutions[s] + 1
+        sec = table[spec.offsets[s]:spec.offsets[s] + r1 * r1]
+        images[s, :, :r1, :r1] = sec.T.reshape(F, r1, r1)
+    scale = torch.tensor(spec.resolutions, dtype=table.dtype,
+                         device=table.device)[:, None] * (2.0 / (R - 1))
+    # grid_sample's x is the width (v), its y the height (u).
+    axes = torch.tensor([[TP._PLANES[s % 3][1] for s in range(S)],
+                         [TP._PLANES[s % 3][0] for s in range(S)]],
+                        device=table.device)
+
+    def fn(x):
+        xt = x.clamp(0.0, 1.0).T                                # [3, N]
+        grid = torch.stack([xt.index_select(0, axes[0]),
+                            xt.index_select(0, axes[1])], -1) * scale[
+                                ..., None]
+        out = Fn.grid_sample(images, (grid - 1.0)[:, None], mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+        n = x.shape[0]
+        return out.view(L, 3, F, n).sum(1).permute(2, 0, 1).reshape(n, L * F)
+    return fn
+
+
 def record_ba_points(cfg: dict, data, device) -> torch.Tensor:
     """The normalized points [N, 3] that the first iteration of the
     slice's first BA call encodes (CoSLAM.run over frames 0 to
@@ -780,18 +833,28 @@ def wrapper_host_us(device, calls: int = 10_000, n: int = 1024) -> dict:
     return out
 
 
-def time_t_and_u(device, ray: torch.Tensor) -> dict:
+# The grid_sample route normalizes its coordinates to [-1, 1] and back:
+# two more roundings, which move a sample by up to ~R 2^-23 (R = 312) of a
+# cell, where neighbouring rows of a 0.1 x noise table differ by up to
+# ~0.5; so 1e-4 absolute over a level's three sections.
+LIBRARY_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def time_t_and_u(device, ray: torch.Tensor, l2: dict) -> dict:
     """{"T": {case: times}, "U": {case: times}, "U_serial": {case: times},
     "A": {set: times}, "B": {set: times}} at room0_hybrid's grid: kernel T
     (``triplane.triplane_encode_fwd``) and U (``triplane_encode_bwd``, and
     its serial mode where the case asks for the table gradient) at every
     case of the slice that encodes through them (``main_path_cases``
     without the lattice, uniform points, seed 2) and at the BA 1-keyframe
-    case on `ray` (room0_hybrid's ray-ordered points); kernels A and B at
-    the hybrid's dense spec (3 dense levels, 115,721 rows) at the BA
-    1-keyframe case, uniform and on `ray`. Plane table 0.1 x noise, dense
-    table unit normal (seed 0), cotangents unit normal (seed 1); T is held
-    to its plain version first."""
+    case on `ray` (room0_hybrid's ray-ordered points); T beside its L2
+    figure (``t_l2_sectors`` over ``l2``'s rate) and the library route's
+    graph time (``t_library``, held to the plain version within
+    LIBRARY_TOL first); kernels A and B at the hybrid's dense spec (3
+    dense levels, 115,721 rows) at the BA 1-keyframe case, uniform and on
+    `ray`. Plane table 0.1 x noise, dense table unit normal (seed 0),
+    cotangents unit normal (seed 1); T is held to its plain version
+    first."""
     from coslam_torch.data.synth import room0_hybrid_config
     from coslam_torch.models.scene_rep import JointEncoding
     from coslam_torch.ops import hash_packed as HP
@@ -807,6 +870,7 @@ def time_t_and_u(device, ray: torch.Tensor) -> dict:
 
     planes = tensor(0.1 * rng.standard_normal((pspec.total_entries, 2)))
     dense = tensor(rng.standard_normal((dspec.total_entries, 2)))
+    library = t_library(pspec, planes)
     out = {"T": {}, "U": {}, "U_serial": {}, "A": {}, "B": {}}
     cases = [c for c in main_path_cases(cfg, 15) if c[0] != "lattice"]
     ba1 = [c for c in cases if c[0] == "BA 1 kf"][0]
@@ -817,12 +881,16 @@ def time_t_and_u(device, ray: torch.Tensor) -> dict:
             x = tensor(np.random.default_rng(2).uniform(0, 1, (n, 3)))
         g = tensor(np.random.default_rng(1).standard_normal(
             (n, pspec.out_dim)))
-        torch.testing.assert_close(
-            TP.triplane_encode_fwd(pspec, planes, x),
-            TP.triplane_encode_fwd_ref(pspec, planes, x), rtol=1e-5,
-            atol=1e-5)
-        out["T"][label] = {"points": n, **both_ms(
-            lambda: TP.triplane_encode_fwd(pspec, planes, x))}
+        ref = TP.triplane_encode_fwd_ref(pspec, planes, x)
+        torch.testing.assert_close(TP.triplane_encode_fwd(pspec, planes, x),
+                                   ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(library(x), ref, **LIBRARY_TOL)
+        sectors = t_l2_sectors(pspec, x)
+        out["T"][label] = {
+            "points": n, **both_ms(
+                lambda: TP.triplane_encode_fwd(pspec, planes, x)),
+            "l2_sectors": sectors, "l2_ms": sectors / l2["sectors_per_ms"],
+            "library_ms": graph_ms(lambda: library(x))}
         if need_dt or need_dx:
             out["U"][label] = both_ms(lambda: TP.triplane_encode_bwd(
                 pspec, planes, x, g, need_dt, need_dx))
@@ -902,12 +970,14 @@ def main(argv=None) -> int:
         rec["probes"] = time_p(device)
     if args.host_us:
         rec["host_us"] = wrapper_host_us(device)
-    if args.xor_points:
+    if args.xor_points or args.hybrid:
         rec["l2_gather"] = l2_rate(device)
+    if args.xor_points:
         rec.update(time_e_and_d(device, load(args.xor_points),
                                 load(args.vm_points), rec["l2_gather"]))
     if args.hybrid:
-        rec["hybrid"] = time_t_and_u(device, load(args.hybrid))
+        rec["hybrid"] = time_t_and_u(device, load(args.hybrid),
+                                     rec["l2_gather"])
     line = json.dumps(rec)
     print(line, flush=True)
     if args.out:

@@ -785,6 +785,62 @@ def test_probe_accum_warp_merge_on_edge_streams(cuda_device, name, width):
         launches[0] + calls, launches[1] + 1)
 
 
+def _offset_by_a_float(a: np.ndarray, device) -> torch.Tensor:
+    """a on the card as a contiguous tensor that starts 4 bytes past its
+    buffer's start, so its rows miss every 8- and 16-byte boundary."""
+    buf = torch.empty(a.size + 1, device=device)
+    t = buf[1:].view(a.shape)
+    t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16, 32, 6, 12])
+@pytest.mark.parametrize("name", WARP_EDGE_STREAMS)
+def test_probe_accum_scalar_lanes(cuda_device, name, width):
+    """Kernel P with scalar atomics (vec 1): where W divides 32 a warp's
+    lanes lie across the rows (32 / W updates an instruction, the merge W
+    lanes apart); at W = 6 and 12 one update a lane. On the streams of
+    _common.WARP_EDGE_STREAMS at M = 10,007 (the last step short), values
+    4 bytes past an aligned start: streams and rows with 1, 3 and 4 updates
+    a thread and 256, 128 and 1024 threads (the skip rule), the stride
+    W / 2 pair form in both layouts, and the clip rule in both layouts;
+    each within the sum-order bound of the exact sum; one launch a
+    call."""
+    from coslam_torch.tools.bench import _common as C
+
+    rows, m = 700, 10_007
+    rng = np.random.default_rng(width + 100)
+    idx_np = C.warp_edge_stream(name, m, rows, seed=width)
+    vals_np = rng.standard_normal((m, width)).astype(np.float32)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    vals = _offset_by_a_float(vals_np, cuda_device)
+    streams = _offset_by_a_float(vals_np.T, cuda_device)
+    launches = PA.probe_accum.launches
+    keys, pieces = _pieces(idx_np, vals_np, rows + 1, width)
+    calls = 0
+    for upt, threads in ((1, 256), (3, 128), (4, 1024)):
+        for layout in (streams, vals):
+            got = PA.probe_accum(idx, layout, rows + 1, rows=layout is vals,
+                                 vec=1, upt=upt, threads=threads)
+            _assert_within_sum_order(got, keys, pieces, rows)
+            calls += 1
+    if width % 2 == 0:
+        stride = width // 2
+        for layout in (streams, vals):
+            got = PA.probe_accum(idx, layout, rows + 1, stride,
+                                 rows=layout is vals, vec=1)
+            _assert_within_sum_order(got, *_pieces(idx_np, vals_np, rows + 1,
+                                                   stride), rows)
+            calls += 1
+    clipped = np.clip(idx_np, 0, rows)
+    for layout in (streams, vals):
+        _assert_within_sum_order(PA.launch_accum(
+            "probe_accum", idx, layout, width, m, rows + 1, width, 1, 3, 128,
+            False, layout is vals, clip=True), clipped, vals_np, rows)
+    assert PA.probe_accum.launches == launches + calls
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [8, 6, 3])
 def test_probe_pair_merged_kernel_matches_plain_version(cuda_device, width):
@@ -1127,6 +1183,73 @@ def test_triplane_kernels_match_plain_versions(cuda_device, name, kind, need):
     torch.testing.assert_close(got[1], ref[1], rtol=1e-4, atol=1e-3)
     assert (TP.triplane_encode_fwd.launches,
             TP.triplane_encode_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enc", ["TriPlaneHybrid", "TriPlane"])
+def test_triplane_fwd_at_slice_cases(cuda_device, enc):
+    """Kernel T at every case of room0 with the
+    TriPlaneHybrid and with the TriPlane grid (one pyramid, 32/68/146/311)
+    that encodes through it (uniform points in [-0.05, 1.05], 16 on the
+    finest level's cell edges, 8 with coordinates at exactly 0 and 1), at
+    the BA 1-keyframe count on ray-ordered points and on points in one
+    cell, and at N = 0, 1, 31, 33 and 1,025: within the forward tolerance
+    of the plain version (the same products, FMA contraction moves the
+    last bit: rtol 1e-5, atol 1e-5); one launch a call (none at N = 0)."""
+    from coslam_torch.data.synth import room0_hybrid_config
+    from coslam_torch.models.scene_rep import JointEncoding
+    from coslam_torch.tools.kernel_times import main_path_cases
+
+    cfg = room0_hybrid_config("output", 48, 64, 15)
+    cfg["grid"]["enc"] = enc
+    spec = JointEncoding(cfg, cfg["mapping"]["bound"], "cpu").grid_spec
+    spec = spec[1] if enc == "TriPlaneHybrid" else spec
+    assert spec == TP.make_triplane_spec(**TP_SPECS["room0_hybrid"])
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy((0.1 * rng.standard_normal(
+        (spec.total_entries, spec.n_features))).astype(np.float32)).to(
+            cuda_device)
+    sets = []
+    for label, n, _, _ in main_path_cases(cfg, 15):
+        if label == "lattice":
+            continue
+        x = rng.uniform(-0.05, 1.05, (n, 3))
+        r = spec.resolutions[-1]
+        x[:16] = rng.integers(0, r + 1, (16, 3)) / r
+        x[16:24] = rng.integers(0, 2, (8, 3))
+        sets.append((label, x))
+    ba1 = [c for c in main_path_cases(cfg, 15) if c[0] == "BA 1 kf"][0][1]
+    sets += [("rays", _serial_points("rays", ba1, 11)),
+             ("one cell", one_cell_points(ba1, rng))]
+    sets += [(f"N={n}", rng.uniform(0, 1, (n, 3))) for n in (0, 1, 31, 33,
+                                                            1025)]
+    for label, x_np in sets:
+        x = torch.from_numpy(x_np.astype(np.float32)).to(cuda_device)
+        before = TP.triplane_encode_fwd.launches
+        got = TP.triplane_encode_fwd(spec, table, x)
+        torch.cuda.synchronize()
+        assert got.shape == (x.shape[0], spec.out_dim), label
+        torch.testing.assert_close(
+            got, TP.triplane_encode_fwd_ref(spec, table, x), rtol=1e-5,
+            atol=1e-5, msg=lambda m: f"{label}: {m}")
+        assert TP.triplane_encode_fwd.launches == before + (x.shape[0] > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3, 5, 8, 12])
+@pytest.mark.parametrize("kind", ["uniform", "rays"])
+def test_triplane_fwd_other_level_counts(cuda_device, kind, levels):
+    """Kernel T at pyramids of 1, 3, 5, 8 and 12 levels (resolutions 16 to
+    96; the level count read at run time, not the compiled 4; blocks of 8,
+    2, 1, 1 and 1 tiles of 32 points: 256, 192, 160, 256 and 384 threads),
+    uniform and ray-ordered points, N not a multiple of a block: within the
+    forward tolerance."""
+    spec = TP.make_triplane_spec(96, levels, base_resolution=16)
+    table, x, _ = _tp_inputs(spec, kind, 8600, 5, cuda_device)
+    got = TP.triplane_encode_fwd(spec, table, x)
+    torch.testing.assert_close(got,
+                               TP.triplane_encode_fwd_ref(spec, table, x),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

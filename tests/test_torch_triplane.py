@@ -341,3 +341,81 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     assert TP.triplane_encode_fwd.launches == 0
     assert TP.triplane_encode_bwd.launches == 0
     assert TP.triplane_encode_bwd_serial.launches == 0
+
+
+def _brute_rows(js, x):
+    """For every (point, section) of the JAX spec: its corner row e00 (the
+    cell from r x clip(x) in f32, as the kernels take it)."""
+    rows = np.zeros((js.n_levels, x.shape[0]), np.int64)
+    for n, p in enumerate(np.clip(x, 0.0, 1.0)):
+        for s in range(js.n_levels):
+            r = js.resolutions[s]
+            ua, va = ((0, 1), (0, 2), (1, 2))[s % 3]
+            cu = min(int(np.floor(np.float32(r) * p[ua])), r - 1)
+            cv = min(int(np.floor(np.float32(r) * p[va])), r - 1)
+            rows[s, n] = js.offsets[s] + cu * (r + 1) + cv
+    return rows
+
+
+def _points(js, kind):
+    if kind == "rays":
+        return C.ray_points(3, 43, 6).astype(np.float32)
+    if kind == "edges":
+        return _edge_points(js.resolutions[-1])
+    return _inputs(js, 50, 6)[1]
+
+
+@pytest.mark.parametrize("points", ["uniform", "edges", "rays"])
+def test_t_l2_sectors_counts_distinct_sectors(points):
+    """kernel_times.t_l2_sectors against a count point by point from the
+    JAX spec's sections: per (point, section) the distinct 32-byte sectors
+    of its 4 corner rows (8 bytes each), then x read and the output
+    written, 32 bytes a sector."""
+    from coslam_torch.tools.kernel_times import t_l2_sectors
+
+    js, ts = _specs()
+    x = _points(js, points)
+    count = 0
+    rows = _brute_rows(js, x)
+    for s in range(js.n_levels):
+        r1 = js.resolutions[s] + 1
+        for e in rows[s]:
+            count += len({8 * row // 32 for row in (e, e + 1, e + r1,
+                                                    e + r1 + 1)})
+    n = x.shape[0]
+    count += (12 * n + 4 * n * js.n_features * js.pyr_levels) // 32
+    assert t_l2_sectors(ts, torch.from_numpy(x)) == count
+
+
+@pytest.mark.parametrize("args, points", [
+    (SMALL, "uniform"), (SMALL, "edges"), (SMALL, "rays"),
+    (ROOM0_HYBRID, "uniform")], ids=["small-uniform", "small-edges",
+                                     "small-rays", "room0_hybrid-uniform"])
+def test_t_library_is_the_forward(args, points):
+    """kernel_times.t_library (the library route for kernel T's function:
+    the sections as zero-padded images, one grid_sample and a sum over
+    each level's 3 sections) against the plain forward, within
+    LIBRARY_TOL (the route rounds its coordinates into [-1, 1] and back)."""
+    from coslam_torch.tools.kernel_times import LIBRARY_TOL, t_library
+
+    js, ts = _specs(args)
+    table = _inputs(js, 1, 4)[0]
+    x = _points(js, points)
+    table, x = _t(table, x)
+    torch.testing.assert_close(t_library(ts, table)(x),
+                               TP.triplane_encode_fwd_ref(ts, table, x),
+                               **LIBRARY_TOL)
+
+
+def test_forward_and_backward_at_no_points():
+    """N = 0 (kernel T returns before any launch on the card; the JAX
+    forward's reshape does not take 0 points): the plain forward gives
+    [0, L F], the backward a zero table gradient and dx [0, 3]."""
+    js, ts = _specs()
+    table = _inputs(js, 1, 0)[0]
+    x = np.zeros((0, 3), np.float32)
+    out = TP.triplane_encode_fwd(ts, *_t(table, x))
+    assert out.shape == (0, ts.out_dim)
+    dt, dx = TP.triplane_encode_bwd(ts, *_t(table, x),
+                                    torch.zeros(0, ts.out_dim), True, True)
+    assert not dt.any() and dx.shape == (0, 3)
