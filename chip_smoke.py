@@ -42,18 +42,23 @@ Run from the repository root. Phases, each printing its own lines:
    F and H and index_add_ also under a CUDA graph, and H's three phases
    (sort, run starts, walk) each timed alone; then
    the probes' kernels P (scalar and float4 atomics; the scalar pair
-   form at K10's shape), Q, R, S (P with its clip rule) and V
-   (coslam_torch/csrc/probe_accum.cu) at each probe's main shape against
-   their plain versions (V also bit for bit on a stream where each row
-   takes one run), P also at K5's shape on its random and runs streams
-   beside index_add_, and P's pair form and skip rule, timed on the card
-   alone by CUDA graphs of the calls; then the warp merge of P, F and U
-   on inputs built to break it: P in every form and F on streams of one
-   row, runs of 31, 32 and 33 across the warps' steps, a run that ends
-   the stream, and runs outside the rows at both ends, M = 100,003 and W
-   = 1-16, and U on the BA 1-keyframe count of points in one cell of
-   every level (timed), each within the sum-order bound of its plain
-   version; then the serial modes of B, D
+   form at K10's shape), Q (packed bf16, at every vector width; its
+   scalar pair form at K10's shape), R (both forms: the pairs after the
+   torch pre-pass, and the raw updates with the pre-pass fused in), S (P
+   with its clip rule) and V (coslam_torch/csrc/probe_accum.cu) at each
+   probe's main shape against their plain versions (V also bit for bit
+   on a stream where each row takes one run), P also at K5's shape on its
+   random and runs streams beside index_add_, and P's pair form and skip
+   rule, timed on the card alone by CUDA graphs of the calls; then the
+   warp merge of P, Q, R, F and U on inputs built to break it: P in every
+   form, Q at every vector width (streams, the pair form, the clip rule),
+   R in both forms and F on streams of one row, runs of 31, 32, 33 and
+   63 across the warps' steps, a run that ends the stream, runs outside
+   the rows at both ends, and single updates outside the rows inside runs,
+   M = 100,003 (R: 100,002) and W = 1-16, and U on
+   the BA 1-keyframe count of points in one cell of every level (timed),
+   each within the sum-order bound of its plain version; then the serial
+   modes of B, D
    and U (K2 and K3 in the TPU kernels' serial order) at the BA 1-keyframe
    case and on the ray-ordered points: the same bits over two calls and
    a CUDA graph replay, within the sum-order bound of the plain version,
@@ -66,8 +71,8 @@ Run from the repository root. Phases, each printing its own lines:
    coslam_torch/tools/bench (their entry points, --quick: one setting
    per kernel, at the probes' own shapes; each holds every variant to
    its plain version within the sum-order bound and raises beyond it),
-   with the launch counts of P, Q, R, S and V set to 0 just before and
-   read just after;
+   with the launch counts of P, Q, R (both forms), S and V set to 0 just
+   before and read just after;
 5. slices: the sequential SLAM loop (CoSLAM.run) at room0's model width
    and recipe (hash grid), at room0_vm's (TensoVM), at room0_xor's
    (the XOR hash with grad_impl pallas, kernel H) and at room0_hybrid's
@@ -123,8 +128,9 @@ larger of the bytes it must move (each input read once, each output
 written once; table rows counted as those this run's points touch) over
 3.35 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM).
 
-The rows of atomics that the warp merges of F, P (at K5's shape) and S
-should issue, and U's row-pair adds, are not read from the kernels: they
+The rows of atomics that the warp merges of F, P (at K5's shape), R
+and S should issue, and U's row-pair adds, are not read from the
+kernels: they
 come from host models of the merge (``probe_accum.warp_runs``,
 ``triplane.row_pair_adds``), worked out from the indices, and are printed
 on a line of their own before the last three, apart from the kernels'
@@ -663,8 +669,9 @@ ACCUM_RECORD = {"replaces": "coslam_tpu/ops/hash_pallas.py:84",
                 "also_replaces": ["coslam_tpu/ops/serial_scatter.py:77"]}
 
 
-# The probes' kernels: P, Q, R, S and V replace K5-K12, the pallas_calls
-# of the scatter-accumulate probes under tools/bench/.
+# The probes' kernels: P, Q, R (two wrappers: its pairs form and its
+# fused form), S and V replace K5-K12, the pallas_calls of the
+# scatter-accumulate probes under tools/bench/.
 PROBE_SOURCE = "coslam_torch/csrc/probe_accum.cu"
 PROBE_RECORD = {
     "probe_accum": {
@@ -677,6 +684,8 @@ PROBE_RECORD = {
         "replaces": "tools/bench/_bench_row_rates.py:126",
         "also_replaces": ["tools/bench/_bench_scatter_variants.py:86"]},
     "probe_accum_pair_merged": {
+        "replaces": "tools/bench/_bench_cell_merge.py:124"},
+    "probe_accum_cell_merged": {
         "replaces": "tools/bench/_bench_cell_merge.py:124"},
     "probe_accum_run_merge": {
         "replaces": "tools/bench/_bench_run_merge.py:123"},
@@ -906,23 +915,26 @@ def check_probes(device) -> dict:
     shape, each within the sum-order bound of the plain version
     (``_common.sum_order_tol``: twice the worst-case error of an f32 sum
     of an entry's updates in any order): P (streams, float4 and scalar
-    atomics) and Q (packed bf16, float4) at the row-rate probe's W = 8
-    (1,048,576 updates into 65,537 rows); P's pair form at the chunk
-    probe's TUM scale (1,859,584 updates, 65,702 rows, float2, 256
-    threads, 4 updates per thread, as its --quick run launches it); R on
-    the cell-merge probe's "runs" stream (524,288 updates, W = 8); S, V
-    and P's skip rule (after the suffix scan) on the run-merge probe's
-    r = 311 stream (62,208 updates, W = 8), V also bit for bit on a stream
-    where each row takes a single run of 1-40 (its one scanned total added
-    onto 0.0). Returns {kernel name: record}, timed at those shapes:
-    ``ms`` and ``library_ms`` from CUDA graphs of the calls
-    (``_graph_ms``: the card's time, no host cost; for S and V also
-    ``library_zeroed_ms``, torch.zeros + index_add_ in one graph),
-    ``call_ms`` with the host's (``_time_ms``), ``plain_ms`` likewise (the
-    plain versions wait on the card and cannot be captured). P also at
-    K5's shape (the cell-merge probe's random and runs streams, 524,288
-    updates, 8 streams, float4): its graph time beside index_add_'s
-    (``k5``; its rows of atomics go to ``HOST_MODEL``)."""
+    atomics) and Q (packed bf16, scalar, float2 and float4) at the
+    row-rate probe's W = 8 (1,048,576 updates into 65,537 rows); P's and
+    Q's scalar pair form at K10's shape (6,340,608 updates); P's pair form
+    at the chunk probe's TUM scale (1,859,584 updates, 65,702 rows,
+    float2, 256 threads, 4 updates per thread, as its --quick run launches
+    it); R in both forms (the pairs after the torch pre-pass, and the raw
+    updates with the pre-pass fused in) on the cell-merge probe's "runs"
+    and "random" streams (524,288 updates, W = 8); S, V and P's skip rule
+    (after the suffix scan) on the run-merge probe's r = 311 stream (62,208
+    updates, W = 8), V also bit for bit on a stream where each row takes a
+    single run of 1-40 (its one scanned total added onto 0.0). Returns
+    {kernel name: record}, timed at those shapes: ``ms`` and
+    ``library_ms`` from CUDA graphs of the calls (``_graph_ms``: the
+    card's time, no host cost; for S and V also ``library_zeroed_ms``,
+    torch.zeros + index_add_ in one graph), ``call_ms`` with the host's
+    (``_time_ms``), ``plain_ms`` likewise (the plain versions wait on the
+    card and cannot be captured). P also at K5's shape (the cell-merge
+    probe's random and runs streams, 524,288 updates, 8 streams, float4):
+    its graph time beside index_add_'s (``k5``; its rows of atomics go to
+    ``HOST_MODEL``, as do R's on the runs stream)."""
     import torch
 
     from coslam_torch.ops import probe_accum as PA
@@ -975,16 +987,22 @@ def check_probes(device) -> dict:
                 "(ms_pair_vec1)"))
     unpacked = PA.unpack_bf16x2(words.T.contiguous())
     q_ref = PA.probe_accum_ref(idx, unpacked, rows + 1)
-    line.append(check(PA.probe_accum_bf16x2, PA.probe_accum_bf16x2(
-        idx, words, rows + 1, vec=4), q_ref,
-        C.sum_order_tol(idx, unpacked, rows + 1), "Q vec4"))
+    q_tol = C.sum_order_tol(idx, unpacked, rows + 1)
+    line += [check(PA.probe_accum_bf16x2, PA.probe_accum_bf16x2(
+        idx, words, rows + 1, vec=v), q_ref, q_tol, f"Q vec{v}")
+        for v in (1, 2, 4)]
+    q_ms = {f"ms_vec{v}": _graph_ms(
+        lambda v=v: PA.probe_accum_bf16x2(idx, words, rows + 1, vec=v))
+        for v in (1, 2)}
     line.append("Q " + timed(
         PA.probe_accum_bf16x2,
         lambda: PA.probe_accum_bf16x2(idx, words, rows + 1, vec=4),
         lambda: PA.probe_accum_ref(idx, PA.unpack_bf16x2(
             words.T.contiguous()), rows + 1), None,
-        accum_bound(m, w, ref.numel(), 2),
-        setting="row rates W=8, 4 word streams, float4"))
+        accum_bound(m, w, ref.numel(), 2), **q_ms,
+        setting="row rates W=8, 4 word streams, float4 (ms), scalar: the "
+                "lanes across the rows (ms_vec1), float2 (ms_vec2); K10's "
+                "scalar pair form (ms_pair_vec1)"))
     print(f"  row rates M={m} W={w}: " + ", ".join(line), flush=True)
 
     # P at K5's shape (the cell-merge probe's 8 streams, float4) on its
@@ -1023,8 +1041,18 @@ def check_probes(device) -> dict:
                 C.sum_order_tol(idx, pair.T, rows + 2, stride=2),
                 "P pair vec1")
     out["probe_accum"]["ms_pair_vec1"] = _graph_ms(call)
+    words = RR.pack_streams(pair)
+    unpacked = PA.unpack_bf16x2(words.T.contiguous())
+    q_call = lambda: PA.probe_accum_bf16x2(idx, words,  # noqa: E731
+                                           rows + 2, stride=2)
+    q_err = check(PA.probe_accum_bf16x2, q_call(),
+                  PA.probe_accum_ref(idx, unpacked, rows + 2, stride=2),
+                  C.sum_order_tol(idx, unpacked, rows + 2, stride=2),
+                  "Q pair vec1")
+    out["probe_accum_bf16x2"]["ms_pair_vec1"] = _graph_ms(q_call)
     print(f"  K10 pair form M={m}, scalar atomics: {err}, graph "
-          f"{out['probe_accum']['ms_pair_vec1']:.4f} ms", flush=True)
+          f"{out['probe_accum']['ms_pair_vec1']:.4f} ms; {q_err}, graph "
+          f"{out['probe_accum_bf16x2']['ms_pair_vec1']:.4f} ms", flush=True)
 
     # P's pair form: the chunk probe at its larger scale, as --quick runs it.
     rows, m = CT.ROWS, CT.MS[-1]
@@ -1038,26 +1066,47 @@ def check_probes(device) -> dict:
         C.sum_order_tol(idx, pair.T, rows + 2, stride=2), "P pair")),
         flush=True)
 
-    # R: the cell-merge probe's runs stream.
+    # R, both forms: the cell-merge probe's streams, timed on its runs
+    # stream.
     rows, n = CM.ROWS, CM.N
-    idx = _itensor(device, CM.streams(rows, n)["runs"])
     vals = _tensor(device, rng.standard_normal((CM.WIDTH, n)))
-    merged = PA.merge_pairs(idx, vals)
-    taken = int(merged[1].sum())
-    n2 = n // 2
-    line = [check(PA.probe_accum_pair_merged, PA.probe_accum_pair_merged(
-        *merged, rows + 1), PA.probe_accum_ref(idx, vals.T, rows + 1),
-        C.sum_order_tol(idx, vals.T, rows + 1), "R vec4")]
-    line.append("R " + timed(
-        PA.probe_accum_pair_merged,
-        lambda: PA.probe_accum_pair_merged(*merged, rows + 1),
-        lambda: PA.pair_merged_ref(*merged, rows + 1), None,
-        bound(12 * n2 + 4 * CM.WIDTH * (n2 + taken)
-              + 4 * (rows + 1) * CM.WIDTH, CM.WIDTH * (n2 + taken)),
-        setting="cell merge runs stream, after the pre-pass, float4",
-        pairs_taken=taken))
-    print(f"  cell merge runs N={n} ({n2 - taken} of {n2} pairs merged): "
-          + ", ".join(line), flush=True)
+    n2, n_out = n // 2, (rows + 1) * CM.WIDTH
+    for name, ids in CM.streams(rows, n).items():
+        idx = _itensor(device, ids)
+        merged = PA.merge_pairs(idx, vals)
+        taken = int(merged[1].sum())
+        ref = PA.probe_accum_ref(idx, vals.T, rows + 1)
+        tol = C.sum_order_tol(idx, vals.T, rows + 1)
+        line = [check(PA.probe_accum_pair_merged, PA.probe_accum_pair_merged(
+                    *merged, rows + 1), ref, tol, "R pairs vec4"),
+                check(PA.probe_accum_cell_merged, PA.probe_accum_cell_merged(
+                    idx, vals, rows + 1), ref, tol, "R fused vec4")]
+        if name == "runs":
+            buf = torch.zeros_like(ref)
+            library = lambda: buf.index_add_(0, idx, vals.T)  # noqa: E731
+            line.append("R pairs " + timed(
+                PA.probe_accum_pair_merged,
+                lambda: PA.probe_accum_pair_merged(*merged, rows + 1),
+                lambda: PA.pair_merged_ref(*merged, rows + 1), None,
+                bound(12 * n2 + 4 * CM.WIDTH * (n2 + taken) + 4 * n_out,
+                      CM.WIDTH * (n2 + taken)),
+                setting="cell merge runs stream, after the pre-pass, float4",
+                pairs_taken=taken))
+            line.append("R fused " + timed(
+                PA.probe_accum_cell_merged,
+                lambda: PA.probe_accum_cell_merged(idx, vals, rows + 1),
+                lambda: PA.cell_merged_ref(idx, vals, rows + 1), library,
+                accum_bound(n, CM.WIDTH, n_out),
+                setting="cell merge runs stream, the pre-pass fused in, "
+                        "float4"))
+            row_atomics = PA.warp_runs(merged[0], rows, take2=merged[1],
+                                       idx2=merged[2])
+            for fn in (PA.probe_accum_pair_merged,
+                       PA.probe_accum_cell_merged):
+                _host_model(fn.__name__, updates=n, row_atomics=row_atomics)
+            line.append(f"(host model) {row_atomics} rows of atomics")
+        print(f"  cell merge {name} N={n} ({n2 - taken} of {n2} pairs "
+              "merged): " + ", ".join(line), flush=True)
 
     # S, V and P's skip rule: the run-merge probe at r = 311.
     r = RM.RS[-1]
@@ -1114,14 +1163,16 @@ def check_probes(device) -> dict:
 
 
 def check_warp_runs(device, tk: TriPlaneKernels, n_points: int) -> dict:
-    """Kernels P, F and U on inputs built to catch a faulty warp merge
-    (each warp sums its runs of equal rows before its atomics), each held
-    to its plain version within the sum-order bound: P in every form
+    """Kernels P, Q, R, F and U on inputs built to catch a faulty warp
+    merge (each warp sums its runs of equal rows before its atomics), each
+    held to its plain version within the sum-order bound: P in every form
     (streams and rows at every vector width that divides W, with 1 and 4
-    updates a thread, the pair form, the skip rule and the clip rule) and
-    F, on each of ``_common.WARP_EDGE_STREAMS`` at M = 100,003 (the last
-    step short) for W = 1, 2, 4, 6, 8 and 16 (scalar atomics: the lanes
-    across the rows, at W = 6 one update a lane); U, dtable and dx, on
+    updates a thread, the pair form, the skip rule and the clip rule), Q
+    at every even W likewise (streams, the pair form, the clip rule), R in
+    both forms (M = 100,002: its pairs) and F, on each of
+    ``_common.WARP_EDGE_STREAMS`` at M = 100,003 (the last step short) for
+    W = 1, 2, 4, 6, 8 and 16 (scalar atomics: the lanes across the rows,
+    at W = 6 one update a lane); U, dtable and dx, on
     `n_points` points that lie in one cell of every plane level (each
     warp one run a section), timed there (events and graph; its row-pair
     adds go to ``HOST_MODEL``). Returns {kernel name: {"max_abs_err"} and U's
@@ -1130,16 +1181,48 @@ def check_warp_runs(device, tk: TriPlaneKernels, n_points: int) -> dict:
 
     from coslam_torch.ops import probe_accum as PA
     from coslam_torch.ops import serial_scatter as SS
+    from coslam_torch.tools.bench import _bench_row_rates as RR
     from coslam_torch.tools.bench import _common as C
 
     rng = np.random.default_rng(4)
     m, rows = 100_003, 5000
     out = {name: {"max_abs_err": 0.0} for name in (
-        "probe_accum", "row_accum_atomic", tk.bwd_fn.__name__)}
+        "probe_accum", "probe_accum_bf16x2", "probe_accum_pair_merged",
+        "probe_accum_cell_merged", "row_accum_atomic", tk.bwd_fn.__name__)}
 
     def held(name, label, got, ref, tol):
         e = C.assert_within(label, got, ref, tol)
         out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+
+    def check_q(stream, idx, streams, width, rows) -> int:
+        """Q at every vec, 1 and 4 updates a thread, the pair form and the
+        clip rule; returns the calls."""
+        words = RR.pack_streams(streams)
+        unpacked = PA.unpack_bf16x2(words.T.contiguous())
+        ref = PA.probe_accum_ref(idx, unpacked, rows + 1)
+        tol = C.sum_order_tol(idx, unpacked, rows + 1)
+        calls = 0
+        for vec in (v for v in (1, 2, 4) if width % v == 0):
+            for upt, threads in ((1, 256), (4, 128)):
+                held("probe_accum_bf16x2", f"Q {stream} W={width} vec{vec} "
+                     f"upt={upt}", PA.probe_accum_bf16x2(
+                         idx, words, rows + 1, vec=vec, upt=upt,
+                         threads=threads), ref, tol)
+                calls += 1
+        stride = width // 2
+        held("probe_accum_bf16x2", f"Q {stream} W={width} pair form",
+             PA.probe_accum_bf16x2(idx, words, rows + 1, stride=stride,
+                                   vec=PA.widest_vec(stride)),
+             PA.probe_accum_ref(idx, unpacked, rows + 1, stride),
+             C.sum_order_tol(idx, unpacked, rows + 1, stride))
+        clipped = idx.clamp(0, rows)
+        held("probe_accum_bf16x2", f"Q {stream} W={width} clip rule",
+             PA.launch_accum("probe_accum_bf16x2", idx, words, width,
+                             idx.shape[0], rows + 1, width, 1, 1, 256, True,
+                             False, clip=True),
+             PA.probe_accum_ref(clipped, unpacked, rows + 1),
+             C.sum_order_tol(clipped, unpacked, rows + 1))
+        return calls + 2
 
     for stream in C.WARP_EDGE_STREAMS:
         idx = _itensor(device, C.warp_edge_stream(stream, m, rows))
@@ -1175,7 +1258,19 @@ def check_warp_runs(device, tk: TriPlaneKernels, n_points: int) -> dict:
             held("row_accum_atomic", f"F {stream} W={width}",
                  SS.row_accum_atomic(idx, vals, rows), ref, tol)
             calls += 2
-        print(f"  {stream} M={m}: {calls} calls of P and F within the "
+            if width % 2 == 0:
+                calls += check_q(stream, idx, streams, width, rows)
+            # R on the first M - 1 updates (an even count).
+            even, ev = idx[:-1], streams[:, :-1].contiguous()
+            ref = PA.probe_accum_ref(even, ev.T, rows + 1)
+            tol = C.sum_order_tol(even, ev.T, rows + 1)
+            held("probe_accum_cell_merged", f"R fused {stream} W={width}",
+                 PA.probe_accum_cell_merged(even, ev, rows + 1), ref, tol)
+            held("probe_accum_pair_merged", f"R pairs {stream} W={width}",
+                 PA.probe_accum_pair_merged(*PA.merge_pairs(even, ev),
+                                            rows + 1), ref, tol)
+            calls += 2
+        print(f"  {stream} M={m}: {calls} calls of P, Q, R and F within the "
               f"sum-order bound; (host model) P {PA.warp_runs(idx, rows)} "
               f"rows of atomics (skip rule), F "
               f"{PA.warp_runs(idx, rows, clip=True)}",
@@ -1784,7 +1879,8 @@ def main() -> int:
     _phase(f"kernels against the plain versions: {PROBE_SOURCE}")
     for name, rec in check_probes(device).items():
         measured[name] = {"source": PROBE_SOURCE, **PROBE_RECORD[name], **rec}
-    _phase("the warp merge of P, F and U: adversarial streams and points")
+    _phase("the warp merge of P, Q, R, F and U: adversarial streams and "
+           "points")
     ba1 = [c for c in hybrid_cases if c[0] == "BA 1 kf"][0]
     for name, rec in check_warp_runs(device, tk, ba1[1]).items():
         measured[name]["max_abs_err"] = max(measured[name]["max_abs_err"],
@@ -1796,6 +1892,7 @@ def main() -> int:
     t = _phase("probes: coslam_torch.tools.bench at the probes' shapes")
     launches = run_probes([PA.probe_accum, PA.probe_accum_bf16x2,
                            PA.probe_accum_pair_merged,
+                           PA.probe_accum_cell_merged,
                            PA.probe_accum_run_merge,
                            PA.probe_accum_run_skip])
     print(f"  probes {time.perf_counter() - t:.1f} s", flush=True)

@@ -15,8 +15,12 @@
 //     pair form).
 //   Q probe_accum_bf16x2 (values as int32 words, two bf16 each, element
 //     2p = the low half): _bench_row_rates.py:_kernel_pk (K9) and
-//     _bench_scatter_variants.py:_kernel_packed_bf16 (K10, pair form).
-//   R probe_accum_pair_merged: _bench_cell_merge.py:_kernel_merged (K6).
+//     _bench_scatter_variants.py:_kernel_packed_bf16 (K10, pair form);
+//     P's two kernels with a loader that unpacks the words.
+//   R probe_accum_pair_merged (pairs after the pre-pass) and
+//     probe_accum_cell_merged (the raw updates, the pre-pass fused in):
+//     _bench_cell_merge.py:_kernel_merged (K6) after run_merged's XLA
+//     pre-pass.
 //   S probe_accum_run_merge: _bench_run_merge.py:_merge_kernel (K11),
 //     which is P with its clip rule, rows [M, W] and the widest vector
 //     atomic dividing W (launch_accum): P's warp merge is K11's flush on
@@ -69,11 +73,25 @@
 // coalesced loads so that the transposed read costs no extra sectors;
 // the warp merge compares rows W lanes apart. A W that does not divide 32
 // keeps one update a lane (probe_accum_kernel at `vec` 1).
-// Q keeps the earlier design: one thread takes `upt` consecutive
-// updates. R keeps the pre-pass (equal adjacent pairs merged) in torch,
-// as it was XLA, and is one thread per pair with the second row's add
-// predicated on take2.
-//
+// Q is P with a third value layout: W / 2 streams of int32 words, two
+// bf16 each, unpacked in registers as they are read (load_update; the
+// lanes kernel stages a warp's W / 2 x 32 words, W / 2 coalesced loads,
+// and unpacks each as its column reads it). It thereby has P's coalesced
+// loads, its warp merge and its lanes-across-the-row layout at `vec` 1,
+// with no copy of them; it reads half of P's value bytes.
+// R takes one pair of updates a lane, 32 consecutive pairs a warp. In its
+// fused form (probe_accum_cell_merged) lane l reads its pair's two idx as
+// one int2 and each stream's two values as one float2 (both coalesced)
+// and merges a pair on one row in registers, v[2i] + v[2i+1] as the
+// pre-pass adds them, so the pre-pass's (12 + 8 W) bytes a pair are never
+// written and read back, and the route is one launch. In both forms a
+// lane holds one or two rows; on the runs stream (runs of 1-5) a pair's
+// second row is often the next pair's first, so without a merge the lanes
+// of one instruction send atomics to one address, which L2 serialises
+// (on an H100 the pairs form took 0.0136 ms there, 0.0095 with the
+// merge). The merge (warp_runs::Run(first, last): rows in the order a_0,
+// b_0, a_1, ...; a run goes on past a lane only where it holds one row)
+// sums each run by shuffles, and its head adds one row of atomics.
 // V takes a tile of `tile` consecutive updates a block (a multiple of
 // 32, at most 512), so the probes' 62,208 updates fill the card with
 // hundreds of blocks. A block stages its tile's rows in shared memory
@@ -106,14 +124,14 @@ inline unsigned int n_blocks(int64_t n_threads, int threads) {
   return static_cast<unsigned int>((n_threads + threads - 1) / threads);
 }
 
-// Q: element e of update i of the packed bf16 word streams [W / 2, M]
-// (word p holds element 2p in its low and 2p + 1 in its high half).
-__device__ __forceinline__ float packed_value(const void* __restrict__ vals,
-                                              int64_t m, int64_t i, int e) {
-  const unsigned int* v = static_cast<const unsigned int*>(vals);
-  const unsigned int w = __ldg(v + (e >> 1) * m + i);
-  return (e & 1) ? __uint_as_float(w & 0xffff0000u)
-                 : __uint_as_float(w << 16);
+// The value layouts of P's kernels: f32 streams [W, M], f32 rows
+// [M, W], and (kernel Q) bf16 pairs, W / 2 streams of int32 words [W / 2,
+// M], word p holding element 2p in its low and 2p + 1 in its high half.
+enum Layout : int { kStreams = 0, kRows = 1, kWords = 2 };
+
+// Half h of a bf16x2 word (0: the low half, an even element) as f32.
+__device__ __forceinline__ float bf16_half(unsigned int w, int h) {
+  return h ? __uint_as_float(w & 0xffff0000u) : __uint_as_float(w << 16);
 }
 
 // out[0:VEC] += v[0:VEC] as one vector atomic (dst aligned to VEC floats).
@@ -129,20 +147,34 @@ __device__ __forceinline__ void add_vec(float* dst, const float* v) {
   }
 }
 
-// Row i's VEC values from e (e a multiple of VEC): f32 streams [W, M] or
-// rows [M, W], the rows by one vector load where vals is aligned to it.
-template <int VEC, bool ROWS>
+// Update i's VEC values from element e (e a multiple of VEC) in layout
+// LAYOUT: rows by one vector load where vals is aligned to it; words one
+// load a pair of elements (e is even where VEC >= 2).
+template <int VEC, int LAYOUT>
 __device__ __forceinline__ void load_update(const float* __restrict__ v,
                                             int64_t m, int width, int64_t i,
                                             int e, bool aligned, float* x) {
-  if constexpr (ROWS && VEC == 4) {
+  if constexpr (LAYOUT == kWords) {
+    const unsigned int* w = reinterpret_cast<const unsigned int*>(v);
+    if constexpr (VEC == 1) {
+      x[0] = bf16_half(__ldg(w + (e >> 1) * m + i), e & 1);
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; k += 2) {
+        const unsigned int word = __ldg(w + ((e + k) >> 1) * m + i);
+        x[k] = bf16_half(word, 0);
+        x[k + 1] = bf16_half(word, 1);
+      }
+    }
+    return;
+  } else if constexpr (LAYOUT == kRows && VEC == 4) {
     if (aligned) {
       const float4 q = __ldg(reinterpret_cast<const float4*>(v + i * width +
                                                              e));
       x[0] = q.x, x[1] = q.y, x[2] = q.z, x[3] = q.w;
       return;
     }
-  } else if constexpr (ROWS && VEC == 2) {
+  } else if constexpr (LAYOUT == kRows && VEC == 2) {
     if (aligned) {
       const float2 q = __ldg(reinterpret_cast<const float2*>(v + i * width +
                                                              e));
@@ -152,7 +184,8 @@ __device__ __forceinline__ void load_update(const float* __restrict__ v,
   }
 #pragma unroll
   for (int k = 0; k < VEC; ++k)
-    x[k] = ROWS ? __ldg(v + i * width + e + k) : __ldg(v + (e + k) * m + i);
+    x[k] = LAYOUT == kRows ? __ldg(v + i * width + e + k)
+                           : __ldg(v + (e + k) * m + i);
 }
 
 // P's key for update i: its row, clipped into [0, max_idx] (clip) or -1
@@ -166,12 +199,12 @@ __device__ __forceinline__ int update_row(const int* __restrict__ idx,
   return j >= 0 && j <= max_idx ? j : -1;
 }
 
-// Kernel P: f32 values, streams [W, M] or rows [M, W] (ROWS). Warp w
-// takes updates [32 upt w, 32 upt (w + 1)), 32 a step, lane l update
-// 32 k + l of step k; blockDim.x is a multiple of 32. A lane's key is its
-// update's row (clipped, or -1 where the skip rule drops it or past M).
-// The vector forms, and the scalar form at a W that does not divide 32.
-template <int VEC, bool ROWS>
+// Kernels P and Q: values in layout LAYOUT. Warp w takes updates
+// [32 upt w, 32 upt (w + 1)), 32 a step, lane l update 32 k + l of step
+// k; blockDim.x is a multiple of 32. A lane's key is its update's row
+// (clipped, or -1 where the skip rule drops it or past M). The vector
+// forms, and the scalar form at a W that does not divide 32.
+template <int VEC, int LAYOUT>
 __global__ void probe_accum_kernel(const int* __restrict__ idx,
                                    const float* __restrict__ vals,
                                    float* __restrict__ out, int64_t m,
@@ -191,7 +224,7 @@ __global__ void probe_accum_kernel(const int* __restrict__ idx,
     for (int e = 0; e < width; e += VEC) {
       float x[VEC];
       if (key >= 0) {
-        load_update<VEC, ROWS>(vals, m, width, i, e, aligned, x);
+        load_update<VEC, LAYOUT>(vals, m, width, i, e, aligned, x);
       } else {
 #pragma unroll
         for (int c = 0; c < VEC; ++c) x[c] = 0.0f;
@@ -203,22 +236,25 @@ __global__ void probe_accum_kernel(const int* __restrict__ idx,
   }
 }
 
-// Kernel P with scalar atomics where W divides 32 (`vec` 1): lanes across
-// a row. Warp w takes the updates of probe_accum_kernel's warp w, 32 a
-// step, and issues each step as W instructions of G = 32 / W updates:
-// lane l takes column l mod W of update j G + l / W of step j, so the 32
-// scalar atomics of an instruction fall on G rows of W contiguous floats.
-// Lane l reads the index of update 32 k + l of its step (coalesced) and
-// each instruction's lanes take their update's from it by a shuffle.
-// Rows [M, W] are read as they lie: instruction j reads 32 contiguous
-// floats. Streams [W, M] are staged first, a warp's own W x 32 floats in
-// shared memory, by W coalesced loads of 32 floats: column e of the
-// step's update q at s[e * kPitch + q]. The G floats of skew a column
-// (kPitch = 32 + G) put an instruction's 32 reads, column c of update u
-// at bank (c G + u + j G) mod 32, in 32 distinct banks. The warp merge
-// compares each update's row with the previous update's, W lanes down
+// Kernels P and Q with scalar atomics where W divides 32 (`vec` 1): lanes
+// across a row. Warp w takes the updates of probe_accum_kernel's warp w,
+// 32 a step, and issues each step as W instructions of G = 32 / W
+// updates: lane l takes column l mod W of update j G + l / W of step j, so
+// the 32 scalar atomics of an instruction fall on G rows of W contiguous
+// floats. Lane l reads the index of update 32 k + l of its step
+// (coalesced) and each instruction's lanes take their update's from it by
+// a shuffle. Rows [M, W] are read as they lie: instruction j reads 32
+// contiguous floats. Streams [W, M] are staged first, a warp's own W x 32
+// floats in shared memory, by W coalesced loads of 32 floats: column e of
+// the step's update q at s[e * kPitch + q]; words [W / 2, M] likewise, W
+// / 2 loads of 32 words, word p at s[p * kPitch + q], and column c unpacks
+// half c & 1 of word c / 2 as it reads it. The G floats of skew a staged
+// row (kPitch = 32 + G) put an instruction's 32 reads, staged row r of
+// update u at bank (r G + u + j G) mod 32, in distinct banks (the two
+// columns of a word read one address). The warp merge compares each
+// update's row with the previous update's, W lanes down
 // (warp_runs::Run<W>), and sums runs by shuffles W lanes apart.
-template <int W, bool ROWS>
+template <int W, int LAYOUT>
 __global__ void probe_accum_lanes_kernel(const int* __restrict__ idx,
                                          const float* __restrict__ vals,
                                          float* __restrict__ out, int64_t m,
@@ -226,21 +262,22 @@ __global__ void probe_accum_lanes_kernel(const int* __restrict__ idx,
                                          bool clip) {
   constexpr int G = 32 / W;
   constexpr int kPitch = 32 + G;
-  extern __shared__ float stage[];  // streams: [warps a block][W][kPitch]
+  constexpr int kStaged = LAYOUT == kWords ? W / 2 : W;  // rows a warp
+  extern __shared__ float stage[];  // [warps a block][kStaged][kPitch]
   const int lane = threadIdx.x & 31;
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  float* s = stage + (threadIdx.x >> 5) * (W * kPitch);
+  float* s = stage + (threadIdx.x >> 5) * (kStaged * kPitch);
   const int u = lane / W, c = lane % W;
   for (int k = 0; k < upt; ++k) {
     const int64_t first = (warp * upt + k) * 32;
     if (first >= m) break;  // the same for the whole warp
     const int64_t i = first + lane;
     const int key = update_row(idx, m, i, max_idx, clip);
-    if constexpr (!ROWS) {
+    if constexpr (LAYOUT != kRows) {
       __syncwarp();  // the last step's reads of s are done
 #pragma unroll
-      for (int e = 0; e < W; ++e)
+      for (int e = 0; e < kStaged; ++e)
         s[e * kPitch + lane] = i < m ? __ldg(vals + e * m + i) : 0.0f;
       __syncwarp();
     }
@@ -249,8 +286,14 @@ __global__ void probe_accum_lanes_kernel(const int* __restrict__ idx,
       const int q = j * G + u;  // the lane's update in the step
       const int row = __shfl_sync(warp_runs::kFull, key, q);
       float x = 0.0f;
-      if (row >= 0)
-        x = ROWS ? __ldg(vals + (first + q) * W + c) : s[c * kPitch + q];
+      if (row >= 0) {
+        if constexpr (LAYOUT == kRows)
+          x = __ldg(vals + (first + q) * W + c);
+        else if constexpr (LAYOUT == kStreams)
+          x = s[c * kPitch + q];
+        else
+          x = bf16_half(__float_as_uint(s[(c >> 1) * kPitch + q]), c & 1);
+      }
       const warp_runs::Run<W> run(row);
       run.template sum<1>(&x);
       if (run.adds) atomicAdd(out + static_cast<int64_t>(row) * stride + c, x);
@@ -258,52 +301,15 @@ __global__ void probe_accum_lanes_kernel(const int* __restrict__ idx,
   }
 }
 
-// Kernel Q: values as packed bf16 word streams; one thread takes `upt`
-// consecutive updates.
-template <int VEC>
-__global__ void probe_accum_bf16_kernel(const int* __restrict__ idx,
-                                        const void* __restrict__ vals,
-                                        float* __restrict__ out, int64_t m,
-                                        int width, int stride, int max_idx,
-                                        int upt, bool clip) {
-  const int64_t first =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * upt;
-  const int64_t last = first + upt < m ? first + upt : m;
-  for (int64_t i = first; i < last; ++i) {
-    int j = __ldg(idx + i);
-    if (clip)
-      j = min(max(j, 0), max_idx);
-    else if (j < 0 || j > max_idx)
-      continue;
-    float* dst = out + static_cast<int64_t>(j) * stride;
-    for (int e = 0; e < width; e += VEC) {
-      float x[VEC];
-#pragma unroll
-      for (int k = 0; k < VEC; ++k)
-        x[k] = packed_value(vals, m, i, e + k);
-      add_vec<VEC>(dst + e, x);
-    }
-  }
-}
-
-// Kernel R: one thread per pair i; v1, v2 streams [W, n].
-template <int VEC>
-__device__ __forceinline__ void add_stream_row(float* __restrict__ out,
-                                               int j,
-                                               const float* __restrict__ v,
-                                               int64_t n, int64_t i,
-                                               int width, int max_idx) {
-  if (j < 0 || j > max_idx) return;
-  float* dst = out + static_cast<int64_t>(j) * width;
-  for (int e = 0; e < width; e += VEC) {
-    float x[VEC];
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) x[k] = __ldg(v + (e + k) * n + i);
-    add_vec<VEC>(dst + e, x);
-  }
-}
-
-template <int VEC>
+// Kernel R: lane l of warp w takes pair 32 w + l; blockDim.x is a
+// multiple of 32. Pairs form: pair i adds v1[:, i] at idx1[i] and, where
+// take2[i], v2[:, i] at idx2[i] (v1, v2 streams [W, n]). FUSED: idx1 is
+// the raw idx [2n] and v1 the raw streams [W, 2n] (take2, idx2 and v2
+// unused); pair i is updates 2i and 2i + 1, merged into the first where
+// their idx are equal (run_merged's pre-pass). A row outside [0, max_idx]
+// is skipped. A lane's rows: its first in range and, where it differs, its
+// second; two rows on one row are summed in registers first.
+template <int VEC, bool FUSED>
 __global__ void pair_merged_kernel(const int* __restrict__ idx1,
                                    const int* __restrict__ take2,
                                    const int* __restrict__ idx2,
@@ -313,10 +319,62 @@ __global__ void pair_merged_kernel(const int* __restrict__ idx1,
                                    int width, int max_idx) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  if (i >= n) return;
-  add_stream_row<VEC>(out, __ldg(idx1 + i), v1, n, i, width, max_idx);
-  if (__ldg(take2 + i) != 0)
-    add_stream_row<VEC>(out, __ldg(idx2 + i), v2, n, i, width, max_idx);
+  int a = -1, b = -1;
+  bool take = false;
+  if (i < n) {
+    if constexpr (FUSED) {
+      if ((reinterpret_cast<uintptr_t>(idx1) & 7) == 0) {
+        const int2 p = __ldg(reinterpret_cast<const int2*>(idx1) + i);
+        a = p.x, b = p.y;
+      } else {
+        a = __ldg(idx1 + 2 * i), b = __ldg(idx1 + 2 * i + 1);
+      }
+      take = a != b;
+    } else {
+      a = __ldg(idx1 + i), take = __ldg(take2 + i) != 0, b = __ldg(idx2 + i);
+    }
+  }
+  const bool in_a = i < n && a >= 0 && a <= max_idx;
+  const bool in_b = take && b >= 0 && b <= max_idx;
+  // The values of the lane's first row: v1's, the sum of both where the
+  // pair is on one row (FUSED: v[2i] + v[2i+1], as the pre-pass adds
+  // them), or v2's where only the second row is in range.
+  const bool both = FUSED ? !take : in_a && in_b && a == b;
+  const bool only_b = !in_a && in_b;
+  const int first = in_a ? a : (in_b ? b : -1);
+  const int last = in_a && in_b && a != b ? b : first;
+  const warp_runs::Run<> run(first, last);
+  const int64_t m = FUSED ? 2 * n : n;
+  const bool pairs_aligned =
+      FUSED && (reinterpret_cast<uintptr_t>(v1) & 7) == 0;
+  for (int e = 0; e < width; e += VEC) {
+    float xa[VEC], xb[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c) {
+      float va = 0.0f, vb = 0.0f;
+      if (i < n) {
+        if constexpr (FUSED) {
+          const float* src = v1 + (e + c) * m + 2 * i;
+          if (pairs_aligned) {
+            const float2 p = __ldg(reinterpret_cast<const float2*>(src));
+            va = p.x, vb = p.y;
+          } else {
+            va = __ldg(src), vb = __ldg(src + 1);
+          }
+        } else {
+          va = __ldg(v1 + (e + c) * m + i), vb = __ldg(v2 + (e + c) * m + i);
+        }
+      }
+      xa[c] = both ? va + vb : (only_b ? vb : va);
+      xb[c] = vb;
+    }
+    run.sum<VEC>(xa);
+    run.add_next<VEC>(xa, xb);
+    if (run.adds)
+      add_vec<VEC>(out + static_cast<int64_t>(first) * width + e, xa);
+    if (run.adds_last)
+      add_vec<VEC>(out + static_cast<int64_t>(last) * width + e, xb);
+  }
 }
 
 // V: out[0:VEC] <- src[0:VEC] from (16-byte aligned for VEC 4)
@@ -473,89 +531,97 @@ int launch_by_vec(int vec, Launch launch) {
   return cudaGetLastError();
 }
 
-// P with scalar atomics and W dividing 32: the lanes kernel at W; its
-// streams stage W x (32 + 32 / W) floats a warp, above 48 KB (W 16 and 32
-// with many threads) only when asked for.
-template <int W>
+// P and Q with scalar atomics and W dividing 32: the lanes kernel at W;
+// streams stage W x (32 + 32 / W) floats a warp and words half that,
+// above 48 KB (W 16 and 32 with many threads) only when asked for.
+template <int W, int LAYOUT>
 cudaError_t launch_lanes(const int* idx, const float* v, float* out,
-                         int64_t m, int stride, int max_idx, bool rows,
-                         int upt, bool clip, int threads, unsigned int blocks,
+                         int64_t m, int stride, int max_idx, int upt,
+                         bool clip, int threads, unsigned int blocks,
                          cudaStream_t s) {
-  if (rows) {
-    probe_accum_lanes_kernel<W, true><<<blocks, threads, 0, s>>>(
+  if constexpr (LAYOUT == kWords && W % 2 != 0) {
+    return cudaErrorInvalidValue;  // refused by probe_accum
+  } else {
+    constexpr int kStaged = LAYOUT == kWords ? W / 2 : W;
+    const size_t smem = LAYOUT == kRows ? 0 : sizeof(float) * (threads / 32) *
+                                                  kStaged * (32 + 32 / W);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          probe_accum_lanes_kernel<W, LAYOUT>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    probe_accum_lanes_kernel<W, LAYOUT><<<blocks, threads, smem, s>>>(
         idx, v, out, m, stride, max_idx, upt, clip);
     return cudaGetLastError();
   }
-  const size_t smem =
-      sizeof(float) * (threads / 32) * W * (32 + 32 / W);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        probe_accum_lanes_kernel<W, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  probe_accum_lanes_kernel<W, false><<<blocks, threads, smem, s>>>(
-      idx, v, out, m, stride, max_idx, upt, clip);
-  return cudaGetLastError();
 }
 
-template <int VEC, bool BF16>
-cudaError_t launch_accum(const int* idx, const void* vals, float* out,
+template <int VEC, int LAYOUT>
+cudaError_t launch_accum(const int* idx, const float* v, float* out,
                          int64_t m, int width, int stride, int max_idx,
-                         bool rows, int upt, bool clip, int threads,
-                         cudaStream_t s) {
-  if constexpr (BF16) {
-    const unsigned int blocks = n_blocks((m + upt - 1) / upt, threads);
-    probe_accum_bf16_kernel<VEC><<<blocks, threads, 0, s>>>(
-        idx, vals, out, m, width, stride, max_idx, upt, clip);
-  } else {
-    const int64_t per_warp = 32 * static_cast<int64_t>(upt);
-    const unsigned int blocks =
-        n_blocks((m + per_warp - 1) / per_warp * 32, threads);
-    const float* v = static_cast<const float*>(vals);
-    if constexpr (VEC == 1) {
-      switch (width) {
-        case 1: return launch_lanes<1>(idx, v, out, m, stride, max_idx, rows,
-                                       upt, clip, threads, blocks, s);
-        case 2: return launch_lanes<2>(idx, v, out, m, stride, max_idx, rows,
-                                       upt, clip, threads, blocks, s);
-        case 4: return launch_lanes<4>(idx, v, out, m, stride, max_idx, rows,
-                                       upt, clip, threads, blocks, s);
-        case 8: return launch_lanes<8>(idx, v, out, m, stride, max_idx, rows,
-                                       upt, clip, threads, blocks, s);
-        case 16: return launch_lanes<16>(idx, v, out, m, stride, max_idx,
-                                         rows, upt, clip, threads, blocks, s);
-        case 32: return launch_lanes<32>(idx, v, out, m, stride, max_idx,
-                                         rows, upt, clip, threads, blocks, s);
-        default: break;  // one update a lane, below
-      }
+                         int upt, bool clip, int threads, cudaStream_t s) {
+  const int64_t per_warp = 32 * static_cast<int64_t>(upt);
+  const unsigned int blocks =
+      n_blocks((m + per_warp - 1) / per_warp * 32, threads);
+  if constexpr (VEC == 1) {
+    switch (width) {
+      case 1: return launch_lanes<1, LAYOUT>(idx, v, out, m, stride, max_idx,
+                                             upt, clip, threads, blocks, s);
+      case 2: return launch_lanes<2, LAYOUT>(idx, v, out, m, stride, max_idx,
+                                             upt, clip, threads, blocks, s);
+      case 4: return launch_lanes<4, LAYOUT>(idx, v, out, m, stride, max_idx,
+                                             upt, clip, threads, blocks, s);
+      case 8: return launch_lanes<8, LAYOUT>(idx, v, out, m, stride, max_idx,
+                                             upt, clip, threads, blocks, s);
+      case 16: return launch_lanes<16, LAYOUT>(idx, v, out, m, stride,
+                                               max_idx, upt, clip, threads,
+                                               blocks, s);
+      case 32: return launch_lanes<32, LAYOUT>(idx, v, out, m, stride,
+                                               max_idx, upt, clip, threads,
+                                               blocks, s);
+      default: break;  // one update a lane, below
     }
-    // The vector forms, and the scalar form at a W that does not divide
-    // 32 (one update a lane, W scalar atomics each; no SLAM path takes
-    // it: F and K3's generic widths add with vec >= 2 where W is even).
-    if (rows)
-      probe_accum_kernel<VEC, true><<<blocks, threads, 0, s>>>(
-          idx, v, out, m, width, stride, max_idx, upt, clip);
-    else
-      probe_accum_kernel<VEC, false><<<blocks, threads, 0, s>>>(
-          idx, v, out, m, width, stride, max_idx, upt, clip);
   }
+  // The vector forms, and the scalar form at a W that does not divide 32
+  // (one update a lane, W scalar atomics each; no SLAM path takes it: F
+  // and K3's generic widths add with vec >= 2 where W is even).
+  probe_accum_kernel<VEC, LAYOUT><<<blocks, threads, 0, s>>>(
+      idx, v, out, m, width, stride, max_idx, upt, clip);
   return cudaGetLastError();
 }
 
-template <bool BF16>
-cudaError_t dispatch_accum(const int* idx, const void* vals, float* out,
+template <int LAYOUT>
+cudaError_t dispatch_accum(const int* idx, const float* v, float* out,
                            int64_t m, int width, int stride, int max_idx,
-                           int vec, bool rows, int upt, bool clip,
-                           int threads, cudaStream_t s) {
+                           int vec, int upt, bool clip, int threads,
+                           cudaStream_t s) {
   if (vec == 4)
-    return launch_accum<4, BF16>(idx, vals, out, m, width, stride, max_idx,
-                                 rows, upt, clip, threads, s);
+    return launch_accum<4, LAYOUT>(idx, v, out, m, width, stride, max_idx,
+                                   upt, clip, threads, s);
   if (vec == 2)
-    return launch_accum<2, BF16>(idx, vals, out, m, width, stride, max_idx,
-                                 rows, upt, clip, threads, s);
-  return launch_accum<1, BF16>(idx, vals, out, m, width, stride, max_idx,
-                               rows, upt, clip, threads, s);
+    return launch_accum<2, LAYOUT>(idx, v, out, m, width, stride, max_idx,
+                                   upt, clip, threads, s);
+  return launch_accum<1, LAYOUT>(idx, v, out, m, width, stride, max_idx, upt,
+                                 clip, threads, s);
+}
+
+// R in either form: n pairs, threads a multiple of 32.
+template <bool FUSED>
+int launch_pairs(const int* idx1, const int* take2, const int* idx2,
+                         const float* v1, const float* v2, float* out,
+                         int64_t n, int width, int max_idx, int vec,
+                         int threads, void* stream) {
+  if (bad_launch(n, width, vec, threads) || threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned int blocks = n_blocks(n, threads);
+  return launch_by_vec(vec, [&](auto v) {
+    pair_merged_kernel<decltype(v)::value, FUSED><<<blocks, threads, 0, s>>>(
+        idx1, take2, idx2, v1, v2, out, n, width, max_idx);
+  });
 }
 
 }  // namespace
@@ -565,47 +631,46 @@ extern "C" {
 // Each entry point returns a cudaError_t code (0 = success). out is
 // zeroed by the caller; vec must divide width and stride.
 
-// Kernels P (bf16 = 0, vals f32, streams or rows; threads a multiple of
-// 32) and Q (bf16 = 1, vals int32 word streams); clip = 1 clips idx into
-// [0, max_idx] instead of skipping what lies outside (kernel F).
+// Kernels P (bf16 = 0, vals f32, streams or rows) and Q (bf16 = 1, vals
+// int32 word streams, W even); threads a multiple of 32; clip = 1 clips
+// idx into [0, max_idx] instead of skipping what lies outside (kernel F).
 int probe_accum(const int* idx, const void* vals, float* out, int64_t m,
                 int width, int stride, int max_idx, int vec, int bf16,
                 int rows, int upt, int clip, int threads, void* stream) {
   if (bad_launch(m, width, vec, threads) || stride % vec != 0 || upt < 1 ||
-      (bf16 && (width % 2 != 0 || rows)) || (!bf16 && threads % 32 != 0) ||
+      (bf16 && (width % 2 != 0 || rows)) || threads % 32 != 0 ||
       (clip && max_idx < 0))
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(vals);
   if (bf16)
-    return dispatch_accum<true>(idx, vals, out, m, width, stride, max_idx,
-                                vec, rows != 0, upt, clip != 0, threads, s);
-  return dispatch_accum<false>(idx, vals, out, m, width, stride, max_idx, vec,
-                               rows != 0, upt, clip != 0, threads, s);
+    return dispatch_accum<kWords>(idx, v, out, m, width, stride, max_idx,
+                                  vec, upt, clip != 0, threads, s);
+  if (rows)
+    return dispatch_accum<kRows>(idx, v, out, m, width, stride, max_idx, vec,
+                                 upt, clip != 0, threads, s);
+  return dispatch_accum<kStreams>(idx, v, out, m, width, stride, max_idx,
+                                  vec, upt, clip != 0, threads, s);
 }
 
-// Kernel R: n pairs; out [rows, width].
+// Kernel R, pairs form: n pairs (idx1, take2, idx2 [n], v1, v2 [width,
+// n]); out [rows, width].
 int probe_accum_pair_merged(const int* idx1, const int* take2,
                             const int* idx2, const float* v1, const float* v2,
                             float* out, int64_t n, int width, int max_idx,
                             int vec, int threads, void* stream) {
-  if (bad_launch(n, width, vec, threads)) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned int blocks = n_blocks(n, threads);
-  if (vec == 4)
-    pair_merged_kernel<4><<<blocks, threads, 0, s>>>(idx1, take2, idx2, v1,
-                                                     v2, out, n, width,
-                                                     max_idx);
-  else if (vec == 2)
-    pair_merged_kernel<2><<<blocks, threads, 0, s>>>(idx1, take2, idx2, v1,
-                                                     v2, out, n, width,
-                                                     max_idx);
-  else
-    pair_merged_kernel<1><<<blocks, threads, 0, s>>>(idx1, take2, idx2, v1,
-                                                     v2, out, n, width,
-                                                     max_idx);
-  return cudaGetLastError();
+  return launch_pairs<false>(idx1, take2, idx2, v1, v2, out, n, width,
+                             max_idx, vec, threads, stream);
+}
+
+// Kernel R, fused form: the 2n raw updates (idx [2n], vals [width, 2n]),
+// each adjacent pair on one row merged in registers; out [rows, width].
+int probe_accum_cell_merged(const int* idx, const float* vals, float* out,
+                            int64_t n, int width, int max_idx, int vec,
+                            int threads, void* stream) {
+  return launch_pairs<true>(idx, nullptr, nullptr, vals, nullptr, out, n,
+                            width, max_idx, vec, threads, stream);
 }
 
 // Kernel V: vals rows [m, width], width <= 16, idx clipped into

@@ -141,6 +141,8 @@ def library() -> ctypes.CDLL:
                                 _I32, _I32, _I32, _I32, _I32, _P]
     lib.probe_accum_pair_merged.argtypes = [_P, _P, _P, _P, _P, _P, _I64,
                                             _I32, _I32, _I32, _I32, _P]
+    lib.probe_accum_cell_merged.argtypes = [_P, _P, _P, _I64, _I32, _I32,
+                                            _I32, _I32, _P]
     lib.probe_accum_run_skip.argtypes = [_P, _P, _P, _I64, _I32, _I32, _I32,
                                          _I32, _I32, _P]
     for fn in (lib.grid_encode_bwd_sort, lib.tensovm_encode_bwd_sort,
@@ -150,7 +152,8 @@ def library() -> ctypes.CDLL:
                lib.row_accum_sort, lib.row_accum_starts, lib.row_accum_walk,
                lib.row_accum_bounds, lib.row_accum_walk_runs,
                lib.probe_accum,
-               lib.probe_accum_pair_merged, lib.probe_accum_run_skip):
+               lib.probe_accum_pair_merged, lib.probe_accum_cell_merged,
+               lib.probe_accum_run_skip):
         fn.restype = ctypes.c_int
     lib.grid_encode_error_string.argtypes = [ctypes.c_int]
     lib.grid_encode_error_string.restype = ctypes.c_char_p

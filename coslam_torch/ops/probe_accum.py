@@ -3,17 +3,21 @@ accumulator at element offset ``idx[m] * stride``.
 
 Counterparts of the Pallas probes of tools/bench/ (K5-K12), each a
 variant of the serial row read-modify-write of K3/K4 that measured the
-TPU; on the card they are five kernels of coslam_torch/csrc/
-probe_accum.cu:
+TPU; on the card they are the kernels P, Q, R, S and V of
+coslam_torch/csrc/probe_accum.cu:
 
 - P :func:`probe_accum`: f32 values as W streams ``[W, M]`` or as rows
   ``[M, W]``; the pair form (K2's shape, ``stride = F``, ``W = 2F``) adds
   rows idx and idx + 1 of an ``[rows, F]`` table;
 - Q :func:`probe_accum_bf16x2`: the same with int32 words of two bf16
   each (element 2p in the low half, as JAX's bitcast of
-  ``stack([a, b], -1)`` lays them out);
+  ``stack([a, b], -1)`` lays them out), through P's kernels with a loader
+  that unpacks them;
 - R :func:`probe_accum_pair_merged`: per pair, one row at idx1 and, where
-  take2, one at idx2, after the torch pre-pass :func:`merge_pairs`;
+  take2, one at idx2, after the torch pre-pass :func:`merge_pairs`; and
+  :func:`probe_accum_cell_merged`, the same kernel on the raw updates
+  with that pre-pass fused in (one launch for the JAX probe's whole
+  ``run_merged``);
 - S :func:`probe_accum_run_merge` (K11): out[clip(idx)] += vals, P's
   kernel with its clip rule on rows, each run of equal adjacent idx inside
   a warp summed before one row of atomics (K11's flush on change);
@@ -26,8 +30,9 @@ accumulate of the main path (:mod:`.serial_scatter`), through
 sum each run of equal idx inside the warp before one row of atomics
 (:func:`warp_runs` counts those rows); with scalar atomics (``vec`` 1)
 and a W that divides 32, a warp's lanes lie across the row, so each warp
-instruction adds 32 / W whole rows and runs are merged within those; Q
-adds one row an update.
+instruction adds 32 / W whole rows and runs are merged within those. Q
+takes the same two kernels. R's lanes take a pair each, and its warps
+merge runs across the pairs' rows likewise.
 
 P, Q and R skip an update whose row would not lie inside the output
 (idx < 0 or idx > ``out_rows - W // stride``): K12's sentinel rule; the
@@ -36,9 +41,9 @@ callers did in XLA. S and V clip idx into ``[0, out_rows - 1]``
 themselves, as K11's and K12's callers (``merge_accum``,
 ``run_merge_outside``) do. P and Q take the probes' launch settings:
 ``vec`` (1, 2 or 4: scalar, float2 or float4 atomics; it must divide W
-and stride), threads per block (for P a multiple of 32) and ``upt``, the
-updates each thread adds in turn (for P one warp-width apart); R, S and
-V add with the widest vector atomics that divide W, and V's blocks take
+and stride), threads per block (a multiple of 32) and ``upt``, the
+updates each thread adds in turn, one warp-width apart; R, S and V add
+with the widest vector atomics that divide W, and V's blocks take
 ``TILE`` updates each.
 
 The plain versions are ``index_add_`` on the rows that lie inside the
@@ -119,21 +124,42 @@ def run_merge_outside(idx: torch.Tensor, vals: torch.Tensor, rows: int,
     return torch.where(first, idx, rows + 1).to(torch.int32), v
 
 
-WARP = 32   # P: the updates a warp takes a step
+WARP = 32   # P: the updates a warp takes a step (R: the pairs)
 
 
-def warp_runs(idx: torch.Tensor, max_idx: int, clip: bool = False) -> int:
+def warp_runs(idx: torch.Tensor, max_idx: int, clip: bool = False,
+              take2: torch.Tensor | None = None,
+              idx2: torch.Tensor | None = None) -> int:
     """Rows of atomics kernel P issues on idx in its vector forms: an
     update adds (its run's row) where its row lies in [0, max_idx] (with
     ``clip``, every update, idx clipped into that range) and it does not
     continue a run of equal idx inside its warp's step of WARP updates
     (updates [32 k, 32 k + 32)), so a run that crosses a step boundary
     costs one row a piece. Kernel F is ``clip`` with max_idx the slack
-    row."""
-    if clip:
-        key = idx.clamp(0, max_idx)
-    else:
-        key = torch.where((idx >= 0) & (idx <= max_idx), idx, -1)
+    row.
+
+    With ``take2`` and ``idx2``, kernel R's (idx is idx1; the fused form
+    is :func:`merge_pairs`' output): pair i holds its rows in range in the
+    order idx1[i], then idx2[i] where take2[i] (two on one row summed into
+    one), and the rows of a warp's WARP pairs lie in the order a_0, b_0,
+    a_1, b_1, ...: a pair's first row continues the run of the previous
+    pair's last row where they are equal, and a run goes on past a pair
+    only where the pair holds one row. Every pair's second row heads a
+    run."""
+    def kept(j):
+        return torch.where((j >= 0) & (j <= max_idx), j, -1)
+
+    if take2 is not None:
+        a, b = kept(idx), torch.where(take2 != 0, kept(idx2), -1)
+        b = torch.where(b == a, -1, b)
+        first = torch.where(a >= 0, a, b)
+        second = torch.where(a >= 0, b, -1)
+        last = torch.where(second >= 0, second, first)
+        joins = torch.zeros_like(first, dtype=torch.bool)
+        joins[1:] = (first[1:] >= 0) & (first[1:] == last[:-1])
+        joins[::WARP] = False
+        return int(((first >= 0) & ~joins).sum() + (second >= 0).sum())
+    key = idx.clamp(0, max_idx) if clip else kept(idx)
     start = torch.ones_like(key, dtype=torch.bool)
     start[1:] = key[1:] != key[:-1]
     start[::WARP] = True
@@ -182,6 +208,23 @@ def run_skip_ref(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
     return probe_accum_ref(s_idx, s_vals, out_rows)
 
 
+def _even_updates(what: str, idx: torch.Tensor) -> int:
+    """The pairs of idx [M]; raises unless M is even (the pre-pass
+    slices idx[0::2] and idx[1::2])."""
+    if idx.dim() != 1 or idx.shape[0] % 2:
+        raise ValueError(f"{what}: idx {tuple(idx.shape)}: the pair merge "
+                         "takes an even number of updates")
+    return idx.shape[0] // 2
+
+
+def cell_merged_ref(idx: torch.Tensor, streams: torch.Tensor,
+                    out_rows: int) -> torch.Tensor:
+    """Plain version of R's fused form: :func:`merge_pairs`, then
+    :func:`pair_merged_ref`. idx [M] (M even), streams f32 [W, M]."""
+    _even_updates("probe_accum_cell_merged", idx)
+    return pair_merged_ref(*merge_pairs(idx, streams), out_rows)
+
+
 def pair_merged_ref(idx1, take2, idx2, v1, v2, out_rows: int
                     ) -> torch.Tensor:
     """Plain version of R: per pair, v1's row at idx1, then, where take2,
@@ -199,7 +242,7 @@ def pair_merged_ref(idx1, take2, idx2, v1, v2, out_rows: int
 
 # -- kernels -------------------------------------------------------------------
 
-_THREADS = 256  # R and S: threads per block
+_THREADS = 256  # R and S: threads per block (a multiple of 32)
 TILE = 128      # V: updates a block
 MAX_ROUNDS = 5  # V: the 31 rows a block stages past its tile reach 5 rounds
 
@@ -236,8 +279,9 @@ def _check_dtypes(what: str, dtype: torch.dtype, **tensors) -> None:
 
 def launch_accum(what, idx, vals, width, m, out_rows, stride, vec, upt,
                  threads, bf16, rows, clip=False):
-    """Launch kernel P (Q where ``bf16``) into a zeroed [out_rows, stride]
-    f32 output and return it; idx outside the output is skipped, or, with
+    """Launch kernel P (Q where ``bf16``: P's kernels with the words
+    unpacked as they are loaded) into a zeroed [out_rows, stride] f32
+    output and return it; idx outside the output is skipped, or, with
     ``clip``, clipped into [0, out_rows - W // stride]. Counts no launch:
     each caller counts its own."""
     stride = width if stride is None else stride
@@ -246,8 +290,8 @@ def launch_accum(what, idx, vals, width, m, out_rows, stride, vec, upt,
                          f"stride {stride}")
     _check_cuda(what, width, stride, vec, threads, idx=idx, vals=vals)
     _check_dtypes(what, torch.int32, idx=idx)
-    if not bf16 and threads % WARP:
-        raise ValueError(f"{what}: {threads} threads per block; P's warps "
+    if threads % WARP:
+        raise ValueError(f"{what}: {threads} threads per block; the warps "
                          "take whole steps, so a multiple of 32")
     if idx.shape != (m,):
         raise ValueError(f"{what}: idx {tuple(idx.shape)} for {m} updates")
@@ -284,7 +328,8 @@ def probe_accum_bf16x2(idx: torch.Tensor, words: torch.Tensor,
                        vec: int = 1, upt: int = 1,
                        threads: int = 256) -> torch.Tensor:
     """Kernel Q: kernel P with the values as W/2 streams of int32 words of
-    two bf16, [W/2, M]."""
+    two bf16, [W/2, M], each unpacked as it is loaded; ``vec``, ``upt``
+    and ``threads`` mean what they mean for P."""
     n_words, m = words.shape
     if _kernels.on_cpu(idx, words):
         return probe_accum_ref(idx, unpack_bf16x2(words.T), out_rows, stride)
@@ -300,7 +345,8 @@ def probe_accum_pair_merged(idx1: torch.Tensor, take2: torch.Tensor,
                             v2: torch.Tensor, out_rows: int) -> torch.Tensor:
     """Kernel R: out [out_rows, W] f32; pair i adds v1[:, i] at row
     idx1[i] and, where take2[i], v2[:, i] at row idx2[i]. v1, v2 f32
-    [W, n] streams (from :func:`merge_pairs`)."""
+    [W, n] streams (from :func:`merge_pairs`; :func:`probe_accum_cell_merged`
+    takes the raw updates)."""
     if _kernels.on_cpu(idx1, take2, idx2, v1, v2):
         return pair_merged_ref(idx1, take2, idx2, v1, v2, out_rows)
     what = "probe_accum_pair_merged"
@@ -322,6 +368,34 @@ def probe_accum_pair_merged(idx1: torch.Tensor, take2: torch.Tensor,
         _max_idx(out_rows, width, width), vec, _THREADS,
         _kernels.stream(v1.device)), what)
     probe_accum_pair_merged.launches += 1
+    return out
+
+
+def probe_accum_cell_merged(idx: torch.Tensor, streams: torch.Tensor,
+                            out_rows: int) -> torch.Tensor:
+    """Kernel R on the raw updates, the pre-pass fused in: out [out_rows,
+    W] f32 with each adjacent pair of updates (2i, 2i + 1) on one row
+    added as one row, v[2i] + v[2i + 1], and the others row by row; rows
+    outside the output skipped. idx int32 [M] (M even), streams f32 [W,
+    M]: the JAX probe's whole ``run_merged`` in one launch."""
+    what = "probe_accum_cell_merged"
+    n = _even_updates(what, idx)
+    if _kernels.on_cpu(idx, streams):
+        return cell_merged_ref(idx, streams, out_rows)
+    width, m = streams.shape
+    vec = widest_vec(width)
+    _check_cuda(what, width, width, vec, _THREADS, idx=idx, streams=streams)
+    _check_dtypes(what, torch.int32, idx=idx)
+    _check_dtypes(what, torch.float32, streams=streams)
+    if m != 2 * n:
+        raise ValueError(f"{what}: streams [W, {m}] for {2 * n} updates")
+    out = torch.zeros((out_rows, width), dtype=torch.float32,
+                      device=streams.device)
+    _kernels.check(_kernels.library().probe_accum_cell_merged(
+        idx.data_ptr(), streams.data_ptr(), out.data_ptr(), n, width,
+        _max_idx(out_rows, width, width), vec, _THREADS,
+        _kernels.stream(streams.device)), what)
+    probe_accum_cell_merged.launches += 1
     return out
 
 
@@ -374,9 +448,10 @@ def probe_accum_run_skip(idx: torch.Tensor, vals: torch.Tensor,
     return out
 
 
-# Launch counts of the five kernels (the CPU path never adds to them).
+# Launch counts of the wrappers (the CPU path never adds to them).
 probe_accum.launches = 0
 probe_accum_bf16x2.launches = 0
 probe_accum_pair_merged.launches = 0
+probe_accum_cell_merged.launches = 0
 probe_accum_run_merge.launches = 0
 probe_accum_run_skip.launches = 0

@@ -5,15 +5,18 @@ Counterpart of tools/bench/_bench_cell_merge.py (K5 `_kernel_base`, K6
 98,304 rows (+ the slack row), on a "random" index stream and on a
 "runs" stream of 1-5 long runs of equal indices (the JAX probe's numpy
 streams). "base" is kernel P on 8 f32 streams, one row per update;
-"merged" is the torch pre-pass that merges each adjacent pair (2i, 2i+1)
-hitting one row, then kernel R (one row per pair, a second predicated on
-take2), also timed alone; all with float4 atomics; and the plain
-versions of P and R. Every variant is held to the plain version within
+"merged" is the JAX probe's run_merged, which merges each adjacent pair
+(2i, 2i+1) hitting one row and then adds one row a pair (a second where
+the pair's rows differ): kernel R's fused form, the pre-pass in the
+kernel, one launch; "R alone" is kernel R's pairs form on the torch
+pre-pass's output; all with float4 atomics; and the plain versions of P
+and R. Every variant is held to the plain version within
 the sum-order bound and raises beyond it. Prints the adjacent-pair
 duplicate fraction, ms, M upd/s and the speedup, after holding merged to
 base at rtol 1e-4, atol 1e-3 as the JAX probe does;
-then the bound of the accumulate and of R on its merged inputs, and the
-time of index_add_ on the same updates.
+then the bound of the accumulate (which "merged" moves: the raw updates
+read once) and of R alone on its merged inputs, and the time of
+index_add_ on the same updates.
 
     python -m coslam_torch.tools.bench._bench_cell_merge [--quick]
 """
@@ -40,8 +43,8 @@ def streams(rows: int, n: int):
 
 
 def merged(idx, vals, rows: int):
-    """The pre-pass, then kernel R."""
-    return PA.probe_accum_pair_merged(*PA.merge_pairs(idx, vals), rows + 1)
+    """run_merged: the pre-pass and kernel R in one launch."""
+    return PA.probe_accum_cell_merged(idx, vals, rows + 1)
 
 
 def run(device, quick: bool = False, small: bool = False,

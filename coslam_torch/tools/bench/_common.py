@@ -165,15 +165,17 @@ def describe(label: str, r: dict, m: int, err: bool = True) -> str:
     return f"{label} {' '.join(parts)}"
 
 
-# Index streams built to catch a faulty warp merge in kernel P (a warp
-# sums each run of equal idx in its 32-update step before one row of
-# atomics): every update on one row; runs of 31, 32 and 33 after 5 single
-# updates, so that they cross the steps' boundaries at every offset; a run
-# that ends the stream; runs below 0 and past the last row at both ends of
-# the stream and in its middle (skipped by P, clipped into one row each by
-# F, so that runs of different idx become one).
-WARP_EDGE_STREAMS = ("all_equal", "runs_31", "runs_32", "runs_33",
-                     "run_at_end", "clipped_ends")
+# Index streams built to catch a faulty warp merge in kernels P and R (a
+# warp sums each run of equal rows in its 32-update step, R's in its 32
+# pairs, before one row of atomics): every update on one row; runs of 31,
+# 32 and 33 after 5 single updates, so that they cross the steps'
+# boundaries at every offset, and of 63 (R's 64-update warps); a run that
+# ends the stream; runs below 0 and past the last row at both ends of the
+# stream and in its middle (skipped by P, clipped into one row each by F,
+# so that runs of different idx become one); runs of 1-8 with single
+# updates outside the rows inside them.
+WARP_EDGE_STREAMS = ("all_equal", "runs_31", "runs_32", "runs_33", "runs_63",
+                     "run_at_end", "clipped_ends", "skips_in_runs")
 
 
 def warp_edge_stream(name: str, m: int, rows: int,
@@ -196,6 +198,10 @@ def warp_edge_stream(name: str, m: int, rows: int,
                                   np.full(20, rows), np.full(17, rows + 9)])
         idx[:37], idx[-37:] = outside[:37], outside[37:]
         idx[m // 2:m // 2 + 74] = outside
+    elif name == "skips_in_runs":
+        idx = np.repeat(rng.integers(0, rows, m), rng.integers(1, 9, m))[:m]
+        idx[::13] = -1
+        idx[5::17] = rows + 3
     else:
         raise ValueError(name)
     return idx.astype(np.int32)

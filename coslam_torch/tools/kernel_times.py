@@ -54,8 +54,9 @@ device time in launch order (``phase_times``, torch.profiler): the
 phases of whichever route the checkout has (``time_serial``).
 
 With ``--probes`` it times kernel P in every form the probes launch, at
-their shapes, on the card alone, and kernel S (P's clip form) at K11's
-(``time_p``).
+their shapes, on the card alone, kernel Q (packed bf16) at K9's and K10's,
+K6's route and kernel R alone, kernel S (P's clip form) at K11's and V at
+K12's (``time_p``).
 
 With ``--host-us`` it also measures the host's cost of the A and C
 wrappers (``wrapper_host_us``): microseconds per call of the whole
@@ -64,8 +65,8 @@ wrapper and of each part of its card path, over 10,000 calls each.
 The script calls only what earlier checkouts of the port also have
 (``grid_encode_fwd``, ``grid_encode_bwd``, ``xor_grid_encode_fwd``,
 ``xor_grid_encode_bwd``, ``tensovm_encode_fwd``, ``tensovm_encode_bwd``,
-``row_accum``, ``probe_accum``, ``probe_accum_run_merge``, the serial
-modes' wrappers and the plain versions), so it
+``row_accum``, the probes' wrappers and ``_bench_cell_merge.merged``,
+the serial modes' wrappers and the plain versions), so it
 also
 times an earlier checkout's kernels in the same machine: run it by path
 with that checkout's root first on ``PYTHONPATH``. It prints one JSON
@@ -596,11 +597,17 @@ def time_p(device) -> dict:
     form the probes launch (tools/bench: K5's 8 streams on its random and
     runs streams, float4; K7's pair form at 1,859,584 updates, 256 threads,
     4 updates a thread; K8's [M, W] rows at W = 4, 8 and 16, float4; K9's
-    8 streams, scalar and float4; K10's pair form, scalar (its "shipped")
-    and float2 at 256 threads and 4 updates a thread), and kernel S at
-    K11's (the run-merge probe's ray-ordered streams at r = 140 and 311,
-    W = 8), each held to its plain version within the sum-order bound
-    first."""
+    streams at W = 4, 8 and 16, scalar and float4; K10's pair form, scalar
+    (its "shipped") and float2 at 256 threads and 4 updates a thread);
+    K6 on K5's streams, the route (``_bench_cell_merge.merged``, the
+    probe's run_merged) and kernel R alone on the torch pre-pass's output;
+    kernel Q (packed bf16) at K9's shapes, scalar and float4, and at K10's
+    pair form, scalar and float2 (256 threads, 4 updates a thread, and the
+    probe's 512 and 8); kernel S at K11's and V at K12's (the run-merge
+    probe's ray-ordered streams at r = 140 and 311, W = 8). Each is held to
+    its plain version within the sum-order bound first (Q to the plain
+    sum of its unpacked values, V to the plain sum of the suffix scan's
+    first entries)."""
     from coslam_torch.ops import probe_accum as PA
     from coslam_torch.tools.bench import _bench_cell_merge as CM
     from coslam_torch.tools.bench import _bench_chunk_tune as CT
@@ -625,11 +632,19 @@ def time_p(device) -> dict:
             out[label]["index_add_"] = graph_ms(
                 lambda: buf.index_add_(0, idx, library))
 
+    def unpacked(words):
+        return PA.unpack_bf16x2(words.T.contiguous())
+
     vals = tensor(rng.standard_normal((CM.WIDTH, CM.N)).astype(np.float32))
     for name, ids in CM.streams(CM.ROWS, CM.N).items():
         idx = tensor(ids)
         timed(f"K5 {name} W=8 float4", idx, vals.T, CM.ROWS + 1, None,
               lambda: PA.probe_accum(idx, vals, CM.ROWS + 1, vec=4), vals.T)
+        timed(f"K6 {name} route", idx, vals.T, CM.ROWS + 1, None,
+              lambda: CM.merged(idx, vals, CM.ROWS), vals.T)
+        pairs = PA.merge_pairs(idx, vals)
+        timed(f"K6 {name} R alone", idx, vals.T, CM.ROWS + 1, None,
+              lambda: PA.probe_accum_pair_merged(*pairs, CM.ROWS + 1))
     (threads, upt), = CT.QUICK
     m = CT.MS[-1]
     idx = tensor(rng.integers(0, CT.ROWS - 2, m).astype(np.int32))
@@ -644,24 +659,37 @@ def time_p(device) -> dict:
         timed(f"K8 rows W={width} float4", idx, rows2d, RR.ROWS + 1, None,
               lambda: PA.probe_accum(idx, rows2d, RR.ROWS + 1, rows=True,
                                      vec=4), rows2d)
-        if width == 8:
-            for vec in (1, 4):
-                timed(f"K9 streams W=8 vec{vec}", idx, streams.T,
-                      RR.ROWS + 1, None,
-                      lambda vec=vec: PA.probe_accum(idx, streams,
-                                                     RR.ROWS + 1, vec=vec),
-                      streams.T)
+        words = RR.pack_streams(streams)
+        for vec in (1, 4):
+            timed(f"K9 streams W={width} vec{vec}", idx, streams.T,
+                  RR.ROWS + 1, None,
+                  lambda vec=vec: PA.probe_accum(idx, streams, RR.ROWS + 1,
+                                                 vec=vec), streams.T)
+            timed(f"K9 Q W={width} vec{vec}", idx, unpacked(words),
+                  RR.ROWS + 1, None,
+                  lambda vec=vec: PA.probe_accum_bf16x2(
+                      idx, words, RR.ROWS + 1, vec=vec))
     idx = tensor(rng.integers(0, SV.N_ROWS - 2, SV.M).astype(np.int32))
     pair = tensor(rng.standard_normal((4, SV.M)).astype(np.float32))
     for vec, upt in ((1, 1), (2, 4)):
         timed(f"K10 pair vec{vec} t=256 u={upt}", idx, pair.T, SV.N_ROWS + 2,
               2, lambda vec=vec, upt=upt: PA.probe_accum(
                   idx, pair, SV.N_ROWS + 2, stride=2, vec=vec, upt=upt))
+    words = RR.pack_streams(pair)
+    for vec, threads, upt in ((1, 256, 1), (2, 256, 4), (2, 512, 8)):
+        timed(f"K10 Q pair vec{vec} t={threads} u={upt}", idx,
+              unpacked(words), SV.N_ROWS + 2, 2,
+              lambda vec=vec, threads=threads, upt=upt: PA.probe_accum_bf16x2(
+                  idx, words, SV.N_ROWS + 2, stride=2, vec=vec, upt=upt,
+                  threads=threads))
     for r in RM.RS:
         ids, rows2d = (tensor(a) for a in RM.make_stream(r))
         timed(f"K11 run merge r={r} W={RM.W}", ids, rows2d, r * r + 1, None,
               lambda: PA.probe_accum_run_merge(ids, rows2d, r * r + 1),
               rows2d)
+        s_idx, s_vals = PA.run_merge_outside(ids, rows2d, r * r)
+        timed(f"K12 run skip r={r} W={RM.W}", s_idx, s_vals, r * r + 1, None,
+              lambda: PA.probe_accum_run_skip(ids, rows2d, r * r + 1))
     return out
 
 

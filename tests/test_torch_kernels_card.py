@@ -5,8 +5,8 @@ hash grid; A, C, E and D also on ray-ordered points, E also at the Dense
 grid's 4 levels; A and C also on a side stream, in a CUDA graph, and
 refusing what they do not take), the row accumulate F (atomic) and H
 (deterministic, also on adversarial streams), and the probes' kernels
-P, Q, R, S and V (bottom of the file; P and F also on streams built to
-break their warp merge, U on points in one cell). This file imports no
+P, Q, R (both forms), S and V (bottom of the file; P, Q, R and F also on
+streams built to break their warp merge, U on points in one cell). This file imports no
 jax, so it also runs on a machine with the card and without the JAX
 package's dependencies:
 
@@ -845,9 +845,9 @@ def test_probe_accum_scalar_lanes(cuda_device, name, width):
 @pytest.mark.parametrize("width", [8, 6, 3])
 def test_probe_pair_merged_kernel_matches_plain_version(cuda_device, width):
     """Kernel R after merge_pairs (float4, float2 and scalar atomics, by
-    W), on the cell-merge probe's two streams: within the sum-order
-    bound, and at TABLE_TOL to its plain version and to kernel P on the
-    unmerged streams."""
+    W), and its fused form on the raw updates, on the cell-merge probe's
+    two streams: within the sum-order bound, and at TABLE_TOL to its plain
+    version and to kernel P on the unmerged streams."""
     from coslam_torch.tools.bench import _bench_cell_merge as CM
 
     rows, n = 5000, 200_000
@@ -864,6 +864,116 @@ def test_probe_pair_merged_kernel_matches_plain_version(cuda_device, width):
                                    **TABLE_TOL)
         torch.testing.assert_close(got, PA.probe_accum(idx, vals, rows + 1),
                                    **TABLE_TOL)
+        launches = PA.probe_accum_cell_merged.launches
+        fused = PA.probe_accum_cell_merged(idx, vals, rows + 1)
+        torch.cuda.synchronize()
+        assert PA.probe_accum_cell_merged.launches == launches + 1
+        _assert_within_sum_order(fused, ids, vals.T.cpu().numpy(), rows)
+        torch.testing.assert_close(fused, PA.cell_merged_ref(idx, vals,
+                                                             rows + 1),
+                                   **TABLE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 4, 8, 16])
+@pytest.mark.parametrize("name", WARP_EDGE_STREAMS)
+def test_probe_q_on_edge_streams(cuda_device, name, width):
+    """Kernel Q (kernel P's two kernels, the words unpacked as they are
+    loaded) at vec 1, 2 and 4 where they divide W, on the streams of
+    _common.WARP_EDGE_STREAMS at M = 10,007 (the last step short): word
+    streams with 1, 3 and 4 updates a thread and 256, 128 and 1024 threads
+    (the skip rule), the stride W / 2 pair form at every vec dividing it,
+    and the clip rule at every vec; each within the sum-order bound of the
+    exact sum of the unpacked values; one launch a call."""
+    from coslam_torch.tools.bench import _common as C
+
+    rows, m = 700, 10_007
+    rng = np.random.default_rng(width + 200)
+    idx_np = C.warp_edge_stream(name, m, rows, seed=width)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    streams = torch.from_numpy(rng.standard_normal((width, m)).astype(
+        np.float32)).to(cuda_device)
+    words = torch.stack([PA.pack_bf16x2(streams[2 * p], streams[2 * p + 1])
+                         for p in range(width // 2)]).contiguous()
+    unpacked = PA.unpack_bf16x2(words.T.contiguous()).cpu().numpy()
+    keys, pieces = _pieces(idx_np, unpacked, rows + 1, width)
+    launches = PA.probe_accum_bf16x2.launches
+    calls = 0
+    vecs = [v for v in (1, 2, 4) if width % v == 0]
+    for vec in vecs:
+        for upt, threads in ((1, 256), (3, 128), (4, 1024)):
+            got = PA.probe_accum_bf16x2(idx, words, rows + 1, vec=vec,
+                                        upt=upt, threads=threads)
+            _assert_within_sum_order(got, keys, pieces, rows)
+            calls += 1
+    stride = width // 2
+    for vec in (v for v in vecs if stride % v == 0):
+        got = PA.probe_accum_bf16x2(idx, words, rows + 1, stride, vec=vec)
+        _assert_within_sum_order(got, *_pieces(idx_np, unpacked, rows + 1,
+                                               stride), rows)
+        calls += 1
+    clipped = np.clip(idx_np, 0, rows)
+    for vec in vecs:
+        _assert_within_sum_order(PA.launch_accum(
+            "probe_accum_bf16x2", idx, words, width, m, rows + 1, width, vec,
+            3, 128, True, False, clip=True), clipped, unpacked, rows)
+    assert PA.probe_accum_bf16x2.launches == launches + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 6, 3])
+@pytest.mark.parametrize("name", WARP_EDGE_STREAMS)
+def test_probe_r_both_forms_on_edge_streams(cuda_device, name, width):
+    """Kernel R in both forms (the pairs after merge_pairs, and the raw
+    updates with the pre-pass fused in; float4, float2 and scalar atomics
+    by W) on the streams of _common.WARP_EDGE_STREAMS at M = 10,006
+    (5,003 pairs, not a multiple of 32: the last warp short): runs across
+    the warps of 32 pairs, a warp of one row, rows outside the output
+    inside runs. The fused form also on idx and streams 4 bytes past an
+    aligned start (its int2 and float2 loads give way to scalar ones); the
+    pairs form also on arbitrary take2, idx2 equal to idx1 on 40 % of the
+    pairs. Each within the sum-order bound of the exact sum; one launch a
+    call."""
+    from coslam_torch.tools.bench import _common as C
+
+    rows, m = 700, 10_006
+    rng = np.random.default_rng(width + 300)
+    idx_np = C.warp_edge_stream(name, m, rows, seed=width)
+    vals_np = rng.standard_normal((m, width)).astype(np.float32)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    streams = torch.from_numpy(vals_np.T.copy()).to(cuda_device)
+    keys, pieces = _pieces(idx_np, vals_np, rows + 1, width)
+    launches = (PA.probe_accum_pair_merged.launches,
+                PA.probe_accum_cell_merged.launches)
+    merged = PA.merge_pairs(idx, streams)
+    _assert_within_sum_order(PA.probe_accum_pair_merged(*merged, rows + 1),
+                             keys, pieces, rows)
+    _assert_within_sum_order(PA.probe_accum_cell_merged(idx, streams,
+                                                        rows + 1),
+                             keys, pieces, rows)
+    buf = torch.empty(m + 1, dtype=torch.int32, device=cuda_device)
+    off_idx = buf[1:]
+    off_idx.copy_(idx)
+    _assert_within_sum_order(PA.probe_accum_cell_merged(
+        off_idx, _offset_by_a_float(vals_np.T, cuda_device), rows + 1),
+        keys, pieces, rows)
+    i1, _, i2, v1, _ = merged
+    n = m // 2
+    take2_np = rng.integers(0, 2, n).astype(np.int32)
+    same = torch.from_numpy(rng.random(n) < 0.4).to(cuda_device)
+    i2 = torch.where(same, i1, i2).to(torch.int32).contiguous()
+    v2_np = rng.standard_normal((width, n)).astype(np.float32)
+    got = PA.probe_accum_pair_merged(
+        i1, torch.from_numpy(take2_np).to(cuda_device), i2, v1,
+        torch.from_numpy(v2_np).to(cuda_device), rows + 1)
+    pair_keys = np.stack([i1.cpu().numpy(), np.where(
+        take2_np != 0, i2.cpu().numpy(), -1)], 1).reshape(-1)
+    pair_rows = np.stack([v1.T.cpu().numpy(), v2_np.T], 1).reshape(-1, width)
+    _assert_within_sum_order(got, *_pieces(pair_keys, pair_rows, rows + 1,
+                                           width), rows)
+    assert (PA.probe_accum_pair_merged.launches,
+            PA.probe_accum_cell_merged.launches) == (launches[0] + 2,
+                                                     launches[1] + 2)
 
 
 def _check_run_skip(got, idx, vals, rows):

@@ -1,5 +1,6 @@
-"""The probes' kernels (coslam_torch.ops.probe_accum, kernels P, Q, R, S,
-V) against the JAX package's Pallas probes K5-K12 of tools/bench/.
+"""The probes' kernels (coslam_torch.ops.probe_accum, kernels P, Q, R in
+both forms, S, V) against the JAX package's Pallas probes K5-K12 of
+tools/bench/, and the host model of the warp merges' rows of atomics.
 
 Each probe module is loaded by path (nothing under tools/ is edited) and
 its kernel body wrapped here in a pallas_call with the probe's own
@@ -13,8 +14,9 @@ Tolerance: none for K5, K8, K9 (f32 and packed bf16), K10 and K7's pair
 form: both sides add every row's updates serially in update order from
 0.0, and the port's pair form keeps that order across the two rows of a
 pair. K6 and K12 are exact too (the pre-passes are the same f32 adds,
-and both kernels add in pair or update order; kernel V's plain version is
-K12's scan and skip). K11 regroups: the TPU kernel adds each run's sum,
+and both kernels add in pair or update order; kernel R's fused form's
+plain version is the pre-pass and R's; kernel V's plain version is K12's
+scan and skip). K11 regroups: the TPU kernel adds each run's sum,
 the plain version (index_add_) each update, so rtol 1e-5, atol 1e-5.
 """
 
@@ -169,6 +171,42 @@ def test_k6_cell_merged_equals_plain_r(runs):
     np.testing.assert_array_equal(got.numpy(), want)
     if runs:  # most pairs of the runs stream merge
         assert float((ours[1] == 0).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("runs", [False, True])
+def test_k6_fused_form_equals_jax_run_merged(runs):
+    """K6 as the JAX probe runs it (run_merged: its XLA pre-pass, then
+    _kernel_merged in interpret mode) against kernel R's fused form on the
+    CPU (probe_accum_cell_merged: merge_pairs + R's plain version) and the
+    port's probe route (_bench_cell_merge.merged), bit for bit: both add
+    pair by pair, a merged pair as v[2i] + v[2i+1]."""
+    mod = _probe("_bench_cell_merge")
+    rows, m, w = 512, 4096, mod.WIDTH
+    idx, vals = _idx(m, rows, 13, runs), _streams(w, m, 14)
+    i1, take2, i2, v1, v2 = _jax_run_merged_inputs(
+        jnp.asarray(idx), [jnp.asarray(v) for v in vals])
+    want = _interpret(partial(mod._kernel_merged, CHUNK // 2, w),
+                      (rows + 1, w), *map(np.asarray, (i1, take2, i2)),
+                      *map(np.asarray, v1), *map(np.asarray, v2),
+                      chunk=CHUNK // 2)
+    got = PA.probe_accum_cell_merged(_t(idx), _t(vals), rows + 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    route = _bench_cell_merge.merged(_t(idx), _t(vals), rows)
+    np.testing.assert_array_equal(route.numpy(), want)
+    assert PA.probe_accum_cell_merged.launches == 0
+
+
+def test_cell_merged_refuses_an_odd_count():
+    """R's fused form takes pairs of updates: an odd M (or an idx that is
+    not 1-D) raises ValueError, on the CPU and before any launch off it."""
+    for device in ("cpu", "meta"):
+        idx = torch.zeros(7, dtype=torch.int32, device=device)
+        vals = torch.zeros((8, 7), device=device)
+        with pytest.raises(ValueError, match="even number"):
+            PA.probe_accum_cell_merged(idx, vals, 9)
+        with pytest.raises(ValueError, match="even number"):
+            PA.probe_accum_cell_merged(idx.view(1, 7), vals, 9)
+    assert PA.probe_accum_cell_merged.launches == 0
 
 
 def test_k7_pair_form_equals_tuned_body_and_pair_scatter():
@@ -448,6 +486,67 @@ def test_warp_runs_counts_p_rows_of_atomics(name, clip):
     assert count < m
 
 
+def _r_rows_walked(idx1, take2, idx2, max_idx):
+    """Kernel R's rows of atomics, pair by pair: a warp's 32 pairs put
+    their rows in range in order (the first, then the second where taken
+    and on another row; a pair with none breaks the run), and a row adds
+    where it differs from the row before it in its warp."""
+    count = 0
+    for i, (a, t, b) in enumerate(zip(idx1, take2, idx2)):
+        if i % 32 == 0:
+            prev = None
+        rows = [j for j in (a, b if t else -1) if 0 <= j <= max_idx]
+        if len(rows) == 2 and rows[0] == rows[1]:
+            rows = rows[:1]
+        if not rows:
+            prev = None
+        for j in rows:
+            count += j != prev
+            prev = j
+    return count
+
+
+def _r_pairs(name, n, rows, rng):
+    """(idx1, take2, idx2) int32 [n] of one named case of kernel R's pairs:
+    "chain" runs of one row through pairs with and without take2 and across
+    warps, e.g. (5, 5) (5, 5) (5, 7) (7, 7) (7, 9); "taken_equal" take2 on
+    pairs whose rows are equal, and on pairs whose first row is outside;
+    any other name, merge_pairs of that _common.WARP_EDGE_STREAMS stream."""
+    if name == "chain":
+        ids = np.repeat(rng.integers(0, rows, n), rng.integers(1, 4, n) * 2
+                        + rng.integers(0, 2, n))[:2 * n]
+        ids[100:180] = 11           # 40 pairs on one row across a warp edge
+        ids[181:185] = [-1, -1, 11, rows + 4]
+    elif name == "taken_equal":
+        ids = rng.integers(-2, rows + 2, 2 * n)
+    else:
+        ids = C.warp_edge_stream(name, 2 * n, rows, seed=9)
+    idx1, take2, idx2, _, _ = PA.merge_pairs(
+        _t(ids.astype(np.int32)), torch.zeros((1, 2 * n)))
+    if name == "taken_equal":
+        take2 = _t(rng.integers(0, 2, n).astype(np.int32))
+        idx2 = torch.where(_t(rng.random(n) < 0.4), idx1, idx2)
+    return idx1, take2, idx2.to(torch.int32)
+
+
+@pytest.mark.parametrize("name", ["chain", "taken_equal",
+                                  *C.WARP_EDGE_STREAMS])
+def test_warp_runs_counts_r_rows_of_atomics(name):
+    """Kernel R's rows of atomics (warp_runs with take2 and idx2: the rows
+    a_0, b_0, a_1, b_1, ... of a warp's 32 pairs, a run going on past a
+    pair only where it holds one row) against a count pair by pair, on
+    pairs whose runs cross lanes with take2 and without it, and warps; the
+    fused form's pairs are merge_pairs'. The merge must save rows."""
+    n, rows = 1001, 300
+    idx1, take2, idx2 = _r_pairs(name, n, rows, np.random.default_rng(11))
+    want = _r_rows_walked(idx1.tolist(), take2.tolist(), idx2.tolist(),
+                          rows - 1)
+    assert PA.warp_runs(idx1, rows - 1, take2=take2, idx2=idx2) == want
+    taken = (take2 != 0) & (idx2 >= 0) & (idx2 <= rows - 1)
+    kept = (idx1 >= 0) & (idx1 <= rows - 1)
+    assert want < int(kept.sum() + taken.sum())
+
+
 @pytest.mark.parametrize("module", [_bench_row_rates,
                                     _bench_scatter_variants,
                                     _bench_chunk_tune, _bench_cell_merge,
@@ -483,13 +582,16 @@ def test_wrappers_never_take_the_plain_version_off_the_cpu():
     with pytest.raises(ValueError):
         PA.probe_accum_pair_merged(idx, idx, idx, vals, vals, 9)
     with pytest.raises(ValueError):
+        PA.probe_accum_cell_merged(idx, vals, 9)
+    with pytest.raises(ValueError):
         PA.probe_accum_run_merge(idx, vals.T, 9)
     with pytest.raises(ValueError):
         PA.probe_accum_run_skip(idx, vals.T, 9)
     assert (PA.probe_accum.launches, PA.probe_accum_bf16x2.launches,
             PA.probe_accum_pair_merged.launches,
+            PA.probe_accum_cell_merged.launches,
             PA.probe_accum_run_merge.launches,
-            PA.probe_accum_run_skip.launches) == (0, 0, 0, 0, 0)
+            PA.probe_accum_run_skip.launches) == (0, 0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("stride", [None, 2])
