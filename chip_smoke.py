@@ -31,7 +31,11 @@ Run from the repository root. Phases, each printing its own lines:
    route for its function (one grid_sample and a sum, within
    kernel_times.LIBRARY_TOL), and A and B at its 3
    dense levels at every case, each also on that slice's ray-ordered
-   points and each table gradient within its sum-order bound; then the
+   points and each table gradient within its sum-order bound; A and B at
+   the TUM recipe's grid (tum_config: resolution 325, 822,884 rows) at
+   every case of the TUM slice, each step's coarse case (85 samples a
+   ray) and its importance fine pass's (128 a ray), each table gradient
+   within its sum-order bound; then the
    row accumulate,
    kernels F (atomic: kernel P's CUDA kernel with its clip rule) and H
    (deterministic), on kernel G's update streams of every case that asks
@@ -81,10 +85,19 @@ Run from the repository root. Phases, each printing its own lines:
    480x640 analytic synthetic scene, each checked for finite losses,
    keyframes 0, 5 and 10, ATE RMSE < 10 cm and a mesh; then room0_xor with
    grad_impl scatter (kernel F) from the first frame to the first BA call
-   (6 frames, no mesh). Every slice checks the launches of its kernels on
-   the path (every count set to 0 just before the slice and read just
-   after it), and that the mesh came from the port's own native marching
-   cubes;
+   (6 frames, no mesh); then the TUM slice: the TUM reference recipe at
+   fr1_desk's width (tum_config: 64 + 21 samples and 128 importance
+   samples a ray, 20 BA iterations, 4 loader threads, mesh.vis 5) on the
+   same 15 frames written in TUM layout under output/ (write_tum_format)
+   and read back through get_dataset, TUMDataset and the loop's
+   prefetcher: ATE < 10 cm, its periodic meshes at frames 5 and 10 written
+   by the loop's mesh worker, each periodic mesh and ATE file not empty,
+   a final mesh, and A and B launched twice (coarse and fine) in every
+   tracking and BA iteration. Every slice checks the launches of its
+   kernels on the path (every count set to 0 just before the slice and
+   read just after it), and that the mesh came from the port's own native
+   marching cubes; A's and B's launches in the kernels' record are room0's
+   plus the TUM slice's;
 6. resume, under torch.use_deterministic_algorithms(True) (with
    CUBLAS_WORKSPACE_CONFIG set at the top of this script): room0 for 15
    frames, room0_vm and room0_hybrid for 10, each writing a checkpoint
@@ -95,7 +108,12 @@ Run from the repository root. Phases, each printing its own lines:
    table-gradient iteration and the atomic B and D only for tracking's
    dx (launch counts over the straight run, set to 0 just before it);
 7. the current-frame step: room0 for 6 frames with cur_frame_iters 2,
-   kernels A and B launched in each of its iterations, ATE < 10 cm;
+   kernels A and B launched in each of its iterations, ATE < 10 cm; then
+   the TUM extras: 6 frames of the TUM slice's files with
+   training.frame_align, tracking.iter_point 5 (40,960 rays) and
+   decoder.dtype bfloat16 (first_iters 200): finite losses, the exposure
+   parameters moved from their initial value (the gauge row not), and
+   kernel A launched in every point-cloud iteration;
 8. quality: kernels A and B at the replica quality recipe's packed grid
    (hash_size 13, resolution 125: 2 dense and 14 hashed levels), C and D
    at the rgbd recipe's TensoVM grid and at the ScanNet recipe's (the
@@ -148,8 +166,10 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 # cuBLAS reads this when it starts: with it, matrix products are
@@ -160,8 +180,9 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 import numpy as np  # noqa: E402
 
 from coslam_torch.data.synth import (  # noqa: E402
-    SyntheticFrames, room0_config, room0_hybrid_config, room0_vm_config,
-    room0_xor_config)
+    AnalyticScene, SyntheticFrames, make_scan_trajectory, room0_config,
+    room0_hybrid_config, room0_vm_config, room0_xor_config, tum_config,
+    write_tum_format)
 from coslam_torch.tools.bench._common import accum_bound, bound  # noqa: E402
 from coslam_torch.tools.kernel_times import (  # noqa: E402
     LIBRARY_TOL, a_l2_sectors, c_l2_sectors, d_l2_sectors, e_l2_sectors,
@@ -1327,13 +1348,15 @@ def run_probes(wrappers) -> dict:
 
 def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
               n_frames=None) -> dict:
-    """CoSLAM.run on the synthetic frames `data` (the first `n_frames`
-    only, without the final mesh, when given); returns the launch counts
-    of every kernel wrapper in `wrappers` over the run (each set to 0
-    just before it), after checking what the run produced, that the
-    slice's own kernels were launched on the path (`own` in every
-    tracking and BA iteration, `table_own` in every iteration that asks
-    for the table gradient: first frame and BA) and printing its
+    """CoSLAM.run on the frames `data` (the first `n_frames` only, without
+    the final mesh, when given); returns the launch counts of every
+    kernel wrapper in `wrappers` over the run (each set to 0 just before
+    it), after checking what the run produced, that the slice's own
+    kernels were launched on the path (`own` in every tracking and BA
+    iteration, twice with an importance fine pass; `table_own` in every
+    iteration that asks for the table gradient: first frame and BA),
+    that each periodic mesh (mesh.vis) was written by the loop's mesh
+    worker and, with the ATE files, is not empty, and printing its
     summary."""
     import torch
 
@@ -1342,7 +1365,14 @@ def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
     frames = data.num_frames if n_frames is None else n_frames
     mesh = n_frames is None
     slam = CoSLAM(cfg, data, device=device)
+    mesh_threads, save_mesh = {}, slam.save_mesh
 
+    def recorded(i, *args, **kwargs):
+        mesh_threads.setdefault(i, []).append(
+            threading.current_thread().name)
+        return save_mesh(i, *args, **kwargs)
+
+    slam.save_mesh = recorded
     for fn in wrappers:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1369,10 +1399,22 @@ def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
         assert mcubes.library.cache_info().currsize == 1, "no native mesh"
         lib = os.path.abspath(mcubes.library()._name)
         assert os.path.dirname(lib) == str(mcubes.BUILD_DIR), lib
+    vis = int(cfg["mesh"].get("vis", 0) or 0)
+    out = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"])
+    periodic = list(range(vis, frames, vis)) if vis else []
+    for i in periodic:
+        assert "mesh-eval" in mesh_threads.get(i, []), (i, mesh_threads)
+        path = os.path.join(out, f"mesh_track{i}.ply")
+        assert os.path.getsize(path) > 0, path
+    if periodic:
+        for name in ("output.txt", "output_relative.txt"):
+            with open(os.path.join(out, name)) as f:
+                assert len(f.read().splitlines()) == len(periodic) + 1, name
     n_track = (frames - 1) * tcfg["iter"]
     n_ba = len(slam.timings["mapping"]) * mcfg["iters"]
     assert n_ba > 0, "no BA call"
-    floors = {fn: n_track + n_ba for fn in own}
+    passes = 2 if cfg["training"]["n_importance"] > 0 else 1
+    floors = {fn: passes * (n_track + n_ba) for fn in own}
     floors.update({fn: mcfg["first_iters"] + n_ba for fn in table_own})
     if device.type == "cuda":
         for fn, floor in floors.items():
@@ -1390,6 +1432,7 @@ def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
         "keyframes": slam.kf_db.count,
         "tracking_steps": n_track,
         "ba_iterations": n_ba,
+        "periodic_meshes": {i: mesh_threads[i] for i in periodic},
         "launches": launches,
     }
     print("  " + json.dumps(summary), flush=True)
@@ -1628,6 +1671,74 @@ def run_current_frame(device, cfg: dict, data, n_frames: int, fwd,
                              "ate_rmse_m": ate}), flush=True)
 
 
+def tum_frames(cfg: dict, n_frames: int):
+    """The TUM slice's frames: the 15-frame scan of the analytic scene
+    written in TUM layout under cfg's data.datadir (the port's
+    write_tum_format: PNGs, rgb.txt, depth.txt, groundtruth.txt), then
+    read back through the port's normal dataset route (get_dataset:
+    TUMDataset); the run's output directory is emptied first."""
+    from coslam_torch.data.datasets import TUMDataset, get_dataset
+
+    cam = cfg["cam"]
+    write_tum_format(cfg["data"]["datadir"], AnalyticScene(),
+                     make_scan_trajectory(n_frames), cam["H"], cam["W"],
+                     cam["fx"], cam["fy"], cam["cx"], cam["cy"],
+                     png_depth_scale=cam["png_depth_scale"])
+    shutil.rmtree(os.path.join(cfg["data"]["output"],
+                               cfg["data"]["exp_name"]), ignore_errors=True)
+    data = get_dataset(cfg)
+    assert isinstance(data, TUMDataset), type(data)
+    assert data.num_frames == n_frames, data.num_frames
+    return data
+
+
+def run_tum_extras(device, cfg: dict, data, n_frames: int, fwd) -> None:
+    """The TUM recipe's other options: training.frame_align,
+    tracking.iter_point (point-cloud tracking before each tracking step)
+    and decoder.dtype bfloat16. Losses finite, the exposure parameters
+    moved from their initial value, and kernel A (`fwd`) launched in every
+    point-cloud iteration."""
+    import torch
+
+    from coslam_torch.runtime.slam import CoSLAM
+
+    slam = CoSLAM(cfg, data, device=device)
+    assert slam.model.decoder.bf16
+    step, calls = slam._track_pc_step, []
+    n_pc = cfg["tracking"]["iter_point"]
+
+    def counted(*args):
+        before = fwd.launches
+        out = step(*args)
+        calls.append(fwd.launches - before)
+        return out
+
+    slam._track_pc_step = counted
+    res = slam.run(n_frames=n_frames, verbose=False, mesh=False)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    losses = [v for vals in slam.losses.values() for v in vals]
+    assert losses and all(math.isfinite(v) for v in losses), slam.losses
+    assert len(calls) == n_frames - 1, calls
+    if device.type == "cuda":
+        assert all(n >= n_pc for n in calls), calls
+    init = torch.tensor([1.0, 1.0, 1.0, 0.0], device=device)
+    kf = slam.kf_aligns[:slam.kf_db.count]
+    assert torch.isfinite(kf).all() and torch.isfinite(slam.cur_align).all()
+    assert not torch.equal(slam.cur_align, init), slam.cur_align
+    assert torch.equal(kf[0], init), kf
+    assert not torch.equal(kf[-1], init), kf
+    ate = res["absolute_translational_error.rmse"]
+    assert math.isfinite(ate), ate
+    print("  " + json.dumps({
+        "frame_align": True, "iter_point": n_pc, "decoder_dtype": "bfloat16",
+        "pc_calls_launches_fwd": calls,
+        "cur_align": slam.cur_align.tolist(), "kf_aligns": kf.tolist(),
+        "tracking_ms_median": 1e3 * float(np.median(
+            slam.timings["tracking"])),
+        "ate_rmse_m": ate}), flush=True)
+
+
 # The quality phase: the harness of coslam_torch.tools.quality_bench on
 # the card, through the in-memory route (no image codec), at the JAX
 # verify recipe's sizes; its bounds (60 frames of the replica protocol:
@@ -1853,6 +1964,25 @@ def main() -> int:
         measured[name]["hybrid_dense"] = rec
     del hd
 
+    # The TUM recipe at fr1_desk's width (tum_config: resolution 325,
+    # 822,884 rows) through A and B at every case of its slice: each step's
+    # coarse case (85 samples a ray) and its fine pass's (128 a ray),
+    # each table gradient within its sum-order bound.
+    tum_cfg = tum_config(out, H, W, N_FRAMES, exp_name="chip_smoke_tum")
+    tum_spec = JointEncoding(tum_cfg, tum_cfg["mapping"]["bound"],
+                             device).grid_spec
+    assert tum_spec.total_entries == 822_884, tum_spec.total_entries
+    tum_cases = main_path_cases(tum_cfg, N_FRAMES)
+    tk_tum = HashKernels(device, rng(0), tum_spec)
+    _phase(f"kernels against the plain versions: {tk_tum.source}, the TUM "
+           f"recipe's grid ({tum_spec.total_entries} rows)")
+    for name, rec in check_kernels(device, tk_tum, tum_cases,
+                                   sum_order=True).items():
+        measured[name]["max_abs_err"] = max(
+            measured[name]["max_abs_err"], rec.pop("max_abs_err"))
+        measured[name]["tum"] = rec
+    del tk_tum
+
     from coslam_torch.ops import hash_packed as HP
     from coslam_torch.ops import tensovm as VM
     from coslam_torch.ops import triplane as TP
@@ -1924,6 +2054,18 @@ def main() -> int:
         print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
         for fn in (*own, *table_own):
             launches.setdefault(fn.__name__, counts[fn.__name__])
+    t = _phase(f"slice: CoSLAM.run at {tum_cfg['data']['exp_name']} (the "
+               f"TUM recipe, {tum_cfg['grid']['enc']}, n_importance "
+               f"{tum_cfg['training']['n_importance']}, {N_FRAMES} frames "
+               "from TUM-layout files)")
+    tum_data = tum_frames(tum_cfg, N_FRAMES)
+    print(f"  wrote and opened {tum_data.num_frames} frames "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    counts = run_slice(device, tum_cfg, tum_data, wrappers,
+                       [hk.fwd_fn, hk.bwd_fn])
+    print(f"  slice {time.perf_counter() - t:.1f} s", flush=True)
+    for fn in (hk.fwd_fn, hk.bwd_fn):
+        launches[fn.__name__] += counts[fn.__name__]
     serial = (HP.grid_encode_bwd_serial, VM.tensovm_encode_bwd_serial,
               TP.triplane_encode_bwd_serial)
     for cfg, frames, own, atomic in (
@@ -1949,6 +2091,18 @@ def main() -> int:
     cur_cfg["mapping"]["cur_frame_iters"] = 2
     run_current_frame(device, cur_cfg, data, 6, hk.fwd_fn, hk.bwd_fn)
     print(f"  current frame {time.perf_counter() - t:.1f} s", flush=True)
+
+    t = _phase("TUM extras: 6 frames with frame_align, iter_point 5 and the "
+               "bf16 decoder")
+    extras_cfg = tum_config(out, H, W, N_FRAMES,
+                            exp_name="chip_smoke_tum_extras")
+    extras_cfg["training"]["frame_align"] = True
+    extras_cfg["tracking"]["iter_point"] = 5
+    extras_cfg["decoder"]["dtype"] = "bfloat16"
+    extras_cfg["mapping"].update(first_iters=200, first_mesh=False)
+    extras_cfg["mesh"]["vis"] = 0
+    run_tum_extras(device, extras_cfg, tum_data, 6, hk.fwd_fn)
+    print(f"  extras {time.perf_counter() - t:.1f} s", flush=True)
 
     t_quality = _phase("quality: the quality rows' grids, the device tracer "
                        "and coslam_torch.tools.quality_bench on the card")

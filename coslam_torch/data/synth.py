@@ -1502,6 +1502,37 @@ def room0_config(output: str, H: int = 480, W: int = 640,
     return cfg
 
 
+def tum_config(output: str, H: int = 480, W: int = 640, n_frames: int = 15,
+               exp_name: str = "tum_synth") -> Dict:
+    """The analytic scene's config with the TUM reference recipe
+    (configs/Tum/tum.yaml) at configs/Tum/fr1_desk.yaml's width, read
+    from TUM-layout files under ``output``/<exp_name>_data: the hash grid
+    16 levels x 2 at hash_size 16 and resolution 325 (fr1_desk: a 6.5 m
+    bound over voxel_sdf 0.02 m; voxel_sdf 325 here, so that the scene's 5
+    m bound does not shrink it: 822,884 rows), OneBlob 16, the 2 x 32
+    MLPs with geo_feat_dim 15, 64 uniform + 21 depth-guided samples per
+    ray (range_d 0.25) and 128 importance samples, trunc 0.05, loss
+    weights rgb 1, depth 0.1, sdf 5000, fs 10, smooth 1e-8 on a 63^3
+    lattice of 0.04 m (smooth_pts 64, margin 0), tracking 1024 rays x 10
+    iterations at lr 0.01 (robust_delta 0.1, best false), BA 2048 rays x
+    20 iterations every 5th frame, first frame 1000 iterations, 4 loader
+    threads, 40,960 point-cloud tracking rays (tracking.iter_point stays
+    0, as in tum.yaml), meshes at 5 cm (the first and the periodic ones)
+    and 3 cm (the final one). The camera is
+    make_tum_synthetic_config's (the synthetic sensor's intrinsics, depth
+    in 1/5000 m). One depth cut: mesh.vis 5 (from 50), so that a
+    15-frame run meshes at frames 5 and 10."""
+    cfg = make_tum_synthetic_config(
+        os.path.join(output, f"{exp_name}_data"), output, H, W, n_frames,
+        exp_name, tuned=False)
+    cfg["data"]["num_workers"] = 4
+    cfg["grid"]["voxel_sdf"] = 325
+    cfg["tracking"].update(robust_delta=0.1, pc_samples=40960)
+    cfg["mapping"]["first_mesh"] = True
+    cfg["mesh"].update(vis=5, voxel_eval=0.05, voxel_final=0.03)
+    return cfg
+
+
 def room0_vm_config(output: str, H: int = 480, W: int = 640,
                     n_frames: int = 15,
                     exp_name: str = "room0_vm_synth") -> Dict:

@@ -4,6 +4,15 @@ Counterpart of coslam_tpu/models/decoder.py. Parameters are plain
 tensors in the JAX package's layout (a list of [in, out] weight matrices
 per net), so converted JAX parameters drop in unchanged; the products are
 ``torch.matmul``, as the JAX package leaves them to XLA.
+
+``decoder.dtype: bfloat16`` rounds the activations and the weights to
+bf16 before each product and the hidden activation again after each
+ReLU; the products accumulate in f32 and the output is f32, as the JAX
+package's ``preferred_element_type=f32`` dots. A product of two bf16
+values is exact in f32, so the rounded operands are multiplied as f32
+tensors; that needs TF32 off for matrix products (PyTorch's default,
+``torch.backends.cuda.matmul.allow_tf32 = False``). The parameters stay
+f32.
 """
 
 from __future__ import annotations
@@ -26,11 +35,23 @@ def init_mlp(dims: Sequence[int], generator: torch.Generator,
     return ws
 
 
-def mlp_apply(ws: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """ReLU MLP, no activation on the output layer."""
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), kept as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mlp_apply(ws: Sequence[torch.Tensor], x: torch.Tensor,
+              bf16: bool = False) -> torch.Tensor:
+    """ReLU MLP, no activation on the output layer. bf16: operands
+    rounded to bf16, f32 sums and output (the module docstring)."""
+    if not bf16:
+        for w in ws[:-1]:
+            x = torch.relu(x @ w)
+        return x @ ws[-1]
+    x = _to_bf16(x)
     for w in ws[:-1]:
-        x = torch.relu(x @ w)
-    return x @ ws[-1]
+        x = _to_bf16(torch.relu(x @ _to_bf16(w)))
+    return x @ _to_bf16(ws[-1])
 
 
 def _layer_dims(in_dim: int, hidden: int, out_dim: int, n_layers: int):
@@ -47,8 +68,10 @@ class ColorSDFDecoder:
     def __init__(self, config: Dict, input_ch: int, input_ch_pos: int,
                  input_ch_color: int = 0, one_grid: bool = True):
         dec = config["decoder"]
-        if dec.get("dtype", "float32") != "float32":
-            raise NotImplementedError("the port's decoder runs in float32")
+        dtype = dec.get("dtype", "float32")
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"decoder.dtype {dtype!r}: float32 or bfloat16")
+        self.bf16 = dtype == "bfloat16"
         self.one_grid = one_grid
         self.geo_feat_dim = dec["geo_feat_dim"]
         self.sdf_dims = _layer_dims(input_ch + input_ch_pos, dec["hidden_dim"],
@@ -64,10 +87,10 @@ class ColorSDFDecoder:
                 "color_net": init_mlp(self.color_dims, generator, device)}
 
     def sdf_net(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(params["sdf_net"], x)
+        return mlp_apply(params["sdf_net"], x, self.bf16)
 
     def color_net(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        return mlp_apply(params["color_net"], x)
+        return mlp_apply(params["color_net"], x, self.bf16)
 
     def __call__(self, params: Dict, embed: torch.Tensor,
                  embed_pos: torch.Tensor,

@@ -15,7 +15,8 @@ of tensors, where a grid is a table [T, F] or a dict of tables
 (TensoVM's ``{"planes", "lines"}``, TriPlaneHybrid's ``{"dense",
 "planes"}``), and every method is a function of (params, inputs). Random
 draws come in as arguments (the stratified perturbation ``t``, the
-smoothness sample) or from an explicit ``torch.Generator``.
+importance draw ``u`` of the fine pass, the smoothness sample) or from an
+explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -52,8 +53,6 @@ def check_supported(config: Dict) -> None:
         "grid.grad_impl other than auto, packed, pallas, scatter or onehot":
             is_grid and config["grid"].get("grad_impl", "auto") not in (
                 "auto", "packed", *enc.XOR_GRAD_IMPLS),
-        "training.n_importance > 0": config["training"]["n_importance"] > 0,
-        "training.frame_align": bool(config["training"].get("frame_align")),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -151,6 +150,27 @@ class JointEncoding:
         tr = self.config["training"]
         return tr["n_samples_d"] + tr["n_range_d"]
 
+    @property
+    def n_importance(self) -> int:
+        """Importance samples per ray of the fine pass (the shape of
+        ``u``; 0: no fine pass)."""
+        return int(self.config["training"]["n_importance"])
+
+    def ray_draws(self, generator: Optional[torch.Generator], n_rays: int,
+                  device) -> tuple:
+        """A batch's random draws from generator, in a fixed order: the
+        stratified perturbation t [n_rays, n_z_samples], then the fine
+        pass's importance draw u [n_rays, n_importance] (None without a
+        fine pass). (None, None) when training.perturb is 0: unperturbed
+        strata and the deterministic importance samples."""
+        if self.config["training"]["perturb"] <= 0:
+            return None, None
+        t = torch.rand((n_rays, self.n_z_samples), generator=generator,
+                       device=device)
+        u = (torch.rand((n_rays, self.n_importance), generator=generator,
+                        device=device) if self.n_importance > 0 else None)
+        return t, u
+
     # -- coordinate helpers --------------------------------------------------
 
     def normalize_coords(self, x: torch.Tensor) -> torch.Tensor:
@@ -198,8 +218,8 @@ class JointEncoding:
         evenly in [-trunc, trunc] (coslam_tpu's
         JointEncoding.render_surface_color) -> rgb [N, 3]."""
         tr = self.config["training"]
-        z_vals = torch.linspace(-tr["trunc"], tr["trunc"], tr["n_range_d"],
-                                device=rays_o.device)
+        z_vals = R.linspace(-tr["trunc"], tr["trunc"], tr["n_range_d"],
+                            rays_o.device)
         z_vals = z_vals.expand(rays_o.shape[0], -1)
         pts = rays_o[..., None, :] + normal[..., None, :] * z_vals[..., None]
         raw = self.run_network(params, pts)
@@ -210,9 +230,16 @@ class JointEncoding:
     def render_rays(self, params: Dict, rays_o: torch.Tensor,
                     rays_d: torch.Tensor,
                     target_d: Optional[torch.Tensor] = None,
-                    t: Optional[torch.Tensor] = None) -> Dict:
+                    t: Optional[torch.Tensor] = None,
+                    u: Optional[torch.Tensor] = None) -> Dict:
         """Volume render rays [N, 3]; t is the stratified perturbation
-        draw [N, n_z_samples] (None: unperturbed)."""
+        draw [N, n_z_samples] (None: unperturbed), u the importance draw
+        [N, n_importance] of the fine pass (None: the deterministic
+        stratum centres). With ``training.n_importance`` > 0 the fine pass
+        (coslam_tpu's render_rays) reuses the coarse ``raw``, queries
+        only the n_importance new points and merges z and raw by one
+        stable argsort; the coarse maps come back as ``rgb0``,
+        ``depth0``, ... beside ``z_std``."""
         tr = self.config["training"]
         cam = self.config["cam"]
         z_vals = R.stratified_z_vals(
@@ -223,48 +250,90 @@ class JointEncoding:
             t=t, device=rays_o.device)
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
         raw = self.run_network(params, pts)
-        rgb_map, disp_map, acc_map, _, depth_map, depth_var = R.raw2outputs(
-            raw, z_vals, tr["trunc"], self.config["data"]["sc_factor"],
-            tr["white_bkgd"])
-        return {"rgb": rgb_map, "depth": depth_map, "disp_map": disp_map,
-                "acc_map": acc_map, "depth_var": depth_var, "z_vals": z_vals,
-                "raw": raw}
+        trunc, sc = tr["trunc"], self.config["data"]["sc_factor"]
+        rgb_map, disp_map, acc_map, weights, depth_map, depth_var = \
+            R.raw2outputs(raw, z_vals, trunc, sc, tr["white_bkgd"])
+        ret = {}
+        if self.n_importance > 0:
+            ret.update(rgb0=rgb_map, disp0=disp_map, acc0=acc_map,
+                       depth0=depth_map, depth_var0=depth_var)
+            if u is None:
+                u = R.importance_u(rays_o.shape[0], self.n_importance,
+                                   rays_o.device)
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = R.sample_pdf(z_mid, weights[..., 1:-1], u).detach()
+            ret["z_std"] = z_samples.std(-1, correction=0)
+            pts_new = (rays_o[..., None, :]
+                       + rays_d[..., None, :] * z_samples[..., :, None])
+            raw_new = self.run_network(params, pts_new)
+            z_cat = torch.cat([z_vals, z_samples], -1)
+            raw_cat = torch.cat([raw, raw_new], -2)
+            # Stable, as jnp.argsort: a new sample equal to a coarse z
+            # keeps the coarse one first, and raw follows the same order.
+            order = torch.argsort(z_cat, dim=-1, stable=True)
+            z_vals = torch.gather(z_cat, -1, order)
+            raw = torch.gather(raw_cat, -2,
+                               order[..., None].expand(-1, -1,
+                                                       raw_cat.shape[-1]))
+            rgb_map, disp_map, acc_map, _, depth_map, depth_var = \
+                R.raw2outputs(raw, z_vals, trunc, sc, tr["white_bkgd"])
+        ret.update(rgb=rgb_map, depth=depth_map, disp_map=disp_map,
+                   acc_map=acc_map, depth_var=depth_var, z_vals=z_vals,
+                   raw=raw)
+        return ret
 
     def forward(self, params: Dict, rays_o: torch.Tensor,
                 rays_d: torch.Tensor, target_rgb: torch.Tensor,
                 target_d: torch.Tensor,
                 ray_mask: Optional[torch.Tensor] = None,
                 t: Optional[torch.Tensor] = None,
-                rgb_kernel: Optional[float] = None) -> Dict:
+                rgb_kernel: Optional[float] = None,
+                u: Optional[torch.Tensor] = None,
+                align: Optional[torch.Tensor] = None) -> Dict:
         """Render + per-term losses. ray_mask: optional [N] validity mask;
-        rgb_kernel: optional Huber delta of the photometric residual."""
+        rgb_kernel: optional Huber delta of the photometric residual;
+        align: optional exposure parameters [N, 4] or [4] (3 gains and an
+        offset, ops/frame_align.py) mapping the rendered RGB to the
+        frame's exposure before the photometric loss. With a fine pass the
+        coarse rgb and depth add their terms to rgb_loss and depth_loss."""
         tr = self.config["training"]
         rend = self.render_rays(params, rays_o, rays_d, target_d=target_d,
-                                t=t)
+                                t=t, u=u)
         td = target_d[..., 0]
         valid_depth = ((td > 0.0) & (td < self.config["cam"]["depth_trunc"])
                        ).to(td.dtype)
         rm = (ray_mask.to(td.dtype) if ray_mask is not None
               else torch.ones_like(valid_depth))
 
+        def expose(rgb):
+            if align is None:
+                return rgb
+            return rgb * align[..., :3] + align[..., 3:4]
+
+        def rgb_term(pred):
+            if rgb_kernel is None:
+                return L.compute_loss(pred * rgb_w, target, mask=rm[:, None])
+            return L.huber_loss(pred * rgb_w, target, float(rgb_kernel),
+                                mask=rm[:, None])
+
         # rgb_missing down-weights the color of invalid-depth pixels by
         # scaling prediction and target inside the loss.
         rgb_w = torch.where(valid_depth > 0, 1.0, tr["rgb_missing"])[:, None]
-        pred, target = rend["rgb"] * rgb_w, target_rgb * rgb_w
-        if rgb_kernel is None:
-            rgb_loss = L.compute_loss(pred, target, mask=rm[:, None])
-        else:
-            rgb_loss = L.huber_loss(pred, target, float(rgb_kernel),
-                                    mask=rm[:, None])
+        target = target_rgb * rgb_w
+        rgb_loss = rgb_term(expose(rend["rgb"]))
+        psnr = L.mse2psnr(rgb_loss)
         depth_loss = L.compute_loss(rend["depth"], td, mask=valid_depth * rm)
+        if "rgb0" in rend:
+            rgb_loss = rgb_loss + rgb_term(expose(rend["rgb0"]))
+            depth_loss = depth_loss + L.compute_loss(
+                rend["depth0"], td, mask=valid_depth * rm)
         truncation = tr["trunc"] * self.config["data"]["sc_factor"]
         fs_loss, sdf_loss = L.get_sdf_loss(
             rend["z_vals"], target_d, rend["raw"][..., -1], truncation, "l2",
             ray_mask=rm)
         return {"rgb": rend["rgb"], "depth": rend["depth"],
                 "rgb_loss": rgb_loss, "depth_loss": depth_loss,
-                "sdf_loss": sdf_loss, "fs_loss": fs_loss,
-                "psnr": L.mse2psnr(rgb_loss)}
+                "sdf_loss": sdf_loss, "fs_loss": fs_loss, "psnr": psnr}
 
     # -- smoothness regularizer ----------------------------------------------
 

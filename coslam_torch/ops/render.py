@@ -1,15 +1,40 @@
 """SDF volume-rendering primitives in PyTorch.
 
-Counterpart of coslam_tpu/ops/render.py (``sdf2weights``, ``raw2outputs``
-and ``stratified_z_vals``). The stratified perturbation draw ``t`` is an
-argument, so the caller owns the random stream.
+Counterpart of coslam_tpu/ops/render.py (``sdf2weights``, ``raw2outputs``,
+``stratified_z_vals`` and ``sample_pdf``). The stratified perturbation
+draw ``t`` and the importance draw ``u`` are arguments, so the caller
+owns the random stream.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+
+
+def linspace(start: float, stop: float, num: int,
+             device=None) -> torch.Tensor:
+    """num evenly spaced f32 values from start to stop, with the bits of
+    the JAX package's ``jnp.linspace`` of constants under jit: XLA turns
+    the division by (num - 1) into a product with its f32 reciprocal r and
+    folds stop's term into i * (stop * r), so value i < num - 1 is
+    start * (1 - i r) + i (stop r), and the last is stop. torch.linspace
+    rounds some values differently, and a depth-guided sample that sits
+    on the SDF loss's truncation boundary (TUM's trunc is two of its
+    sample spacings) then falls on the other side of it. The constants
+    are rounded to f32 on the host and the values made on ``device``
+    (no host-to-device copy, which would wait for the card)."""
+    f32 = np.float32
+    if num == 1:
+        return torch.full((1,), float(f32(start)), device=device)
+    r = f32(1.0) / f32(num - 1)
+    i = torch.arange(num - 1, dtype=torch.float32, device=device)
+    head = float(f32(start)) * (1.0 - i * float(r)) + i * float(
+        f32(stop) * r)
+    return torch.cat([head, torch.full((1,), float(f32(stop)),
+                                       device=device)])
 
 
 def sdf2weights(sdf: torch.Tensor, z_vals: torch.Tensor, truncation: float,
@@ -53,7 +78,7 @@ def stratified_z_vals(n_rays: int, target_d: Optional[torch.Tensor],
     ``t`` [N, n_total] in [0, 1) perturbs each sample inside its stratum;
     None keeps the strata's ends."""
     device = target_d.device if target_d is not None else device
-    lin = lambda a, b, n: torch.linspace(a, b, n, device=device)  # noqa: E731
+    lin = lambda a, b, n: linspace(a, b, n, device)  # noqa: E731
     if target_d is not None:
         z_samples = lin(-range_d, range_d, n_range_d)[None, :] + target_d
         invalid = (target_d[:, 0] <= 0.0)[:, None]
@@ -74,3 +99,35 @@ def stratified_z_vals(n_rays: int, target_d: Optional[torch.Tensor],
         lower = torch.cat([z_vals[..., :1], mids], -1)
         z_vals = lower + (upper - lower) * t
     return z_vals
+
+
+def importance_u(n_rays: int, n_importance: int, device=None
+                 ) -> torch.Tensor:
+    """The deterministic importance draw (``training.perturb`` 0): the
+    n_importance stratum centres of [0, 1], the same for every ray."""
+    u = linspace(0.5 / n_importance, 1.0 - 0.5 / n_importance,
+                 n_importance, device)
+    return u.expand(n_rays, n_importance)
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Hierarchical importance sampling by CDF inversion: bins [Bs, M + 1]
+    (the z midpoints), weights [Bs, M] (the interior rendering weights),
+    u [Bs, n_importance] uniform draws in [0, 1) (or importance_u) ->
+    samples [Bs, n_importance]."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[..., :1]), pdf.cumsum(-1)], -1)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = (inds - 1).clamp(min=0)
+    above = inds.clamp(max=cdf.shape[-1] - 1)
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, below)
+    bins_above = torch.gather(bins, -1, above)
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)

@@ -29,7 +29,6 @@ def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam):
     sample = int(config["mapping"]["sample"])
     n_iters = int(config["mapping"]["first_iters"])
     weights = config["training"]
-    perturb = weights["perturb"] > 0
 
     def run(params, c2w, frame_rays, generator):
         dev = frame_rays.device
@@ -41,10 +40,9 @@ def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam):
                                 generator=generator, device=dev)
             rays = frame_rays[idx]
             rays_d = rays[:, :3] @ Rm.T
-            t = (torch.rand((sample, model.n_z_samples), generator=generator,
-                            device=dev) if perturb else None)
+            t, u = model.ray_draws(generator, sample, dev)
             ret = model.forward(params, tv.expand_as(rays_d), rays_d,
-                                rays[:, 3:6], rays[:, 6:7], t=t)
+                                rays[:, 3:6], rays[:, 6:7], t=t, u=u)
             loss = L.total_loss(ret, weights)
             loss.backward()
             map_opt.step()
@@ -64,12 +62,12 @@ def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam):
     loss is total_loss without the smoothness term; ``cur_opt`` (the
     grid's own Adam, optim.make_cur_map_optimizer) steps the grid, and the
     decoder stays fixed. ``draws``: an optional list, one (pixel indices
-    [sample], perturbation [sample, n_z] or None) an iteration, in place
-    of the generator's."""
+    [sample], perturbation [sample, n_z] or None[, importance draw
+    [sample, n_importance]]) an iteration, in place of the
+    generator's."""
     sample = int(config["mapping"]["sample"])
     n_iters = int(config["mapping"]["cur_frame_iters"])
     weights = config["training"]
-    perturb = weights["perturb"] > 0
 
     def run(params, c2w, frame_rays, generator, draws=None):
         dev = frame_rays.device
@@ -81,17 +79,16 @@ def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam):
         cur_opt.zero_grad(set_to_none=True)
         for it in range(n_iters):
             if draws is not None:
-                idx, t = draws[it]
+                idx, t, *u = draws[it]
+                u = u[0] if u else None
             else:
                 idx = torch.randint(0, frame_rays.shape[0], (sample,),
                                     generator=generator, device=dev)
-                t = (torch.rand((sample, model.n_z_samples),
-                                generator=generator, device=dev)
-                     if perturb else None)
+                t, u = model.ray_draws(generator, sample, dev)
             rays = frame_rays[idx]
             rays_d = rays[:, :3] @ Rm.T
             ret = model.forward(p, tv.expand_as(rays_d), rays_d, rays[:, 3:6],
-                                rays[:, 6:7], t=t)
+                                rays[:, 6:7], t=t, u=u)
             loss = L.total_loss(ret, weights)
             loss.backward()
             cur_opt.step()
@@ -114,14 +111,20 @@ class BundleAdjust:
     """Global BA over the keyframe reservoir plus the current frame.
 
     ``__call__(params, kf_db, kf_poses [num_kf, 4, 4], cur_pose [4, 4],
-    cur_rays [H*W, 7], generator) -> (kf_poses, cur_pose, last loss)``
-    runs ``mapping.iters`` iterations. Each draws ``mapping.sample``
-    keyframe rays and the current-frame quota
-    max(sample // kf_count, min_pixels_cur) exactly (no padded block),
-    steps the map every ``map_accum_step`` iterations after
-    ``map_wait_step``, and, with at least two keyframes, steps the poses
-    every ``pose_accum_step`` iterations on the gradients accumulated
-    since the last pose step. The first keyframe stays frozen."""
+    cur_rays [H*W, 7], generator[, kf_aligns, cur_align]) -> (kf_poses,
+    cur_pose, last loss[, kf_aligns, cur_align])`` runs ``mapping.iters``
+    iterations. Each draws ``mapping.sample`` keyframe rays and the
+    current-frame quota max(sample // kf_count, min_pixels_cur) exactly
+    (no padded block), steps the map every ``map_accum_step`` iterations
+    after ``map_wait_step``, and, with at least two keyframes, steps the
+    poses every ``pose_accum_step`` iterations on the gradients
+    accumulated since the last pose step. The first keyframe stays
+    frozen. With ``training.frame_align`` the exposure table [num_kf + 1,
+    4] (the keyframes' kf_aligns [num_kf, 4], then the current frame's
+    cur_align [4]) joins the pose optimizer at mapping.lr_align (default
+    1e-3): each ray takes its frame's row, row 0 stays at the first
+    keyframe's value (the gauge, as that keyframe's pose is), and the new
+    values come back only with at least two keyframes."""
 
     def __init__(self, model, config: Dict, map_opt: torch.optim.Adam,
                  num_kf: int):
@@ -137,23 +140,28 @@ class BundleAdjust:
         self.pose_accum = int(mcfg["pose_accum_step"])
         self.optim_cur = bool(mcfg["optim_cur"])
         self.lr_rot, self.lr_trans = mcfg["lr_rot"], mcfg["lr_trans"]
+        self.use_align = bool(config["training"].get("frame_align", False))
+        self.lr_align = float(mcfg.get("lr_align", 1e-3))
         self.weights = config["training"]
         self.smooth_weight = float(self.weights["smooth_weight"])
-        self.perturb = self.weights["perturb"] > 0
         self.mat_to_tensor, self.mat_from_tensor = \
             P.get_pose_representation(config["training"]["rot_rep"])
 
     def loss(self, params: Dict, poses: torch.Tensor, ray_data: torch.Tensor,
              ray_ids: torch.Tensor, smooth_sample: Optional[torch.Tensor],
-             t: Optional[torch.Tensor]) -> torch.Tensor:
-        """BA loss of rays ray_data [N, 7] seen from poses[ray_ids], plus
-        the smoothness TV on the lattice smooth_sample (the model's
+             t: Optional[torch.Tensor], u: Optional[torch.Tensor] = None,
+             aligns: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """BA loss of rays ray_data [N, 7] seen from poses[ray_ids] (with
+        the exposure parameters aligns[ray_ids] when given), plus the
+        smoothness TV on the lattice smooth_sample (the model's
         smoothness_sample: points for the hash grids, axes for the
         factorized ones)."""
         pose_rows = poses[ray_ids]                          # [N, 4, 4]
         rays_d = (pose_rows[:, :3, :3] @ ray_data[:, :3, None])[..., 0]
-        ret = self.model.forward(params, pose_rows[:, :3, 3], rays_d,
-                                 ray_data[:, 3:6], ray_data[:, 6:7], t=t)
+        ret = self.model.forward(
+            params, pose_rows[:, :3, 3], rays_d, ray_data[:, 3:6],
+            ray_data[:, 6:7], t=t, u=u,
+            align=None if aligns is None else aligns[ray_ids])
         smooth = None
         if smooth_sample is not None:
             smooth = self.model.smoothness(params, smooth_sample,
@@ -169,7 +177,9 @@ class BundleAdjust:
 
     def __call__(self, params: Dict, kf_db, kf_poses: torch.Tensor,
                  cur_pose: torch.Tensor, cur_rays: torch.Tensor,
-                 generator: torch.Generator):
+                 generator: torch.Generator,
+                 kf_aligns: Optional[torch.Tensor] = None,
+                 cur_align: Optional[torch.Tensor] = None):
         K = self.num_kf
         dev = cur_rays.device
         kf_count = kf_db.count
@@ -177,11 +187,18 @@ class BundleAdjust:
         pose_enable = kf_count >= 2  # no pose optimization with < 2 KFs
         rot = self.mat_to_tensor(poses0[:, :3, :3]).detach().clone()
         trans = poses0[:, :3, 3].clone()
+        align = aligns0 = None
+        if self.use_align:
+            aligns0 = torch.cat([kf_aligns, cur_align[None]])
+            align = aligns0.clone()
+            gauge = torch.arange(K + 1, device=dev)[:, None] == 0
         if pose_enable:
-            rot.requires_grad_(True)
-            trans.requires_grad_(True)
-            pose_opt = make_pose_optimizer(rot, trans, self.lr_rot,
-                                           self.lr_trans)
+            for v in (rot, trans, align):
+                if v is not None:
+                    v.requires_grad_(True)
+            pose_opt = make_pose_optimizer(
+                rot, trans, self.lr_rot, self.lr_trans,
+                *((align, self.lr_align) if self.use_align else ()))
         frozen = self.frozen_mask(dev)
         quota = min(max(self.sample // max(kf_count, 1), self.min_pixels_cur),
                     self.sample)
@@ -198,12 +215,13 @@ class BundleAdjust:
             smooth = (self.model.smoothness_sample(
                 generator, g["smooth_pts"], g["smooth_vox"],
                 g["smooth_margin"]) if self.smooth_weight > 0 else None)
-            t = (torch.rand((ray_data.shape[0], self.model.n_z_samples),
-                            generator=generator, device=dev)
-                 if self.perturb else None)
+            t, u = self.model.ray_draws(generator, ray_data.shape[0], dev)
             poses = build_poses(rot, trans, poses0, frozen,
                                 self.mat_from_tensor)
-            loss = self.loss(params, poses, ray_data, ray_ids, smooth, t)
+            aligns = (torch.where(gauge, aligns0, align) if self.use_align
+                      else None)
+            loss = self.loss(params, poses, ray_data, ray_ids, smooth, t, u,
+                             aligns)
             loss.backward()
             if (i + 1) % self.map_accum == 0 and (i + 1) > self.map_wait:
                 self.map_opt.step()
@@ -212,9 +230,14 @@ class BundleAdjust:
                 pose_opt.step()
                 pose_opt.zero_grad(set_to_none=True)
         if not pose_enable:
-            return kf_poses, cur_pose, loss.detach()
+            out = (kf_poses, cur_pose, loss.detach())
+            return (*out, kf_aligns, cur_align) if self.use_align else out
         with torch.no_grad():
             final = build_poses(rot, trans, poses0, frozen,
                                 self.mat_from_tensor)
-        return (final[:K], final[K] if self.optim_cur else cur_pose,
-                loss.detach())
+            out = (final[:K], final[K] if self.optim_cur else cur_pose,
+                   loss.detach())
+            if not self.use_align:
+                return out
+            fa = torch.where(gauge, aligns0, align)
+            return (*out, fa[:K], fa[K])

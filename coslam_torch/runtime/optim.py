@@ -84,8 +84,15 @@ def make_cur_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:
 
 
 def make_pose_optimizer(rot: torch.Tensor, trans: torch.Tensor,
-                        lr_rot: float, lr_trans: float) -> torch.optim.Adam:
-    """Adam over the pose tangents: betas (0.9, 0.999), eps 1e-8."""
-    return torch.optim.Adam([{"params": [rot], "lr": lr_rot},
-                             {"params": [trans], "lr": lr_trans}],
-                            betas=(0.9, 0.999), eps=1e-8)
+                        lr_rot: float, lr_trans: float,
+                        align: torch.Tensor = None,
+                        lr_align: float = None) -> torch.optim.Adam:
+    """Adam over the pose tangents: betas (0.9, 0.999), eps 1e-8; with
+    ``align`` (training.frame_align: the exposure parameters,
+    ops/frame_align.py), an ``align`` group at lr_align with the same
+    betas and eps."""
+    groups = [{"params": [rot], "lr": lr_rot},
+              {"params": [trans], "lr": lr_trans}]
+    if align is not None:
+        groups.append({"params": [align], "lr": lr_align})
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)

@@ -2,13 +2,27 @@
 
 Counterpart of coslam_tpu/runtime/slam.py:CoSLAM.run (the sequential
 loop): first-frame mapping, tracking of every frame from the
-constant-speed prediction, BA every ``mapping.map_every`` frames (after
-the current-frame step when ``mapping.cur_frame_iters`` > 0), a keyframe
-every ``mapping.keyframe_every`` frames, a resumable checkpoint every
-``ckpt_every`` frames, then the final checkpoint, mesh and ATE (absolute,
-and from the keyframe-relative poses). Everything runs on tensors on
-``device``; the host reads one packed [pose, loss, psnr] array per
-tracked frame and one per BA call.
+constant-speed prediction (after point-cloud tracking when
+``tracking.iter_point`` > 0), BA every ``mapping.map_every`` frames
+(after the current-frame step when ``mapping.cur_frame_iters`` > 0), a
+keyframe every ``mapping.keyframe_every`` frames, the periodic mesh and
+ATE every ``mesh.vis`` frames, a resumable checkpoint every
+``ckpt_every`` frames, then the final checkpoint, mesh and ATE
+(absolute, and from the keyframe-relative poses). Everything runs on
+tensors on ``device``; the host reads one packed [pose, loss, psnr] array
+per tracked frame and one per BA call.
+
+Frames come through a :class:`PrefetchIterator` (``data.num_workers``
+loader threads, frames handed over in order), whose stage thread also
+does each frame's host work: the tracking rays' draws and the frame
+block. The periodic mesh and ATE run on a single-flight worker thread
+(``mesh.async_vis``, default true; false keeps them in the loop): the
+parameters are cloned on the loop's stream and the pose tables copied on
+the host when the job is submitted, so the next frames' steps do not
+change what the job reads. With ``training.frame_align`` the loop keeps
+the exposure parameters (ops/frame_align.py): the current frame's
+[4], optimized by tracking with the pose, and the keyframes' [num_kf, 4],
+optimized by BA; a new keyframe takes the current frame's.
 
 Resuming (``load_checkpoint``, then ``run(start_frame=cursor)``) gives
 the straight run's bits when every step adds in a fixed order: on the CPU
@@ -16,8 +30,9 @@ always; on the card under ``torch.use_deterministic_algorithms(True)``
 (with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before cuBLAS starts),
 which takes kernels B's and D's serial modes and H. The checkpoint holds
 the map, both pose tables, the keyframe reservoir, the map optimizer's
-Adam state and the generator's state; tracking's pixels come from a
-numpy stream keyed by (seed, frame id), so they need no state. Like the
+Adam state, the generator's state and, with frame_align, the exposure
+parameters; tracking's pixels (and point-cloud tracking's) come from
+numpy streams keyed by (seed, frame id), so they need no state. Like the
 JAX package, it does not hold the current-frame optimizer's moments.
 """
 
@@ -31,19 +46,21 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..data.prefetch import PrefetchIterator
 from ..models.scene_rep import JointEncoding
-from .checkpoint import (AsyncCheckpointWriter, load_ckpt, param_leaves,
-                         save_ckpt)
+from ..ops.frame_align import init_frame_align
+from .checkpoint import (AsyncCheckpointWriter, SingleFlightWorker, _clone,
+                         load_ckpt, param_leaves, save_ckpt)
 from .keyframe import KeyFrameDatabase
 from .mapping import (BundleAdjust, make_current_frame_step,
                       make_first_frame_step)
 from .optim import make_cur_map_optimizer, make_map_optimizer
-from .tracking import make_tracking_step, predict_current_pose
+from .tracking import (make_tracking_pc_step, make_tracking_step,
+                       predict_current_pose)
 
 
 def _check_supported_loop(config: Dict) -> None:
     unsupported = {
-        "tracking.iter_point > 0": config["tracking"]["iter_point"] > 0,
         "tracking.sample_info_frac > 0":
             float(config["tracking"].get("sample_info_frac", 0) or 0) > 0,
         "parallel.dp > 1":
@@ -90,7 +107,15 @@ class CoSLAM:
         self.kf_db = KeyFrameDatabase(config, num_kf, dataset.num_rays_to_save,
                                       self.device)
         self.kf_poses = torch.eye(4, device=self.device).repeat(num_kf, 1, 1)
+        self._use_align = bool(config["training"].get("frame_align", False))
+        if self._use_align:
+            self.kf_aligns = init_frame_align(num_kf, self.device)
+            self.cur_align = torch.tensor([1.0, 1.0, 1.0, 0.0],
+                                          device=self.device)
         self._track_step = make_tracking_step(self.model, config)
+        self._track_pc_step = (make_tracking_pc_step(self.model, config)
+                               if config["tracking"]["iter_point"] > 0
+                               else None)
         self._first_step = make_first_frame_step(self.model, config,
                                                  self.map_opt)
         self._ba = BundleAdjust(self.model, config, self.map_opt, num_kf)
@@ -100,6 +125,7 @@ class CoSLAM:
             self._cur_step = make_current_frame_step(self.model, config,
                                                      self.cur_map_opt)
         self._ckpt_writer = AsyncCheckpointWriter()
+        self._mesh_worker = SingleFlightWorker(name="mesh-eval")
         self.timings = {"first_frame": [], "tracking": [], "mapping": [],
                         "mesh": []}
         self.losses = {"first_frame": [], "tracking": [], "mapping": []}
@@ -107,30 +133,73 @@ class CoSLAM:
 
     # -- frames -----------------------------------------------------------------
 
-    def _frame_block(self, batch: Dict) -> torch.Tensor:
-        """[H*W, 7] = [direction, rgb, depth] on the device."""
-        block = np.concatenate(
+    @staticmethod
+    def _frame_block_np(batch: Dict) -> np.ndarray:
+        """[H*W, 7] = [direction, rgb, depth], f32 on the host."""
+        return np.concatenate(
             [np.asarray(batch["direction"]).reshape(-1, 3),
              np.asarray(batch["rgb"]).reshape(-1, 3),
-             np.asarray(batch["depth"]).reshape(-1, 1)], axis=1)
-        return torch.from_numpy(block.astype(np.float32)).to(self.device)
+             np.asarray(batch["depth"]).reshape(-1, 1)],
+            axis=1).astype(np.float32)
 
-    def _sample_tracking_rays(self, batch: Dict) -> torch.Tensor:
-        """``tracking.sample`` pixels of the edge-cropped image without
-        replacement, drawn from a numpy stream keyed by (seed, frame id)
-        as in the JAX package -> [S, 7] on the device."""
+    def _frame_block(self, batch: Dict) -> torch.Tensor:
+        """The frame block on the device (the stage thread's, when it
+        made one)."""
+        block = batch.get("_block")
+        if block is None:
+            block = self._frame_block_np(batch)
+        return torch.from_numpy(block).to(self.device)
+
+    def _draw_rays(self, batch: Dict, S: int, stream: int) -> np.ndarray:
+        """S pixels of the edge-cropped image without replacement, drawn
+        from a numpy stream keyed by (seed, frame id[, stream]) -> [S, 7]
+        f32 on the host."""
         iH = self.config["tracking"]["ignore_edge_H"]
         iW = self.config["tracking"]["ignore_edge_W"]
-        S = self.config["tracking"]["sample"]
         direction = batch["direction"]
         H, W = direction.shape[:2]
         cw = W - 2 * iW
-        rng = np.random.default_rng((self._seed, int(batch["frame_id"])))
-        idx = rng.choice((H - 2 * iH) * cw, size=S, replace=False)
+        key = (self._seed, int(batch["frame_id"])) + ((stream,) if stream
+                                                       else ())
+        idx = np.random.default_rng(key).choice(
+            (H - 2 * iH) * cw, size=min(S, (H - 2 * iH) * cw), replace=False)
         r, c = idx // cw + iH, idx % cw + iW
-        rays = np.concatenate([direction[r, c], np.asarray(batch["rgb"])[r, c],
-                               np.asarray(batch["depth"])[r, c, None]], 1)
-        return torch.from_numpy(rays.astype(np.float32)).to(self.device)
+        return np.concatenate([direction[r, c], np.asarray(batch["rgb"])[r, c],
+                               np.asarray(batch["depth"])[r, c, None]],
+                              1).astype(np.float32)
+
+    def _tracking_rays(self, batch: Dict) -> np.ndarray:
+        """``tracking.sample`` pixels, drawn as in the JAX package (a
+        stream keyed by (seed, frame id))."""
+        return self._draw_rays(batch, self.config["tracking"]["sample"], 0)
+
+    def _pc_rays(self, batch: Dict) -> np.ndarray:
+        """Point-cloud tracking's ``tracking.pc_samples`` pixels (a stream
+        keyed by (seed, frame id, 1); the JAX package draws them from its
+        numpy generator's state)."""
+        return self._draw_rays(batch, self.config["tracking"]["pc_samples"],
+                               1)
+
+    def _sample_tracking_rays(self, batch: Dict) -> torch.Tensor:
+        """The tracking rays on the device (the stage thread's draw, when
+        it made one)."""
+        rays = batch.get("_track_rays")
+        if rays is None:
+            rays = self._tracking_rays(batch)
+        return torch.from_numpy(rays).to(self.device)
+
+    def _stage(self, i: int, batch: Dict) -> Dict:
+        """The prefetcher's stage: frame i's host work, one frame ahead of
+        the loop (the rays' draws are keyed by frame, so the thread's
+        timing cannot change them)."""
+        m = self.config["mapping"]
+        if i > 0:
+            batch["_track_rays"] = self._tracking_rays(batch)
+            if self._track_pc_step is not None:
+                batch["_pc_rays"] = self._pc_rays(batch)
+        if i == 0 or i % m["map_every"] == 0 or i % m["keyframe_every"] == 0:
+            batch["_block"] = self._frame_block_np(batch)
+        return batch
 
     # -- phases -----------------------------------------------------------------
 
@@ -149,16 +218,40 @@ class CoSLAM:
         self.losses["first_frame"].append(loss)
         return loss
 
-    def tracking_render(self, batch: Dict, frame_id: int) -> float:
-        t0 = time.perf_counter()
+    def _predict(self, frame_id: int) -> np.ndarray:
         prev = self.est_c2w[frame_id - 1]
         prev_prev = self.est_c2w[frame_id - 2] if frame_id >= 2 else None
-        c2w_init = torch.from_numpy(predict_current_pose(
-            prev, prev_prev, self.config["tracking"]["const_speed"])
-        ).to(self.device)
-        c2w, losses, psnrs = self._track_step(
+        return predict_current_pose(prev, prev_prev,
+                                    self.config["tracking"]["const_speed"])
+
+    def tracking_pc(self, batch: Dict, frame_id: int) -> float:
+        """Point-cloud tracking from the motion-model prediction
+        (tracking.iter_point > 0; coslam_tpu's tracking_pc): writes the
+        frame's pose, which tracking_render then starts from."""
+        rays = batch.get("_pc_rays")
+        if rays is None:
+            rays = self._pc_rays(batch)
+        c2w, loss = self._track_pc_step(
+            self.params, torch.from_numpy(self._predict(frame_id)).to(
+                self.device), torch.from_numpy(rays).to(self.device))
+        packed = torch.cat([c2w.reshape(-1), loss[None]]).cpu().numpy()
+        self.est_c2w[frame_id] = packed[:16].reshape(4, 4)
+        return float(packed[16])
+
+    def tracking_render(self, batch: Dict, frame_id: int) -> float:
+        t0 = time.perf_counter()
+        # After point-cloud tracking the frame's pose is its start.
+        init = (self.est_c2w[frame_id] if self._track_pc_step is not None
+                else self._predict(frame_id))
+        c2w_init = torch.from_numpy(np.array(init, np.float32)).to(
+            self.device)
+        out = self._track_step(
             self.params, c2w_init, self._sample_tracking_rays(batch),
-            self.generator)
+            self.generator,
+            **({"align": self.cur_align} if self._use_align else {}))
+        c2w, losses, psnrs = out[:3]
+        if self._use_align:
+            self.cur_align = out[3]
         finite = torch.isfinite(c2w).all()
         # A non-finite pose would poison every later frame through the
         # prediction and BA: keep the motion-model prediction instead.
@@ -195,9 +288,13 @@ class CoSLAM:
     def global_BA(self, batch: Dict, cur_frame_id: int) -> float:
         t0 = time.perf_counter()
         cur_pose = torch.from_numpy(self.est_c2w[cur_frame_id]).to(self.device)
-        kf_poses, new_cur, loss = self._ba(
+        out = self._ba(
             self.params, self.kf_db, self.kf_poses, cur_pose,
-            self._frame_block(batch), self.generator)
+            self._frame_block(batch), self.generator,
+            *((self.kf_aligns, self.cur_align) if self._use_align else ()))
+        kf_poses, new_cur, loss = out[:3]
+        if self._use_align:
+            self.kf_aligns, self.cur_align = out[3:]
         self.kf_poses = kf_poses
         count = self.kf_db.count
         packed = torch.cat([kf_poses[:count].reshape(-1), new_cur.reshape(-1),
@@ -223,15 +320,23 @@ class CoSLAM:
             filter_depth=self.config["mapping"]["filter_depth"])
         self.kf_poses[slot] = torch.from_numpy(self.est_c2w[fid]).to(
             self.device)
+        if self._use_align:
+            # The new keyframe inherits the latest exposure estimate.
+            self.kf_aligns[slot] = self.cur_align
 
-    def save_mesh(self, i: int, voxel_size: float = 0.05):
+    def save_mesh(self, i: int, voxel_size: float = 0.05,
+                  params: Optional[Dict] = None):
+        """mesh_track{i}.ply of the map (``params``, or the current
+        parameters)."""
         from ..mesh.extract import extract_mesh
 
         t0 = time.perf_counter()
         out = os.path.join(self.config["data"]["output"],
                            self.config["data"]["exp_name"])
         os.makedirs(out, exist_ok=True)
-        mesh = extract_mesh(self.model, self.params, self.config,
+        mesh = extract_mesh(self.model,
+                            self.params if params is None else params,
+                            self.config,
                             self.bounding_box,
                             marching_cube_bound=self.marching_cube_bound,
                             color_func=(
@@ -284,13 +389,42 @@ class CoSLAM:
             print(results, file=f)
         return results
 
-    def _evaluate(self, n_frames: int) -> Dict:
+    def _evaluate(self, n_frames: int, est=None, rel=None) -> Dict:
         """The absolute ATE (output.txt) and the relative one
-        (output_relative.txt); returns the absolute."""
-        results = self.evaluate_ate(n_frames)
-        self.evaluate_ate(n_frames, self.convert_relative_pose(),
-                          "output_relative.txt")
+        (output_relative.txt), of the pose tables (or of the snapshots
+        ``est`` and ``rel``); returns the absolute."""
+        results = self.evaluate_ate(n_frames, est)
+        self.evaluate_ate(n_frames, self.convert_relative_pose()
+                          if rel is None else rel, "output_relative.txt")
         return results
+
+    def _periodic_mesh_eval(self, i: int, eval_ate: bool) -> None:
+        """The mesh.vis mesh and ATE of frame i (coslam_tpu's
+        _periodic_mesh_eval). With mesh.async_vis (the default) they run
+        on the single-flight worker from a snapshot taken here: the
+        parameters cloned on the loop's stream, before the next optimizer
+        step changes them in place, and the pose tables copied on the
+        host; mesh.async_vis false runs them here, in the loop."""
+        voxel = self.config["mesh"]["voxel_eval"]
+        if not self.config["mesh"].get("async_vis", True):
+            self.save_mesh(i, voxel_size=voxel)
+            if eval_ate:
+                self._evaluate(i + 1)
+            return
+        with torch.no_grad():
+            params = _clone(self.params)
+        est = rel = None
+        if eval_ate:
+            est = self.est_c2w.copy()
+            rel = {k: np.array(v)
+                   for k, v in self.convert_relative_pose().items()}
+
+        def job():
+            self.save_mesh(i, voxel_size=voxel, params=params)
+            if eval_ate:
+                self._evaluate(i + 1, est, rel)
+
+        self._mesh_worker.submit(job)
 
     # -- checkpoints ------------------------------------------------------------
 
@@ -300,7 +434,9 @@ class CoSLAM:
         pose tables, keyframe reservoir (rays [num_kf, R, 7], ids, count,
         wrap pointer, poses), the map optimizer's state in the JAX
         layout, the generator's state (``torch_generator``, in place of
-        the JAX key) and ``frame_cursor``, the next frame to process.
+        the JAX key), with frame_align the exposure parameters
+        (``kf_aligns``, ``cur_align``) and ``frame_cursor``, the next
+        frame to process.
         async_write hands the copies and the write to the background
         writer, which snapshots every tensor on the device at submit."""
         self._ckpt_writer.wait()  # the previous write lands first
@@ -313,6 +449,9 @@ class CoSLAM:
             "opt_state": convert.adam_state_to_jax(self.map_opt, self.params),
             "torch_generator": self.generator.get_state().numpy(),
         }
+        if self._use_align:
+            extra["kf_aligns"] = self.kf_aligns
+            extra["cur_align"] = self.cur_align
         if frame_cursor is not None:
             extra["frame_cursor"] = np.int64(frame_cursor)
         rel = {k: v.copy() for k, v in self.est_c2w_rel.items()}
@@ -347,6 +486,11 @@ class CoSLAM:
         if "opt_state" in extra:
             convert.adam_state_from_jax(self.map_opt, self.params,
                                         extra["opt_state"])
+        if self._use_align and "kf_aligns" in extra:
+            self.kf_aligns = torch.from_numpy(np.array(
+                extra["kf_aligns"], np.float32)).to(self.device)
+            self.cur_align = torch.from_numpy(np.array(
+                extra["cur_align"], np.float32)).to(self.device)
         if "torch_generator" in extra:
             self.generator.set_state(torch.from_numpy(
                 np.array(extra["torch_generator"], np.uint8)))
@@ -364,18 +508,19 @@ class CoSLAM:
         resume there (the cursor load_checkpoint returned), skipping
         first-frame mapping when it is past 0."""
         cfg = self.config
-        total = self.dataset.num_frames if n_frames is None else min(
-            n_frames, self.dataset.num_frames)
+        frames = PrefetchIterator(self.dataset, n_frames, start=start_frame,
+                                  transform=self._stage,
+                                  workers=cfg["data"].get("num_workers"))
+        total = len(frames)
         out = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"])
         map_every = cfg["mapping"]["map_every"]
         kf_every = cfg["mapping"]["keyframe_every"]
         mesh_every = int(cfg["mesh"].get("vis", 0) or 0)
-        for i in range(start_frame, total):
+        for i, batch in frames:
             if ckpt_every and i > start_frame and i % ckpt_every == 0:
                 # The state covers frames [0, i): a resume starts at i.
                 self.save_checkpoint(os.path.join(out, f"checkpoint{i}.npz"),
                                      frame_cursor=i, async_write=True)
-            batch = self.dataset[i]
             if i == 0:
                 loss = self.first_frame_mapping(batch)
                 if cfg["mapping"].get("first_mesh"):
@@ -383,6 +528,8 @@ class CoSLAM:
                 if verbose:
                     print(f"frame 0: first-frame mapping loss {loss:.5f}")
                 continue
+            if self._track_pc_step is not None:
+                self.tracking_pc(batch, i)
             loss = self.tracking_render(batch, i)
             if verbose:
                 err = np.abs(self.est_c2w[i][:3] - self.pose_gt[i][:3]).mean()
@@ -392,12 +539,11 @@ class CoSLAM:
                 self.global_BA(batch, i)
             if i % kf_every == 0:
                 self.add_keyframe(batch)
-            # Periodic mesh + ATE on the mesh.vis cadence, in the loop
-            # (the JAX package moves it to a worker thread).
             if mesh_every and i % mesh_every == 0:
-                self.save_mesh(i, voxel_size=cfg["mesh"]["voxel_eval"])
-                if eval_ate:
-                    self._evaluate(i + 1)
+                self._periodic_mesh_eval(i, eval_ate)
+        # The periodic jobs land before the final files (output.txt's
+        # lines stay in frame order).
+        self._mesh_worker.wait()
         self._ckpt_writer.wait()
         # Cursor total: resuming a finished run only finalizes it.
         self.save_checkpoint(os.path.join(out, f"checkpoint{total - 1}.npz"),

@@ -1,9 +1,10 @@
 """Camera tracking: a fixed number of Adam steps on the frame's pose.
 
-Counterpart of coslam_tpu/runtime/tracking.py:make_tracking_step. The
-JAX ``lax.scan`` becomes a Python loop of eager steps; the best-pose
-carry, the stall counter and the early-stop mask stay on the device as
-``torch.where`` selects, so the loop issues no host read.
+Counterpart of coslam_tpu/runtime/tracking.py (make_tracking_step and
+make_tracking_pc_step). The JAX ``lax.scan`` becomes a Python loop of
+eager steps; the best-pose carry, the stall counter and the early-stop
+mask stay on the device as ``torch.where`` selects, so the loop issues
+no host read.
 """
 
 from __future__ import annotations
@@ -19,53 +20,63 @@ from .optim import detached, make_pose_optimizer
 
 
 def make_tracking_step(model, config: Dict):
-    """Returns step(params, c2w_init [4, 4], rays [S, 7], generator)
-    -> (c2w [4, 4], losses [iter], psnrs [iter]), all on the device.
+    """Returns step(params, c2w_init [4, 4], rays [S, 7], generator,
+    align=None) -> (c2w [4, 4], losses [iter], psnrs [iter]), all on the
+    device; with ``training.frame_align`` it takes the frame's initial
+    exposure parameters ``align`` [4] and returns them optimized as a
+    fourth value (Adam at tracking.lr_align, else mapping.lr_align, else
+    0.01), chosen with the pose.
 
     The map is frozen (the parameters are detached), so the encode
     backward computes dx only. With ``tracking.best`` the returned pose
     is the lowest-loss pose EVALUATED in some iteration, otherwise the
     pose evaluated in the last executed iteration — not the pose after
-    the last update. ``generator`` draws the stratified perturbation
-    (unused when ``training.perturb`` is 0)."""
+    the last update. ``generator`` draws the stratified perturbation and
+    the importance samples (unused when ``training.perturb`` is 0)."""
     tcfg = config["tracking"]
     n_iter = int(tcfg["iter"])
     use_best = bool(tcfg["best"])
     wait_iters = int(tcfg["wait_iters"])
     weights = config["training"]
-    perturb = config["training"]["perturb"] > 0
     robust = float(tcfg.get("robust_delta", 0.0) or 0.0) or None
     prior_t = float(tcfg.get("prior_trans", 0.0) or 0.0)
     prior_r = float(tcfg.get("prior_rot", 0.0) or 0.0)
+    use_align = bool(config["training"].get("frame_align", False))
+    lr_align = float(tcfg.get("lr_align",
+                              config["mapping"].get("lr_align", 0.01)))
     mat_to_tensor, mat_from_tensor = P.get_pose_representation(
         config["training"]["rot_rep"])
 
-    def step(params, c2w_init, rays, generator=None):
+    def step(params, c2w_init, rays, generator=None, align=None):
         params = detached(params)
         rot0 = mat_to_tensor(c2w_init[:3, :3])[None]
         trans0 = c2w_init[:3, 3][None]
-        rot = rot0.clone().requires_grad_(True)
-        trans = trans0.clone().requires_grad_(True)
-        opt = make_pose_optimizer(rot, trans, tcfg["lr_rot"],
-                                  tcfg["lr_trans"])
+        state = [rot0.clone(), trans0.clone()]
+        if use_align:
+            state.append(align.detach().clone())
+        for v in state:
+            v.requires_grad_(True)
+        rot, trans = state[:2]
+        opt = make_pose_optimizer(
+            rot, trans, tcfg["lr_rot"], tcfg["lr_trans"],
+            *((state[2], lr_align) if use_align else ()))
         dirs, target_rgb, target_d = rays[:, :3], rays[:, 3:6], rays[:, 6:7]
         dev = rays.device
 
         best_loss = torch.tensor(float("inf"), device=dev)
-        best_rot, best_trans = rot0.clone(), trans0.clone()
-        last_rot, last_trans = rot0.clone(), trans0.clone()
+        best = [v.detach().clone() for v in state]
+        last = [v.detach().clone() for v in state]
         stall = torch.zeros((), dtype=torch.int64, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         losses, psnrs = [], []
         for _ in range(n_iter):
-            t = (torch.rand((rays.shape[0], model.n_z_samples),
-                            generator=generator, device=dev)
-                 if perturb else None)
+            t, u = model.ray_draws(generator, rays.shape[0], dev)
             c2w = mat_from_tensor(rot, trans)[0]
             rays_d = dirs @ c2w[:3, :3].T
             rays_o = c2w[:3, 3].expand_as(rays_d)
             ret = model.forward(params, rays_o, rays_d, target_rgb, target_d,
-                                t=t, rgb_kernel=robust)
+                                t=t, u=u, rgb_kernel=robust,
+                                align=state[2] if use_align else None)
             loss = L.total_loss(ret, weights)
             if prior_t > 0.0:
                 loss = loss + prior_t * ((trans - trans0) ** 2).sum()
@@ -78,28 +89,77 @@ def make_tracking_step(model, config: Dict):
                 loss_d = loss.detach()
                 improved = loss_d < best_loss
                 take = improved & ~done
-                best_rot = torch.where(take, rot, best_rot)
-                best_trans = torch.where(take, trans, best_trans)
+                best = [torch.where(take, v, b) for v, b in zip(state, best)]
                 best_loss = torch.where(take, loss_d, best_loss)
                 stall = torch.where(done, stall,
                                     torch.where(improved, 0, stall + 1))
-                last_rot = torch.where(done, last_rot, rot)
-                last_trans = torch.where(done, last_trans, trans)
-                old_rot, old_trans = rot.clone(), trans.clone()
+                last = [torch.where(done, b, v) for v, b in zip(state, last)]
+                old = [v.clone() for v in state]
             opt.step()
             with torch.no_grad():
                 # After the early stop the pose stays where it was.
-                rot.copy_(torch.where(done, old_rot, rot))
-                trans.copy_(torch.where(done, old_trans, trans))
+                for v, o in zip(state, old):
+                    v.copy_(torch.where(done, o, v))
                 done = done | (stall > wait_iters)
             losses.append(loss_d)
             psnrs.append(ret["psnr"].detach())
 
         with torch.no_grad():
-            chosen = ((best_rot, best_trans) if use_best
-                      else (last_rot, last_trans))
-            c2w = mat_from_tensor(*chosen)[0]
-        return c2w, torch.stack(losses), torch.stack(psnrs)
+            chosen = best if use_best else last
+            c2w = mat_from_tensor(chosen[0], chosen[1])[0]
+        out = (c2w, torch.stack(losses), torch.stack(psnrs))
+        return (*out, chosen[2]) if use_align else out
+
+    return step
+
+
+def make_tracking_pc_step(model, config: Dict):
+    """Point-cloud tracking (tracking.iter_point > 0; coslam_tpu's
+    make_tracking_pc_step): returns step(params, c2w_init [4, 4], rays
+    [S, 7]) -> (c2w [4, 4], last loss). Each of max(iter_point, 1) Adam
+    steps back-projects the rays' depths from the current pose, queries
+    SDF and color there and minimizes 5 mse(rgb) + 1000 mse(sdf) over the
+    rays with depth in (0, 5) m; the pose returned is the best evaluated
+    (tracking.best) or the last evaluated. The map is frozen."""
+    tcfg = config["tracking"]
+    n_iter = max(int(tcfg["iter_point"]), 1)
+    use_best = bool(tcfg["best"])
+    mat_to_tensor, mat_from_tensor = P.get_pose_representation(
+        config["training"]["rot_rep"])
+
+    def step(params, c2w_init, rays):
+        params = detached(params)
+        rot = mat_to_tensor(c2w_init[:3, :3])[None].clone().requires_grad_()
+        trans = c2w_init[:3, 3][None].clone().requires_grad_()
+        opt = make_pose_optimizer(rot, trans, tcfg["lr_rot"],
+                                  tcfg["lr_trans"])
+        dirs, target_rgb, target_d = rays[:, :3], rays[:, 3:6], rays[:, 6:7]
+        # A fixed 5 m bound, as the JAX step's (not cam.depth_trunc).
+        valid = ((target_d[:, 0] > 0.0) & (target_d[:, 0] < 5.0)).float()
+        best_loss = torch.tensor(float("inf"), device=rays.device)
+        best = last = (rot.detach().clone(), trans.detach().clone())
+        loss_d = None
+        for _ in range(n_iter):
+            c2w = mat_from_tensor(rot, trans)[0]
+            pts = c2w[:3, 3][None] + target_d * (dirs @ c2w[:3, :3].T)
+            out = model.query_color_sdf(params, model.normalize_coords(pts))
+            rgb_l = L.masked_mean((torch.sigmoid(out[:, :3]) - target_rgb)
+                                  ** 2, valid[:, None])
+            sdf_l = L.masked_mean(out[:, -1] ** 2, valid)
+            loss = 5.0 * rgb_l + 1000.0 * sdf_l
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            with torch.no_grad():
+                loss_d = loss.detach()
+                improved = loss_d < best_loss
+                best = tuple(torch.where(improved, v, b)
+                             for v, b in zip((rot, trans), best))
+                best_loss = torch.minimum(loss_d, best_loss)
+                last = (rot.detach().clone(), trans.detach().clone())
+            opt.step()
+        with torch.no_grad():
+            chosen = best if use_best else last
+            return mat_from_tensor(*chosen)[0], loss_d
 
     return step
 

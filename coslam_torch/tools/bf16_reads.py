@@ -31,8 +31,9 @@ def bf16_read(t: torch.Tensor) -> torch.Tensor:
     return t + (t.to(torch.bfloat16).float() - t).detach()
 
 
-def mlp_apply_bf16(ws, x: torch.Tensor) -> torch.Tensor:
-    """models/decoder.py:mlp_apply with bf16-rounded matmul inputs."""
+def mlp_apply_bf16(ws, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """models/decoder.py:mlp_apply with bf16-rounded matmul inputs (and
+    the identity as their gradient, whatever ``bf16`` says)."""
     for w in ws[:-1]:
         x = torch.relu(bf16_read(x) @ bf16_read(w))
     return bf16_read(x) @ bf16_read(ws[-1])

@@ -344,20 +344,31 @@ def main_path_cases(cfg: dict, frames: int) -> list:
     lattice is encoded as constant points, and so is TriPlaneHybrid's
     dense part (TensoVM's and TriPlane's analytic TV encodes none, and
     the hybrid's planes take the plain lattice encode); the mesh only
-    queries."""
+    queries. With training.n_importance > 0 each step's case is followed
+    by its fine pass's (label + " fine"): the same rays x n_importance
+    points, asking for the same gradients."""
     from coslam_torch.mesh.extract import CHUNK
     from coslam_torch.models.scene_rep import is_factorized
 
     tr, mc = cfg["training"], cfg["mapping"]
     z = tr["n_samples_d"] + tr["n_range_d"]
+    n_imp = int(tr.get("n_importance", 0))
     S = mc["sample"]
-    cases = [("first frame", S * z, True, False),
-             ("tracking", cfg["tracking"]["sample"] * z, False, True)]
+    cases = []
+
+    def step(label, rays, need_table, need_dx):
+        cases.append((label, rays * z, need_table, need_dx))
+        if n_imp > 0:
+            cases.append((f"{label} fine", rays * n_imp, need_table,
+                          need_dx))
+
+    step("first frame", S, True, False)
+    step("tracking", cfg["tracking"]["sample"], False, True)
     kf_counts = sorted({(i - 1) // mc["keyframe_every"] + 1
                         for i in range(1, frames) if i % mc["map_every"] == 0})
     for kf in kf_counts:
         quota = min(max(S // kf, mc["min_pixels_cur"]), S)
-        cases.append((f"BA {kf} kf", (S + quota) * z, True, kf >= 2))
+        step(f"BA {kf} kf", S + quota, True, kf >= 2)
     if (not is_factorized(cfg)
             or "hybrid" in str(cfg["grid"]["enc"]).lower()):
         cases.append(("lattice", (tr["smooth_pts"] - 1) ** 3, True, False))

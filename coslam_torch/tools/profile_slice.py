@@ -1,12 +1,15 @@
 """Where the slice's time goes: per-phase walls and a device profile.
 
     python -m coslam_torch.tools.profile_slice [--device cuda|cpu]
-        [--vm | --xor | --hybrid] [--deterministic] [--small] [--out DIR]
+        [--vm | --xor | --hybrid | --tum] [--deterministic] [--small]
+        [--out DIR]
 
 Drives the same CoSLAM as chip_smoke.py (room0's model and recipe, with
 ``--vm`` room0_vm's TensoVM model and recipe, with ``--xor``
-room0_xor's XOR-hash grid with grad_impl pallas, or with ``--hybrid``
-room0_hybrid's TriPlaneHybrid grid, on the in-memory
+room0_xor's XOR-hash grid with grad_impl pallas, with ``--hybrid``
+room0_hybrid's TriPlaneHybrid grid, or with ``--tum`` the TUM reference
+recipe at fr1_desk's width (data/synth.py:tum_config: 85 + 128
+importance samples per ray, 20 BA iterations), on the in-memory
 analytic scene, 480 x 640, 11 frames): first-frame mapping,
 tracking of frames 1-9, a keyframe at frame 5, then BA calls on frame 10
 with 2 keyframes, then the final mesh. It reports
@@ -29,8 +32,8 @@ U's serial modes, H).
 The profiler's own overhead lengthens the profiled walls; the unprofiled
 walls are the ones to compare with. The summary goes to stdout and to
 DIR/profile_slice.json. ``--small`` cuts the frames to 7 of 48 x 64, the
-grid, the rays, the TV lattice and the mesh resolution, for a check on
-the CPU.
+grid, the rays, the iterations (2 a tracking step and a BA call), the TV
+lattice and the mesh resolution, for a check on the CPU.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..data.synth import (SyntheticFrames, room0_config,
                           room0_hybrid_config, room0_vm_config,
-                          room0_xor_config)
+                          room0_xor_config, tum_config)
 from ..mesh import extract as E
 from ..ops import _kernels
 from ..ops import hash_packed as HP
@@ -110,6 +113,9 @@ def main(argv=None) -> Dict:
                       help="room0_hybrid's TriPlaneHybrid grid (kernels A "
                            "and B on its dense levels, T and U on its "
                            "planes)")
+    grid.add_argument("--tum", action="store_true",
+                      help="the TUM recipe (tum_config: the hash grid at "
+                           "fr1_desk's width, the importance fine pass)")
     ap.add_argument("--deterministic", action="store_true",
                     help="under torch.use_deterministic_algorithms(True)")
     ap.add_argument("--small", action="store_true")
@@ -161,6 +167,9 @@ def _profile(args) -> Dict:
                                TP.triplane_encode_fwd, TP.triplane_encode_bwd,
                                TP.triplane_encode_bwd_serial))
         if args.hybrid else
+        (tum_config, (HP.grid_encode_fwd, HP.grid_encode_bwd,
+                      HP.grid_encode_bwd_serial))
+        if args.tum else
         (room0_config, (HP.grid_encode_fwd, HP.grid_encode_bwd,
                         HP.grid_encode_bwd_serial)))
     cfg = make_cfg(os.path.join(args.out, "run"), H, W, nf,
@@ -168,8 +177,8 @@ def _profile(args) -> Dict:
     if args.small:
         cfg["grid"].update(hash_size=12, voxel_sdf=64)
         cfg["training"]["smooth_pts"] = 8
-        cfg["mapping"].update(first_iters=5, sample=64)
-        cfg["tracking"].update(sample=32)
+        cfg["mapping"].update(first_iters=5, sample=64, iters=2)
+        cfg["tracking"].update(sample=32, iter=2)
         cfg["mesh"]["voxel_final"] = 0.2
     data = SyntheticFrames(cfg, nf)
     slam = CoSLAM(cfg, data, device=dev)

@@ -1,9 +1,10 @@
 """The port stands alone: a fresh import of every coslam_torch module and
 of chip_smoke.py loads nothing of the JAX package and no jax (the
 checkpoint module, which reads the JAX package's files, unpickles
-nothing of them either); chip_smoke.py, the quality harness and the
-in-memory route of every protocol run with cv2, PIL and yaml blocked
-(the card path needs none of them); and the
+nothing of them either); chip_smoke.py imports, and the quality harness
+and the in-memory route of every protocol run, with cv2, PIL and yaml
+blocked (the smoke's TUM slice alone writes and reads PNG files, through
+cv2); and the
 port's own copies of the JAX package's framework-neutral modules
 (config, rays, the synthetic scene, the dataset loaders, ATE, marching
 cubes) compute what the originals do.
@@ -59,7 +60,8 @@ for new in ("mesh.raster", "eval.recon", "eval.cull", "eval.benchmark",
             "eval.cli", "tools.virtual_cameras", "tools.quality_bench",
             "tools.run_quality_suite", "ops.triplane", "ops.encodings",
             "ops.tensovm", "ops.pose", "models.scene_rep", "models.decoder",
-            "mesh.extract"):
+            "mesh.extract", "ops.frame_align", "ops.pose_array",
+            "data.prefetch"):
     assert "coslam_torch." + new in names, new
 # The tri-plane and the encodings, 6D poses and lattices this port added.
 from coslam_torch.ops import encodings, pose, tensovm, triplane
