@@ -28,14 +28,12 @@ class PrefetchIterator:
     transform are re-raised at the consumer's next ``__next__``.
 
     ``transform(i, batch) -> batch`` (optional) runs in the stage
-    thread right after the load; the SLAM loop uses it for the frame's
-    host work (the tracking rays' draw, keyed by (seed, frame id), and
-    the frame block's assembly). It runs strictly serially in frame
-    order, but must not touch consumer-thread state.
+    thread right after the load, strictly serially in frame order; it
+    must not touch consumer-thread state.
 
     ``workers`` defaults to min(4, cpu_count) like the reference's
-    DataLoader; ``workers=1`` degrades to the plain single-thread
-    pipeline. Loader lookahead is bounded to ``workers + depth``
+    DataLoader; ``workers=1`` is one loader thread beside the stage
+    thread. Loader lookahead is bounded to ``workers + depth``
     frames (a semaphore ticks once per consumed frame), so memory
     stays O(workers + depth) regardless of consumer speed.
     """
@@ -59,20 +57,7 @@ class PrefetchIterator:
     def __len__(self):
         return self.total
 
-    # -- single-worker pipeline (previous behavior, kept as the simple path)
-
-    def _worker_single(self):
-        try:
-            for i in range(self.start, self.total):
-                batch = self.dataset[i]
-                if self.transform is not None:
-                    batch = self.transform(i, batch) or batch
-                self._q.put((i, batch))
-            self._q.put(None)  # end-of-sequence
-        except BaseException as e:  # surfaced at the consumer
-            self._q.put(e)
-
-    # -- multi-worker pipeline: loader pool -> in-order stage thread
+    # -- loader pool -> in-order stage thread
 
     def _loader(self):
         while True:
@@ -123,12 +108,6 @@ class PrefetchIterator:
         if self._started:  # idempotent: `iter(it)` then `for .. in it`
             return self
         self._started = True
-        if self.workers <= 1:
-            t = threading.Thread(target=self._worker_single, daemon=True)
-            t.start()
-            self._threads = [t]
-            return self
-
         self._idx_lock = threading.Lock()
         self._next_idx = self.start
         self._failed = False

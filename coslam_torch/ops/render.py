@@ -8,10 +8,13 @@ owns the random stream.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+_LINSPACE: Dict[Tuple, torch.Tensor] = {}
 
 
 def linspace(start: float, stop: float, num: int,
@@ -23,18 +26,23 @@ def linspace(start: float, stop: float, num: int,
     start * (1 - i r) + i (stop r), and the last is stop. torch.linspace
     rounds some values differently, and a depth-guided sample that sits
     on the SDF loss's truncation boundary (TUM's trunc is two of its
-    sample spacings) then falls on the other side of it. The constants
-    are rounded to f32 on the host and the values made on ``device``
-    (no host-to-device copy, which would wait for the card)."""
-    f32 = np.float32
-    if num == 1:
-        return torch.full((1,), float(f32(start)), device=device)
-    r = f32(1.0) / f32(num - 1)
-    i = torch.arange(num - 1, dtype=torch.float32, device=device)
-    head = float(f32(start)) * (1.0 - i * float(r)) + i * float(
-        f32(stop) * r)
-    return torch.cat([head, torch.full((1,), float(f32(stop)),
-                                       device=device)])
+    sample spacings) then falls on the other side of it. The values are
+    made once in f32 numpy and uploaded once per (start, stop, num,
+    device); callers must not write into the tensor returned."""
+    device = torch.device("cpu" if device is None else device)
+    key = (float(start), float(stop), int(num), device)
+    vals = _LINSPACE.get(key)
+    if vals is None:
+        f32 = np.float32
+        if num == 1:
+            host = np.array([start], f32)
+        else:
+            i = np.arange(num - 1, dtype=f32)
+            r = f32(1.0) / f32(num - 1)
+            host = np.append(f32(start) * (f32(1.0) - i * r)
+                             + i * (f32(stop) * r), f32(stop)).astype(f32)
+        vals = _LINSPACE[key] = torch.from_numpy(host).to(device)
+    return vals
 
 
 def sdf2weights(sdf: torch.Tensor, z_vals: torch.Tensor, truncation: float,

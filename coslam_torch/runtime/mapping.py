@@ -111,20 +111,22 @@ class BundleAdjust:
     """Global BA over the keyframe reservoir plus the current frame.
 
     ``__call__(params, kf_db, kf_poses [num_kf, 4, 4], cur_pose [4, 4],
-    cur_rays [H*W, 7], generator[, kf_aligns, cur_align]) -> (kf_poses,
-    cur_pose, last loss[, kf_aligns, cur_align])`` runs ``mapping.iters``
-    iterations. Each draws ``mapping.sample`` keyframe rays and the
-    current-frame quota max(sample // kf_count, min_pixels_cur) exactly
-    (no padded block), steps the map every ``map_accum_step`` iterations
-    after ``map_wait_step``, and, with at least two keyframes, steps the
-    poses every ``pose_accum_step`` iterations on the gradients
-    accumulated since the last pose step. The first keyframe stays
-    frozen. With ``training.frame_align`` the exposure table [num_kf + 1,
-    4] (the keyframes' kf_aligns [num_kf, 4], then the current frame's
-    cur_align [4]) joins the pose optimizer at mapping.lr_align (default
-    1e-3): each ray takes its frame's row, row 0 stays at the first
-    keyframe's value (the gauge, as that keyframe's pose is), and the new
-    values come back only with at least two keyframes."""
+    cur_rays [H*W, 7], generator, kf_aligns=None, cur_align=None) ->
+    (kf_poses, cur_pose, last loss, kf_aligns, cur_align)`` runs
+    ``mapping.iters`` iterations. Each draws ``mapping.sample`` keyframe
+    rays and the current-frame quota max(sample // kf_count,
+    min_pixels_cur) exactly (no padded block), steps the map every
+    ``map_accum_step`` iterations after ``map_wait_step``, and, with at
+    least two keyframes, steps the poses every ``pose_accum_step``
+    iterations on the gradients accumulated since the last pose step. The
+    first keyframe stays frozen. Given the exposure parameters
+    (training.frame_align; None otherwise, returned as None), the table
+    [num_kf + 1, 4] (the keyframes' kf_aligns [num_kf, 4], then the
+    current frame's cur_align [4]) joins the pose optimizer at
+    mapping.lr_align (default 1e-3): each ray takes its frame's row, row 0
+    stays at the first keyframe's value (the gauge, as that keyframe's
+    pose is), and the new values come back only with at least two
+    keyframes."""
 
     def __init__(self, model, config: Dict, map_opt: torch.optim.Adam,
                  num_kf: int):
@@ -140,7 +142,6 @@ class BundleAdjust:
         self.pose_accum = int(mcfg["pose_accum_step"])
         self.optim_cur = bool(mcfg["optim_cur"])
         self.lr_rot, self.lr_trans = mcfg["lr_rot"], mcfg["lr_trans"]
-        self.use_align = bool(config["training"].get("frame_align", False))
         self.lr_align = float(mcfg.get("lr_align", 1e-3))
         self.weights = config["training"]
         self.smooth_weight = float(self.weights["smooth_weight"])
@@ -187,8 +188,9 @@ class BundleAdjust:
         pose_enable = kf_count >= 2  # no pose optimization with < 2 KFs
         rot = self.mat_to_tensor(poses0[:, :3, :3]).detach().clone()
         trans = poses0[:, :3, 3].clone()
+        use_align = kf_aligns is not None
         align = aligns0 = None
-        if self.use_align:
+        if use_align:
             aligns0 = torch.cat([kf_aligns, cur_align[None]])
             align = aligns0.clone()
             gauge = torch.arange(K + 1, device=dev)[:, None] == 0
@@ -196,9 +198,9 @@ class BundleAdjust:
             for v in (rot, trans, align):
                 if v is not None:
                     v.requires_grad_(True)
-            pose_opt = make_pose_optimizer(
-                rot, trans, self.lr_rot, self.lr_trans,
-                *((align, self.lr_align) if self.use_align else ()))
+            pose_opt = make_pose_optimizer(rot, trans, self.lr_rot,
+                                           self.lr_trans, align,
+                                           self.lr_align)
         frozen = self.frozen_mask(dev)
         quota = min(max(self.sample // max(kf_count, 1), self.min_pixels_cur),
                     self.sample)
@@ -218,7 +220,7 @@ class BundleAdjust:
             t, u = self.model.ray_draws(generator, ray_data.shape[0], dev)
             poses = build_poses(rot, trans, poses0, frozen,
                                 self.mat_from_tensor)
-            aligns = (torch.where(gauge, aligns0, align) if self.use_align
+            aligns = (torch.where(gauge, aligns0, align) if use_align
                       else None)
             loss = self.loss(params, poses, ray_data, ray_ids, smooth, t, u,
                              aligns)
@@ -230,14 +232,12 @@ class BundleAdjust:
                 pose_opt.step()
                 pose_opt.zero_grad(set_to_none=True)
         if not pose_enable:
-            out = (kf_poses, cur_pose, loss.detach())
-            return (*out, kf_aligns, cur_align) if self.use_align else out
+            return kf_poses, cur_pose, loss.detach(), kf_aligns, cur_align
         with torch.no_grad():
             final = build_poses(rot, trans, poses0, frozen,
                                 self.mat_from_tensor)
-            out = (final[:K], final[K] if self.optim_cur else cur_pose,
-                   loss.detach())
-            if not self.use_align:
-                return out
-            fa = torch.where(gauge, aligns0, align)
-            return (*out, fa[:K], fa[K])
+            if use_align:
+                fa = torch.where(gauge, aligns0, align)
+                kf_aligns, cur_align = fa[:K], fa[K]
+            return (final[:K], final[K] if self.optim_cur else cur_pose,
+                    loss.detach(), kf_aligns, cur_align)

@@ -13,16 +13,15 @@ tensors on ``device``; the host reads one packed [pose, loss, psnr] array
 per tracked frame and one per BA call.
 
 Frames come through a :class:`PrefetchIterator` (``data.num_workers``
-loader threads, frames handed over in order), whose stage thread also
-does each frame's host work: the tracking rays' draws and the frame
-block. The periodic mesh and ATE run on a single-flight worker thread
-(``mesh.async_vis``, default true; false keeps them in the loop): the
-parameters are cloned on the loop's stream and the pose tables copied on
-the host when the job is submitted, so the next frames' steps do not
-change what the job reads. With ``training.frame_align`` the loop keeps
-the exposure parameters (ops/frame_align.py): the current frame's
-[4], optimized by tracking with the pose, and the keyframes' [num_kf, 4],
-optimized by BA; a new keyframe takes the current frame's.
+loader threads, frames handed over in order). The periodic mesh and ATE
+run on a single-flight worker thread (``mesh.async_vis``, default true;
+false keeps them in the loop): the parameters are cloned on the loop's
+stream and the pose tables copied on the host when the job is submitted,
+so the next frames' steps do not change what the job reads. With
+``training.frame_align`` the loop keeps the exposure parameters
+(ops/frame_align.py): the current frame's [4], optimized by tracking
+with the pose, and the keyframes' [num_kf, 4], optimized by BA; a new
+keyframe takes the current frame's.
 
 Resuming (``load_checkpoint``, then ``run(start_frame=cursor)``) gives
 the straight run's bits when every step adds in a fixed order: on the CPU
@@ -107,8 +106,9 @@ class CoSLAM:
         self.kf_db = KeyFrameDatabase(config, num_kf, dataset.num_rays_to_save,
                                       self.device)
         self.kf_poses = torch.eye(4, device=self.device).repeat(num_kf, 1, 1)
-        self._use_align = bool(config["training"].get("frame_align", False))
-        if self._use_align:
+        # The exposure parameters (None without training.frame_align).
+        self.kf_aligns = self.cur_align = None
+        if config["training"].get("frame_align", False):
             self.kf_aligns = init_frame_align(num_kf, self.device)
             self.cur_align = torch.tensor([1.0, 1.0, 1.0, 0.0],
                                           device=self.device)
@@ -133,27 +133,18 @@ class CoSLAM:
 
     # -- frames -----------------------------------------------------------------
 
-    @staticmethod
-    def _frame_block_np(batch: Dict) -> np.ndarray:
-        """[H*W, 7] = [direction, rgb, depth], f32 on the host."""
-        return np.concatenate(
+    def _frame_block(self, batch: Dict) -> torch.Tensor:
+        """[H*W, 7] = [direction, rgb, depth] on the device."""
+        block = np.concatenate(
             [np.asarray(batch["direction"]).reshape(-1, 3),
              np.asarray(batch["rgb"]).reshape(-1, 3),
-             np.asarray(batch["depth"]).reshape(-1, 1)],
-            axis=1).astype(np.float32)
+             np.asarray(batch["depth"]).reshape(-1, 1)], axis=1)
+        return torch.from_numpy(block.astype(np.float32)).to(self.device)
 
-    def _frame_block(self, batch: Dict) -> torch.Tensor:
-        """The frame block on the device (the stage thread's, when it
-        made one)."""
-        block = batch.get("_block")
-        if block is None:
-            block = self._frame_block_np(batch)
-        return torch.from_numpy(block).to(self.device)
-
-    def _draw_rays(self, batch: Dict, S: int, stream: int) -> np.ndarray:
+    def _draw_rays(self, batch: Dict, S: int, stream: int) -> torch.Tensor:
         """S pixels of the edge-cropped image without replacement, drawn
         from a numpy stream keyed by (seed, frame id[, stream]) -> [S, 7]
-        f32 on the host."""
+        on the device."""
         iH = self.config["tracking"]["ignore_edge_H"]
         iW = self.config["tracking"]["ignore_edge_W"]
         direction = batch["direction"]
@@ -164,42 +155,21 @@ class CoSLAM:
         idx = np.random.default_rng(key).choice(
             (H - 2 * iH) * cw, size=min(S, (H - 2 * iH) * cw), replace=False)
         r, c = idx // cw + iH, idx % cw + iW
-        return np.concatenate([direction[r, c], np.asarray(batch["rgb"])[r, c],
-                               np.asarray(batch["depth"])[r, c, None]],
-                              1).astype(np.float32)
+        rays = np.concatenate([direction[r, c], np.asarray(batch["rgb"])[r, c],
+                               np.asarray(batch["depth"])[r, c, None]], 1)
+        return torch.from_numpy(rays.astype(np.float32)).to(self.device)
 
-    def _tracking_rays(self, batch: Dict) -> np.ndarray:
+    def _sample_tracking_rays(self, batch: Dict) -> torch.Tensor:
         """``tracking.sample`` pixels, drawn as in the JAX package (a
         stream keyed by (seed, frame id))."""
         return self._draw_rays(batch, self.config["tracking"]["sample"], 0)
 
-    def _pc_rays(self, batch: Dict) -> np.ndarray:
+    def _pc_rays(self, batch: Dict) -> torch.Tensor:
         """Point-cloud tracking's ``tracking.pc_samples`` pixels (a stream
         keyed by (seed, frame id, 1); the JAX package draws them from its
         numpy generator's state)."""
         return self._draw_rays(batch, self.config["tracking"]["pc_samples"],
                                1)
-
-    def _sample_tracking_rays(self, batch: Dict) -> torch.Tensor:
-        """The tracking rays on the device (the stage thread's draw, when
-        it made one)."""
-        rays = batch.get("_track_rays")
-        if rays is None:
-            rays = self._tracking_rays(batch)
-        return torch.from_numpy(rays).to(self.device)
-
-    def _stage(self, i: int, batch: Dict) -> Dict:
-        """The prefetcher's stage: frame i's host work, one frame ahead of
-        the loop (the rays' draws are keyed by frame, so the thread's
-        timing cannot change them)."""
-        m = self.config["mapping"]
-        if i > 0:
-            batch["_track_rays"] = self._tracking_rays(batch)
-            if self._track_pc_step is not None:
-                batch["_pc_rays"] = self._pc_rays(batch)
-        if i == 0 or i % m["map_every"] == 0 or i % m["keyframe_every"] == 0:
-            batch["_block"] = self._frame_block_np(batch)
-        return batch
 
     # -- phases -----------------------------------------------------------------
 
@@ -228,12 +198,9 @@ class CoSLAM:
         """Point-cloud tracking from the motion-model prediction
         (tracking.iter_point > 0; coslam_tpu's tracking_pc): writes the
         frame's pose, which tracking_render then starts from."""
-        rays = batch.get("_pc_rays")
-        if rays is None:
-            rays = self._pc_rays(batch)
         c2w, loss = self._track_pc_step(
             self.params, torch.from_numpy(self._predict(frame_id)).to(
-                self.device), torch.from_numpy(rays).to(self.device))
+                self.device), self._pc_rays(batch))
         packed = torch.cat([c2w.reshape(-1), loss[None]]).cpu().numpy()
         self.est_c2w[frame_id] = packed[:16].reshape(4, 4)
         return float(packed[16])
@@ -245,13 +212,9 @@ class CoSLAM:
                 else self._predict(frame_id))
         c2w_init = torch.from_numpy(np.array(init, np.float32)).to(
             self.device)
-        out = self._track_step(
+        c2w, losses, psnrs, self.cur_align = self._track_step(
             self.params, c2w_init, self._sample_tracking_rays(batch),
-            self.generator,
-            **({"align": self.cur_align} if self._use_align else {}))
-        c2w, losses, psnrs = out[:3]
-        if self._use_align:
-            self.cur_align = out[3]
+            self.generator, self.cur_align)
         finite = torch.isfinite(c2w).all()
         # A non-finite pose would poison every later frame through the
         # prediction and BA: keep the motion-model prediction instead.
@@ -288,13 +251,10 @@ class CoSLAM:
     def global_BA(self, batch: Dict, cur_frame_id: int) -> float:
         t0 = time.perf_counter()
         cur_pose = torch.from_numpy(self.est_c2w[cur_frame_id]).to(self.device)
-        out = self._ba(
+        kf_poses, new_cur, loss, self.kf_aligns, self.cur_align = self._ba(
             self.params, self.kf_db, self.kf_poses, cur_pose,
-            self._frame_block(batch), self.generator,
-            *((self.kf_aligns, self.cur_align) if self._use_align else ()))
-        kf_poses, new_cur, loss = out[:3]
-        if self._use_align:
-            self.kf_aligns, self.cur_align = out[3:]
+            self._frame_block(batch), self.generator, self.kf_aligns,
+            self.cur_align)
         self.kf_poses = kf_poses
         count = self.kf_db.count
         packed = torch.cat([kf_poses[:count].reshape(-1), new_cur.reshape(-1),
@@ -320,7 +280,7 @@ class CoSLAM:
             filter_depth=self.config["mapping"]["filter_depth"])
         self.kf_poses[slot] = torch.from_numpy(self.est_c2w[fid]).to(
             self.device)
-        if self._use_align:
+        if self.kf_aligns is not None:
             # The new keyframe inherits the latest exposure estimate.
             self.kf_aligns[slot] = self.cur_align
 
@@ -449,7 +409,7 @@ class CoSLAM:
             "opt_state": convert.adam_state_to_jax(self.map_opt, self.params),
             "torch_generator": self.generator.get_state().numpy(),
         }
-        if self._use_align:
+        if self.kf_aligns is not None:
             extra["kf_aligns"] = self.kf_aligns
             extra["cur_align"] = self.cur_align
         if frame_cursor is not None:
@@ -486,7 +446,7 @@ class CoSLAM:
         if "opt_state" in extra:
             convert.adam_state_from_jax(self.map_opt, self.params,
                                         extra["opt_state"])
-        if self._use_align and "kf_aligns" in extra:
+        if self.kf_aligns is not None and "kf_aligns" in extra:
             self.kf_aligns = torch.from_numpy(np.array(
                 extra["kf_aligns"], np.float32)).to(self.device)
             self.cur_align = torch.from_numpy(np.array(
@@ -509,7 +469,6 @@ class CoSLAM:
         first-frame mapping when it is past 0."""
         cfg = self.config
         frames = PrefetchIterator(self.dataset, n_frames, start=start_frame,
-                                  transform=self._stage,
                                   workers=cfg["data"].get("num_workers"))
         total = len(frames)
         out = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"])

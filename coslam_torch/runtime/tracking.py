@@ -21,11 +21,11 @@ from .optim import detached, make_pose_optimizer
 
 def make_tracking_step(model, config: Dict):
     """Returns step(params, c2w_init [4, 4], rays [S, 7], generator,
-    align=None) -> (c2w [4, 4], losses [iter], psnrs [iter]), all on the
-    device; with ``training.frame_align`` it takes the frame's initial
-    exposure parameters ``align`` [4] and returns them optimized as a
-    fourth value (Adam at tracking.lr_align, else mapping.lr_align, else
-    0.01), chosen with the pose.
+    align=None) -> (c2w [4, 4], losses [iter], psnrs [iter], align), all
+    on the device. ``align`` [4] (training.frame_align: the frame's
+    initial exposure parameters, else None) is optimized with the pose
+    (Adam at tracking.lr_align, else mapping.lr_align, else 0.01) and
+    returned chosen with it; None stays None.
 
     The map is frozen (the parameters are detached), so the encode
     backward computes dx only. With ``tracking.best`` the returned pose
@@ -41,7 +41,6 @@ def make_tracking_step(model, config: Dict):
     robust = float(tcfg.get("robust_delta", 0.0) or 0.0) or None
     prior_t = float(tcfg.get("prior_trans", 0.0) or 0.0)
     prior_r = float(tcfg.get("prior_rot", 0.0) or 0.0)
-    use_align = bool(config["training"].get("frame_align", False))
     lr_align = float(tcfg.get("lr_align",
                               config["mapping"].get("lr_align", 0.01)))
     mat_to_tensor, mat_from_tensor = P.get_pose_representation(
@@ -52,14 +51,14 @@ def make_tracking_step(model, config: Dict):
         rot0 = mat_to_tensor(c2w_init[:3, :3])[None]
         trans0 = c2w_init[:3, 3][None]
         state = [rot0.clone(), trans0.clone()]
-        if use_align:
+        if align is not None:
             state.append(align.detach().clone())
         for v in state:
             v.requires_grad_(True)
         rot, trans = state[:2]
-        opt = make_pose_optimizer(
-            rot, trans, tcfg["lr_rot"], tcfg["lr_trans"],
-            *((state[2], lr_align) if use_align else ()))
+        align = state[2] if align is not None else None
+        opt = make_pose_optimizer(rot, trans, tcfg["lr_rot"],
+                                  tcfg["lr_trans"], align, lr_align)
         dirs, target_rgb, target_d = rays[:, :3], rays[:, 3:6], rays[:, 6:7]
         dev = rays.device
 
@@ -76,7 +75,7 @@ def make_tracking_step(model, config: Dict):
             rays_o = c2w[:3, 3].expand_as(rays_d)
             ret = model.forward(params, rays_o, rays_d, target_rgb, target_d,
                                 t=t, u=u, rgb_kernel=robust,
-                                align=state[2] if use_align else None)
+                                align=align)
             loss = L.total_loss(ret, weights)
             if prior_t > 0.0:
                 loss = loss + prior_t * ((trans - trans0) ** 2).sum()
@@ -107,8 +106,8 @@ def make_tracking_step(model, config: Dict):
         with torch.no_grad():
             chosen = best if use_best else last
             c2w = mat_from_tensor(chosen[0], chosen[1])[0]
-        out = (c2w, torch.stack(losses), torch.stack(psnrs))
-        return (*out, chosen[2]) if use_align else out
+        return (c2w, torch.stack(losses), torch.stack(psnrs),
+                chosen[2] if align is not None else None)
 
     return step
 

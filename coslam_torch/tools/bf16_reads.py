@@ -31,9 +31,8 @@ def bf16_read(t: torch.Tensor) -> torch.Tensor:
     return t + (t.to(torch.bfloat16).float() - t).detach()
 
 
-def mlp_apply_bf16(ws, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """models/decoder.py:mlp_apply with bf16-rounded matmul inputs (and
-    the identity as their gradient, whatever ``bf16`` says)."""
+def mlp_apply_bf16(ws, x: torch.Tensor) -> torch.Tensor:
+    """models/decoder.py:mlp_apply with bf16-rounded matmul inputs."""
     for w in ws[:-1]:
         x = torch.relu(bf16_read(x) @ bf16_read(w))
     return bf16_read(x) @ bf16_read(ws[-1])
@@ -54,7 +53,8 @@ def main(argv=None):
     VM.encode = lambda spec, p, x: vm(
         spec, {k: bf16_read(v) for k, v in p.items()}, x)
     if matmuls:
-        D.mlp_apply = mlp_apply_bf16
+        # Every product rounded, whatever decoder.dtype asks for.
+        D.mlp_apply = lambda ws, x, bf16=False: mlp_apply_bf16(ws, x)
     try:
         res = quality_bench.main(argv)
     finally:

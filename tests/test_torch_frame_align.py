@@ -176,7 +176,7 @@ def test_loop_frame_align_and_checkpoint_round_trip(tmp_path):
     plain["training"]["frame_align"] = False
     other = CoSLAM(plain, get_dataset(plain), device="cpu")
     assert other.load_checkpoint(path) == 12
-    assert not hasattr(other, "kf_aligns")
+    assert other.kf_aligns is None and other.cur_align is None
 
 
 def test_jax_checkpoint_with_aligns_loads_into_port(tmp_path):

@@ -368,7 +368,7 @@ def check_ba_iteration(cfg, align: bool = False):
 
     map_opt.step()
     pose_opt = make_pose_optimizer(rot, trans, m["lr_rot"], m["lr_trans"],
-                                   *((al, 1e-3) if align else ()))
+                                   al if align else None, 1e-3)
     pose_opt.step()
     ja = [*jax.tree_util.tree_leaves(j_after["grid"]),
           *j_after["decoder"]["sdf_net"], *j_after["decoder"]["color_net"]]

@@ -162,7 +162,7 @@ def test_tracking_recovers_pose(trained_scene):
                                           cfg["tracking"]["sample"],
                                           replace=False)
     rays = np.concatenate([dd[idx], rr[idx], zz[idx]], 1).astype(np.float32)
-    c2w, _, _ = make_tracking_step(model, cfg)(
+    c2w, _, _, _ = make_tracking_step(model, cfg)(
         params, torch.from_numpy(pert), torch.from_numpy(rays),
         torch.Generator().manual_seed(0))
     init_terr = np.abs(pert[:3, 3] - pose0[:3, 3]).mean()

@@ -109,9 +109,10 @@ def _check_tracking_step(cfg):
         ref[it] = (np.asarray(c2w), float(loss), float(psnr))
 
     cfg["tracking"]["iter"] = n_iter
-    c2w, losses, psnrs = make_tracking_step(tm, cfg)(
+    c2w, losses, psnrs, align = make_tracking_step(tm, cfg)(
         convert.params_from_numpy(np_params, spec=tm.grid_spec),
         torch.from_numpy(init), torch.from_numpy(rays))
+    assert align is None  # no exposure parameters without frame_align
     np.testing.assert_allclose(float(losses[0]), ref[1][1], rtol=1e-4)
     np.testing.assert_allclose(float(losses[-1]), ref[n_iter][1], rtol=1e-4)
     np.testing.assert_allclose(float(psnrs[-1]), ref[n_iter][2], rtol=1e-4)
@@ -381,8 +382,8 @@ for enc, impl in (("HashGrid", "auto"), ("HashGrid", "pallas"),
     m = JointEncoding(cfg, np.array(cfg["mapping"]["bound"], np.float32))
     p = m.init_params(torch.Generator().manual_seed(0))
     rays = torch.rand(16, 7)
-    c2w, losses, _ = make_tracking_step(m, cfg)(p, torch.eye(4), rays,
-                                                torch.Generator())
+    c2w, losses, _, _ = make_tracking_step(m, cfg)(p, torch.eye(4), rays,
+                                                   torch.Generator())
     assert torch.isfinite(losses).all()
     if impl == "auto":
         continue
