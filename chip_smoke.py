@@ -97,7 +97,7 @@ Run from the repository root. Phases, each printing its own lines:
    kernels on the path (every count set to 0 just before the slice and
    read just after it), and that the mesh came from the port's own native
    marching cubes; A's and B's launches in the kernels' record are room0's
-   plus the TUM slice's;
+   plus the TUM slice's (and phase 8's);
 6. resume, under torch.use_deterministic_algorithms(True) (with
    CUBLAS_WORKSPACE_CONFIG set at the top of this script): room0 for 15
    frames, room0_vm and room0_hybrid for 10, each writing a checkpoint
@@ -114,7 +114,23 @@ Run from the repository root. Phases, each printing its own lines:
    decoder.dtype bfloat16 (first_iters 200): finite losses, the exposure
    parameters moved from their initial value (the gauge row not), and
    kernel A launched in every point-cloud iteration;
-8. quality: kernels A and B at the replica quality recipe's packed grid
+8. the pipelined runtime and ActiveCoSLAM: PipelinedCoSLAM.run at room0
+   on the 15 frames (pipelined_config), the tracker and the mapper each
+   on its own non-default CUDA stream: every frame 1-14 tracked, BA once
+   at each map_every frame, keyframes 0, 5 and 10, ATE < 10 cm, the two
+   streams distinct, kernel A launched from both threads and kernel B's
+   table gradient from the mapper's only (the launches counted by
+   stream); it prints runtime/latency.attribute_tails of the frames and
+   the mapper's lag beside the sequential room0 slice's tracking median
+   and frame report from the same call. Then ActiveCoSLAM.run at the TUM
+   recipe on the TUM slice's files (active_config: ACTIVE_SETTINGS): the
+   train set grown past init_image, a keyframe chosen by information
+   gain, ATE over the processed frames < 10 cm, test() with uncert_map >
+   0, and the holdout info gain (pre, post) through kernel A against A's
+   plain version on the same parameters and pixels (INFO_GAIN_RTOL).
+   A's and B's launches in the kernels' record are room0's plus the TUM
+   slice's, the pipelined run's and the active run's;
+9. quality: kernels A and B at the replica quality recipe's packed grid
    (hash_size 13, resolution 125: 2 dense and 14 hashed levels), C and D
    at the rgbd recipe's TensoVM grid and at the ScanNet recipe's (the
    apartment's 9.2 m bound), each against its plain version at the shapes
@@ -133,7 +149,8 @@ Run from the repository root. Phases, each printing its own lines:
    --enc TriPlaneHybrid (60 frames; ATE < 10 cm, depth-L1 < 3 cm), with
    every launch count set to 0 just before each run and read just after
    (A and B, C and D, and A, B, T and U launched), the phase within
-   QUALITY_WALL_S.
+   QUALITY_WALL_S; then the replica row again with --pipelined (its
+   bounds; A and B launched), within QUALITY_PIPELINED_WALL_S.
 
 Every kernel's record carries its time (for P-V, whose calls are short
 enough that the host's cost per call would show, the card's time from a
@@ -1360,6 +1377,7 @@ def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
     summary."""
     import torch
 
+    from coslam_torch.runtime.latency import attribute_tails
     from coslam_torch.runtime.slam import CoSLAM
 
     frames = data.num_frames if n_frames is None else n_frames
@@ -1433,10 +1451,16 @@ def run_slice(device, cfg: dict, data, wrappers, own, table_own=(),
         "tracking_steps": n_track,
         "ba_iterations": n_ba,
         "periodic_meshes": {i: mesh_threads[i] for i in periodic},
+        "frames": attribute_tails(slam.frame_walls, slam.frame_events),
         "launches": launches,
     }
     print("  " + json.dumps(summary), flush=True)
+    SLICE_SUMMARIES[cfg["data"]["exp_name"]] = summary
     return launches
+
+
+# exp_name -> the summary run_slice printed.
+SLICE_SUMMARIES = {}
 
 
 def _ulps(a, b) -> int:
@@ -1739,6 +1763,197 @@ def run_tum_extras(device, cfg: dict, data, n_frames: int, fwd) -> None:
         "ate_rmse_m": ate}), flush=True)
 
 
+# The active phase's settings (configs/Active/active_tum.yaml's active
+# section, cut to 15 frames: init_image and check_info_gain_every 10 -> 5,
+# choose_k 10 -> 2, downsample_rate 2 -> 4).
+ACTIVE_SETTINGS = {"isActive": True, "init_image": 5,
+                   "check_info_gain_every": 5, "choose_k": 2, "w": 0.01,
+                   "downsample_rate": 4, "beta_min": 0.01}
+# The holdout info gain through kernel A against its plain version, each
+# of pre and post: f32 sums over 19,200 rays x 213 samples, where a sample
+# whose SDF sits within f32 noise of 0 may flip a ray's first-crossing
+# mask and move that ray's share (about 1/19,200 of the sum) at most.
+INFO_GAIN_RTOL = 1e-3
+
+
+def pipelined_config(out: str) -> dict:
+    """The pipelined phase's config: room0_config as the room0 slice runs
+    it."""
+    return room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke_pipelined")
+
+
+def active_config(out: str) -> dict:
+    """The active phase's config: tum_config with ACTIVE_SETTINGS."""
+    cfg = tum_config(out, H, W, N_FRAMES, exp_name="chip_smoke_active")
+    cfg["active"] = dict(ACTIVE_SETTINGS)
+    return cfg
+
+
+def run_pipelined(device, cfg: dict, data, fwd, bwd, sequential: dict
+                  ) -> dict:
+    """PipelinedCoSLAM.run on the 15 frames: every frame 1-14 tracked, BA
+    once at each map_every frame, keyframes 0, 5 and 10, ATE < 10 cm; the
+    tracker and the mapper on two distinct non-default streams; kernel A
+    (`fwd`) launched on both, kernel B (`bwd`) with the table gradient on
+    the mapper's only (the tracker's B computes dx: the map is frozen
+    there), each at least once a tracking or BA iteration. Prints
+    runtime/latency.attribute_tails of the frames beside the sequential
+    room0 slice's (`sequential`: its summary from run_slice). Returns the
+    launch counts of A and B over the run."""
+    import torch
+
+    from coslam_torch.runtime.latency import attribute_tails
+    from coslam_torch.runtime.pipeline import PipelinedCoSLAM
+
+    mcfg, tcfg = cfg["mapping"], cfg["tracking"]
+    slam = PipelinedCoSLAM(cfg, data, device=device)
+    ba_frames, global_ba = [], slam.global_BA
+
+    def recorded(batch, i):
+        ba_frames.append(i)
+        return global_ba(batch, i)
+
+    slam.global_BA = recorded
+    for fn in (fwd, bwd):
+        fn.launches = 0
+        fn.by_stream.clear()
+    t0 = time.perf_counter()
+    res = slam.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in (fwd, bwd)}
+
+    assert slam.tracking_idx == N_FRAMES - 1, slam.tracking_idx
+    assert all(np.any(slam.est_c2w[i]) for i in range(N_FRAMES))
+    assert ba_frames == list(range(mcfg["map_every"], N_FRAMES,
+                                   mcfg["map_every"])), ba_frames
+    kf_ids = list(range(0, N_FRAMES, mcfg["keyframe_every"]))
+    assert list(slam.kf_db.frame_ids[:slam.kf_db.count]) == kf_ids, \
+        slam.kf_db.frame_ids
+    ate = res["absolute_translational_error.rmse"]
+    assert math.isfinite(ate) and ate < 0.10, ate
+    streams = slam.thread_streams
+    default = torch.cuda.default_stream(device).cuda_stream
+    assert set(streams) == {"tracker", "mapper"}, streams
+    assert len(set(streams.values())) == 2, streams
+    assert default not in streams.values(), (streams, default)
+
+    def on(fn, thread, tag=""):
+        return fn.by_stream.get((streams[thread], tag), 0)
+
+    by_thread = {f"{fn.__name__}[{tag or 'all'}]": {
+        t: on(fn, t, tag) for t in streams}
+        for fn, tag in ((fwd, ""), (bwd, "table"), (bwd, "dx"))}
+    n_track = (N_FRAMES - 1) * tcfg["iter"]
+    n_ba = len(ba_frames) * mcfg["iters"]
+    assert on(fwd, "tracker") >= n_track, by_thread
+    assert on(fwd, "mapper") >= mcfg["first_iters"] + n_ba, by_thread
+    assert on(bwd, "tracker", "dx") >= n_track, by_thread
+    assert on(bwd, "tracker", "table") == 0, by_thread
+    assert on(bwd, "mapper", "table") >= mcfg["first_iters"] + n_ba, \
+        by_thread
+    report = attribute_tails(slam.frame_walls, slam.frame_events)
+    print("  " + json.dumps({
+        "wall_s": wall, "ate_rmse_m": ate, "frames": report,
+        "tracking_ms_median": 1e3 * float(np.median(
+            slam.timings["tracking"])),
+        "ba_ms_median": 1e3 * float(np.median(slam.timings["mapping"])),
+        "mapper_lag_frames": slam.mapper_lag,
+        "sequential_room0": {k: sequential[k] for k in (
+            "tracking_ms_median", "ba_ms_median", "frames", "wall_s")},
+        "ba_frames": ba_frames, "launches_by_thread": by_thread,
+        "streams_distinct_non_default": True}), flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def _kernel_a_plain():
+    """Kernel A's wrapper swapped for its plain version, on the same card
+    tensors, for a with block."""
+    from coslam_torch.ops import hash_packed as HP
+
+    kernel = HP.grid_encode_fwd
+    HP.grid_encode_fwd = lambda spec, table, x: HP.grid_encode_fwd_ref(
+        spec, table, x)
+    try:
+        yield
+    finally:
+        HP.grid_encode_fwd = kernel
+
+
+def run_active(device, cfg: dict, data, fwd, bwd) -> dict:
+    """ActiveCoSLAM.run on the TUM slice's frames (the TUM recipe with
+    ACTIVE_SETTINGS): the train set grown past init_image, at least one
+    keyframe chosen by information gain, ATE over the processed frames <
+    10 cm, test() with uncert_map > 0, kernels A and B launched; then the
+    holdout info gain (pre, post) of the last window's first frame through
+    kernel A against the same function through A's plain version, on the
+    same parameters and pixels, within INFO_GAIN_RTOL. Returns the launch
+    counts of A and B over the run."""
+    import torch
+
+    from coslam_torch.active.slam import ActiveCoSLAM, info_gain
+
+    a = cfg["active"]
+    slam = ActiveCoSLAM(cfg, data, device=device)
+    chosen, grow = [], slam._grow_train_set
+
+    def recorded(train_ds, holdout, verbose):
+        before = set(slam._pending_kf)
+        out = grow(train_ds, holdout, verbose)
+        chosen.extend(sorted(slam._pending_kf - before))
+        return out
+
+    slam._grow_train_set = recorded
+    for fn in (fwd, bwd):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = slam.run(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in (fwd, bwd)}
+    assert all(launches.values()), launches
+    assert slam.train_set_size > a["init_image"], slam.train_set_size
+    kf_ids = [int(f) for f in slam.kf_db.frame_ids[:slam.kf_db.count]]
+    info_kfs = sorted(set(chosen) & set(kf_ids))
+    assert info_kfs, (chosen, kf_ids)
+    ate = res["absolute_translational_error.rmse"]
+    assert math.isfinite(ate) and ate < 0.10, ate
+    ret = slam.test(data[5], 5)
+    assert (ret["uncert_map"] > 0).all() and math.isfinite(
+        float(ret["rgb_loss"]))
+
+    first = N_FRAMES - a["check_info_gain_every"]
+    batch = data[first]
+    idx = slam.holdout_pixels(batch["frame_id"])
+    rays = torch.from_numpy(slam._frame_rays_flat(batch)[idx]).to(device)
+    c2w = torch.from_numpy(np.asarray(batch["c2w"], np.float32)).to(device)
+    before = fwd.launches
+    got = torch.stack(info_gain(slam.model, slam.params, rays, c2w))
+    assert fwd.launches > before, "the info gain did not launch kernel A"
+    before = fwd.launches
+    with _kernel_a_plain():
+        ref = torch.stack(info_gain(slam.model, slam.params, rays, c2w))
+    assert fwd.launches == before, "the plain info gain launched kernel A"
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=INFO_GAIN_RTOL, atol=0)
+    rel = np.abs(got - ref) / np.abs(ref)
+    print("  " + json.dumps({
+        "wall_s": wall, "ate_rmse_m": ate,
+        "processed_frames": int(sum(np.any(p) for p in slam.est_c2w)),
+        "train_set_size": slam.train_set_size, "keyframes": kf_ids,
+        "info_gain_keyframes": info_kfs, "chosen": chosen,
+        "tracking_ms_median": 1e3 * float(np.median(
+            slam.timings["tracking"])),
+        "ba_ms_median": 1e3 * float(np.median(slam.timings["mapping"])),
+        "test_uncert_map_min": float(ret["uncert_map"].min()),
+        "info_gain_pre_post": got.tolist(),
+        "info_gain_rel_diff_plain": rel.tolist(),
+        "info_gain_rays": int(rays.shape[0]), "launches": launches}),
+        flush=True)
+    return launches
+
+
 # The quality phase: the harness of coslam_torch.tools.quality_bench on
 # the card, through the in-memory route (no image codec), at the JAX
 # verify recipe's sizes; its bounds (60 frames of the replica protocol:
@@ -1754,6 +1969,12 @@ QUALITY_RUNS = [
      {"ate_rmse_cm": 10.0, "depth_l1_cm": 3.0}),
 ]
 QUALITY_WALL_S = 180.0
+# The replica row again through the pipelined runtime (--pipelined), with
+# that row's bounds and a wall budget of its own.
+QUALITY_PIPELINED = [
+    ("replica_pipelined", QUALITY_RUNS[0][1] + ["--pipelined"],
+     QUALITY_RUNS[0][2])]
+QUALITY_PIPELINED_WALL_S = 120.0
 
 
 def quality_specs(device):
@@ -1795,18 +2016,19 @@ def check_device_tracer(device) -> float:
     return worst
 
 
-def run_quality(device, wrappers, own) -> dict:
-    """quality_bench.main on the card for each of QUALITY_RUNS (--frames_in
+def run_quality(device, wrappers, own, runs=QUALITY_RUNS) -> dict:
+    """quality_bench.main on the card for each of `runs` (--frames_in
     memory, 120x160, Co-SLAM culling, 50 eval views), each checked for
-    finite metrics, its bounds and the launches of its grid's kernels
-    (`own[label]`: every count set to 0 just before the run, read just
-    after; each must have launched). Returns {label: launches}."""
+    finite metrics, its bounds, its runtime (--pipelined: the pipelined
+    one) and the launches of its grid's kernels (`own[label]`: every
+    count set to 0 just before the run, read just after; each must have
+    launched). Returns {label: launches}."""
     import torch
 
     from coslam_torch.tools import quality_bench
 
     launches = {}
-    for label, flags, bounds in QUALITY_RUNS:
+    for label, flags, bounds in runs:
         out = os.path.join(REPO, "output", f"chip_smoke_quality_{label}.json")
         argv = flags + ["--hw", "120x160", "--frames_in", "memory",
                         "--culling", "coslam", "--eval_views", "50",
@@ -1826,6 +2048,7 @@ def run_quality(device, wrappers, own) -> dict:
             assert math.isfinite(res[key]), (label, key, res[key])
         for key, bound in bounds.items():
             assert res[key] < bound, (label, key, res[key], bound)
+        assert res["pipelined"] is ("--pipelined" in flags), res["pipelined"]
         for fn in own[label]:
             assert counts[fn.__name__] > 0, (label, fn.__name__, counts)
         launches[label] = counts
@@ -1834,13 +2057,15 @@ def run_quality(device, wrappers, own) -> dict:
             **{k: res[k] for k in (
                 "ate_rmse_cm", "acc_cm", "comp_cm", "comp_ratio_pct",
                 "depth_l1_cm", "virtual_cameras", "runtime_s",
-                "tracking_ms", "mapping_ms", "device")}}), flush=True)
+                "tracking_ms", "mapping_ms", "device", "pipelined")}}),
+            flush=True)
     return launches
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     t = _phase("device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA "
@@ -2104,6 +2329,21 @@ def main() -> int:
     run_tum_extras(device, extras_cfg, tum_data, 6, hk.fwd_fn)
     print(f"  extras {time.perf_counter() - t:.1f} s", flush=True)
 
+    t = _phase(f"pipelined: PipelinedCoSLAM.run at room0, {N_FRAMES} "
+               "frames, the tracker and the mapper on two CUDA streams")
+    counts = run_pipelined(device, pipelined_config(out), data, hk.fwd_fn,
+                           hk.bwd_fn, SLICE_SUMMARIES["chip_smoke"])
+    print(f"  pipelined {time.perf_counter() - t:.1f} s", flush=True)
+    for name, n in counts.items():
+        launches[name] += n
+    t = _phase(f"active: ActiveCoSLAM.run at the TUM recipe, {N_FRAMES} "
+               f"frames from TUM-layout files, {ACTIVE_SETTINGS}")
+    counts = run_active(device, active_config(out), tum_data, hk.fwd_fn,
+                        hk.bwd_fn)
+    print(f"  active {time.perf_counter() - t:.1f} s", flush=True)
+    for name, n in counts.items():
+        launches[name] += n
+
     t_quality = _phase("quality: the quality rows' grids, the device tracer "
                        "and coslam_torch.tools.quality_bench on the card")
     for label, kernels, spec, cfg, frames in quality_specs(device):
@@ -2134,6 +2374,20 @@ def main() -> int:
           flush=True)
     assert wall <= QUALITY_WALL_S, (wall, QUALITY_WALL_S)
 
+    t = _phase("quality: coslam_torch.tools.quality_bench --pipelined, the "
+               "replica row")
+    quality = run_quality(device, wrappers,
+                          {"replica_pipelined": [hk.fwd_fn, hk.bwd_fn]},
+                          QUALITY_PIPELINED)
+    for label, counts in quality.items():
+        for name, n in counts.items():
+            if name in measured and n:
+                measured[name].setdefault("quality_launches", {})[label] = n
+    wall = time.perf_counter() - t
+    print(f"  quality pipelined {wall:.1f} s (budget "
+          f"{QUALITY_PIPELINED_WALL_S:.0f} s)", flush=True)
+    assert wall <= QUALITY_PIPELINED_WALL_S, (wall, QUALITY_PIPELINED_WALL_S)
+
     first = ("source", "replaces", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")
     records = [{"name": name, "route": "cuda", "source": rec["source"],
@@ -2141,6 +2395,7 @@ def main() -> int:
                 **{key: rec[key] for key in first[2:]},
                 **{key: v for key, v in rec.items() if key not in first}}
                for name, rec in measured.items()]
+    print(f"smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print("host model, not read from the kernels: the rows of atomics "
           "their warp merges should issue and the encodes' L2 figures, "
           "from the indices: "

@@ -4,6 +4,10 @@ Loads the YAML config (recursive inherit_from) with the port's loader
 (coslam_torch/config.py), builds the dataset from it and runs the
 sequential loop on the chosen device, resuming from a checkpoint with
 ``--ckpt <path|auto>`` and writing one every ``--ckpt_every`` frames.
+``--pipelined`` runs the concurrent tracker/mapper runtime
+(runtime/pipeline.py), ``--active`` (or ``active.isActive`` in the
+config) ActiveCoSLAM (active/), which takes no ``--ckpt`` and ignores
+``--ckpt_every``; the two exclude each other.
 ``yaml`` and the image decoders of the dataset loaders are imported here
 only, never by the package.
 """
@@ -38,13 +42,32 @@ def main(argv=None):
     parser.add_argument("--ckpt_every", type=int, default=0,
                         help="write a resumable checkpoint every N frames "
                              "(0: the final one only)")
+    parser.add_argument("--pipelined", action="store_true",
+                        help="the concurrent tracker/mapper runtime (two "
+                             "threads, each on its own CUDA stream)")
+    parser.add_argument("--active", action="store_true",
+                        help="ActiveCoSLAM (info-gain keyframes); also "
+                             "chosen when the config sets active.isActive")
     args = parser.parse_args(argv)
 
     from .config import load_config
     from .data.datasets import get_dataset
-    from .runtime.slam import CoSLAM
 
     cfg = load_config(args.config)
+    use_active = args.active or bool((cfg.get("active") or {}).get(
+        "isActive"))
+    if use_active and args.pipelined:
+        parser.error("--active and --pipelined exclude each other (the "
+                     "reference's ac_coslam.py is sequential)")
+    if use_active and args.ckpt:
+        parser.error("--ckpt: the active variant does not resume (its train "
+                     "set grows as it runs); run it from frame 0")
+    if use_active:
+        from .active.slam import ActiveCoSLAM as slam_cls
+    elif args.pipelined:
+        from .runtime.pipeline import PipelinedCoSLAM as slam_cls
+    else:
+        from .runtime.slam import CoSLAM as slam_cls
     if args.input_folder is not None:
         cfg["data"]["datadir"] = args.input_folder
     if args.output is not None:
@@ -54,7 +77,12 @@ def main(argv=None):
     with open(os.path.join(out, "config.json"), "w", encoding="utf-8") as f:
         f.write(json.dumps(cfg, indent=4))
 
-    slam = CoSLAM(cfg, get_dataset(cfg), device=args.device)
+    slam = slam_cls(cfg, get_dataset(cfg), device=args.device)
+    if use_active:
+        if args.ckpt_every:
+            print("--ckpt_every ignored in active mode")
+        slam.run(n_frames=args.max_frames)
+        return
     start_frame = 0
     if args.ckpt:
         path = newest_checkpoint(out) if args.ckpt == "auto" else args.ckpt

@@ -6,7 +6,9 @@ The JAX parameter dict ``{"grid": ..., "decoder": {"sdf_net": [w...],
 table [T, F] or a dict of tables (TensoVM's ``{"planes", "lines"}``,
 TriPlaneHybrid's ``{"dense", "planes"}``), becomes the port's dict of
 tensors with the same structure and layouts (weights stay [in, out]), and
-back. Both
+back; ActiveCoSLAM's decoder (coslam_tpu/active/decoder.py) adds the
+linear heads ``feature_linear``, ``sdf_linear`` and
+``uncertainty_linear``, each ``{"w": [in, out], "b": [out]}``. Both
 directions go through numpy, so neither side needs the other framework.
 The map optimizer's state crosses too: optax's Adam state as a flat
 leaf list (a checkpoint's ``opt_state``) to ``torch.optim.Adam``'s
@@ -20,7 +22,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .runtime.optim import grid_leaves
+from .runtime.optim import decoder_leaves, grid_leaves
 
 
 # The grids of a parameter dict: the SDF grid and, under oneGrid: false,
@@ -58,8 +60,7 @@ def params_from_numpy(params: Dict, device="cpu", spec=None) -> Dict:
     if spec is not None:
         check_grid(params["grid"], spec)
     out = {k: _map_grid(t, params[k]) for k in GRID_KEYS if k in params}
-    out["decoder"] = {k: [t(w) for w in params["decoder"][k]]
-                      for k in ("sdf_net", "color_net")}
+    out["decoder"] = _map_decoder(t, params["decoder"])
     return out
 
 
@@ -69,8 +70,20 @@ def params_to_numpy(params: Dict) -> Dict:
         return x.detach().cpu().numpy()
 
     out = {k: _map_grid(a, params[k]) for k in GRID_KEYS if k in params}
-    out["decoder"] = {k: [a(w) for w in params["decoder"][k]]
-                      for k in ("sdf_net", "color_net")}
+    out["decoder"] = _map_decoder(a, params["decoder"])
+    return out
+
+
+# The linear heads of ActiveCoSLAM's decoder (ColorSDFNetV3).
+HEAD_KEYS = ("feature_linear", "sdf_linear", "uncertainty_linear")
+
+
+def _map_decoder(fn, dec: Dict) -> Dict:
+    """fn over the decoder's MLP weights and, where there are any, its
+    linear heads' ``w`` and ``b``."""
+    out = {k: [fn(w) for w in dec[k]] for k in ("sdf_net", "color_net")}
+    out.update({k: {"w": fn(dec[k]["w"]), "b": fn(dec[k]["b"])}
+                for k in HEAD_KEYS if k in dec})
     return out
 
 
@@ -100,7 +113,7 @@ def map_opt_labels(params: Dict) -> List[str]:
 def label_leaves(params: Dict, label: str) -> List:
     """The tensors of one optax label, in JAX's flatten order."""
     if label == "decoder":
-        return [*params["decoder"]["color_net"], *params["decoder"]["sdf_net"]]
+        return decoder_leaves(params["decoder"])
     return grid_leaves(params[label])
 
 

@@ -10,13 +10,20 @@ file is read.
 Every ``__getitem__`` returns ``{"frame_id", "c2w", "rgb", "depth",
 "direction"}`` with rgb [H,W,3] float32 in [0,1], depth [H,W] float32
 metric, direction [H,W,3] OpenGL camera rays shared across frames.
+
+Every loader (and data/synth.py's in-memory frames) has the composition
+algebra of coslam_tpu/data/datasets.py (:class:`DatasetAlgebra`):
+``slice``, ``slice_except``, ``remove`` and ``+``, which give a
+:class:`DatasetView` (a batch keeps its original ``frame_id``) or a
+:class:`ConcatDataset`; ActiveCoSLAM's train set and holdout window are
+built from them.
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -53,7 +60,111 @@ def _opengl(c2w: np.ndarray) -> np.ndarray:
     return c2w
 
 
-class BaseDataset:
+class DatasetAlgebra:
+    """The composition algebra (the reference's ac_dataset.py:305-351):
+    views by index and concatenation. A subclass has ``__len__`` and
+    ``__getitem__``."""
+
+    def slice(self, indices: Sequence[int]) -> "DatasetView":
+        """View of this dataset restricted to ``indices`` (in order)."""
+        return DatasetView(self, list(indices))
+
+    def slice_except(self, indices: Sequence[int]) -> "DatasetView":
+        """View of all frames except ``indices``."""
+        keep = sorted(set(range(len(self))) - set(indices))
+        return DatasetView(self, keep)
+
+    def remove(self, indices: Sequence[int]) -> "DatasetView":
+        """New view without the given (view-local) indices."""
+        return self.slice_except(indices)
+
+    def __add__(self, other) -> "ConcatDataset":
+        return ConcatDataset(self, other)
+
+
+class DatasetView:
+    """Index-remapped view of a dataset; attributes pass through.
+
+    ``frame_id`` in returned batches stays the ORIGINAL frame id (the
+    pose tables of the runtime are keyed by original ids)."""
+
+    def __init__(self, base, indices: List[int]):
+        self._base = base
+        self._indices = indices
+
+    def __len__(self):
+        return len(self._indices)
+
+    @property
+    def num_frames(self):
+        return len(self._indices)
+
+    def __getitem__(self, i: int) -> Dict:
+        return self._base[self._indices[i]]
+
+    @property
+    def poses(self):
+        base_poses = self._base.poses
+        return [base_poses[i] for i in self._indices]
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+    def slice(self, indices: Sequence[int]) -> "DatasetView":
+        return DatasetView(self._base, [self._indices[i] for i in indices])
+
+    def slice_except(self, indices: Sequence[int]) -> "DatasetView":
+        drop = set(indices)
+        keep = [idx for i, idx in enumerate(self._indices) if i not in drop]
+        return DatasetView(self._base, keep)
+
+    def remove(self, indices: Sequence[int]) -> "DatasetView":
+        return self.slice_except(indices)
+
+    def __add__(self, other) -> "ConcatDataset":
+        return ConcatDataset(self, other)
+
+
+class ConcatDataset:
+    """Concatenation of datasets/views; attributes from the first part."""
+
+    def __init__(self, *parts):
+        flat = []
+        for p in parts:
+            flat.extend(p._parts if isinstance(p, ConcatDataset) else [p])
+        self._parts = flat
+
+    def __len__(self):
+        return sum(len(p) for p in self._parts)
+
+    @property
+    def num_frames(self):
+        return len(self)
+
+    def __getitem__(self, i: int) -> Dict:
+        if i < 0:
+            i += len(self)
+        for p in self._parts:
+            if i < len(p):
+                return p[i]
+            i -= len(p)
+        raise IndexError(i)
+
+    @property
+    def poses(self):
+        out = []
+        for p in self._parts:
+            out.extend(p.poses)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._parts[0], name)
+
+    def __add__(self, other) -> "ConcatDataset":
+        return ConcatDataset(self, other)
+
+
+class BaseDataset(DatasetAlgebra):
     """Common camera model. ``num_rays_to_save`` is the keyframe ray
     budget ``(H-2*crop)*(W-2*crop) * mapping.n_pixels``."""
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..ops.rays import get_camera_rays
+from .datasets import DatasetAlgebra
 
 _ROOM_HALF = 2.0  # wall positions: |x|,|y|,|z| = 2
 
@@ -1580,7 +1581,7 @@ def room0_xor_config(output: str, H: int = 480, W: int = 640,
 PROTOCOLS = ("replica", "tum", "scannet", "rgbd")
 
 
-class SyntheticFrames:
+class SyntheticFrames(DatasetAlgebra):
     """RGB-D sequence of an analytic scene held in memory: the dataset
     interface CoSLAM reads (frames as dicts, poses, sizes).
 

@@ -27,9 +27,10 @@ def run_benchmark(config: Dict, gt_mesh_path: Optional[str] = None,
                   n_frames: Optional[int] = None,
                   culling: str = "frustum_occlusion",
                   n_eval_views: int = 200, out_path: Optional[str] = None,
-                  dataset=None, device="cuda") -> Dict:
+                  dataset=None, device="cuda", slam_cls=None) -> Dict:
     """Run SLAM on a scene (``dataset``, or the config's loader) and
-    evaluate trajectory + reconstruction.
+    evaluate trajectory + reconstruction. ``slam_cls``: the runtime
+    (default CoSLAM; PipelinedCoSLAM, ActiveCoSLAM).
 
     culling: 'frustum' | 'frustum_occlusion' | 'coslam' (adds virtual
     cameras from <datadir>/virtual_cameras). Returns the metric dict
@@ -39,7 +40,7 @@ def run_benchmark(config: Dict, gt_mesh_path: Optional[str] = None,
     from ..runtime.checkpoint import param_leaves
     from ..runtime.slam import CoSLAM
 
-    slam = CoSLAM(config, dataset, device=device)
+    slam = (slam_cls or CoSLAM)(config, dataset, device=device)
     t0 = time.perf_counter()
     ate = slam.run(n_frames=n_frames, verbose=False, eval_ate=True)
     runtime = time.perf_counter() - t0

@@ -101,6 +101,11 @@ class JointEncoding:
                 log2_hashmap_size=config["grid"]["hash_size"],
                 desired_resolution=self.resolution_color,
                 grad_impl=grad_impl)
+        self._build_decoder(config)
+
+    def _build_decoder(self, config: Dict) -> None:
+        """Hook for variants (ActiveJointEncoding builds the beta-head
+        decoder, coslam_torch/active/scene_rep.py)."""
         self.decoder = ColorSDFDecoder(config, self.input_ch,
                                        self.input_ch_pos, self.input_ch_color,
                                        self.one_grid)
@@ -241,13 +246,7 @@ class JointEncoding:
         stable argsort; the coarse maps come back as ``rgb0``,
         ``depth0``, ... beside ``z_std``."""
         tr = self.config["training"]
-        cam = self.config["cam"]
-        z_vals = R.stratified_z_vals(
-            rays_o.shape[0], target_d, cam["near"], cam["far"],
-            tr["range_d"], tr["n_range_d"],
-            tr["n_samples_d"] if target_d is not None
-            else tr.get("n_samples", tr["n_samples_d"]),
-            t=t, device=rays_o.device)
+        z_vals = self._coarse_z(rays_o, target_d, t)
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
         raw = self.run_network(params, pts)
         trunc, sc = tr["trunc"], self.config["data"]["sc_factor"]
@@ -257,30 +256,55 @@ class JointEncoding:
         if self.n_importance > 0:
             ret.update(rgb0=rgb_map, disp0=disp_map, acc0=acc_map,
                        depth0=depth_map, depth_var0=depth_var)
-            if u is None:
-                u = R.importance_u(rays_o.shape[0], self.n_importance,
-                                   rays_o.device)
-            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-            z_samples = R.sample_pdf(z_mid, weights[..., 1:-1], u).detach()
-            ret["z_std"] = z_samples.std(-1, correction=0)
-            pts_new = (rays_o[..., None, :]
-                       + rays_d[..., None, :] * z_samples[..., :, None])
-            raw_new = self.run_network(params, pts_new)
-            z_cat = torch.cat([z_vals, z_samples], -1)
-            raw_cat = torch.cat([raw, raw_new], -2)
-            # Stable, as jnp.argsort: a new sample equal to a coarse z
-            # keeps the coarse one first, and raw follows the same order.
-            order = torch.argsort(z_cat, dim=-1, stable=True)
-            z_vals = torch.gather(z_cat, -1, order)
-            raw = torch.gather(raw_cat, -2,
-                               order[..., None].expand(-1, -1,
-                                                       raw_cat.shape[-1]))
+            z_vals, raw, ret["z_std"] = self._fine_pass(
+                params, rays_o, rays_d, z_vals, raw, weights, u)
             rgb_map, disp_map, acc_map, _, depth_map, depth_var = \
                 R.raw2outputs(raw, z_vals, trunc, sc, tr["white_bkgd"])
         ret.update(rgb=rgb_map, depth=depth_map, disp_map=disp_map,
                    acc_map=acc_map, depth_var=depth_var, z_vals=z_vals,
                    raw=raw)
         return ret
+
+    def _coarse_z(self, rays_o: torch.Tensor,
+                  target_d: Optional[torch.Tensor],
+                  t: Optional[torch.Tensor]) -> torch.Tensor:
+        """The coarse pass's sample depths [N, n_z_samples] (perturbed
+        inside their strata by ``t``)."""
+        tr = self.config["training"]
+        cam = self.config["cam"]
+        return R.stratified_z_vals(
+            rays_o.shape[0], target_d, cam["near"], cam["far"],
+            tr["range_d"], tr["n_range_d"],
+            tr["n_samples_d"] if target_d is not None
+            else tr.get("n_samples", tr["n_samples_d"]),
+            t=t, device=rays_o.device)
+
+    def _fine_pass(self, params: Dict, rays_o: torch.Tensor,
+                   rays_d: torch.Tensor, z_vals: torch.Tensor,
+                   raw: torch.Tensor, weights: torch.Tensor,
+                   u: Optional[torch.Tensor]):
+        """The importance fine pass: n_importance samples drawn from the
+        coarse weights (``u``, or the deterministic strata), the network
+        queried at those only, and z and raw merged with the coarse pass's
+        by one stable argsort -> (z_vals, raw, z_std)."""
+        if u is None:
+            u = R.importance_u(rays_o.shape[0], self.n_importance,
+                               rays_o.device)
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = R.sample_pdf(z_mid, weights[..., 1:-1], u).detach()
+        z_std = z_samples.std(-1, correction=0)
+        pts_new = (rays_o[..., None, :]
+                   + rays_d[..., None, :] * z_samples[..., :, None])
+        raw_new = self.run_network(params, pts_new)
+        z_cat = torch.cat([z_vals, z_samples], -1)
+        raw_cat = torch.cat([raw, raw_new], -2)
+        # Stable, as jnp.argsort: a new sample equal to a coarse z keeps
+        # the coarse one first, and raw follows the same order.
+        order = torch.argsort(z_cat, dim=-1, stable=True)
+        z_vals = torch.gather(z_cat, -1, order)
+        raw = torch.gather(raw_cat, -2,
+                           order[..., None].expand(-1, -1, raw_cat.shape[-1]))
+        return z_vals, raw, z_std
 
     def forward(self, params: Dict, rays_o: torch.Tensor,
                 rays_d: torch.Tensor, target_rgb: torch.Tensor,

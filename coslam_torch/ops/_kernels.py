@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -201,6 +202,9 @@ def level_table(spec, device: torch.device) -> torch.Tensor:
     (packed or XOR) on the kernel's device."""
     arr = np.array([spec.resolutions, spec.offsets,
                     [int(h) for h in spec.hashed]], np.int32)
+    # Uploaded from pageable host memory: done when .to() returns, so a
+    # thread on another CUDA stream may read it (the pipelined runtime's
+    # tracker and mapper); no lock.
     return torch.from_numpy(arr).to(device)
 
 
@@ -214,3 +218,19 @@ def stream(device: torch.device) -> int:
     that ``current_stream`` builds."""
     return torch._C._cuda_getCurrentRawStream(
         torch.cuda.current_device() if device.index is None else device.index)
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, stream: int, tag: str = "") -> None:
+    """Count one launch of ``fn``'s kernel on the stream with the raw
+    handle ``stream``: one more in ``fn.launches`` and in
+    ``fn.by_stream[(stream, tag)]``. The pipelined runtime's threads each
+    run on a stream of their own, and autograd runs a backward on its
+    forward's stream (from a thread of its own), so the stream tells
+    which thread a launch came from. Under a lock: two threads launch."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        key = (stream, tag)
+        fn.by_stream[key] = fn.by_stream.get(key, 0) + 1

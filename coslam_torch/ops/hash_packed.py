@@ -295,12 +295,12 @@ def grid_encode_fwd(spec: PackedGridSpec, table: torch.Tensor,
     out = x.new_empty((n, spec.out_dim))
     if n == 0:
         return out
+    stream = _kernels.stream(x.device)
     _kernels.check(_kernels.library().grid_encode_fwd(
         x.data_ptr(), table.data_ptr(), out.data_ptr(), n, spec.n_features,
         _kernels.level_table(spec, x.device).data_ptr(), spec.n_levels,
-        2 ** spec.log2_hashmap_size - 1, _kernels.stream(x.device)),
-        "grid_encode_fwd")
-    grid_encode_fwd.launches += 1
+        2 ** spec.log2_hashmap_size - 1, stream), "grid_encode_fwd")
+    _kernels.count_launch(grid_encode_fwd, stream)
     return out
 
 
@@ -317,13 +317,15 @@ def grid_encode_bwd(spec: PackedGridSpec, table: torch.Tensor,
     _check_cuda(spec, table, x, g)
     dtable = torch.zeros_like(table) if need_dtable else None
     dx = torch.empty_like(x) if need_dx else None     # every entry written
+    stream = _kernels.stream(x.device)
     code = _kernels.library().grid_encode_bwd(
         x.data_ptr(), table.data_ptr(), g.data_ptr(), _kernels.ptr(dtable),
         _kernels.ptr(dx), x.shape[0], spec.n_features,
         _kernels.level_table(spec, x.device).data_ptr(), spec.n_levels,
-        2 ** spec.log2_hashmap_size - 1, _kernels.stream(x.device))
+        2 ** spec.log2_hashmap_size - 1, stream)
     _kernels.check(code, "grid_encode_bwd")
-    grid_encode_bwd.launches += 1
+    _kernels.count_launch(grid_encode_bwd, stream,
+                          "table" if need_dtable else "dx")
     return dtable, dx
 
 
@@ -361,14 +363,15 @@ def grid_encode_bwd_serial(spec: PackedGridSpec, table: torch.Tensor,
     dtable = sorter.run("grid_encode_bwd_sort", x.data_ptr(), g.data_ptr(),
                         sorter.gt.data_ptr(), n, spec.n_features, levels,
                         spec.n_levels, mask)[:rows]
-    grid_encode_bwd_serial.launches += 1
+    _kernels.count_launch(grid_encode_bwd_serial, _kernels.stream(x.device),
+                          "table")
     return dtable, dx
 
 
-# Launch counts of the kernels (the CPU path never adds to them).
-grid_encode_fwd.launches = 0
-grid_encode_bwd.launches = 0
-grid_encode_bwd_serial.launches = 0
+# Launch counts of the kernels, in all and by (stream, "table" | "dx")
+# (_kernels.count_launch; the CPU path never adds to them).
+for _fn in (grid_encode_fwd, grid_encode_bwd, grid_encode_bwd_serial):
+    _fn.launches, _fn.by_stream = 0, {}
 
 
 class GridEncode(torch.autograd.Function):

@@ -41,6 +41,9 @@ def linspace(start: float, stop: float, num: int,
             r = f32(1.0) / f32(num - 1)
             host = np.append(f32(start) * (f32(1.0) - i * r)
                              + i * (f32(stop) * r), f32(stop)).astype(f32)
+        # Uploaded from pageable host memory: done when .to() returns, so
+        # a thread on another CUDA stream may read it (the pipelined
+        # runtime's tracker and mapper); no lock.
         vals = _LINSPACE[key] = torch.from_numpy(host).to(device)
     return vals
 

@@ -305,6 +305,9 @@ def _level_table(spec: TriPlaneSpec, device: torch.device) -> torch.Tensor:
     arr = np.array([[spec.resolutions[s] for s in sec0],
                     [spec.offsets[s] for s in sec0],
                     [lines[s] for s in sec0]], np.int32)
+    # Uploaded from pageable host memory: done when .to() returns, so a
+    # thread on another CUDA stream may read it (the pipelined runtime's
+    # tracker and mapper); no lock.
     return torch.from_numpy(arr).to(device)
 
 

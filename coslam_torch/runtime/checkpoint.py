@@ -5,10 +5,11 @@ with the same file keys:
 
 - ``leaf_i``: the parameter tensors in the JAX package's sorted-key
   flatten order (``param_leaves``: ``decoder.color_net[*]``, then
-  ``decoder.sdf_net[*]``, then the grid, a dict grid's tables in
-  sorted-key order (TensoVM's ``lines`` before its ``planes``,
-  TriPlaneHybrid's ``dense`` before its ``planes``), then the color grid
-  under ``oneGrid: false``), and ``n_leaves``;
+  ``decoder.sdf_net[*]``, with ActiveCoSLAM's linear heads at their
+  sorted places among them, each ``b`` before ``w``, then the grid, a
+  dict grid's tables in sorted-key order (TensoVM's ``lines`` before its
+  ``planes``, TriPlaneHybrid's ``dense`` before its ``planes``), then
+  the color grid under ``oneGrid: false``), and ``n_leaves``;
 - ``pose`` (the absolute pose table), ``pose_rel_keys`` and
   ``pose_rel_vals`` (the keyframe-relative poses);
 - ``extra_<k>`` for an array of the resume state, and ``exn_<k>`` with
@@ -124,11 +125,14 @@ def params_from_leaves(like: Dict, leaves: List[np.ndarray]) -> Dict:
         if tuple(got.shape) != tuple(ref.shape):
             raise ValueError(f"checkpoint leaf {tuple(got.shape)} does not "
                              f"match the model's {tuple(ref.shape)}")
-    dec = like["decoder"]
-    nc, ns = len(dec["color_net"]), len(dec["sdf_net"])
-    out = {"decoder": {"color_net": list(leaves[:nc]),
-                       "sdf_net": list(leaves[nc:nc + ns])}}
-    i = nc + ns
+    out = {"decoder": {}}
+    i = 0
+    for k, v in sorted(like["decoder"].items()):
+        if isinstance(v, dict):      # a linear head: b, w
+            out["decoder"][k] = dict(zip(sorted(v), leaves[i:i + len(v)]))
+        else:
+            out["decoder"][k] = list(leaves[i:i + len(v)])
+        i += len(v)
     for label in map_opt_labels(like)[1:]:
         grid = like[label]
         k = len(grid) if isinstance(grid, dict) else 1

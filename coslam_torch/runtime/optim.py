@@ -22,11 +22,30 @@ def grid_leaves(grid) -> List[torch.Tensor]:
     return [grid]
 
 
+def decoder_leaves(dec: Dict) -> List[torch.Tensor]:
+    """The decoder's tensors in the order of JAX's tree leaves (sorted
+    keys): each MLP's weight list (``color_net``, ``sdf_net``) and each
+    linear head's ``b`` then ``w`` (ActiveCoSLAM's ``feature_linear``,
+    ``sdf_linear`` and ``uncertainty_linear``)."""
+    out = []
+    for k in sorted(dec):
+        v = dec[k]
+        out += [v[j] for j in sorted(v)] if isinstance(v, dict) else list(v)
+    return out
+
+
+def _decoder_list(dec: Dict) -> List[torch.Tensor]:
+    """The decoder's tensors: sdf_net's, color_net's, then the linear
+    heads' (ActiveCoSLAM's decoder) in decoder_leaves' order."""
+    heads = [v[j] for k, v in sorted(dec.items()) if isinstance(v, dict)
+             for j in sorted(v)]
+    return [*dec["sdf_net"], *dec["color_net"], *heads]
+
+
 def map_param_list(params: Dict) -> List[torch.Tensor]:
-    """The grid's tensors, the decoder's, then the color grid's
-    (``oneGrid: false``)."""
-    return [*grid_leaves(params["grid"]), *params["decoder"]["sdf_net"],
-            *params["decoder"]["color_net"],
+    """The grid's tensors, the decoder's (_decoder_list), then the color
+    grid's (``oneGrid: false``)."""
+    return [*grid_leaves(params["grid"]), *_decoder_list(params["decoder"]),
             *grid_leaves(params.get("grid_color", {}))]
 
 
@@ -41,7 +60,8 @@ def detached(params: Dict) -> Dict:
     """The same tensors without autograd (a frozen map for tracking: the
     encode backward then computes dx only)."""
     out = {"grid": detach_grid(params["grid"]),
-           "decoder": {k: [w.detach() for w in v]
+           "decoder": {k: ({j: w.detach() for j, w in v.items()}
+                           if isinstance(v, dict) else [w.detach() for w in v])
                        for k, v in params["decoder"].items()}}
     if "grid_color" in params:
         out["grid_color"] = detach_grid(params["grid_color"])
@@ -51,14 +71,15 @@ def detached(params: Dict) -> Dict:
 def make_map_optimizer(config: Dict, params: Dict) -> torch.optim.Adam:
     """Grid (every grid tensor, TensoVM's planes and lines alike, at
     lr_embed): betas (0.9, 0.99), eps 1e-15; decoder: betas (0.9, 0.99),
-    eps 1e-8, weight_decay 1e-6; the color grid (``oneGrid: false``) as
+    eps 1e-8, weight_decay 1e-6 (every decoder tensor, the heads of
+    ActiveCoSLAM's decoder too); the color grid (``oneGrid: false``) as
     the grid at mapping.lr_embed_color (default lr_embed). The grid's eps
     matters: with the default 1e-8 the first steps on near-zero table rows
     differ. Marks the parameters trainable."""
     m = config["mapping"]
     for p in map_param_list(params):
         p.requires_grad_(True)
-    dec = [*params["decoder"]["sdf_net"], *params["decoder"]["color_net"]]
+    dec = _decoder_list(params["decoder"])
     groups = [
         {"params": grid_leaves(params["grid"]), "lr": m["lr_embed"],
          "eps": 1e-15},

@@ -12,12 +12,21 @@ ATE every ``mesh.vis`` frames, a resumable checkpoint every
 tensors on ``device``; the host reads one packed [pose, loss, psnr] array
 per tracked frame and one per BA call.
 
+Tracking's pixels are a uniform draw, or with
+``tracking.sample_info_frac`` > 0 one weighted by the image gradient
+(:meth:`CoSLAM._info_weights`), from a numpy stream keyed by (seed,
+frame id), the JAX package's draw. The loop records ``frame_walls`` (one
+time a frame) and ``frame_events`` (spans around the checkpoint, BA,
+keyframe and mesh steps) for runtime/latency.attribute_tails.
+
 Frames come through a :class:`PrefetchIterator` (``data.num_workers``
 loader threads, frames handed over in order). The periodic mesh and ATE
 run on a single-flight worker thread (``mesh.async_vis``, default true;
 false keeps them in the loop): the parameters are cloned on the loop's
 stream and the pose tables copied on the host when the job is submitted,
-so the next frames' steps do not change what the job reads. With
+so the next frames' steps do not change what the job reads (an event
+recorded after the clones, which the worker's stream waits on, orders
+the clones before the job on any stream). With
 ``training.frame_align`` the loop keeps the exposure parameters
 (ops/frame_align.py): the current frame's [4], optimized by tracking
 with the pose, and the keyframes' [num_kf, 4], optimized by BA; a new
@@ -37,7 +46,9 @@ JAX package, it does not hold the current-frame optimizer's moments.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
 from typing import Dict, Optional
 
@@ -60,14 +71,33 @@ from .tracking import (make_tracking_pc_step, make_tracking_step,
 
 def _check_supported_loop(config: Dict) -> None:
     unsupported = {
-        "tracking.sample_info_frac > 0":
-            float(config["tracking"].get("sample_info_frac", 0) or 0) > 0,
         "parallel.dp > 1":
             int((config.get("parallel") or {}).get("dp", 1) or 1) > 1,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def _record_event(device: torch.device):
+    """A CUDA event recorded on the current stream of ``device`` (None on
+    the CPU, where there are no streams)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _wait_event(device: torch.device, event):
+    """Make the current stream of ``device`` wait for ``event`` (queued
+    on the card, the host does not wait); returns that stream (None on the
+    CPU)."""
+    if event is None:
+        return None
+    stream = torch.cuda.current_stream(device)
+    stream.wait_event(event)
+    return stream
 
 
 class CoSLAM:
@@ -96,8 +126,11 @@ class CoSLAM:
         # One generator on the device for every draw of the run (ray
         # indices, perturbations, lattices, keyframe subsets), one on the
         # CPU for the parameter init (device-independent values).
+        # Tracking draws from track_generator: the same generator here,
+        # one of its own in the pipelined runtime.
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.model = JointEncoding(config, self.bounding_box, self.device)
+        self.track_generator = self.generator
+        self.model = self._make_model(config)
         self.params = self.model.init_params(
             torch.Generator().manual_seed(seed))
         self.map_opt = make_map_optimizer(config, self.params)
@@ -130,6 +163,30 @@ class CoSLAM:
                         "mesh": []}
         self.losses = {"first_frame": [], "tracking": [], "mapping": []}
         self.final_mesh = None
+        # runtime/latency.py's inputs: a time at each frame's start and
+        # (t0, t1, tag) spans around the steps that make frames slow.
+        self.frame_walls, self.frame_events = [], []
+        # Guards the pose tables' writes against another thread's copy
+        # (the pipelined tracker writes while the mapper checkpoints).
+        self._pose_lock = threading.Lock()
+        # (loss, psnr, pose L1 against the ground truth) of the last
+        # tracked frame.
+        self._last_track_info = (float("nan"),) * 3
+
+    def _make_model(self, config: Dict):
+        """Hook for variants (ActiveCoSLAM builds the beta-head model)."""
+        return JointEncoding(config, self.bounding_box, self.device)
+
+    @contextlib.contextmanager
+    def _event(self, tag: str):
+        """Record a (t0, t1, tag) span in frame_events (the host's time of
+        the step: its work on the card may land in a later frame, which
+        latency.attribute_tails looks back for)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.frame_events.append((t0, time.perf_counter(), tag))
 
     # -- frames -----------------------------------------------------------------
 
@@ -141,10 +198,20 @@ class CoSLAM:
              np.asarray(batch["depth"]).reshape(-1, 1)], axis=1)
         return torch.from_numpy(block.astype(np.float32)).to(self.device)
 
-    def _draw_rays(self, batch: Dict, S: int, stream: int) -> torch.Tensor:
-        """S pixels of the edge-cropped image without replacement, drawn
-        from a numpy stream keyed by (seed, frame id[, stream]) -> [S, 7]
-        on the device."""
+    def _frame_rays_flat(self, batch: Dict) -> np.ndarray:
+        """[H*W, 7] = [direction, rgb, depth] on the host."""
+        return np.concatenate(
+            [np.asarray(batch["direction"]).reshape(-1, 3),
+             np.asarray(batch["rgb"]).reshape(-1, 3),
+             np.asarray(batch["depth"]).reshape(-1, 1)],
+            axis=1).astype(np.float32)
+
+    def _draw_rays(self, batch: Dict, S: int, stream: int,
+                   p: Optional[np.ndarray] = None) -> torch.Tensor:
+        """S pixels of the edge-cropped image without replacement (with
+        the probabilities ``p`` over its pixels, or uniform), drawn from a
+        numpy stream keyed by (seed, frame id[, stream]) -> [S, 7] on the
+        device."""
         iH = self.config["tracking"]["ignore_edge_H"]
         iW = self.config["tracking"]["ignore_edge_W"]
         direction = batch["direction"]
@@ -153,7 +220,8 @@ class CoSLAM:
         key = (self._seed, int(batch["frame_id"])) + ((stream,) if stream
                                                        else ())
         idx = np.random.default_rng(key).choice(
-            (H - 2 * iH) * cw, size=min(S, (H - 2 * iH) * cw), replace=False)
+            (H - 2 * iH) * cw, size=min(S, (H - 2 * iH) * cw), replace=False,
+            p=p)
         r, c = idx // cw + iH, idx % cw + iW
         rays = np.concatenate([direction[r, c], np.asarray(batch["rgb"])[r, c],
                                np.asarray(batch["depth"])[r, c, None]], 1)
@@ -161,8 +229,37 @@ class CoSLAM:
 
     def _sample_tracking_rays(self, batch: Dict) -> torch.Tensor:
         """``tracking.sample`` pixels, drawn as in the JAX package (a
-        stream keyed by (seed, frame id))."""
-        return self._draw_rays(batch, self.config["tracking"]["sample"], 0)
+        stream keyed by (seed, frame id)); with
+        ``tracking.sample_info_frac`` > 0, weighted by
+        :meth:`_info_weights`."""
+        tcfg = self.config["tracking"]
+        frac = float(tcfg.get("sample_info_frac", 0.0) or 0.0)
+        p = (self._info_weights(batch, tcfg["ignore_edge_H"],
+                                tcfg["ignore_edge_W"], frac)
+             if frac > 0.0 else None)
+        return self._draw_rays(batch, tcfg["sample"], 0, p)
+
+    def _info_weights(self, batch: Dict, iH: int, iW: int,
+                      frac: float) -> np.ndarray:
+        """The sampling probabilities over the edge-cropped image, flat:
+        ``frac`` parts image-gradient weight and ``1 - frac`` parts
+        uniform (coslam_tpu's _info_weights). The weight is |grad gray| +
+        |grad depth|, each over its own mean; pixels without a valid
+        depth keep only the gray term."""
+        gray = np.asarray(batch["rgb"], np.float32).mean(-1)
+        depth = np.asarray(batch["depth"], np.float32)
+        H, W = depth.shape
+        gray = gray[iH:H - iH, iW:W - iW]
+        depth = depth[iH:H - iH, iW:W - iW]
+        gy, gx = np.gradient(gray)
+        gg = np.hypot(gx, gy)
+        dy, dx = np.gradient(depth)
+        gd = np.where(depth > 0.0, np.hypot(dx, dy), 0.0)
+        w = (gg / max(float(gg.mean()), 1e-12)
+             + gd / max(float(gd.mean()), 1e-12)).ravel().astype(np.float64)
+        p = frac * w / max(float(w.sum()), 1e-12)
+        p += (1.0 - frac) / p.size
+        return p / p.sum()
 
     def _pc_rays(self, batch: Dict) -> torch.Tensor:
         """Point-cloud tracking's ``tracking.pc_samples`` pixels (a stream
@@ -194,27 +291,40 @@ class CoSLAM:
         return predict_current_pose(prev, prev_prev,
                                     self.config["tracking"]["const_speed"])
 
-    def tracking_pc(self, batch: Dict, frame_id: int) -> float:
+    def tracking_pc(self, batch: Dict, frame_id: int,
+                    params: Optional[Dict] = None) -> float:
         """Point-cloud tracking from the motion-model prediction
         (tracking.iter_point > 0; coslam_tpu's tracking_pc): writes the
-        frame's pose, which tracking_render then starts from."""
+        frame's pose, which tracking_render then starts from. ``params``:
+        the map to track against (default self.params)."""
         c2w, loss = self._track_pc_step(
-            self.params, torch.from_numpy(self._predict(frame_id)).to(
-                self.device), self._pc_rays(batch))
+            self.params if params is None else params,
+            torch.from_numpy(self._predict(frame_id)).to(self.device),
+            self._pc_rays(batch))
         packed = torch.cat([c2w.reshape(-1), loss[None]]).cpu().numpy()
         self.est_c2w[frame_id] = packed[:16].reshape(4, 4)
         return float(packed[16])
 
-    def tracking_render(self, batch: Dict, frame_id: int) -> float:
+    def tracking_render(self, batch: Dict, frame_id: int,
+                        params: Optional[Dict] = None,
+                        c2w_init: Optional[np.ndarray] = None) -> float:
+        """Track the frame (coslam_tpu's tracking_render). ``params``: the
+        map to track against (default self.params; the pipelined tracker
+        passes its snapshot). ``c2w_init``: the start pose (default: the
+        point-cloud tracking's pose, or the motion-model prediction;
+        ActiveCoSLAM passes its own for frames out of sequence)."""
         t0 = time.perf_counter()
-        # After point-cloud tracking the frame's pose is its start.
-        init = (self.est_c2w[frame_id] if self._track_pc_step is not None
-                else self._predict(frame_id))
-        c2w_init = torch.from_numpy(np.array(init, np.float32)).to(
+        if c2w_init is None:
+            # After point-cloud tracking the frame's pose is its start.
+            c2w_init = (self.est_c2w[frame_id]
+                        if self._track_pc_step is not None
+                        else self._predict(frame_id))
+        c2w_init = torch.from_numpy(np.array(c2w_init, np.float32)).to(
             self.device)
         c2w, losses, psnrs, self.cur_align = self._track_step(
-            self.params, c2w_init, self._sample_tracking_rays(batch),
-            self.generator, self.cur_align)
+            self.params if params is None else params, c2w_init,
+            self._sample_tracking_rays(batch), self.track_generator,
+            self.cur_align)
         finite = torch.isfinite(c2w).all()
         # A non-finite pose would poison every later frame through the
         # prediction and BA: keep the motion-model prediction instead.
@@ -222,16 +332,25 @@ class CoSLAM:
         packed = torch.cat([c2w.reshape(-1), losses[-1:], psnrs[-1:],
                             finite.float()[None]]).cpu().numpy()
         c2w = packed[:16].reshape(4, 4)
-        self.est_c2w[frame_id] = c2w
         kf_every = self.config["mapping"]["keyframe_every"]
-        if frame_id % kf_every != 0:
+        with self._pose_lock:
+            self.est_c2w[frame_id] = c2w
             c2w_key = self.est_c2w[(frame_id // kf_every) * kf_every]
-            self.est_c2w_rel[frame_id] = (
-                c2w.astype(np.float64)
-                @ np.linalg.inv(c2w_key.astype(np.float64))).astype(np.float32)
+            # ActiveCoSLAM tracks frames out of sequence: a keyframe slot
+            # not tracked yet (all zero) gives no relative pose.
+            if frame_id % kf_every != 0 and np.any(c2w_key):
+                self.est_c2w_rel[frame_id] = (
+                    c2w.astype(np.float64)
+                    @ np.linalg.inv(c2w_key.astype(np.float64))
+                ).astype(np.float32)
         if packed[18] == 0.0:
             print(f"tracking produced a non-finite pose at frame {frame_id}; "
                   "keeping the motion-model prediction")
+        gt = self.pose_gt.get(frame_id)
+        err = (float(np.abs(c2w[:3] - gt[:3]).mean())
+               if gt is not None and np.all(np.isfinite(gt))
+               else float("nan"))
+        self._last_track_info = (float(packed[16]), float(packed[17]), err)
         self.timings["tracking"].append(time.perf_counter() - t0)
         self.losses["tracking"].append(float(packed[16]))
         return float(packed[16])
@@ -261,11 +380,13 @@ class CoSLAM:
                             loss[None]]).cpu().numpy()
         if count >= 2:
             kf_np = packed[:count * 16].reshape(count, 4, 4)
-            for slot in range(1, count):
-                self.est_c2w[int(self.kf_db.frame_ids[slot])] = kf_np[slot]
-            if self.config["mapping"]["optim_cur"]:
-                self.est_c2w[cur_frame_id] = \
-                    packed[count * 16:count * 16 + 16].reshape(4, 4)
+            with self._pose_lock:
+                for slot in range(1, count):
+                    self.est_c2w[int(self.kf_db.frame_ids[slot])] = \
+                        kf_np[slot]
+                if self.config["mapping"]["optim_cur"]:
+                    self.est_c2w[cur_frame_id] = \
+                        packed[count * 16:count * 16 + 16].reshape(4, 4)
         self.timings["mapping"].append(time.perf_counter() - t0)
         self.losses["mapping"].append(float(packed[-1]))
         return float(packed[-1])
@@ -315,28 +436,33 @@ class CoSLAM:
         keyframes keep their own."""
         kf_every = self.config["mapping"]["keyframe_every"]
         poses = {}
-        for i in range(len(self.est_c2w)):
-            if not np.any(self.est_c2w[i]):
+        with self._pose_lock:
+            est, rel = self.est_c2w.copy(), dict(self.est_c2w_rel)
+        for i in range(len(est)):
+            if not np.any(est[i]):
                 continue                              # not tracked yet
             if i % kf_every == 0:
-                poses[i] = self.est_c2w[i]
+                poses[i] = est[i]
                 continue
-            delta = self.est_c2w_rel.get(i, np.eye(4, dtype=np.float32))
+            delta = rel.get(i, np.eye(4, dtype=np.float32))
             poses[i] = (delta.astype(np.float64)
-                        @ self.est_c2w[(i // kf_every) * kf_every].astype(
+                        @ est[(i // kf_every) * kf_every].astype(
                             np.float64)).astype(np.float32)
         return poses
 
     def evaluate_ate(self, n_frames: int, poses: Optional[Dict] = None,
-                     name: str = "output.txt") -> Dict:
+                     name: str = "output.txt",
+                     gt: Optional[Dict] = None) -> Dict:
         """ATE of the first n_frames poses (the absolute table, or
-        ``poses``) against the ground truth (coslam_tpu.eval.ate without
-        its plot); appends to ``name`` in the run's output directory."""
+        ``poses``) against the ground truth (``gt``, default the
+        dataset's; coslam_tpu.eval.ate without its plot); appends to
+        ``name`` in the run's output directory."""
         from ..eval.ate import convert_poses, evaluate_ate
 
         src = self.est_c2w if poses is None else poses
         est = {i: src[i] for i in range(n_frames)}
-        gt_arr, mask = convert_poses(self.pose_gt, n_frames, 1.0)
+        gt_arr, mask = convert_poses(self.pose_gt if gt is None else gt,
+                                     n_frames, 1.0)
         est_arr, _ = convert_poses(est, n_frames, 1.0, gt=False)
         est_arr = est_arr[mask[:len(est_arr)]]
         results = evaluate_ate({k: v for k, v in enumerate(gt_arr)},
@@ -373,16 +499,26 @@ class CoSLAM:
             return
         with torch.no_grad():
             params = _clone(self.params)
+        ready = _record_event(self.device)
         est = rel = None
         if eval_ate:
-            est = self.est_c2w.copy()
+            with self._pose_lock:
+                est = self.est_c2w.copy()
             rel = {k: np.array(v)
                    for k, v in self.convert_relative_pose().items()}
 
         def job():
-            self.save_mesh(i, voxel_size=voxel, params=params)
-            if eval_ate:
-                self._evaluate(i + 1, est, rel)
+            # The clones were made on the submitting thread's stream.
+            stream = _wait_event(self.device, ready)
+            try:
+                self.save_mesh(i, voxel_size=voxel, params=params)
+                if eval_ate:
+                    self._evaluate(i + 1, est, rel)
+            finally:
+                # Nothing of this stream reads the clones once they are
+                # freed (back to the submitting stream's pool).
+                if stream is not None:
+                    stream.synchronize()
 
         self._mesh_worker.submit(job)
 
@@ -394,7 +530,8 @@ class CoSLAM:
         pose tables, keyframe reservoir (rays [num_kf, R, 7], ids, count,
         wrap pointer, poses), the map optimizer's state in the JAX
         layout, the generator's state (``torch_generator``, in place of
-        the JAX key), with frame_align the exposure parameters
+        the JAX key; and the tracker's, ``torch_track_generator``, where
+        it has one of its own), with frame_align the exposure parameters
         (``kf_aligns``, ``cur_align``) and ``frame_cursor``, the next
         frame to process.
         async_write hands the copies and the write to the background
@@ -412,14 +549,18 @@ class CoSLAM:
         if self.kf_aligns is not None:
             extra["kf_aligns"] = self.kf_aligns
             extra["cur_align"] = self.cur_align
+        if self.track_generator is not self.generator:
+            extra["torch_track_generator"] = \
+                self.track_generator.get_state().numpy()
         if frame_cursor is not None:
             extra["frame_cursor"] = np.int64(frame_cursor)
-        rel = {k: v.copy() for k, v in self.est_c2w_rel.items()}
+        with self._pose_lock:
+            est = self.est_c2w.copy()
+            rel = {k: v.copy() for k, v in self.est_c2w_rel.items()}
         if async_write:
-            self._ckpt_writer.submit(path, self.params, self.est_c2w.copy(),
-                                     rel, extra)
+            self._ckpt_writer.submit(path, self.params, est, rel, extra)
         else:
-            save_ckpt(path, self.params, self.est_c2w, rel, extra)
+            save_ckpt(path, self.params, est, rel, extra)
 
     def load_checkpoint(self, path: str) -> int:
         """Restore what save_checkpoint wrote, from the port's file or the
@@ -454,6 +595,10 @@ class CoSLAM:
         if "torch_generator" in extra:
             self.generator.set_state(torch.from_numpy(
                 np.array(extra["torch_generator"], np.uint8)))
+        if ("torch_track_generator" in extra
+                and self.track_generator is not self.generator):
+            self.track_generator.set_state(torch.from_numpy(
+                np.array(extra["torch_track_generator"], np.uint8)))
         return int(extra.get("frame_cursor", 0))
 
     # -- main loop --------------------------------------------------------------
@@ -475,11 +620,15 @@ class CoSLAM:
         map_every = cfg["mapping"]["map_every"]
         kf_every = cfg["mapping"]["keyframe_every"]
         mesh_every = int(cfg["mesh"].get("vis", 0) or 0)
+        self.frame_walls, self.frame_events = [], []
         for i, batch in frames:
+            self.frame_walls.append(time.perf_counter())
             if ckpt_every and i > start_frame and i % ckpt_every == 0:
                 # The state covers frames [0, i): a resume starts at i.
-                self.save_checkpoint(os.path.join(out, f"checkpoint{i}.npz"),
-                                     frame_cursor=i, async_write=True)
+                with self._event("checkpoint"):
+                    self.save_checkpoint(
+                        os.path.join(out, f"checkpoint{i}.npz"),
+                        frame_cursor=i, async_write=True)
             if i == 0:
                 loss = self.first_frame_mapping(batch)
                 if cfg["mapping"].get("first_mesh"):
@@ -494,12 +643,16 @@ class CoSLAM:
                 err = np.abs(self.est_c2w[i][:3] - self.pose_gt[i][:3]).mean()
                 print(f"it: {i}, loss: {loss:.5f}, pose L1 vs gt: {err:.5f}")
             if i % map_every == 0:
-                self.current_frame_mapping(batch, i)
-                self.global_BA(batch, i)
+                with self._event("ba"):
+                    self.current_frame_mapping(batch, i)
+                    self.global_BA(batch, i)
             if i % kf_every == 0:
-                self.add_keyframe(batch)
+                with self._event("keyframe"):
+                    self.add_keyframe(batch)
             if mesh_every and i % mesh_every == 0:
-                self._periodic_mesh_eval(i, eval_ate)
+                with self._event("mesh_eval"):
+                    self._periodic_mesh_eval(i, eval_ate)
+        self.frame_walls.append(time.perf_counter())
         # The periodic jobs land before the final files (output.txt's
         # lines stay in frame order).
         self._mesh_worker.wait()
@@ -513,4 +666,20 @@ class CoSLAM:
         results = self._evaluate(total) if eval_ate else None
         if verbose and results is not None:
             print(f"ATE RMSE {results['absolute_translational_error.rmse']}")
+        if verbose:
+            self.print_timings()
         return results
+
+    def print_timings(self) -> None:
+        """Each phase's mean wall per call in ms (the first call, which
+        builds the kernels, left out of the mean), and the frame-time
+        report of latency.attribute_tails."""
+        from .latency import attribute_tails
+
+        for phase, vals in self.timings.items():
+            if vals:
+                steady = vals[1:] if len(vals) > 1 else vals
+                print(f"[timing] {phase}: mean {1e3 * np.mean(steady):.2f} "
+                      f"ms ({len(vals)} calls, first {1e3 * vals[0]:.0f} ms)")
+        print(f"[timing] frames: "
+              f"{attribute_tails(self.frame_walls, self.frame_events)}")

@@ -163,11 +163,24 @@ def make_tracking_pc_step(model, config: Dict):
     return step
 
 
-def predict_current_pose(est_prev, est_prev_prev=None, constant_speed=True):
+def predict_current_pose(est_prev, est_prev_prev=None, constant_speed=True,
+                         gap_ratio: float = 1.0):
     """Constant-speed motion model (coslam_tpu.runtime.tracking
-    .predict_current_pose at gap_ratio 1): apply the last inter-frame
-    delta to the previous pose, or copy it when there is no history."""
+    .predict_current_pose): apply the last inter-frame delta to the
+    previous pose, or copy it when there is no history. ``gap_ratio``
+    rescales that delta for frames spaced unevenly (ActiveCoSLAM tracks
+    an info-gain subsequence): the rotation vector and the translation
+    are scaled together (scipy's rotation-vector map). At 1 the delta is
+    applied as it is."""
     if est_prev_prev is None or not constant_speed:
         return np.array(est_prev, np.float32)
     delta = est_prev @ np.linalg.inv(est_prev_prev.astype(np.float64))
+    if gap_ratio != 1.0:
+        from scipy.spatial.transform import Rotation
+
+        rotvec = Rotation.from_matrix(delta[:3, :3]).as_rotvec()
+        scaled = np.eye(4)
+        scaled[:3, :3] = Rotation.from_rotvec(gap_ratio * rotvec).as_matrix()
+        scaled[:3, 3] = gap_ratio * delta[:3, 3]
+        delta = scaled
     return (delta @ est_prev).astype(np.float32)

@@ -558,7 +558,8 @@ def record_ba_points(cfg: dict, data, device) -> torch.Tensor:
 
 def time_b_and_h(device, points: dict, profiled: bool = False) -> dict:
     """{set name: {"B": times, "F": times, "H": times, "index_add_":
-    times}} for
+    times, "index_put_det_ms": H's library call, index_put_(accumulate=
+    True) under torch.use_deterministic_algorithms(True)}} for
     every [N, 3] point set in `points` (unit-normal tables, seed 0, and
     cotangents, seed 1, as in chip_smoke.py); with `profiled`, also each
     kernel that B and H launch, with its device time per call."""
@@ -591,6 +592,16 @@ def time_b_and_h(device, points: dict, profiled: bool = False) -> dict:
             "F": both_ms(lambda: SS.row_accum(idx, vals, rows, False)),
             "H": both_ms(lambda: SS.row_accum(idx, vals, rows, True)),
             "index_add_": both_ms(lambda: buf.index_add_(0, idx, vals))}
+        # H's library call: the deterministic index_put_(accumulate=True)
+        # (a sort, then a sum of each row's run), CUDA events only.
+        keys = idx.long()
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            out[name]["index_put_det_ms"] = time_ms(
+                lambda: buf.index_put_((keys,), vals, accumulate=True))
+        finally:
+            torch.use_deterministic_algorithms(was)
         if hasattr(SS, "SegmentedPlan"):    # H's phases, where H has them
             out[name]["H_phases"] = h_phases(idx, vals, rows)
         if profiled:

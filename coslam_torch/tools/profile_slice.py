@@ -1,8 +1,8 @@
 """Where the slice's time goes: per-phase walls and a device profile.
 
     python -m coslam_torch.tools.profile_slice [--device cuda|cpu]
-        [--vm | --xor | --hybrid | --tum] [--deterministic] [--small]
-        [--out DIR]
+        [--vm | --xor | --hybrid | --tum | --pipelined] [--deterministic]
+        [--small] [--out DIR]
 
 Drives the same CoSLAM as chip_smoke.py (room0's model and recipe, with
 ``--vm`` room0_vm's TensoVM model and recipe, with ``--xor``
@@ -22,6 +22,16 @@ with 2 keyframes, then the final mesh. It reports
   the device busy time (the union of kernel, memcpy and memset intervals
   in the trace), its share of the wall, the kernel launch count and the
   kernels that take the most device time.
+
+``--pipelined`` instead profiles room0's whole 15-frame run twice under
+torch.profiler, the pipelined runtime (runtime/pipeline.py) and then the
+sequential loop (after one unprofiled sequential run that warms the
+card up): for each, the wall, the device busy time and share, the
+launches and the frame-time report of runtime/latency.attribute_tails;
+for the pipelined run also each stream's busy time, named by the
+thread that launched on it (the tracker's or the mapper's), and the
+time both streams were busy at once (their busy overlap), and the
+mapper's lag behind the tracker after each BA.
 
 ``--deterministic`` runs the slice under
 ``torch.use_deterministic_algorithms(True)`` (with
@@ -116,6 +126,10 @@ def main(argv=None) -> Dict:
     grid.add_argument("--tum", action="store_true",
                       help="the TUM recipe (tum_config: the hash grid at "
                            "fr1_desk's width, the importance fine pass)")
+    grid.add_argument("--pipelined", action="store_true",
+                      help="room0's run through the pipelined runtime "
+                           "beside the sequential loop: each stream's busy "
+                           "time and their overlap")
     ap.add_argument("--deterministic", action="store_true",
                     help="under torch.use_deterministic_algorithms(True)")
     ap.add_argument("--small", action="store_true")
@@ -127,22 +141,16 @@ def main(argv=None) -> Dict:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
     try:
-        return _profile(args)
+        return (_profile_pipelined if args.pipelined else _profile)(args)
     finally:
         torch.use_deterministic_algorithms(was)
 
 
-def _profile(args) -> Dict:
-    dev = torch.device(args.device)
-    cuda = dev.type == "cuda"
-    os.makedirs(args.out, exist_ok=True)
+def _start(dev: torch.device, out: str) -> Dict:
+    """The card's name and power limit, and the kernels built (on CUDA)."""
+    os.makedirs(out, exist_ok=True)
     res: Dict = {}
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(dev)
-
-    if cuda:
+    if dev.type == "cuda":
         res["card"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -152,6 +160,26 @@ def _profile(args) -> Dict:
         torch.backends.cuda.matmul.allow_tf32 = False
         _kernels.build()
         _kernels.library()
+    return res
+
+
+def _small(cfg: Dict) -> None:
+    """--small's cuts of a config, for a check on the CPU."""
+    cfg["grid"].update(hash_size=12, voxel_sdf=64)
+    cfg["training"]["smooth_pts"] = 8
+    cfg["mapping"].update(first_iters=5, sample=64, iters=2)
+    cfg["tracking"].update(sample=32, iter=2)
+    cfg["mesh"]["voxel_final"] = 0.2
+
+
+def _profile(args) -> Dict:
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    res = _start(dev, args.out)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
 
     # Frames 1-4 warm tracking up, frame 5 becomes the second keyframe.
     nf, H, W = (7, 48, 64) if args.small else (11, 480, 640)
@@ -175,11 +203,7 @@ def _profile(args) -> Dict:
     cfg = make_cfg(os.path.join(args.out, "run"), H, W, nf,
                    exp_name="profile_slice")
     if args.small:
-        cfg["grid"].update(hash_size=12, voxel_sdf=64)
-        cfg["training"]["smooth_pts"] = 8
-        cfg["mapping"].update(first_iters=5, sample=64, iters=2)
-        cfg["tracking"].update(sample=32, iter=2)
-        cfg["mesh"]["voxel_final"] = 0.2
+        _small(cfg)
     data = SyntheticFrames(cfg, nf)
     slam = CoSLAM(cfg, data, device=dev)
 
@@ -243,6 +267,99 @@ def _profile(args) -> Dict:
     res["deterministic"] = torch.are_deterministic_algorithms_enabled()
     res["tracking_step_ms_median"] = float(np.median(res["tracking_step_ms"]))
     with open(os.path.join(args.out, "profile_slice.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps(res, indent=1), flush=True)
+    return res
+
+
+def _stream_stats(events, a_launches: Dict[str, int]) -> Dict:
+    """Each CUDA stream's busy time in a trace and the busy overlap of the
+    tracker's and the mapper's streams. A stream is named by the thread
+    whose count of kernel A's launches on its stream (``a_launches``,
+    from the wrapper's count by stream) equals the trace's count of
+    grid_encode_fwd_kernel on it; else by its number."""
+    spans: Dict[str, list] = {}
+    a_kernels: Dict[str, int] = {}
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        stream = e.get("args", {}).get("stream")
+        spans.setdefault(stream, []).append((e["ts"], e["ts"] + e["dur"]))
+        if "grid_encode_fwd_kernel" in e.get("name", ""):
+            a_kernels[stream] = a_kernels.get(stream, 0) + 1
+    unique = len(set(a_launches.values())) == len(a_launches)
+    out: Dict = {"streams": {}}
+    named: Dict[str, list] = {}
+    for stream, sp in spans.items():
+        label = next((name for name, n in a_launches.items()
+                      if unique and n and a_kernels.get(stream) == n),
+                     f"stream {stream}")
+        out["streams"][label] = {"stream": stream, "busy_us": _busy_us(sp),
+                                 "device_events": len(sp),
+                                 "a_kernels": a_kernels.get(stream, 0)}
+        named[label] = sp
+    # Where the trace's thread ids do not name the streams, the two
+    # busiest streams are taken for the two threads'.
+    pair = (["tracker", "mapper"] if "tracker" in named and "mapper" in named
+            else sorted(named, key=lambda k: -out["streams"][k]["busy_us"]
+                        )[:2])
+    out["overlap_of"] = pair
+    out["overlap_us"] = (sum(_busy_us(named[k]) for k in pair)
+                         - _busy_us(named[pair[0]] + named[pair[1]])
+                         if len(pair) == 2 else None)
+    return out
+
+
+def _profile_pipelined(args) -> Dict:
+    """--pipelined: the module docstring."""
+    from ..runtime.latency import attribute_tails
+    from ..runtime.pipeline import PipelinedCoSLAM
+
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    res = _start(dev, args.out)
+    nf, H, W = (7, 48, 64) if args.small else (15, 480, 640)
+    cfg = room0_config(os.path.join(args.out, "run"), H, W, nf,
+                       exp_name="profile_pipelined")
+    if args.small:
+        _small(cfg)
+    data = SyntheticFrames(cfg, nf)
+    CoSLAM(cfg, data, device=dev).run(verbose=False, eval_ate=False,
+                                      mesh=False)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    for name, cls in (("pipelined", PipelinedCoSLAM), ("sequential", CoSLAM)):
+        slam = cls(cfg, data, device=dev)
+        HP.grid_encode_fwd.by_stream.clear()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            slam.run(verbose=False, eval_ate=False, mesh=False)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        path = os.path.join(args.out, f"{name}.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        os.remove(path)
+        dev_events = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("cat") in _DEVICE_CATS]
+        st = {"wall_us_profiled": wall_us,
+              "device_busy_us": _busy_us(dev_events),
+              "launches": sum(e.get("cat") == "kernel" for e in events),
+              "frames": attribute_tails(slam.frame_walls,
+                                        slam.frame_events),
+              "tracking_ms_median": 1e3 * float(np.median(
+                  slam.timings["tracking"])),
+              "ba_ms_median": 1e3 * float(np.median(
+                  slam.timings["mapping"]))}
+        st["busy_share_of_profiled_wall"] = st["device_busy_us"] / wall_us
+        if name == "pipelined":
+            st.update(_stream_stats(events, {
+                thread: HP.grid_encode_fwd.by_stream.get((handle, ""), 0)
+                for thread, handle in slam.thread_streams.items()}))
+            st["mapper_lag_frames"] = slam.mapper_lag
+        res[name] = st
+    with open(os.path.join(args.out, "profile_pipelined.json"), "w") as f:
         json.dump(res, f, indent=1)
     print(json.dumps(res, indent=1), flush=True)
     return res

@@ -2,9 +2,10 @@
 
 The port's counterpart of coslam_tpu/tools/quality_bench.py: render a
 protocol's RGB-D sequence of an analytic scene, run the sequential SLAM
-loop on ``--device`` (the card by default), then evaluate ATE and the
-culled mesh's Acc/Comp/Comp-ratio/depth-L1 against the scene's analytic
-ground-truth mesh.
+loop (``--pipelined``: the tracker/mapper runtime; ``--active``:
+ActiveCoSLAM) on ``--device`` (the card by default), then evaluate ATE
+and the culled mesh's Acc/Comp/Comp-ratio/depth-L1 against the scene's
+analytic ground-truth mesh.
 
 ``--frames_in`` says how the frames reach the loop: ``disk`` (the
 default, as in the JAX package) writes the protocol's on-disk layout and
@@ -59,9 +60,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="the reference's dagger protocol: double tracking "
                         "iterations + best-pose selection")
     p.add_argument("--pipelined", action="store_true",
-                   help="the concurrent tracker/mapper (not ported)")
+                   help="the concurrent tracker/mapper runtime")
     p.add_argument("--active", action="store_true",
-                   help="the ActiveCoSLAM variant (not ported)")
+                   help="the ActiveCoSLAM variant")
     p.add_argument("--enc", default=None,
                    help="override grid.enc (e.g. TriPlaneHybrid, TriPlane)")
     p.add_argument("--samples_d", type=int, default=None,
@@ -174,11 +175,8 @@ def main(argv=None):
     if args.exposure_drift and args.protocol != "replica":
         p.error(f"--exposure_drift only renders under --protocol replica "
                 f"(got {args.protocol})")
-    if args.pipelined:
-        raise NotImplementedError("not ported yet: --pipelined "
-                                  "(runtime/pipeline.py)")
-    if args.active:
-        raise NotImplementedError("not ported yet: --active (active/)")
+    if args.pipelined and args.active:
+        p.error("--pipelined and --active exclude each other")
     if args.colors_from and args.frames_in != "memory":
         p.error("--colors_from needs --frames_in memory")
 
@@ -216,6 +214,15 @@ def main(argv=None):
         datadir += "_mem"
         outdir += "_mem"
     cfg = recipe_config(args.protocol, datadir, outdir, H, W, args.frames)
+    if args.active:
+        # The reference's proportions (ac_coslam.py:962: init 200 of
+        # ~600-frame sequences, topK 1): a contiguous init segment, then
+        # 2 of each 5-frame window by information gain (the JAX
+        # harness's block).
+        cfg["active"] = {"isActive": True, "check_info_gain_every": 5,
+                         "init_image": max(10, args.frames // 2),
+                         "choose_k": 2, "w": 0.01,
+                         "downsample_rate": 2, "beta_min": 0.01}
     if args.dagger:
         cfg["tracking"]["iter"] *= 2
         cfg["tracking"]["best"] = True
@@ -281,10 +288,16 @@ def main(argv=None):
     gt_mesh(scene, scene_name, gt_path)
 
     print("running SLAM...", flush=True)
+    slam_cls = None
+    if args.active:
+        from ..active.slam import ActiveCoSLAM as slam_cls
+    elif args.pipelined:
+        from ..runtime.pipeline import PipelinedCoSLAM as slam_cls
     res = run_benchmark(cfg, gt_mesh_path=gt_path, culling=args.culling,
                         n_eval_views=args.eval_views, dataset=dataset,
-                        device=args.device)
-    res.update(culling=args.culling, active=False, pipelined=False,
+                        device=args.device, slam_cls=slam_cls)
+    res.update(culling=args.culling, active=bool(args.active),
+               pipelined=bool(args.pipelined),
                protocol=args.protocol, scene=scene_name,
                n_frames=args.frames, resolution=f"{H}x{W}",
                dagger=bool(args.dagger),

@@ -211,14 +211,16 @@ def test_jax_checkpoint_with_aligns_loads_into_port(tmp_path):
 
 @pytest.mark.parametrize("key,value", [("sample_info_frac", 0.5)])
 def test_loop_refuses_what_is_not_ported(tmp_path, key, value):
-    """tracking.iter_point, frame_align and the bf16 decoder run; the
-    options of later slices still raise."""
+    """tracking.iter_point, frame_align, the bf16 decoder and (since the
+    pipelined and active slice) tracking.sample_info_frac run; the option
+    of the last slice, parallel.dp > 1, still raises."""
     from coslam_torch.data.datasets import get_dataset
 
     cfg = _align_config(str(tmp_path))
     cfg["tracking"]["iter_point"] = 2
     cfg["decoder"]["dtype"] = "bfloat16"
-    CoSLAM(cfg, get_dataset(cfg), device="cpu")
     cfg["tracking"][key] = value
-    with pytest.raises(NotImplementedError):
+    CoSLAM(cfg, get_dataset(cfg), device="cpu")
+    cfg["parallel"] = {"dp": 2}
+    with pytest.raises(NotImplementedError, match="parallel.dp"):
         CoSLAM(cfg, get_dataset(cfg), device="cpu")

@@ -477,10 +477,10 @@ def test_fr1_desk_yaml_builds_the_port_model():
     assert (m.n_z_samples, m.n_importance) == (85, 128)
     assert m.init_params(torch.Generator().manual_seed(0))["grid"].shape == (
         822_884, 2)
-    for key, value in (("sample_info_frac", 0.5),):
-        bad = {**cfg, "tracking": {**cfg["tracking"], key: value}}
-        with pytest.raises(NotImplementedError):
-            _check_supported_loop(bad)
+    _check_supported_loop({**cfg, "tracking": {**cfg["tracking"],
+                                               "sample_info_frac": 0.5}})
+    with pytest.raises(NotImplementedError, match="parallel.dp"):
+        _check_supported_loop({**cfg, "parallel": {"dp": 2}})
 
 
 # tum.yaml's keys that the smoke's TUM slice keeps, beside the grid's.

@@ -61,7 +61,8 @@ for new in ("mesh.raster", "eval.recon", "eval.cull", "eval.benchmark",
             "tools.run_quality_suite", "ops.triplane", "ops.encodings",
             "ops.tensovm", "ops.pose", "models.scene_rep", "models.decoder",
             "mesh.extract", "ops.frame_align", "ops.pose_array",
-            "data.prefetch"):
+            "data.prefetch", "runtime.pipeline", "runtime.latency",
+            "active", "active.decoder", "active.scene_rep", "active.slam"):
     assert "coslam_torch." + new in names, new
 # The tri-plane and the encodings, 6D poses and lattices this port added.
 from coslam_torch.ops import encodings, pose, tensovm, triplane
@@ -73,6 +74,17 @@ for mod, attrs in ((triplane, ("triplane_encode_fwd", "triplane_encode_bwd",
                               "make_triplane_lattice_tv")),
                    (encodings, ("freq_encode", "sh_encode")),
                    (pose, ("rotation_6d_to_matrix", "se3_inverse"))):
+    assert all(hasattr(mod, a) for a in attrs), mod.__name__
+# The pipelined runtime, the frame-tail report, ActiveCoSLAM and the
+# dataset algebra.
+from coslam_torch import active
+from coslam_torch.data import datasets
+from coslam_torch.runtime import latency, pipeline
+for mod, attrs in ((pipeline, ("PipelinedCoSLAM",)),
+                   (latency, ("attribute_tails",)),
+                   (active, ("ActiveCoSLAM", "ActiveJointEncoding")),
+                   (datasets, ("DatasetView", "ConcatDataset",
+                               "DatasetAlgebra"))):
     assert all(hasattr(mod, a) for a in attrs), mod.__name__
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("coslam_tpu", "jax", "jaxlib"))

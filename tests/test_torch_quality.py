@@ -143,9 +143,28 @@ def test_quality_bench_runs_the_triplane_grids(enc, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--pipelined"], ["--active"]])
-def test_quality_bench_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError):
-        QB.main(["--device", "cpu", "--frames_in", "memory"] + flags)
+def test_quality_bench_refuses_what_is_not_ported(flags, tmp_path,
+                                                  monkeypatch):
+    """--pipelined and --active are ported: each reaches its runtime
+    (run_benchmark replaced by a recorder of the class it is given, which
+    runs nothing); what is refused is the two together."""
+    from coslam_torch.active.slam import ActiveCoSLAM
+    from coslam_torch.eval import benchmark
+    from coslam_torch.runtime.pipeline import PipelinedCoSLAM
+
+    seen = []
+    monkeypatch.setattr(benchmark, "run_benchmark",
+                        lambda cfg, slam_cls=None, **kw: seen.append(
+                            slam_cls) or {})
+    argv = ["--device", "cpu", "--frames_in", "memory", "--frames", "3",
+            "--hw", "24x32", "--workdir", str(tmp_path)]
+    res = QB.main(argv + flags)
+    assert seen == [PipelinedCoSLAM if flags == ["--pipelined"]
+                    else ActiveCoSLAM]
+    assert (res["pipelined"], res["active"]) == (
+        flags == ["--pipelined"], flags == ["--active"])
+    with pytest.raises(SystemExit):
+        QB.main(argv + ["--pipelined", "--active"])
 
 
 def test_suite_merge_and_hold_rule(tmp_path, monkeypatch):
@@ -277,7 +296,7 @@ def test_bf16_reads_rounds_what_the_encoders_read():
     from coslam_torch.models import decoder as D
 
     before = HP.encode, VM.encode, D.mlp_apply
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(SystemExit):     # quality_bench refuses the pair
         bf16_reads.main(["--device", "cpu", "--frames_in", "memory",
-                         "--matmuls", "--pipelined"])
+                         "--matmuls", "--pipelined", "--active"])
     assert (HP.encode, VM.encode, D.mlp_apply) == before
