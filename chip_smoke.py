@@ -150,7 +150,22 @@ Run from the repository root. Phases, each printing its own lines:
    every launch count set to 0 just before each run and read just after
    (A and B, C and D, and A, B, T and U launched), the phase within
    QUALITY_WALL_S; then the replica row again with --pipelined (its
-   bounds; A and B launched), within QUALITY_PIPELINED_WALL_S.
+   bounds; A and B launched), within QUALITY_PIPELINED_WALL_S;
+10. tools, on the room0 frames and phase 6's room0 checkpoint, within
+   TOOLS_WALL_S: parallel.dp on one card (run_dp_one_card: room0's
+   tracking step and one BA iteration with their rays split over
+   [cuda:0, cuda:0] against dp = 1 on the same generator state, A and B
+   launched once more a shard an iteration; CoSLAM at parallel.dp 2
+   refused with one card visible, and with two or more room0 at
+   --devices 2 and the pipelined mapper on cuda:1; it prints which ran);
+   coslam_torch.tools.render_view at 480 x 640 --frame --compare (A
+   launched in every chunk, the image equal to A's plain version's);
+   tools.tsdf_fusion of the 15 frames at 2 cm on the card (the mesh's
+   accuracy and completion, the card's volume against the CPU's);
+   tools.export --device cuda (the loaded program names kernel A's
+   operator, launches it and matches A's plain version); and the live
+   view (mesh.visualisation: 3 frames, 3 PNGs). A's and B's launches in
+   the kernels' record include this phase's.
 
 Every kernel's record carries its time (for P-V, whose calls are short
 enough that the host's cost per call would show, the card's time from a
@@ -2062,6 +2077,450 @@ def run_quality(device, wrappers, own, runs=QUALITY_RUNS) -> dict:
     return launches
 
 
+# Phase 10: ray data parallelism on one card, the tools and the loop's
+# live view, on the room0 frames and phase 6's room0 checkpoint.
+# dp against dp = 1 on the same generator state: the tracking step's
+# pose after 10 Adam steps within 1e-5 (each step moves a component by
+# about lr whatever the gradient's size, so only the gradient's sign
+# matters), BA's loss within rtol 1e-5 and its table gradient within
+# twice each entry's sum-order bound (the shards' sums add in another
+# order) plus TABLE_GRAD_ULPS ulps of the entry's mass: the cotangents
+# themselves come from the decoder's products, whose sum order may change
+# with a shard's row count (up to 8.2 ulps of the mass on the CPU, at
+# 48 x 64).
+TABLE_GRAD_ULPS = 64.0
+TSDF_VOXEL = 0.02
+# (frames fused for the card-against-CPU comparison, the share of voxels
+# that may differ: a projection within f32 rounding of a pixel's .5 edge)
+TSDF_CPU_FRAMES, TSDF_TIE_SHARE = (0, 5, 10), 1e-3
+TOOLS_WALL_S = 150.0
+
+
+def _room0_checkpoint(out: str) -> str:
+    """Phase 6's room0 checkpoint: the straight deterministic run's
+    final one."""
+    path = os.path.join(out, "chip_smoke_det", f"checkpoint{N_FRAMES - 1}.npz")
+    assert os.path.exists(path), path
+    return path
+
+
+def _record_table_grads(HP, calls: list):
+    """A with block in which every backward of the hash-grid encode that
+    computes the table gradient records its (spec, table, x, g) in
+    ``calls``."""
+    cls = HP.GridEncode
+    backward = cls.backward
+
+    def recording(ctx, g):
+        if ctx.needs_input_grad[0]:
+            table, x = ctx.saved_tensors
+            calls.append((ctx.spec, table.detach(), x.detach(),
+                          g.detach().contiguous()))
+        return backward(ctx, g)
+
+    @contextlib.contextmanager
+    def swap():
+        cls.backward = staticmethod(recording)
+        try:
+            yield
+        finally:
+            cls.backward = staticmethod(backward)
+
+    return swap()
+
+
+def _table_grad_tol(HP, calls: list):
+    """Per table entry: twice the sum-order bound of its contributions
+    over every recorded (x, g) (the trilinear weights are >= 0, so the
+    plain backward on |g| sums the magnitudes) plus TABLE_GRAD_ULPS ulps
+    of their mass."""
+    import torch
+
+    n = mass = None
+    for spec, table, x, g in calls:
+        cnt = HP.grid_encode_bwd_ref(spec, table, x, torch.ones_like(g),
+                                     True, False)[0]
+        mag = HP.grid_encode_bwd_ref(spec, table, x, g.abs(), True, False)[0]
+        n = cnt if n is None else n + cnt
+        mass = mag if mass is None else mass + mag
+    return ((4.04 * (n - 1).clamp(min=0) + TABLE_GRAD_ULPS) * 2.0 ** -24
+            * mass)
+
+
+def run_dp_one_card(device, cfg: dict, data, ckpt: str, fwd, bwd) -> dict:
+    """parallel.dp on one card: room0's tracking step (1024 rays x 10
+    iterations) and one BA iteration (mapping.iters 1, the map and the
+    poses stepped) with devices [cuda:0, cuda:0], each against dp = 1 on
+    the same map, rays and generator state; A and B launched once a shard
+    an iteration more than at dp = 1; CoSLAM at parallel.dp 2 refused on
+    one card (ValueError), and with two cards or more room0 for 15 frames
+    at --devices 2 and the pipelined runtime with its mapper on cuda:1.
+    Returns A's and B's launches over the dp steps."""
+    import torch
+
+    from coslam_torch import convert
+    from coslam_torch.ops import hash_packed as HP
+    from coslam_torch.runtime.mapping import BundleAdjust
+    from coslam_torch.runtime.optim import make_map_optimizer
+    from coslam_torch.runtime.slam import CoSLAM
+    from coslam_torch.runtime.tracking import make_tracking_step
+
+    two = [device, device]
+    slam = CoSLAM(cfg, data, device=device)
+    slam.load_checkpoint(ckpt)
+    model, tcfg = slam.model, cfg["tracking"]
+    batch = data[5]
+    rays = slam._sample_tracking_rays(batch).to(device)
+    init = torch.from_numpy(slam._predict(5)).to(device)
+    launches = {fwd.__name__: 0, bwd.__name__: 0}
+    track = {}
+    for name, devices in (("dp1", None), ("dp2", two)):
+        before = fwd.launches, bwd.launches
+        gen = torch.Generator(device=device).manual_seed(21)
+        c2w, losses, _, _ = make_tracking_step(model, cfg, devices)(
+            slam.params, init, rays, gen)
+        torch.cuda.synchronize()
+        track[name] = (c2w.cpu().numpy(), losses.cpu().numpy(),
+                       fwd.launches - before[0], bwd.launches - before[1])
+    (c1, l1, a1, b1), (c2, l2, a2, b2) = track["dp1"], track["dp2"]
+    np.testing.assert_allclose(c2, c1, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(l2, l1, rtol=1e-4)
+    assert (a1, b1) == (tcfg["iter"], tcfg["iter"]), (a1, b1)
+    assert (a2, b2) == (2 * tcfg["iter"], 2 * tcfg["iter"]), (a2, b2)
+    launches[fwd.__name__] += a2
+    launches[bwd.__name__] += b2
+
+    ba_cfg = copy.deepcopy(cfg)
+    ba_cfg["mapping"].update(iters=1, map_accum_step=1, pose_accum_step=1)
+    frame = slam._frame_block(batch)
+    cur_pose = torch.from_numpy(slam.est_c2w[5]).to(device)
+    ba = {}
+    for name, devices in (("dp1", None), ("dp2", two)):
+        params = convert.params_from_numpy(
+            convert.params_to_numpy(slam.params), device)
+        opt = make_map_optimizer(ba_cfg, params)
+        grads, step = {}, opt.step
+
+        def recording(*args, _p=params, _g=grads, _s=step, **kwargs):
+            _g["grid"] = _p["grid"].grad.detach().clone()
+            return _s(*args, **kwargs)
+
+        opt.step = recording
+        calls = []
+        before = fwd.launches, bwd.launches
+        with _record_table_grads(HP, calls):
+            kf_poses, new_cur, loss, _, _ = BundleAdjust(
+                model, ba_cfg, opt, slam.kf_db.num_kf, devices)(
+                params, slam.kf_db, slam.kf_poses, cur_pose, frame,
+                torch.Generator(device=device).manual_seed(22))
+        torch.cuda.synchronize()
+        ba[name] = (grads["grid"], calls, float(loss),
+                    kf_poses.cpu().numpy(), fwd.launches - before[0],
+                    bwd.launches - before[1])
+    (g1, calls1, loss1, k1, a1, b1) = ba["dp1"]
+    (g2, calls2, loss2, k2, a2, b2) = ba["dp2"]
+    np.testing.assert_allclose(loss2, loss1, rtol=1e-5)
+    np.testing.assert_allclose(k2, k1, atol=1e-5, rtol=0)
+    assert len(calls2) == len(calls1) + 1, (len(calls1), len(calls2))
+    tol = _table_grad_tol(HP, calls1)
+    over = ~((g2 - g1).abs() <= tol)
+    assert not bool(over.any()), (
+        f"BA's table gradient at dp 2: {int(over.sum())} entries beyond "
+        f"the bound, up to {float(((g2 - g1).abs() / tol)[over].max()):.3g} "
+        "times it")
+    assert (a2 - a1, b2 - b1) == (1, 1), (a1, a2, b1, b2)
+    launches[fwd.__name__] += a2
+    launches[bwd.__name__] += b2
+
+    visible = torch.cuda.device_count()
+    dp_cfg = copy.deepcopy(cfg)
+    dp_cfg["parallel"] = {"dp": 2}
+    dp_cfg["data"]["exp_name"] = "chip_smoke_dp2"
+    multi = None
+    if visible < 2:
+        try:
+            CoSLAM(dp_cfg, data, device="cuda")
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("parallel.dp 2 was not refused on one card")
+        assert "parallel.dp=2 but only 1 devices visible" in refused, refused
+    else:
+        refused = None
+        from coslam_torch.runtime.pipeline import PipelinedCoSLAM
+
+        res = CoSLAM(dp_cfg, data, device="cuda").run(verbose=False,
+                                                      mesh=False)
+        ate = res["absolute_translational_error.rmse"]
+        assert math.isfinite(ate) and ate < 0.10, ate
+        pipe_cfg = copy.deepcopy(cfg)
+        pipe_cfg["data"]["exp_name"] = "chip_smoke_pipelined_2cards"
+        pipe = PipelinedCoSLAM(pipe_cfg, data, device="cuda")
+        assert pipe.map_devices == [torch.device("cuda", 1)], pipe.map_devices
+        pres = pipe.run(verbose=False, mesh=False)
+        pate = pres["absolute_translational_error.rmse"]
+        assert math.isfinite(pate) and pate < 0.10, pate
+        multi = {"dp2_ate_rmse_m": ate, "pipelined_mapper_on_cuda1_ate_m":
+                 pate}
+    gmax = float(g1.abs().max())
+    print("  " + json.dumps({
+        "dp_on_one_card": {
+            "tracking_pose_max_abs_diff": float(np.abs(c2 - c1).max()),
+            "tracking_launches_dp1_dp2": [track["dp1"][2:], track["dp2"][2:]],
+            "ba_loss_dp1_dp2": [loss1, loss2],
+            "ba_table_grad_max_abs_diff": float((g2 - g1).abs().max()),
+            "ba_table_grad_max_abs": gmax,
+            "ba_table_grad_largest_tol": float(tol.max()),
+            "ba_pose_max_abs_diff": float(np.abs(k2 - k1).max()),
+            "ba_launches_dp1_dp2": [[a1, b1], [a2, b2]]},
+        "visible_cards": visible,
+        "ran": ("dp 2 refused on one card: " + refused if multi is None
+                else "two cards: room0 at --devices 2 and the pipelined "
+                     "mapper on cuda:1"),
+        "multi_card": multi}), flush=True)
+    return launches
+
+
+def _write_room0_replica(cfg: dict, datadir: str, device):
+    """room0's 15 frames (the scan trajectory) written in Replica layout
+    under datadir, and cfg pointing at them, saved as YAML beside -> the
+    YAML's path."""
+    import yaml
+
+    from coslam_torch.data.synth import write_replica_format
+
+    cam = cfg["cam"]
+    write_replica_format(datadir, AnalyticScene(),
+                         make_scan_trajectory(N_FRAMES), cam["H"], cam["W"],
+                         cam["fx"], cam["fy"], cam["cx"], cam["cy"],
+                         device=device)
+    cfg["data"]["datadir"] = datadir
+    path = datadir.rstrip("/") + ".yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_render_view(device, cfg_path: str, ckpt: str, fwd) -> int:
+    """tools/render_view at 480 x 640 from the room0 checkpoint, --frame 5
+    --compare: finite PSNR and depth-L1; kernel A launched once in every
+    chunk; the image equal to the same render through A's plain version
+    (FWD_TOL). Returns A's launches in the CLI's render."""
+    import torch
+
+    from coslam_torch.config import load_config
+    from coslam_torch.tools import render_view as RV
+
+    cfg = load_config(cfg_path)
+    chunk = 2 ** 14
+    n_chunks = -(-H * W // chunk)
+    passes = 2 if cfg["training"]["n_importance"] > 0 else 1
+    before = fwd.launches
+    t0 = time.perf_counter()
+    res = RV.main(["--config", cfg_path, "--ckpt", ckpt, "--frame", "5",
+                   "--compare", "--device", str(device), "--out",
+                   os.path.join(REPO, "output", "render_00005.png")])
+    wall = time.perf_counter() - t0
+    launched = fwd.launches - before
+    assert launched == passes * n_chunks, (launched, n_chunks)
+    assert math.isfinite(res["psnr"]) and math.isfinite(res["depth_l1"])
+    cfg["training"]["perturb"] = 0.0
+    model = RV.make_model(cfg, device)
+    params, est = RV.load_params(model, ckpt, device)
+    cam = cfg["cam"]
+    args = (est[5], H, W, cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+    rgb, depth = RV.render_image(model, params, *args, chunk=chunk,
+                                 device=device)
+    before = fwd.launches
+    with _kernel_a_plain():
+        rgb_p, depth_p = RV.render_image(model, params, *args, chunk=chunk,
+                                         device=device)
+    assert fwd.launches == before, "the plain render launched kernel A"
+    np.testing.assert_allclose(rgb, rgb_p, **FWD_TOL)
+    np.testing.assert_allclose(depth, depth_p, **FWD_TOL)
+    torch.cuda.synchronize()
+    print("  " + json.dumps({
+        "render_view": {"psnr": res["psnr"], "depth_l1": res["depth_l1"],
+                        "wall_s": wall, "chunks": n_chunks,
+                        "kernel_a_launches": launched,
+                        "rgb_max_abs_diff_plain": float(np.abs(
+                            rgb - rgb_p).max()),
+                        "depth_max_abs_diff_plain": float(np.abs(
+                            depth - depth_p).max())}}), flush=True)
+    return launched
+
+
+def run_tsdf(device, cfg: dict, data) -> None:
+    """tools/tsdf_fusion of the 15 room0 frames at their GT poses on the
+    card at 2 cm: the mesh's accuracy < one voxel and its completion over
+    the observed region < two (tests/test_tsdf_fusion.py's bounds), the
+    seconds a frame; the card's volume of TSDF_CPU_FRAMES against the
+    CPU's: off rounding ties the same cells observed and the values
+    within 1e-6, at most TSDF_TIE_SHARE of the voxels differing in all."""
+    import torch
+
+    from coslam_torch.eval.recon import accuracy, completion
+    from coslam_torch.mesh.io import TriMesh
+    from coslam_torch.mesh.mcubes import marching_cubes
+    from coslam_torch.tools import tsdf_fusion as TF
+
+    cam = cfg["cam"]
+    trunc = 4 * TSDF_VOXEL
+    frames = [data[i] for i in range(N_FRAMES)]
+    depths = [np.asarray(f["depth"], np.float32) for f in frames]
+    rgbs = [np.asarray(f["rgb"], np.float32) for f in frames]
+    poses = [np.asarray(f["c2w"], np.float64) for f in frames]
+    bounds = np.asarray(cfg["mapping"]["bound"], np.float32)
+    intr = (cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vol, color, axes = TF.fuse_frames(depths, poses, *intr, bounds,
+                                      TSDF_VOXEL, trunc, rgbs=rgbs,
+                                      depth_trunc=cam["depth_trunc"],
+                                      device=device)
+    fuse_s = time.perf_counter() - t0
+    mesh = TF.tsdf_mesh(vol, axes, trunc, color)
+    assert len(mesh.vertices) > 1000, len(mesh.vertices)
+    scene = AnalyticScene()
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    n = int(round(float((hi - lo).max()) / TSDF_VOXEL)) + 1
+    ax = [np.linspace(lo[k], hi[k], n).astype(np.float32) for k in range(3)]
+    grid = np.stack(np.meshgrid(*ax, indexing="ij"), -1)
+    sdf = scene.sdf(grid.reshape(-1, 3)).reshape(grid.shape[:3])
+    v, f = marching_cubes(sdf.astype(np.float32), 0.0, truncation=3.0)
+    gt = TriMesh(v * ((hi - lo) / (n - 1)) + lo, f)
+    rng = np.random.default_rng(0)
+    rec_pc = mesh.sample_surface(200000, rng)
+    gt_pc = gt.sample_surface(200000, rng)
+    acc = accuracy(gt_pc, rec_pc)
+    idx = np.clip(np.round((gt_pc - np.array([a[0] for a in axes]))
+                           / TSDF_VOXEL).astype(int), 0,
+                  np.array(vol.shape) - 1)
+    seen = np.abs(vol[idx[:, 0], idx[:, 1], idx[:, 2]]) < 0.99 * trunc
+    comp = completion(gt_pc[seen], rec_pc)
+    assert acc < TSDF_VOXEL, acc
+    assert comp < 2 * TSDF_VOXEL, comp
+
+    sub = list(TSDF_CPU_FRAMES)
+    got = TF.fuse_frames([depths[i] for i in sub], [poses[i] for i in sub],
+                         *intr, bounds, TSDF_VOXEL, trunc,
+                         depth_trunc=cam["depth_trunc"], device=device)[0]
+    t1 = time.perf_counter()
+    want = TF.fuse_frames([depths[i] for i in sub], [poses[i] for i in sub],
+                          *intr, bounds, TSDF_VOXEL, trunc,
+                          depth_trunc=cam["depth_trunc"], device="cpu")[0]
+    cpu_s = time.perf_counter() - t1
+    obs, c_obs = got != np.float32(trunc), want != np.float32(trunc)
+    differ = (obs != c_obs) | (np.abs(got - want) > 1e-6)
+    assert differ.mean() <= TSDF_TIE_SHARE, differ.mean()
+    print("  " + json.dumps({"tsdf_fusion": {
+        "voxel_m": TSDF_VOXEL, "volume": list(vol.shape),
+        "frames": N_FRAMES, "card_ms_per_frame": 1e3 * fuse_s / N_FRAMES,
+        "cpu_ms_per_frame": 1e3 * cpu_s / len(sub),
+        "accuracy_m": acc, "completion_observed_m": comp,
+        "mesh_vertices": len(mesh.vertices),
+        "card_vs_cpu_voxels_differing": int(differ.sum()),
+        "card_vs_cpu_max_abs_diff": float(np.abs(got - want).max())}}),
+        flush=True)
+
+
+def run_export(device, cfg_path: str, ckpt: str, fwd) -> int:
+    """tools/export --device cuda of the room0 checkpoint: the loaded
+    program names kernel A's operator and launches A (counted), and its
+    output equals query_color_sdf through A's plain version (FWD_TOL).
+    Returns A's launches in the export's round trip and the check."""
+    import torch
+
+    from coslam_torch.config import load_config
+    from coslam_torch.tools import export as EX
+    from coslam_torch.tools import render_view as RV
+
+    path = os.path.join(REPO, "output", "chip_smoke_query.pt2")
+    batch = 4096
+    before = fwd.launches
+    out = EX.main(["--config", cfg_path, "--ckpt", ckpt, "--batch",
+                   str(batch), "--device", str(device), "--out", path])
+    in_main = fwd.launches - before
+    assert in_main >= 1, "the exported program did not launch kernel A"
+    program = torch.export.load(path)
+    names = {str(node.target) for node in program.graph.nodes
+             if node.op == "call_function"}
+    assert "coslam_torch.grid_encode_fwd.default" in names, sorted(names)
+    x = torch.linspace(0.1, 0.9, batch * 3, device=device).reshape(batch, 3)
+    before = fwd.launches
+    with torch.no_grad():
+        got = program.module()(x)
+    assert fwd.launches == before + 1, fwd.launches - before
+    cfg = load_config(cfg_path)
+    model = RV.make_model(cfg, device)
+    params, _ = RV.load_params(model, ckpt, device)
+    with torch.no_grad(), _kernel_a_plain():
+        want = model.query_color_sdf(params, x)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **FWD_TOL)
+    assert torch.equal(got, out)
+    print("  " + json.dumps({"export": {
+        "bytes": os.path.getsize(path), "batch": batch,
+        "kernel_a_launches": in_main + 1,
+        "max_abs_diff_plain": float((got - want).abs().max())}}),
+        flush=True)
+    return in_main + 1
+
+
+def run_live_view(device, cfg: dict, data, fwd, bwd) -> dict:
+    """mesh.visualisation on 3 room0 frames: vis/rgbd_00000.png ...
+    rgbd_00002.png written, each [rgb | depth] wide. Returns A's and B's
+    launches over the run."""
+    import torch
+
+    from coslam_torch.runtime.slam import CoSLAM
+
+    cfg = copy.deepcopy(cfg)
+    cfg["data"]["exp_name"] = "chip_smoke_live_view"
+    cfg["mesh"].update(visualisation=True, vis=0)
+    out = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"])
+    shutil.rmtree(out, ignore_errors=True)
+    before = fwd.launches, bwd.launches
+    CoSLAM(cfg, data, device=device).run(n_frames=3, verbose=False,
+                                         eval_ate=False, mesh=False)
+    torch.cuda.synchronize()
+    import cv2
+
+    pngs = sorted(os.listdir(os.path.join(out, "vis")))
+    assert pngs == [f"rgbd_{i:05d}.png" for i in range(3)], pngs
+    shape = cv2.imread(os.path.join(out, "vis", pngs[0])).shape
+    assert shape == (H, 2 * W, 3), shape
+    launches = {fwd.__name__: fwd.launches - before[0],
+                bwd.__name__: bwd.launches - before[1]}
+    assert all(launches.values()), launches
+    print("  " + json.dumps({"live_view": {"pngs": pngs,
+                                           "launches": launches}}),
+          flush=True)
+    return launches
+
+
+def run_tools_phase(device, data, hk) -> dict:
+    """Phase 10: run_dp_one_card, then the tools on room0 (render_view,
+    tsdf_fusion, export) and the live view. Returns A's and B's launches
+    over the phase's main-path runs."""
+    out = os.path.join(REPO, "output")
+    cfg = room0_config(out, H, W, N_FRAMES, exp_name="chip_smoke_tools")
+    ckpt = _room0_checkpoint(out)
+    launches = run_dp_one_card(device, cfg, data, ckpt, hk.fwd_fn, hk.bwd_fn)
+    cfg_path = _write_room0_replica(copy.deepcopy(cfg),
+                                    os.path.join(out, "chip_smoke_rv_data"),
+                                    device)
+    launches[hk.fwd_fn.__name__] += run_render_view(device, cfg_path, ckpt,
+                                                    hk.fwd_fn)
+    run_tsdf(device, cfg, data)
+    launches[hk.fwd_fn.__name__] += run_export(device, cfg_path, ckpt,
+                                               hk.fwd_fn)
+    for name, n in run_live_view(device, cfg, data, hk.fwd_fn,
+                                 hk.bwd_fn).items():
+        launches[name] += n
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2387,6 +2846,14 @@ def main() -> int:
     print(f"  quality pipelined {wall:.1f} s (budget "
           f"{QUALITY_PIPELINED_WALL_S:.0f} s)", flush=True)
     assert wall <= QUALITY_PIPELINED_WALL_S, (wall, QUALITY_PIPELINED_WALL_S)
+
+    t = _phase("tools: parallel.dp on one card, render_view, tsdf_fusion, "
+               "export and the live view on room0")
+    for name, n in run_tools_phase(device, data, hk).items():
+        launches[name] += n
+    wall = time.perf_counter() - t
+    print(f"  tools {wall:.1f} s (budget {TOOLS_WALL_S:.0f} s)", flush=True)
+    assert wall <= TOOLS_WALL_S, (wall, TOOLS_WALL_S)
 
     first = ("source", "replaces", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")

@@ -17,3 +17,9 @@ slices' profiler; ``bench/``, the scatter-accumulate probes). The port
 keeps its own copy of every module it needs from coslam_tpu, even of those that import no jax: it
 imports nothing of the JAX package.
 """
+
+# Registers torch.ops.coslam_torch.grid_encode_fwd (kernel A as a PyTorch
+# operator), which a program exported by tools/export.py names: import
+# coslam_torch before torch.export.load.
+from .ops import hash_packed as _hash_packed  # noqa: E402,F401
+

@@ -78,17 +78,18 @@ class ActiveJointEncoding(JointEncoding):
         ret.update(maps, sdf=raw[..., 3], z_vals=z_vals, raw=raw)
         return ret
 
-    def forward(self, params: Dict, rays_o: torch.Tensor,
-                rays_d: torch.Tensor, target_rgb: torch.Tensor,
-                target_d: torch.Tensor,
-                ray_mask: Optional[torch.Tensor] = None,
-                t: Optional[torch.Tensor] = None,
-                rgb_kernel: Optional[float] = None,
-                u: Optional[torch.Tensor] = None,
-                align: Optional[torch.Tensor] = None) -> Dict:
-        """Render + the loss terms. ``align`` maps the rendered rgb to the
-        frame's exposure before the NLL; ``rgb_kernel`` is accepted and
-        not used (beta already weights the residuals), as in the JAX
+    def loss_stats(self, params: Dict, rays_o: torch.Tensor,
+                   rays_d: torch.Tensor, target_rgb: torch.Tensor,
+                   target_d: torch.Tensor,
+                   ray_mask: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None,
+                   rgb_kernel: Optional[float] = None,
+                   u: Optional[torch.Tensor] = None,
+                   align: Optional[torch.Tensor] = None):
+        """Render + the loss terms as sums and counts (the base model's
+        :meth:`JointEncoding.loss_stats`). ``align`` maps the rendered rgb
+        to the frame's exposure before the NLL; ``rgb_kernel`` is accepted
+        and not used (beta already weights the residuals), as in the JAX
         variant."""
         tr = self.config["training"]
         rend = self.render_rays(params, rays_o, rays_d, target_d, t=t, u=u)
@@ -105,33 +106,54 @@ class ActiveJointEncoding(JointEncoding):
 
         uncert = rend["uncert_map"] + 1e-9
         sq = (rgb * rgb_w - target_rgb * rgb_w) ** 2
+        stats = {}
+        stats["sq_sum"], stats["rgb_n"] = L.masked_sum(sq, rm[:, None])
         if self.config.get("active", {}).get("detach_nll", False):
             # The plain MSE drives color, geometry and pose; the NLL on a
             # detached residual and detached weights trains the beta head
             # only.
             w_sg = rend["weights"].detach()
             unc_sg = (w_sg * w_sg * rend["raw"][..., -1]).sum(-1) + 1e-9
-            rgb_loss = (L.masked_mean(sq, rm[:, None])
-                        + L.masked_mean(sq.detach() / (2.0 * unc_sg[:, None]),
-                                        rm[:, None])
-                        + 0.5 * L.masked_mean(torch.log(unc_sg), rm) + 4.0)
+            stats["nll_sum"] = L.masked_sum(
+                sq.detach() / (2.0 * unc_sg[:, None]), rm[:, None])[0]
+            stats["log_sum"], stats["ray_n"] = L.masked_sum(
+                torch.log(unc_sg), rm)
         else:
-            rgb_loss = (L.masked_mean(sq / (2.0 * uncert[:, None]),
-                                      rm[:, None])
-                        + 0.5 * L.masked_mean(torch.log(uncert), rm) + 4.0)
-        psnr = L.mse2psnr(L.masked_mean(sq, rm[:, None]))
-        depth_loss = L.compute_loss(rend["depth"], td, mask=valid_depth * rm)
+            stats["nll_sum"] = L.masked_sum(sq / (2.0 * uncert[:, None]),
+                                            rm[:, None])[0]
+            stats["log_sum"], stats["ray_n"] = L.masked_sum(
+                torch.log(uncert), rm)
+        depth_mask = valid_depth * rm
+        stats["depth_sum"], stats["depth_n"] = L.masked_sum(
+            (rend["depth"] - td) ** 2, depth_mask)
         if "rgb0" in rend:
-            rgb_loss = rgb_loss + L.compute_loss(
-                rend["rgb0"] * rgb_w, target_rgb * rgb_w, mask=rm[:, None])
-            depth_loss = depth_loss + L.compute_loss(
-                rend["depth0"], td, mask=valid_depth * rm)
+            stats["rgb0_sum"] = L.masked_sum(
+                (rend["rgb0"] * rgb_w - target_rgb * rgb_w) ** 2,
+                rm[:, None])[0]
+            stats["depth0_sum"] = L.masked_sum((rend["depth0"] - td) ** 2,
+                                               depth_mask)[0]
         truncation = tr["trunc"] * self.config["data"]["sc_factor"]
-        fs_loss, sdf_loss = L.get_sdf_loss(
-            rend["z_vals"], target_d, rend["sdf"], truncation, "l2",
-            ray_mask=rm)
-        return {"rgb": rgb, "depth": rend["depth"],
+        stats.update(L.sdf_loss_stats(rend["z_vals"], target_d, rend["sdf"],
+                                      truncation, rm))
+        maps = {"rgb": rgb, "depth": rend["depth"],
                 "uncert_map": rend["uncert_map"], "weights": rend["weights"],
-                "raw": rend["raw"], "rgb_loss": rgb_loss,
-                "depth_loss": depth_loss, "sdf_loss": sdf_loss,
-                "fs_loss": fs_loss, "psnr": psnr}
+                "raw": rend["raw"]}
+        return maps, stats
+
+    def losses_from_stats(self, stats: Dict) -> Dict:
+        rgb_n = stats["rgb_n"].clamp_min(1.0)
+        ray_n = stats["ray_n"].clamp_min(1.0)
+        depth_n = stats["depth_n"].clamp_min(1.0)
+        mse = stats["sq_sum"] / rgb_n
+        rgb_loss = stats["nll_sum"] / rgb_n
+        if self.config.get("active", {}).get("detach_nll", False):
+            rgb_loss = mse + rgb_loss
+        rgb_loss = rgb_loss + 0.5 * (stats["log_sum"] / ray_n) + 4.0
+        depth_loss = stats["depth_sum"] / depth_n
+        if "rgb0_sum" in stats:
+            rgb_loss = rgb_loss + stats["rgb0_sum"] / rgb_n
+            depth_loss = depth_loss + stats["depth0_sum"] / depth_n
+        fs_loss, sdf_loss = L.sdf_losses(stats)
+        return {"rgb_loss": rgb_loss, "depth_loss": depth_loss,
+                "sdf_loss": sdf_loss, "fs_loss": fs_loss,
+                "psnr": L.mse2psnr(mse)}

@@ -262,7 +262,7 @@ class ActiveCoSLAM(CoSLAM):
         c2w = torch.from_numpy(predict_current_pose(
             prev, prev_prev, self.config["tracking"]["const_speed"])).to(
                 self.device)
-        rays = self._sample_tracking_rays(batch)
+        rays = self._sample_tracking_rays(batch).to(self.device)
         rays_d = rays[:, :3] @ c2w[:3, :3].T
         t, u = self.model.ray_draws(self.generator, rays.shape[0],
                                     self.device)

@@ -7,7 +7,10 @@ sequential loop on the chosen device, resuming from a checkpoint with
 ``--pipelined`` runs the concurrent tracker/mapper runtime
 (runtime/pipeline.py), ``--active`` (or ``active.isActive`` in the
 config) ActiveCoSLAM (active/), which takes no ``--ckpt`` and ignores
-``--ckpt_every``; the two exclude each other.
+``--ckpt_every``; the two exclude each other. ``--devices N`` sets
+``parallel.dp``: the sequential loop splits its ray batches over N cards,
+the pipelined runtime keeps the tracker on the first and gives the mapper
+the other N - 1 (parallel/sharding.py).
 ``yaml`` and the image decoders of the dataset loaders are imported here
 only, never by the package.
 """
@@ -42,6 +45,11 @@ def main(argv=None):
     parser.add_argument("--ckpt_every", type=int, default=0,
                         help="write a resumable checkpoint every N frames "
                              "(0: the final one only)")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="use N devices (overrides parallel.dp): the "
+                             "sequential loop splits its ray batches over "
+                             "N cards; --pipelined keeps the tracker on the "
+                             "first and gives the mapper the other N - 1")
     parser.add_argument("--pipelined", action="store_true",
                         help="the concurrent tracker/mapper runtime (two "
                              "threads, each on its own CUDA stream)")
@@ -72,6 +80,8 @@ def main(argv=None):
         cfg["data"]["datadir"] = args.input_folder
     if args.output is not None:
         cfg["data"]["output"] = args.output
+    if args.devices is not None:
+        cfg.setdefault("parallel", {})["dp"] = args.devices
     out = os.path.join(cfg["data"]["output"], cfg["data"]["exp_name"])
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "config.json"), "w", encoding="utf-8") as f:

@@ -67,6 +67,7 @@ class JointEncoding:
         self.device = torch.device(device)
         bb = np.asarray(bound_box, dtype=np.float32)
         self.bounding_box = torch.from_numpy(bb).to(self.device)
+        self._bounds_np, self._bounds = bb, {}
         dim_max = float((bb[:, 1] - bb[:, 0]).max())
         vs = config["grid"]["voxel_sdf"]
         self.resolution_sdf = int(vs) if vs > 10 else int(dim_max / vs)
@@ -178,8 +179,22 @@ class JointEncoding:
 
     # -- coordinate helpers --------------------------------------------------
 
+    def bounds_on(self, device) -> torch.Tensor:
+        """The bounding box [3, 2] on ``device`` (a ray shard's or the
+        pipelined tracker's card; uploaded from host memory once a device,
+        so any thread's stream may read it)."""
+        device = torch.device(device)
+        if device == self.bounding_box.device:
+            return self.bounding_box
+        bb = self._bounds.get(device)
+        if bb is None:
+            bb = self._bounds[device] = torch.from_numpy(
+                self._bounds_np).to(device)
+        return bb
+
     def normalize_coords(self, x: torch.Tensor) -> torch.Tensor:
-        lo, hi = self.bounding_box[:, 0], self.bounding_box[:, 1]
+        bb = self.bounds_on(x.device)
+        lo, hi = bb[:, 0], bb[:, 1]
         return (x - lo) / (hi - lo)
 
     # -- queries (x normalized to [0, 1]) -----------------------------------
@@ -320,6 +335,23 @@ class JointEncoding:
         offset, ops/frame_align.py) mapping the rendered RGB to the
         frame's exposure before the photometric loss. With a fine pass the
         coarse rgb and depth add their terms to rgb_loss and depth_loss."""
+        maps, stats = self.loss_stats(params, rays_o, rays_d, target_rgb,
+                                      target_d, ray_mask, t, rgb_kernel, u,
+                                      align)
+        return {**maps, **self.losses_from_stats(stats)}
+
+    def loss_stats(self, params: Dict, rays_o: torch.Tensor,
+                   rays_d: torch.Tensor, target_rgb: torch.Tensor,
+                   target_d: torch.Tensor,
+                   ray_mask: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None,
+                   rgb_kernel: Optional[float] = None,
+                   u: Optional[torch.Tensor] = None,
+                   align: Optional[torch.Tensor] = None):
+        """:meth:`forward`'s render and its loss terms as sums and counts
+        over the rays -> (maps {rgb, depth}, stats). The stats of several
+        ray shards add up to the whole batch's, and
+        :meth:`losses_from_stats` turns them into the losses."""
         tr = self.config["training"]
         rend = self.render_rays(params, rays_o, rays_d, target_d=target_d,
                                 t=t, u=u)
@@ -336,27 +368,42 @@ class JointEncoding:
 
         def rgb_term(pred):
             if rgb_kernel is None:
-                return L.compute_loss(pred * rgb_w, target, mask=rm[:, None])
-            return L.huber_loss(pred * rgb_w, target, float(rgb_kernel),
-                                mask=rm[:, None])
+                err = (pred * rgb_w - target) ** 2
+            else:
+                err = L.huber(pred * rgb_w, target, float(rgb_kernel))
+            return L.masked_sum(err, rm[:, None])
 
         # rgb_missing down-weights the color of invalid-depth pixels by
         # scaling prediction and target inside the loss.
         rgb_w = torch.where(valid_depth > 0, 1.0, tr["rgb_missing"])[:, None]
         target = target_rgb * rgb_w
-        rgb_loss = rgb_term(expose(rend["rgb"]))
-        psnr = L.mse2psnr(rgb_loss)
-        depth_loss = L.compute_loss(rend["depth"], td, mask=valid_depth * rm)
+        depth_mask = valid_depth * rm
+        stats = {}
+        stats["rgb_sum"], stats["rgb_n"] = rgb_term(expose(rend["rgb"]))
+        stats["depth_sum"], stats["depth_n"] = L.masked_sum(
+            (rend["depth"] - td) ** 2, depth_mask)
         if "rgb0" in rend:
-            rgb_loss = rgb_loss + rgb_term(expose(rend["rgb0"]))
-            depth_loss = depth_loss + L.compute_loss(
-                rend["depth0"], td, mask=valid_depth * rm)
+            stats["rgb0_sum"] = rgb_term(expose(rend["rgb0"]))[0]
+            stats["depth0_sum"] = L.masked_sum((rend["depth0"] - td) ** 2,
+                                               depth_mask)[0]
         truncation = tr["trunc"] * self.config["data"]["sc_factor"]
-        fs_loss, sdf_loss = L.get_sdf_loss(
-            rend["z_vals"], target_d, rend["raw"][..., -1], truncation, "l2",
-            ray_mask=rm)
-        return {"rgb": rend["rgb"], "depth": rend["depth"],
-                "rgb_loss": rgb_loss, "depth_loss": depth_loss,
+        stats.update(L.sdf_loss_stats(rend["z_vals"], target_d,
+                                      rend["raw"][..., -1], truncation, rm))
+        return {"rgb": rend["rgb"], "depth": rend["depth"]}, stats
+
+    def losses_from_stats(self, stats: Dict) -> Dict:
+        """The loss terms and the PSNR of :meth:`loss_stats`' sums and
+        counts (one shard's, or several shards' added)."""
+        rgb_n = stats["rgb_n"].clamp_min(1.0)
+        depth_n = stats["depth_n"].clamp_min(1.0)
+        rgb_loss = stats["rgb_sum"] / rgb_n
+        psnr = L.mse2psnr(rgb_loss)
+        depth_loss = stats["depth_sum"] / depth_n
+        if "rgb0_sum" in stats:
+            rgb_loss = rgb_loss + stats["rgb0_sum"] / rgb_n
+            depth_loss = depth_loss + stats["depth0_sum"] / depth_n
+        fs_loss, sdf_loss = L.sdf_losses(stats)
+        return {"rgb_loss": rgb_loss, "depth_loss": depth_loss,
                 "sdf_loss": sdf_loss, "fs_loss": fs_loss, "psnr": psnr}
 
     # -- smoothness regularizer ----------------------------------------------

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -394,7 +394,48 @@ class GridEncode(torch.autograd.Function):
         return dtable, dx, None
 
 
+def spec_ints(spec: PackedGridSpec) -> List[int]:
+    """A spec as the flat integer list the custom op takes: the six
+    scalars, then resolutions, hashed, offsets and sizes (L each)."""
+    return [spec.n_levels, spec.n_features, spec.base_resolution,
+            spec.log2_hashmap_size, spec.desired_resolution,
+            spec.total_entries, *spec.resolutions,
+            *(int(h) for h in spec.hashed), *spec.offsets, *spec.sizes]
+
+
+def spec_from_ints(ints: List[int]) -> PackedGridSpec:
+    """Inverse of :func:`spec_ints`."""
+    n = ints[0]
+    lv = [tuple(ints[6 + k * n:6 + (k + 1) * n]) for k in range(4)]
+    return PackedGridSpec(ints[0], ints[1], ints[2], ints[3], ints[4],
+                          lv[0], tuple(bool(h) for h in lv[1]), lv[2], lv[3],
+                          ints[5])
+
+
+@torch.library.custom_op("coslam_torch::grid_encode_fwd", mutates_args=())
+def grid_encode_fwd_op(table: torch.Tensor, x: torch.Tensor,
+                       spec: List[int]) -> torch.Tensor:
+    """Kernel A's wrapper (:func:`grid_encode_fwd`) as the PyTorch
+    operator ``torch.ops.coslam_torch.grid_encode_fwd``, which a traced
+    program (tools/export.py) names, since torch.export cannot trace a
+    launch through ctypes. ``import coslam_torch`` registers it."""
+    return grid_encode_fwd(spec_from_ints(spec), table, x)
+
+
+@grid_encode_fwd_op.register_fake
+def _(table: torch.Tensor, x: torch.Tensor, spec: List[int]) -> torch.Tensor:
+    return x.new_empty((x.shape[0], spec[0] * spec[1]))
+
+
 def encode(spec: PackedGridSpec, table: torch.Tensor,
            x: torch.Tensor) -> torch.Tensor:
-    """Differentiable hash-grid encode of normalized points x [N, 3]."""
-    return GridEncode.apply(table, x.contiguous(), spec)
+    """Hash-grid encode of normalized points x [N, 3]: through
+    :class:`GridEncode` where a gradient is asked for; else, on the card,
+    through the custom op (the same wrapper, which a traced program can
+    name) and, on the CPU, through the plain version."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (table.requires_grad or x.requires_grad):
+        return GridEncode.apply(table, x, spec)
+    if _kernels.on_cpu(table, x):
+        return grid_encode_fwd_ref(spec, table, x)
+    return grid_encode_fwd_op(table, x, spec_ints(spec))

@@ -1,7 +1,11 @@
 """Loss functions for SDF volume rendering in PyTorch.
 
 Counterpart of coslam_tpu/ops/losses.py: every loss takes an optional
-validity mask, and padded or masked rays add to no sum or count.
+validity mask, and padded or masked rays add to no sum or count. A masked
+mean is a sum over a count (:func:`masked_sum`); the model's loss terms
+keep the two apart (:func:`sdf_loss_stats`), so the sums and counts of
+several ray shards add up to those of the whole batch
+(parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -15,12 +19,19 @@ def mse2psnr(x: torch.Tensor) -> torch.Tensor:
     return -10.0 * torch.log(x + 1e-6) / math.log(10.0)
 
 
+def masked_sum(x: torch.Tensor, mask: torch.Tensor):
+    """(sum of x over the elements where mask == 1, their count); mask
+    broadcasts to x. Both add across ray shards."""
+    mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
+    return (x * mask).sum(), mask.sum()
+
+
 def masked_mean(x: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean of x over elements where mask == 1 (mask broadcasts to x)."""
     if mask is None:
         return x.mean()
-    mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    return (x * mask).sum() / mask.sum().clamp_min(1.0)
+    total, count = masked_sum(x, mask)
+    return total / count.clamp_min(1.0)
 
 
 def compute_loss(prediction: torch.Tensor, target: torch.Tensor,
@@ -32,18 +43,26 @@ def compute_loss(prediction: torch.Tensor, target: torch.Tensor,
     raise ValueError(f"Unsupported loss type {loss_type}")
 
 
-def huber_loss(prediction: torch.Tensor, target: torch.Tensor, delta: float,
-               mask=None) -> torch.Tensor:
-    """Huber scaled to match l2 below delta: r^2, then delta(2|r| - delta)."""
+def huber(prediction: torch.Tensor, target: torch.Tensor,
+          delta: float) -> torch.Tensor:
+    """Elementwise Huber scaled to match l2 below delta: r^2, then
+    delta(2|r| - delta)."""
     a = (prediction - target).abs()
     q = a.clamp_max(delta)
-    return masked_mean(q * (2.0 * a - q), mask)
+    return q * (2.0 * a - q)
 
 
-def get_masks(z_vals: torch.Tensor, target_d: torch.Tensor,
-              truncation: float, ray_mask=None):
-    """(front_mask, sdf_mask, fs_weight, sdf_weight) for z_vals [B, S]
-    and target_d [B, 1]; the weights are 1 - count / total."""
+def huber_loss(prediction: torch.Tensor, target: torch.Tensor, delta: float,
+               mask=None) -> torch.Tensor:
+    """Mean of :func:`huber` over the mask."""
+    return masked_mean(huber(prediction, target, delta), mask)
+
+
+def sdf_mask_counts(z_vals: torch.Tensor, target_d: torch.Tensor,
+                    truncation: float, ray_mask=None):
+    """(front_mask, sdf_mask, num_fs, num_sdf): the free-space and
+    truncation-band masks of z_vals [B, S] against target_d [B, 1] and
+    their counts."""
     front_mask = (z_vals < (target_d - truncation)).to(z_vals.dtype)
     back_mask = (z_vals > (target_d + truncation)).to(z_vals.dtype)
     depth_mask = (target_d > 0.0).to(z_vals.dtype)
@@ -52,10 +71,21 @@ def get_masks(z_vals: torch.Tensor, target_d: torch.Tensor,
         rm = ray_mask.reshape(-1, 1).to(z_vals.dtype)
         front_mask = front_mask * rm
         sdf_mask = sdf_mask * rm
-    num_fs = front_mask.sum()
-    num_sdf = sdf_mask.sum()
+    return front_mask, sdf_mask, front_mask.sum(), sdf_mask.sum()
+
+
+def _band_weights(num_fs: torch.Tensor, num_sdf: torch.Tensor):
     num = (num_fs + num_sdf).clamp_min(1.0)
-    return front_mask, sdf_mask, 1.0 - num_fs / num, 1.0 - num_sdf / num
+    return 1.0 - num_fs / num, 1.0 - num_sdf / num
+
+
+def get_masks(z_vals: torch.Tensor, target_d: torch.Tensor,
+              truncation: float, ray_mask=None):
+    """(front_mask, sdf_mask, fs_weight, sdf_weight) for z_vals [B, S]
+    and target_d [B, 1]; the weights are 1 - count / total."""
+    front_mask, sdf_mask, num_fs, num_sdf = sdf_mask_counts(
+        z_vals, target_d, truncation, ray_mask)
+    return (front_mask, sdf_mask, *_band_weights(num_fs, num_sdf))
 
 
 def get_sdf_loss(z_vals: torch.Tensor, target_d: torch.Tensor,
@@ -75,6 +105,34 @@ def get_sdf_loss(z_vals: torch.Tensor, target_d: torch.Tensor,
                             target_d * sdf_mask, loss_type,
                             mask=denom_mask) * sdf_weight
     return fs_loss, sdf_loss
+
+
+def sdf_loss_stats(z_vals: torch.Tensor, target_d: torch.Tensor,
+                   predicted_sdf: torch.Tensor, truncation: float,
+                   ray_mask: torch.Tensor) -> dict:
+    """get_sdf_loss's l2 terms (with a ray mask) as sums and counts that
+    add across ray shards: ``fs_sum`` and ``sdf_sum`` over ``z_n``
+    samples, and the band counts ``num_fs`` and ``num_sdf`` that weight
+    them (:func:`sdf_losses`)."""
+    front_mask, sdf_mask, num_fs, num_sdf = sdf_mask_counts(
+        z_vals, target_d, truncation, ray_mask)
+    denom = ray_mask.reshape(-1, 1).to(z_vals.dtype)
+    fs_sum, z_n = masked_sum((predicted_sdf * front_mask - front_mask) ** 2,
+                             denom)
+    sdf_sum, _ = masked_sum(
+        ((z_vals + predicted_sdf * truncation) * sdf_mask
+         - target_d * sdf_mask) ** 2, denom)
+    return {"fs_sum": fs_sum, "sdf_sum": sdf_sum, "z_n": z_n,
+            "num_fs": num_fs, "num_sdf": num_sdf}
+
+
+def sdf_losses(stats: dict):
+    """(fs_loss, sdf_loss) from :func:`sdf_loss_stats`' sums and counts:
+    get_sdf_loss's values when they cover the same rays."""
+    fs_weight, sdf_weight = _band_weights(stats["num_fs"], stats["num_sdf"])
+    z_n = stats["z_n"].clamp_min(1.0)
+    return (stats["fs_sum"] / z_n * fs_weight,
+            stats["sdf_sum"] / z_n * sdf_weight)
 
 
 def smoothness_tv(embedded: torch.Tensor, sample_points: int) -> torch.Tensor:

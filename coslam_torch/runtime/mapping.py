@@ -18,14 +18,19 @@ import torch
 
 from ..ops import losses as L
 from ..ops import pose as P
+from ..parallel.sharding import dp_forward, shard_devices
 from .optim import detached, make_pose_optimizer
 
 
-def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam):
+def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam,
+                          devices=None):
     """Returns run(params, c2w [4, 4], frame_rays [H*W, 7], generator)
     -> (last loss, last psnr): ``mapping.first_iters`` map-only steps on
     one frame at a fixed pose, each on ``mapping.sample`` rays drawn with
-    replacement."""
+    replacement. ``devices`` (two or more: ``parallel.dp``): each
+    iteration's rays split over them (parallel/sharding.py), the
+    parameters on the first."""
+    devices = shard_devices(devices)
     sample = int(config["mapping"]["sample"])
     n_iters = int(config["mapping"]["first_iters"])
     weights = config["training"]
@@ -41,8 +46,8 @@ def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam):
             rays = frame_rays[idx]
             rays_d = rays[:, :3] @ Rm.T
             t, u = model.ray_draws(generator, sample, dev)
-            ret = model.forward(params, tv.expand_as(rays_d), rays_d,
-                                rays[:, 3:6], rays[:, 6:7], t=t, u=u)
+            ret = dp_forward(model, params, devices, tv.expand_as(rays_d),
+                             rays_d, rays[:, 3:6], rays[:, 6:7], t=t, u=u)
             loss = L.total_loss(ret, weights)
             loss.backward()
             map_opt.step()
@@ -53,7 +58,8 @@ def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam):
     return run
 
 
-def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam):
+def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam,
+                            devices=None):
     """Returns run(params, c2w [4, 4], frame_rays [H*W, 7], generator,
     draws=None) -> last loss: ``mapping.cur_frame_iters`` grid-only
     steps on the current frame at its tracked pose (coslam_tpu's
@@ -64,7 +70,8 @@ def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam):
     decoder stays fixed. ``draws``: an optional list, one (pixel indices
     [sample], perturbation [sample, n_z] or None[, importance draw
     [sample, n_importance]]) an iteration, in place of the
-    generator's."""
+    generator's. ``devices``: as :func:`make_first_frame_step`'s."""
+    devices = shard_devices(devices)
     sample = int(config["mapping"]["sample"])
     n_iters = int(config["mapping"]["cur_frame_iters"])
     weights = config["training"]
@@ -87,8 +94,8 @@ def make_current_frame_step(model, config: Dict, cur_opt: torch.optim.Adam):
                 t, u = model.ray_draws(generator, sample, dev)
             rays = frame_rays[idx]
             rays_d = rays[:, :3] @ Rm.T
-            ret = model.forward(p, tv.expand_as(rays_d), rays_d, rays[:, 3:6],
-                                rays[:, 6:7], t=t, u=u)
+            ret = dp_forward(model, p, devices, tv.expand_as(rays_d), rays_d,
+                             rays[:, 3:6], rays[:, 6:7], t=t, u=u)
             loss = L.total_loss(ret, weights)
             loss.backward()
             cur_opt.step()
@@ -126,12 +133,19 @@ class BundleAdjust:
     mapping.lr_align (default 1e-3): each ray takes its frame's row, row 0
     stays at the first keyframe's value (the gauge, as that keyframe's
     pose is), and the new values come back only with at least two
-    keyframes."""
+    keyframes.
+
+    ``devices`` (two or more: ``parallel.dp``): each iteration's rays (the
+    keyframe sample, then the current-frame quota, split unevenly by
+    torch.tensor_split where the quota does not divide: nothing is
+    padded) over them, the parameters and the smoothness term on the
+    first (parallel/sharding.py)."""
 
     def __init__(self, model, config: Dict, map_opt: torch.optim.Adam,
-                 num_kf: int):
+                 num_kf: int, devices=None):
         mcfg = config["mapping"]
         self.model = model
+        self.devices = shard_devices(devices)
         self.map_opt = map_opt
         self.num_kf = num_kf
         self.sample = int(mcfg["sample"])
@@ -159,9 +173,9 @@ class BundleAdjust:
         factorized ones)."""
         pose_rows = poses[ray_ids]                          # [N, 4, 4]
         rays_d = (pose_rows[:, :3, :3] @ ray_data[:, :3, None])[..., 0]
-        ret = self.model.forward(
-            params, pose_rows[:, :3, 3], rays_d, ray_data[:, 3:6],
-            ray_data[:, 6:7], t=t, u=u,
+        ret = dp_forward(
+            self.model, params, self.devices, pose_rows[:, :3, 3], rays_d,
+            ray_data[:, 3:6], ray_data[:, 6:7], t=t, u=u,
             align=None if aligns is None else aligns[ray_ids])
         smooth = None
         if smooth_sample is not None:

@@ -55,10 +55,25 @@ threads never share a generator's offset. Under
 not bit-reproducible: the thread schedule decides which snapshot a frame
 is tracked against, as in the JAX pipeline.
 
+Placement (coslam_tpu's _setup_meshes of the pipeline): the tracker
+keeps the first card; the mapper takes the second when one is visible.
+``parallel.dp = N`` >= 2 names the total: the mapper owns cards 1 ...
+N-1, and with N > 2 its first-frame and BA rays split over them
+(parallel/sharding.py; ``mapping.sample`` must divide by N - 1). On the
+CPU the devices are N times the CPU. Across cards:
+
+- the snapshot: the mapper copies the parameters to the tracker's card
+  (``.to(non_blocking=True)`` on its stream) and records its event after
+  the copies; the tracker's stream waits on it, and the tracker marks the
+  copies in use by its stream (``record_stream``);
+- the exposure parameters: a read from the other card waits on the
+  writer's event on that card's current stream, marks the tensor in use
+  there and copies it to the reader's card; each thread's current device
+  is its stream's.
+
 Not ported: the JAX pipeline's compile warm-up call, its device pose
 chain and deferred-readback FIFO (the port reads one packed pose a
-frame), ``mapping.ba_chunks``, and the second-device placement
-(``parallel.dp > 1`` stays refused).
+frame) and ``mapping.ba_chunks``.
 """
 
 from __future__ import annotations
@@ -73,8 +88,16 @@ import numpy as np
 import torch
 
 from ..data.prefetch import PrefetchIterator
+from ..parallel.sharding import make_devices
 from .checkpoint import _clone, param_leaves
-from .slam import CoSLAM, _record_event, _wait_event
+from .slam import CoSLAM, _record_event, _wait_event, dp_of
+
+
+def _current_device(like: torch.device) -> torch.device:
+    """The calling thread's current device of ``like``'s type."""
+    if like.type != "cuda":
+        return like
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 class PipelinedCoSLAM(CoSLAM):
@@ -82,7 +105,7 @@ class PipelinedCoSLAM(CoSLAM):
         super().__init__(config, dataset, device)
         # The tracker's own random stream (perturbations and importance
         # draws of tracking), seeded from the run's seed.
-        self.track_generator = torch.Generator(device=self.device)
+        self.track_generator = torch.Generator(device=self.track_device)
         self.track_generator.manual_seed(int(np.random.default_rng(
             (self._seed, 1)).integers(2 ** 62)))
         # Shared state, each with one writer (the reference's
@@ -100,6 +123,26 @@ class PipelinedCoSLAM(CoSLAM):
         # Frames the tracker was ahead of the mapped frame after each BA.
         self.mapper_lag = []
 
+    def _placement(self, config: Dict, device):
+        """(tracker's devices, mapper's devices): see the module
+        docstring. Raises ValueError when parallel.dp exceeds the visible
+        cards or mapping.sample does not divide by dp - 1."""
+        dp = dp_of(config)
+        device = torch.device(device)
+        if dp > 1:
+            devices = make_devices(dp, device)
+            if dp > 2:
+                n = dp - 1
+                size = config["mapping"]["sample"]
+                if size % n:
+                    raise ValueError(
+                        f"mapping.sample={size} not divisible by the mapper "
+                        f"mesh size {n} (= parallel.dp - 1)")
+            return devices[:1], devices[1:]
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            return [torch.device("cuda", 0)], [torch.device("cuda", 1)]
+        return [device], [device]
+
     # -- state shared between the streams --------------------------------------
 
     @property
@@ -110,21 +153,29 @@ class PipelinedCoSLAM(CoSLAM):
         if pub is None:
             return None
         value, event = pub
-        stream = _wait_event(self.device, event)
+        stream = _wait_event(value.device, event)
         if stream is not None:
             value.record_stream(stream)
+        here = _current_device(value.device)
+        if value.device != here:
+            value = value.to(here, non_blocking=True)
         return value
 
     @cur_align.setter
     def cur_align(self, value: Optional[torch.Tensor]) -> None:
         self._cur_align_pub = (None if value is None
-                               else (value, _record_event(self.device)))
+                               else (value, _record_event(value.device)))
 
     def _publish_params(self) -> None:
-        """Swap in a snapshot of the parameters, cloned on this thread's
-        stream, with an event recorded after the clones."""
+        """Swap in a snapshot of the parameters on the tracker's device:
+        cloned on this thread's stream, or copied to the tracker's card
+        when the mapper has its own, with an event recorded after the
+        clones or copies."""
         with torch.no_grad():
-            snap = _clone(self.params)
+            if self.track_device == self.device:
+                snap = _clone(self.params)
+            else:
+                snap = _to_device(self.params, self.track_device)
         assert not any(t.requires_grad for t in param_leaves(snap))
         self._shared = (snap, _record_event(self.device))
 
@@ -166,7 +217,12 @@ class PipelinedCoSLAM(CoSLAM):
                     # Held until the next snapshot is taken, after this
                     # frame's readback.
                     params, ready = self._shared
-                    _wait_event(self.device, ready)
+                    on = _wait_event(self.track_device, ready)
+                    if on is not None and self.track_device != self.device:
+                        # The copies were allocated on the mapper's
+                        # thread: in use by this stream until released.
+                        for leaf in param_leaves(params):
+                            leaf.record_stream(on)
                     if self._track_pc_step is not None:
                         self.tracking_pc(batch, i, params=params)
                     self.tracking_render(batch, i, params=params)
@@ -267,7 +323,7 @@ class PipelinedCoSLAM(CoSLAM):
         self.thread_streams, self.mapper_lag = {}, []
         self._stop, self._error = False, None
         self.mapping_first_frame = False
-        streams = ((torch.cuda.Stream(self.device),
+        streams = ((torch.cuda.Stream(self.track_device),
                     torch.cuda.Stream(self.device))
                    if self.device.type == "cuda" else (None, None))
         mapper = threading.Thread(
@@ -303,3 +359,14 @@ class PipelinedCoSLAM(CoSLAM):
                       f"{results['absolute_translational_error.rmse']}")
             self.print_timings()
         return results
+
+
+def _to_device(tree, device: torch.device):
+    """Every tensor of a parameter tree copied to ``device`` on the
+    current stream, without waiting for the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device, non_blocking=True)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return [_to_device(v, device) for v in tree]
+

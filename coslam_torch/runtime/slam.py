@@ -32,6 +32,13 @@ the clones before the job on any stream). With
 with the pose, and the keyframes' [num_kf, 4], optimized by BA; a new
 keyframe takes the current frame's.
 
+``parallel.dp`` > 1 splits every step's rays over the first dp devices
+(parallel/sharding.py; tracking.sample and mapping.sample must divide by
+dp); the parameters, the optimizers, the keyframes and the generator
+live on the first, which the checkpoint reads. ``mesh.visualisation``
+writes each frame's [rgb | depth] composite under ``vis/``
+(:meth:`CoSLAM.visualise_frame`).
+
 Resuming (``load_checkpoint``, then ``run(start_frame=cursor)``) gives
 the straight run's bits when every step adds in a fixed order: on the CPU
 always; on the card under ``torch.use_deterministic_algorithms(True)``
@@ -59,6 +66,7 @@ from .. import convert
 from ..data.prefetch import PrefetchIterator
 from ..models.scene_rep import JointEncoding
 from ..ops.frame_align import init_frame_align
+from ..parallel.sharding import check_divisible, make_devices, on_device
 from .checkpoint import (AsyncCheckpointWriter, SingleFlightWorker, _clone,
                          load_ckpt, param_leaves, save_ckpt)
 from .keyframe import KeyFrameDatabase
@@ -69,14 +77,9 @@ from .tracking import (make_tracking_pc_step, make_tracking_step,
                        predict_current_pose)
 
 
-def _check_supported_loop(config: Dict) -> None:
-    unsupported = {
-        "parallel.dp > 1":
-            int((config.get("parallel") or {}).get("dp", 1) or 1) > 1,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+def dp_of(config: Dict) -> int:
+    """``parallel.dp`` (1 when unset)."""
+    return int((config.get("parallel") or {}).get("dp", 1) or 1)
 
 
 def _record_event(device: torch.device):
@@ -102,13 +105,18 @@ def _wait_event(device: torch.device, event):
 
 class CoSLAM:
     def __init__(self, config: Dict, dataset=None, device="cuda"):
-        _check_supported_loop(config)
         self.config = config
+        # parallel.dp: the devices the tracking and the mapping steps split
+        # their rays over; the first of map_devices (the master) holds the
+        # parameters, the optimizers, the keyframes and the generator.
+        self.track_devices, self.map_devices = self._placement(
+            config, device)
         if dataset is None:
             from ..data.datasets import get_dataset
             dataset = get_dataset(config)
         self.dataset = dataset
-        self.device = torch.device(device)
+        self.device = self.map_devices[0]
+        self.track_device = self.track_devices[0]
         self.bounding_box = np.array(config["mapping"]["bound"], np.float32)
         self.marching_cube_bound = np.array(
             config["mapping"]["marching_cubes_bound"], np.float32)
@@ -145,18 +153,22 @@ class CoSLAM:
             self.kf_aligns = init_frame_align(num_kf, self.device)
             self.cur_align = torch.tensor([1.0, 1.0, 1.0, 0.0],
                                           device=self.device)
-        self._track_step = make_tracking_step(self.model, config)
-        self._track_pc_step = (make_tracking_pc_step(self.model, config)
+        track, mapping = self.track_devices, self.map_devices
+        self._track_step = make_tracking_step(self.model, config, track)
+        self._track_pc_step = (make_tracking_pc_step(self.model, config,
+                                                     track)
                                if config["tracking"]["iter_point"] > 0
                                else None)
         self._first_step = make_first_frame_step(self.model, config,
-                                                 self.map_opt)
-        self._ba = BundleAdjust(self.model, config, self.map_opt, num_kf)
+                                                 self.map_opt, mapping)
+        self._ba = BundleAdjust(self.model, config, self.map_opt, num_kf,
+                                mapping)
         self.cur_map_opt = self._cur_step = None
         if config["mapping"]["cur_frame_iters"] > 0:
             self.cur_map_opt = make_cur_map_optimizer(config, self.params)
             self._cur_step = make_current_frame_step(self.model, config,
-                                                     self.cur_map_opt)
+                                                     self.cur_map_opt,
+                                                     mapping)
         self._ckpt_writer = AsyncCheckpointWriter()
         self._mesh_worker = SingleFlightWorker(name="mesh-eval")
         self.timings = {"first_frame": [], "tracking": [], "mapping": [],
@@ -176,6 +188,17 @@ class CoSLAM:
     def _make_model(self, config: Dict):
         """Hook for variants (ActiveCoSLAM builds the beta-head model)."""
         return JointEncoding(config, self.bounding_box, self.device)
+
+    def _placement(self, config: Dict, device):
+        """(tracking's devices, mapping's devices) for ``parallel.dp``:
+        both the first dp devices (parallel/sharding.make_devices, which
+        raises past the visible count), after the JAX package's check
+        that tracking.sample and mapping.sample divide by dp."""
+        dp = dp_of(config)
+        devices = make_devices(dp, device)
+        if dp > 1:
+            check_divisible(config, dp)
+        return devices, devices
 
     @contextlib.contextmanager
     def _event(self, tag: str):
@@ -211,7 +234,7 @@ class CoSLAM:
         """S pixels of the edge-cropped image without replacement (with
         the probabilities ``p`` over its pixels, or uniform), drawn from a
         numpy stream keyed by (seed, frame id[, stream]) -> [S, 7] on the
-        device."""
+        host (the caller moves it to tracking's device)."""
         iH = self.config["tracking"]["ignore_edge_H"]
         iW = self.config["tracking"]["ignore_edge_W"]
         direction = batch["direction"]
@@ -225,7 +248,7 @@ class CoSLAM:
         r, c = idx // cw + iH, idx % cw + iW
         rays = np.concatenate([direction[r, c], np.asarray(batch["rgb"])[r, c],
                                np.asarray(batch["depth"])[r, c, None]], 1)
-        return torch.from_numpy(rays.astype(np.float32)).to(self.device)
+        return torch.from_numpy(rays.astype(np.float32))
 
     def _sample_tracking_rays(self, batch: Dict) -> torch.Tensor:
         """``tracking.sample`` pixels, drawn as in the JAX package (a
@@ -299,8 +322,8 @@ class CoSLAM:
         the map to track against (default self.params)."""
         c2w, loss = self._track_pc_step(
             self.params if params is None else params,
-            torch.from_numpy(self._predict(frame_id)).to(self.device),
-            self._pc_rays(batch))
+            torch.from_numpy(self._predict(frame_id)).to(self.track_device),
+            self._pc_rays(batch).to(self.track_device))
         packed = torch.cat([c2w.reshape(-1), loss[None]]).cpu().numpy()
         self.est_c2w[frame_id] = packed[:16].reshape(4, 4)
         return float(packed[16])
@@ -320,10 +343,11 @@ class CoSLAM:
                         if self._track_pc_step is not None
                         else self._predict(frame_id))
         c2w_init = torch.from_numpy(np.array(c2w_init, np.float32)).to(
-            self.device)
+            self.track_device)
         c2w, losses, psnrs, self.cur_align = self._track_step(
             self.params if params is None else params, c2w_init,
-            self._sample_tracking_rays(batch), self.track_generator,
+            self._sample_tracking_rays(batch).to(self.track_device),
+            self.track_generator,
             self.cur_align)
         finite = torch.isfinite(c2w).all()
         # A non-finite pose would poison every later frame through the
@@ -409,13 +433,21 @@ class CoSLAM:
                   params: Optional[Dict] = None):
         """mesh_track{i}.ply of the map (``params``, or the current
         parameters)."""
-        from ..mesh.extract import extract_mesh
-
         t0 = time.perf_counter()
         out = os.path.join(self.config["data"]["output"],
                            self.config["data"]["exp_name"])
         os.makedirs(out, exist_ok=True)
-        mesh = extract_mesh(self.model,
+        # Any thread (the mesh worker's too) launches on the map's card.
+        with on_device(self.device):
+            mesh = self._extract(i, out, voxel_size, params)
+        self.timings["mesh"].append(time.perf_counter() - t0)
+        return mesh
+
+    def _extract(self, i: int, out: str, voxel_size: float,
+                 params: Optional[Dict]):
+        from ..mesh.extract import extract_mesh
+
+        return extract_mesh(self.model,
                             self.params if params is None else params,
                             self.config,
                             self.bounding_box,
@@ -427,8 +459,6 @@ class CoSLAM:
                             voxel_size=voxel_size,
                             mesh_savepath=os.path.join(
                                 out, f"mesh_track{i}.ply"))
-        self.timings["mesh"].append(time.perf_counter() - t0)
-        return mesh
 
     def convert_relative_pose(self) -> Dict[int, np.ndarray]:
         """Every tracked frame's pose recomposed from its keyframe's and
@@ -620,9 +650,12 @@ class CoSLAM:
         map_every = cfg["mapping"]["map_every"]
         kf_every = cfg["mapping"]["keyframe_every"]
         mesh_every = int(cfg["mesh"].get("vis", 0) or 0)
+        visualise = bool(cfg["mesh"].get("visualisation"))
         self.frame_walls, self.frame_events = [], []
         for i, batch in frames:
             self.frame_walls.append(time.perf_counter())
+            if visualise:
+                self.visualise_frame(batch, i, out)
             if ckpt_every and i > start_frame and i % ckpt_every == 0:
                 # The state covers frames [0, i): a resume starts at i.
                 with self._event("checkpoint"):
@@ -669,6 +702,32 @@ class CoSLAM:
         if verbose:
             self.print_timings()
         return results
+
+    def visualise_frame(self, batch: Dict, i: int, out_dir: str) -> str:
+        """The loop's live view (mesh.visualisation; coslam_tpu's
+        visualise_frame): the frame's [rgb | turbo-depth] composite
+        written to <out_dir>/vis/rgbd_<i:05d>.png, and shown in a window
+        when DISPLAY is set. Returns the PNG's path."""
+        import cv2
+
+        from ..tools.viz import colormap_image
+
+        depth = np.asarray(batch["depth"])
+        mask = depth < self.config["cam"]["depth_trunc"]
+        dvis = colormap_image(depth, mask, invalid_color=(1.0, 1.0, 1.0))
+        comp = np.hstack([np.asarray(batch["rgb"]), dvis])
+        vis_dir = os.path.join(out_dir, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        path = os.path.join(vis_dir, f"rgbd_{i:05d}.png")
+        bgr = cv2.cvtColor((comp * 255).astype(np.uint8), cv2.COLOR_RGB2BGR)
+        cv2.imwrite(path, bgr)
+        if os.environ.get("DISPLAY"):
+            try:
+                cv2.imshow("RGB-D", bgr)
+                cv2.waitKey(1)
+            except cv2.error:
+                pass
+        return path
 
     def print_timings(self) -> None:
         """Each phase's mean wall per call in ms (the first call, which

@@ -16,10 +16,12 @@ import torch
 
 from ..ops import losses as L
 from ..ops import pose as P
+from ..parallel.sharding import (add_stats, dp_forward, on_device, replicate,
+                                 shard_devices, split_rays)
 from .optim import detached, make_pose_optimizer
 
 
-def make_tracking_step(model, config: Dict):
+def make_tracking_step(model, config: Dict, devices=None):
     """Returns step(params, c2w_init [4, 4], rays [S, 7], generator,
     align=None) -> (c2w [4, 4], losses [iter], psnrs [iter], align), all
     on the device. ``align`` [4] (training.frame_align: the frame's
@@ -32,7 +34,12 @@ def make_tracking_step(model, config: Dict):
     is the lowest-loss pose EVALUATED in some iteration, otherwise the
     pose evaluated in the last executed iteration — not the pose after
     the last update. ``generator`` draws the stratified perturbation and
-    the importance samples (unused when ``training.perturb`` is 0)."""
+    the importance samples (unused when ``training.perturb`` is 0).
+
+    ``devices`` (two or more: ``parallel.dp``): the rays are split over
+    them (parallel/sharding.py); the frozen map is copied to each once a
+    call, the draws are made on the rays' device for the whole batch."""
+    devices = shard_devices(devices)
     tcfg = config["tracking"]
     n_iter = int(tcfg["iter"])
     use_best = bool(tcfg["best"])
@@ -48,6 +55,7 @@ def make_tracking_step(model, config: Dict):
 
     def step(params, c2w_init, rays, generator=None, align=None):
         params = detached(params)
+        replicas = replicate(params, devices) if devices else None
         rot0 = mat_to_tensor(c2w_init[:3, :3])[None]
         trans0 = c2w_init[:3, 3][None]
         state = [rot0.clone(), trans0.clone()]
@@ -73,9 +81,9 @@ def make_tracking_step(model, config: Dict):
             c2w = mat_from_tensor(rot, trans)[0]
             rays_d = dirs @ c2w[:3, :3].T
             rays_o = c2w[:3, 3].expand_as(rays_d)
-            ret = model.forward(params, rays_o, rays_d, target_rgb, target_d,
-                                t=t, u=u, rgb_kernel=robust,
-                                align=align)
+            ret = dp_forward(model, params, devices, rays_o, rays_d,
+                             target_rgb, target_d, replicas, t=t, u=u,
+                             rgb_kernel=robust, align=align)
             loss = L.total_loss(ret, weights)
             if prior_t > 0.0:
                 loss = loss + prior_t * ((trans - trans0) ** 2).sum()
@@ -112,22 +120,33 @@ def make_tracking_step(model, config: Dict):
     return step
 
 
-def make_tracking_pc_step(model, config: Dict):
+def make_tracking_pc_step(model, config: Dict, devices=None):
     """Point-cloud tracking (tracking.iter_point > 0; coslam_tpu's
     make_tracking_pc_step): returns step(params, c2w_init [4, 4], rays
     [S, 7]) -> (c2w [4, 4], last loss). Each of max(iter_point, 1) Adam
     steps back-projects the rays' depths from the current pose, queries
     SDF and color there and minimizes 5 mse(rgb) + 1000 mse(sdf) over the
     rays with depth in (0, 5) m; the pose returned is the best evaluated
-    (tracking.best) or the last evaluated. The map is frozen."""
+    (tracking.best) or the last evaluated. The map is frozen. ``devices``:
+    the points split over them, as :func:`make_tracking_step`'s rays."""
+    devices = shard_devices(devices)
     tcfg = config["tracking"]
     n_iter = max(int(tcfg["iter_point"]), 1)
     use_best = bool(tcfg["best"])
     mat_to_tensor, mat_from_tensor = P.get_pose_representation(
         config["training"]["rot_rep"])
 
+    def stats(params, pts, target_rgb, valid):
+        out = model.query_color_sdf(params, model.normalize_coords(pts))
+        rgb_sum, rgb_n = L.masked_sum(
+            (torch.sigmoid(out[:, :3]) - target_rgb) ** 2, valid[:, None])
+        sdf_sum, sdf_n = L.masked_sum(out[:, -1] ** 2, valid)
+        return {"rgb_sum": rgb_sum, "rgb_n": rgb_n, "sdf_sum": sdf_sum,
+                "sdf_n": sdf_n}
+
     def step(params, c2w_init, rays):
         params = detached(params)
+        replicas = replicate(params, devices) if devices else None
         rot = mat_to_tensor(c2w_init[:3, :3])[None].clone().requires_grad_()
         trans = c2w_init[:3, 3][None].clone().requires_grad_()
         opt = make_pose_optimizer(rot, trans, tcfg["lr_rot"],
@@ -141,10 +160,19 @@ def make_tracking_pc_step(model, config: Dict):
         for _ in range(n_iter):
             c2w = mat_from_tensor(rot, trans)[0]
             pts = c2w[:3, 3][None] + target_d * (dirs @ c2w[:3, :3].T)
-            out = model.query_color_sdf(params, model.normalize_coords(pts))
-            rgb_l = L.masked_mean((torch.sigmoid(out[:, :3]) - target_rgb)
-                                  ** 2, valid[:, None])
-            sdf_l = L.masked_mean(out[:, -1] ** 2, valid)
+            if devices:
+                shards = []
+                for dev, rep, *block in zip(
+                        devices, replicas, *(split_rays(x, devices)
+                                             for x in (pts, target_rgb,
+                                                       valid))):
+                    with on_device(dev):
+                        shards.append(stats(rep, *block))
+                s = add_stats(shards, rays.device)
+            else:
+                s = stats(params, pts, target_rgb, valid)
+            rgb_l = s["rgb_sum"] / s["rgb_n"].clamp_min(1.0)
+            sdf_l = s["sdf_sum"] / s["sdf_n"].clamp_min(1.0)
             loss = 5.0 * rgb_l + 1000.0 * sdf_l
             opt.zero_grad(set_to_none=True)
             loss.backward()

@@ -615,7 +615,9 @@ def time_b_and_h(device, points: dict, profiled: bool = False) -> dict:
 
 def time_p(device) -> dict:
     """{setting: {"ms" (CUDA graph of the calls), "index_add_" where one
-    call computes the same}}: kernel P at each probe's main shape, every
+    call computes the same (for the pair forms, on each update's two rows
+    laid out as index_add_ takes them)}}: kernel P at each probe's main
+    shape, every
     form the probes launch (tools/bench: K5's 8 streams on its random and
     runs streams, float4; K7's pair form at 1,859,584 updates, 256 threads,
     4 updates a thread; K8's [M, W] rows at W = 4, 8 and 16, float4; K9's
@@ -650,9 +652,18 @@ def time_p(device) -> dict:
                         C.sum_order_tol(idx, rows2d, out_rows, stride))
         out[label] = {"updates": int(idx.shape[0]), "ms": graph_ms(call)}
         if library is not None:
+            lib_idx, lib_rows = (library if isinstance(library, tuple)
+                                 else (idx, library))
             buf = torch.zeros_like(ref)
             out[label]["index_add_"] = graph_ms(
-                lambda: buf.index_add_(0, idx, library))
+                lambda: buf.index_add_(0, lib_idx, lib_rows))
+
+    def pair_rows(idx, pair):
+        """A pair form's updates as index_add_ takes them: each update's
+        two rows (idx, idx + 1) in turn, [2M] indices and [2M, 2] rows."""
+        flat = (idx.long()[:, None]
+                + torch.arange(2, device=idx.device)).reshape(-1)
+        return flat, pair.T.reshape(-1, 2)
 
     def unpacked(words):
         return PA.unpack_bf16x2(words.T.contiguous())
@@ -673,7 +684,8 @@ def time_p(device) -> dict:
     pair = tensor(rng.standard_normal((4, m)).astype(np.float32))
     timed(f"K7 pair float2 t={threads} u={upt}", idx, pair.T, CT.ROWS + 2, 2,
           lambda: PA.probe_accum(idx, pair, CT.ROWS + 2, stride=2, vec=2,
-                                 upt=upt, threads=threads))
+                                 upt=upt, threads=threads),
+          pair_rows(idx, pair))
     idx = tensor(rng.integers(0, RR.ROWS, RR.M).astype(np.int32))
     for width in RR.WIDTHS:
         streams = tensor(rng.standard_normal((width, RR.M)).astype(np.float32))
@@ -696,7 +708,8 @@ def time_p(device) -> dict:
     for vec, upt in ((1, 1), (2, 4)):
         timed(f"K10 pair vec{vec} t=256 u={upt}", idx, pair.T, SV.N_ROWS + 2,
               2, lambda vec=vec, upt=upt: PA.probe_accum(
-                  idx, pair, SV.N_ROWS + 2, stride=2, vec=vec, upt=upt))
+                  idx, pair, SV.N_ROWS + 2, stride=2, vec=vec, upt=upt),
+              pair_rows(idx, pair))
     words = RR.pack_streams(pair)
     for vec, threads, upt in ((1, 256, 1), (2, 256, 4), (2, 512, 8)):
         timed(f"K10 Q pair vec{vec} t={threads} u={upt}", idx,

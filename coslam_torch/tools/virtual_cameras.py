@@ -127,21 +127,32 @@ def clear_cameras(out_dir: str) -> int:
 
 
 def main(argv=None):
-    """CLI: virtual cameras for a dataset from its GT mesh and its
-    trajectory (every ``--every``-th frame's pose)."""
+    """CLI: virtual cameras for a dataset from its GT mesh (``--gt_mesh``,
+    or without it the dataset's raw RGB-D TSDF-fused at its GT poses,
+    tools/tsdf_fusion.py) and its trajectory (every ``--every``-th
+    frame's pose)."""
     import argparse
 
     p = argparse.ArgumentParser(
         description="virtual-camera creation for the Co-SLAM culling "
                     "protocol (headless greedy-coverage selection)")
     p.add_argument("--config", required=True)
-    p.add_argument("--gt_mesh", required=True, help="the GT mesh .ply")
+    p.add_argument("--gt_mesh", default=None,
+                   help="existing GT mesh .ply; omitted -> TSDF-fuse the "
+                        "dataset's RGB-D stream first")
     p.add_argument("--out_dir", default=None,
                    help="default: <datadir>/virtual_cameras")
+    p.add_argument("--save_fused", default=None,
+                   help="also save the fused GT mesh here (.ply)")
+    p.add_argument("--voxel_size", type=float, default=0.02)
     p.add_argument("--every", type=int, default=5,
-                   help="use every Nth frame's pose")
+                   help="use every Nth frame's pose (and fuse every Nth "
+                        "frame when building the GT mesh)")
     p.add_argument("--n_candidates", type=int, default=200)
     p.add_argument("--n_select", type=int, default=20)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the TSDF volume (without "
+                        "--gt_mesh)")
     args = p.parse_args(argv)
 
     from ..config import load_config
@@ -150,13 +161,29 @@ def main(argv=None):
 
     cfg = load_config(args.config)
     ds = get_dataset(cfg)
-    poses = [np.asarray(ds.poses[ds.frame_ids[i]], np.float64)
-             for i in range(0, len(ds), max(args.every, 1))]
+    ids = range(0, len(ds), max(args.every, 1))
+    poses = [np.asarray(ds.poses[ds.frame_ids[i]], np.float64) for i in ids]
+    if args.gt_mesh:
+        gt_mesh = load_ply(args.gt_mesh)
+    else:
+        from .tsdf_fusion import fuse_frames, tsdf_mesh
+
+        trunc = 4 * args.voxel_size
+        depths = [np.asarray(ds[i]["depth"], np.float32) for i in ids]
+        vol, _, axes = fuse_frames(
+            depths, poses, ds.fx, ds.fy, ds.cx, ds.cy,
+            np.asarray(cfg["mapping"]["bound"], np.float32),
+            args.voxel_size, trunc, depth_trunc=cfg["cam"]["depth_trunc"],
+            verbose=True, device=args.device)
+        gt_mesh = tsdf_mesh(vol, axes, trunc)
+        print(f"TSDF-fused GT mesh: {len(gt_mesh.vertices)} verts")
+        if args.save_fused:
+            gt_mesh.export(args.save_fused)
     out_dir = args.out_dir or os.path.join(
         cfg["data"]["datadir"], "virtual_cameras")
     chosen = create_virtual_cameras(
-        load_ply(args.gt_mesh), poses, out_dir, ds.fx, ds.fy, ds.cx, ds.cy,
-        ds.H, ds.W, n_candidates=args.n_candidates, n_select=args.n_select)
+        gt_mesh, poses, out_dir, ds.fx, ds.fy, ds.cx, ds.cy, ds.H, ds.W,
+        n_candidates=args.n_candidates, n_select=args.n_select)
     print(f"wrote {len(chosen)} virtual cameras to {out_dir}")
     return chosen
 

@@ -210,10 +210,13 @@ def test_jax_checkpoint_with_aligns_loads_into_port(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("sample_info_frac", 0.5)])
-def test_loop_refuses_what_is_not_ported(tmp_path, key, value):
+def test_loop_refuses_what_is_not_ported(tmp_path, monkeypatch, key,
+                                         value):
     """tracking.iter_point, frame_align, the bf16 decoder and (since the
-    pipelined and active slice) tracking.sample_info_frac run; the option
-    of the last slice, parallel.dp > 1, still raises."""
+    pipelined and active slice) tracking.sample_info_frac run, and since
+    the last slice parallel.dp > 1 with them (on CPU devices, every step
+    split); what the loop still refuses is more devices than are visible
+    (ValueError, as the JAX package)."""
     from coslam_torch.data.datasets import get_dataset
 
     cfg = _align_config(str(tmp_path))
@@ -222,5 +225,8 @@ def test_loop_refuses_what_is_not_ported(tmp_path, key, value):
     cfg["tracking"][key] = value
     CoSLAM(cfg, get_dataset(cfg), device="cpu")
     cfg["parallel"] = {"dp": 2}
-    with pytest.raises(NotImplementedError, match="parallel.dp"):
-        CoSLAM(cfg, get_dataset(cfg), device="cpu")
+    slam = CoSLAM(cfg, get_dataset(cfg), device="cpu")
+    assert slam.track_devices == [torch.device("cpu")] * 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="parallel.dp=2 but only 1"):
+        CoSLAM(cfg, get_dataset(cfg), device="cuda")

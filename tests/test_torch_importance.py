@@ -466,21 +466,23 @@ def test_bf16_decoder_mlp_matches_jax_mlp():
 def test_fr1_desk_yaml_builds_the_port_model():
     """configs/Tum/fr1_desk.yaml (n_importance 128) builds the port's model
     with no NotImplementedError: the hash grid at resolution 325, 822,884
-    rows, 85 + 128 samples per ray."""
+    rows, 85 + 128 samples per ray; its batch sizes split over two devices
+    (parallel.dp 2, which the loop runs since the last slice), where an
+    odd tracking.sample would raise the JAX package's ValueError."""
     from coslam_torch.config import load_config
-    from coslam_torch.runtime.slam import _check_supported_loop
+    from coslam_torch.parallel.sharding import check_divisible
 
     cfg = load_config(os.path.join(REPO, "configs/Tum/fr1_desk.yaml"))
-    _check_supported_loop(cfg)
     m = TModel(cfg, np.array(cfg["mapping"]["bound"], np.float32))
     assert m.resolution_sdf == 325 and m.grid_spec.total_entries == 822_884
     assert (m.n_z_samples, m.n_importance) == (85, 128)
     assert m.init_params(torch.Generator().manual_seed(0))["grid"].shape == (
         822_884, 2)
-    _check_supported_loop({**cfg, "tracking": {**cfg["tracking"],
-                                               "sample_info_frac": 0.5}})
-    with pytest.raises(NotImplementedError, match="parallel.dp"):
-        _check_supported_loop({**cfg, "parallel": {"dp": 2}})
+    check_divisible(cfg, 2)
+    with pytest.raises(ValueError, match="tracking.sample=1023 not "
+                                         "divisible by parallel.dp=2"):
+        check_divisible({**cfg, "tracking": {**cfg["tracking"],
+                                             "sample": 1023}}, 2)
 
 
 # tum.yaml's keys that the smoke's TUM slice keeps, beside the grid's.

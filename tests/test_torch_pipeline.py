@@ -196,13 +196,24 @@ def test_info_weighted_tracking_rays_match_jax(frac, which):
             _Fake(JCoSLAM, cfg, seed)._info_weights(batch, 2, 3, frac))
 
 
-def test_loop_takes_sample_info_frac_and_refuses_dp(small_seq):
+def test_loop_takes_sample_info_frac_and_refuses_dp(small_seq,
+                                                     monkeypatch):
+    """The loop builds with tracking.sample_info_frac and with
+    parallel.dp = 2 on CPU devices (every step split over both); what it
+    refuses is a dp past the visible devices: dp = 3 with two CUDA
+    devices visible raises ValueError before any device is touched, as
+    the JAX package's _setup_meshes does."""
     cfg = copy.deepcopy(small_seq)
     cfg["tracking"]["sample_info_frac"] = 0.5
     CoSLAM(cfg, t_get_dataset(cfg), device="cpu")
     cfg["parallel"] = {"dp": 2}
-    with pytest.raises(NotImplementedError, match="parallel.dp"):
-        CoSLAM(cfg, t_get_dataset(cfg), device="cpu")
+    slam = CoSLAM(cfg, t_get_dataset(cfg), device="cpu")
+    assert slam.map_devices == [torch.device("cpu")] * 2
+    assert slam._ba.devices == slam.map_devices
+    cfg["parallel"] = {"dp": 3}
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match=r"parallel.dp=3 but only 2"):
+        CoSLAM(cfg, t_get_dataset(cfg), device="cuda")
 
 
 # -- the pipelined loop on the CPU -------------------------------------------

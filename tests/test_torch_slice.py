@@ -87,7 +87,9 @@ def _xor(cfg):
     return cfg
 
 
-def _check_tracking_step(cfg):
+def _check_tracking_step(cfg, mesh=None, devices=None):
+    """The tracking step against the JAX step; with ``mesh`` (JAX's 'dp'
+    mesh) and ``devices`` (the port's), both split their rays."""
     cfg["training"]["perturb"] = 0
     cfg["tracking"]["sample"] = 128
     jm, tm, jparams, np_params = _models(cfg)
@@ -103,13 +105,13 @@ def _check_tracking_step(cfg):
     for it in (1, n_iter):
         c = copy.deepcopy(cfg)
         c["tracking"]["iter"] = it
-        c2w, loss, psnr = j_tracking(jm, c)(jparams, jnp.asarray(init),
-                                            jnp.asarray(rays),
-                                            jax.random.PRNGKey(0))
+        c2w, loss, psnr = j_tracking(jm, c, mesh=mesh)(
+            jparams, jnp.asarray(init), jnp.asarray(rays),
+            jax.random.PRNGKey(0))
         ref[it] = (np.asarray(c2w), float(loss), float(psnr))
 
     cfg["tracking"]["iter"] = n_iter
-    c2w, losses, psnrs, align = make_tracking_step(tm, cfg)(
+    c2w, losses, psnrs, align = make_tracking_step(tm, cfg, devices)(
         convert.params_from_numpy(np_params, spec=tm.grid_spec),
         torch.from_numpy(init), torch.from_numpy(rays))
     assert align is None  # no exposure parameters without frame_align
@@ -141,10 +143,11 @@ def test_tracking_step_matches_jax_xor():
                                                     W=52)))
 
 
-def _check_ba_iteration(cfg):
+def _check_ba_iteration(cfg, mesh=None, devices=None):
     """One BA iteration on the rays, pose table and smoothness sample the
     JAX step draws (its key splits replayed here): loss, map and pose
-    gradients, and the map and poses after the Adam steps."""
+    gradients, and the map and poses after the Adam steps. With ``mesh``
+    and ``devices`` the JAX step and the port's BA split their rays."""
     cfg["training"]["perturb"] = 0
     cfg["mapping"].update(sample=64, iters=1, pose_accum_step=1,
                           min_pixels_cur=20)
@@ -162,7 +165,7 @@ def _check_ba_iteration(cfg):
     key = jax.random.PRNGKey(4)
 
     map_tx = j_map_optimizer(cfg)
-    out = make_ba_step(jm, cfg, map_tx, max_kf, R, R)(
+    out = make_ba_step(jm, cfg, map_tx, max_kf, R, R, mesh=mesh)(
         jparams, map_tx.init(jparams), jnp.asarray(kf_rays),
         jnp.int32(kf_count), jnp.asarray(kf_poses), jnp.asarray(cur_pose),
         jnp.asarray(cur_rays), key)
@@ -211,7 +214,7 @@ def _check_ba_iteration(cfg):
     # The port: the same iteration through BundleAdjust.loss + Adam.
     params = convert.params_from_numpy(np_params, spec=tm.grid_spec)
     map_opt = make_map_optimizer(cfg, params)
-    ba = BundleAdjust(tm, cfg, map_opt, max_kf)
+    ba = BundleAdjust(tm, cfg, map_opt, max_kf, devices)
     p0 = torch.from_numpy(poses0)
     rot = TP.matrix_to_axis_angle(p0[:, :3, :3]).requires_grad_(True)
     trans = p0[:, :3, 3].clone().requires_grad_(True)
@@ -287,7 +290,7 @@ def test_ba_iteration_matches_jax_xor():
 
 
 def _check_slam_loop(tmp_path, vm: bool = False, xor: bool = False,
-                     hybrid: bool = False):
+                     hybrid: bool = False, dp: int = 1):
     """CoSLAM.run on the 12-frame 40x52 scene of
     tests/test_integration.py:test_full_slam_loop, with 128-ray batches
     (CPU time), read from disk by the port's loader: ATE < 5 cm and 3
@@ -309,6 +312,7 @@ def _check_slam_loop(tmp_path, vm: bool = False, xor: bool = False,
     cfg["tracking"]["sample"] = 128
     cfg["mapping"]["first_mesh"] = True
     cfg["mesh"]["vis"] = 10
+    cfg["parallel"] = {"dp": dp}
     poses = make_trajectory(12, orbit_fraction=0.02)
     cam = cfg["cam"]
     write_replica_format(datadir, AnalyticScene(), poses, cam["H"], cam["W"],
