@@ -34,13 +34,18 @@ def masked_mean(x: torch.Tensor, mask=None) -> torch.Tensor:
     return total / count.clamp_min(1.0)
 
 
+def _residual(prediction: torch.Tensor, target: torch.Tensor,
+              loss_type: str) -> torch.Tensor:
+    if loss_type == "l2":
+        return (prediction - target) ** 2
+    if loss_type == "l1":
+        return (prediction - target).abs()
+    raise ValueError(f"Unsupported loss type {loss_type}")
+
+
 def compute_loss(prediction: torch.Tensor, target: torch.Tensor,
                  loss_type: str = "l2", mask=None) -> torch.Tensor:
-    if loss_type == "l2":
-        return masked_mean((prediction - target) ** 2, mask)
-    if loss_type == "l1":
-        return masked_mean((prediction - target).abs(), mask)
-    raise ValueError(f"Unsupported loss type {loss_type}")
+    return masked_mean(_residual(prediction, target, loss_type), mask)
 
 
 def huber(prediction: torch.Tensor, target: torch.Tensor,
@@ -88,51 +93,42 @@ def get_masks(z_vals: torch.Tensor, target_d: torch.Tensor,
     return (front_mask, sdf_mask, *_band_weights(num_fs, num_sdf))
 
 
-def get_sdf_loss(z_vals: torch.Tensor, target_d: torch.Tensor,
-                 predicted_sdf: torch.Tensor, truncation: float,
-                 loss_type: str = "l2", ray_mask=None):
-    """Free-space and truncation-region SDF losses, averaged over the full
-    sample grid of the (unmasked) rays."""
-    front_mask, sdf_mask, fs_weight, sdf_weight = get_masks(
-        z_vals, target_d, truncation, ray_mask=ray_mask)
-    denom_mask = None
-    if ray_mask is not None:
-        denom_mask = torch.broadcast_to(
-            ray_mask.reshape(-1, 1).to(z_vals.dtype), z_vals.shape)
-    fs_loss = compute_loss(predicted_sdf * front_mask, front_mask, loss_type,
-                           mask=denom_mask) * fs_weight
-    sdf_loss = compute_loss((z_vals + predicted_sdf * truncation) * sdf_mask,
-                            target_d * sdf_mask, loss_type,
-                            mask=denom_mask) * sdf_weight
-    return fs_loss, sdf_loss
-
-
 def sdf_loss_stats(z_vals: torch.Tensor, target_d: torch.Tensor,
                    predicted_sdf: torch.Tensor, truncation: float,
-                   ray_mask: torch.Tensor) -> dict:
-    """get_sdf_loss's l2 terms (with a ray mask) as sums and counts that
-    add across ray shards: ``fs_sum`` and ``sdf_sum`` over ``z_n``
-    samples, and the band counts ``num_fs`` and ``num_sdf`` that weight
-    them (:func:`sdf_losses`)."""
+                   ray_mask: torch.Tensor, loss_type: str = "l2") -> dict:
+    """get_sdf_loss's terms as sums and counts that add across ray
+    shards: ``fs_sum`` and ``sdf_sum`` over ``z_n`` samples, and the band
+    counts ``num_fs`` and ``num_sdf`` that weight them
+    (:func:`sdf_losses`)."""
     front_mask, sdf_mask, num_fs, num_sdf = sdf_mask_counts(
         z_vals, target_d, truncation, ray_mask)
     denom = ray_mask.reshape(-1, 1).to(z_vals.dtype)
-    fs_sum, z_n = masked_sum((predicted_sdf * front_mask - front_mask) ** 2,
-                             denom)
-    sdf_sum, _ = masked_sum(
-        ((z_vals + predicted_sdf * truncation) * sdf_mask
-         - target_d * sdf_mask) ** 2, denom)
+    fs_sum, z_n = masked_sum(_residual(predicted_sdf * front_mask,
+                                       front_mask, loss_type), denom)
+    sdf_sum, _ = masked_sum(_residual(
+        (z_vals + predicted_sdf * truncation) * sdf_mask,
+        target_d * sdf_mask, loss_type), denom)
     return {"fs_sum": fs_sum, "sdf_sum": sdf_sum, "z_n": z_n,
             "num_fs": num_fs, "num_sdf": num_sdf}
 
 
 def sdf_losses(stats: dict):
-    """(fs_loss, sdf_loss) from :func:`sdf_loss_stats`' sums and counts:
-    get_sdf_loss's values when they cover the same rays."""
+    """(fs_loss, sdf_loss) from :func:`sdf_loss_stats`' sums and counts."""
     fs_weight, sdf_weight = _band_weights(stats["num_fs"], stats["num_sdf"])
     z_n = stats["z_n"].clamp_min(1.0)
     return (stats["fs_sum"] / z_n * fs_weight,
             stats["sdf_sum"] / z_n * sdf_weight)
+
+
+def get_sdf_loss(z_vals: torch.Tensor, target_d: torch.Tensor,
+                 predicted_sdf: torch.Tensor, truncation: float,
+                 loss_type: str = "l2", ray_mask=None):
+    """Free-space and truncation-region SDF losses, averaged over the full
+    sample grid of the (unmasked) rays: :func:`sdf_losses` of one shard."""
+    if ray_mask is None:
+        ray_mask = z_vals.new_ones(z_vals.shape[0])
+    return sdf_losses(sdf_loss_stats(z_vals, target_d, predicted_sdf,
+                                     truncation, ray_mask, loss_type))
 
 
 def smoothness_tv(embedded: torch.Tensor, sample_points: int) -> torch.Tensor:

@@ -72,8 +72,7 @@ def _update_slab(tsdf, weight, rgb_acc, depth_img, rgb_img, R, t, X, Y, Z,
 
 def fuse_frames(depths, c2ws, fx, fy, cx, cy, bounds, voxel_size: float,
                 trunc: float, rgbs=None, depth_trunc: float = 100.0,
-                verbose: bool = False, device="cuda",
-                slab_cells: int = SLAB_CELLS):
+                verbose: bool = False, device="cuda"):
     """Fuse RGB-D frames into a dense TSDF volume on ``device``.
 
     depths: iterable of [H, W] float depth maps (meters); c2ws: matching
@@ -99,7 +98,7 @@ def fuse_frames(depths, c2ws, fx, fy, cx, cy, bounds, voxel_size: float,
     tsdf = torch.zeros(shape, device=device)
     weight = torch.zeros(shape, device=device)
     rgb_acc = torch.zeros(shape + (3,), device=device) if with_rgb else None
-    slab = max(1, slab_cells // (shape[1] * shape[2]))
+    slab = max(1, SLAB_CELLS // (shape[1] * shape[2]))
 
     n = len(depths) if hasattr(depths, "__len__") else None
     for i, (depth, c2w) in enumerate(zip(depths, c2ws)):

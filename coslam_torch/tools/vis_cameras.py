@@ -75,41 +75,3 @@ def plot_cameras(poses: List[np.ndarray], bounds: Optional[np.ndarray] = None,
     plt.close(fig)
     return save_path
 
-
-def main(argv=None):
-    """CLI: the dataset's ground-truth trajectory (and a checkpoint's
-    estimated poses, with --ckpt) as frusta inside mapping.bound, written
-    to a PNG."""
-    import argparse
-
-    from ..config import load_config
-    from ..data.datasets import get_dataset
-
-    p = argparse.ArgumentParser(
-        description="plot a sequence's camera frusta (headless)")
-    p.add_argument("--config", required=True)
-    p.add_argument("--ckpt", default=None,
-                   help="also plot this checkpoint's estimated poses")
-    p.add_argument("--out", default="cameras.png")
-    p.add_argument("--every", type=int, default=10,
-                   help="draw every Nth frustum")
-    args = p.parse_args(argv)
-
-    cfg = load_config(args.config)
-    ds = get_dataset(cfg)
-    gt = [np.asarray(ds.poses[ds.frame_ids[i]], np.float64)
-          for i in range(len(ds))]
-    poses = gt
-    if args.ckpt:
-        with np.load(args.ckpt, allow_pickle=False) as data:
-            est = np.asarray(data["pose"])
-        poses = [p for p in est if np.any(p)]
-    path = plot_cameras(poses, np.asarray(cfg["mapping"]["bound"]),
-                        gt_poses=gt if args.ckpt else None,
-                        save_path=args.out, every=max(args.every, 1))
-    print(f"cameras plotted to {path}")
-    return path
-
-
-if __name__ == "__main__":
-    main()

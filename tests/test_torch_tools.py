@@ -104,8 +104,7 @@ def test_frustum_corners_match_jax():
 
 def test_estimate_scene_bounds_and_plot_cameras(tmp_path):
     """estimate_scene_bounds over the port's loader equals the JAX
-    function over the JAX loader; plot_cameras and the vis_cameras CLI
-    write PNGs."""
+    function over the JAX loader; plot_cameras writes a PNG."""
     cfg, cfg_path = _write_scene(tmp_path, n_frames=6, H=40, W=52)
     ds = t_get_dataset(cfg)
     for got, want in zip(t_viz.estimate_scene_bounds(ds, every=2),
@@ -119,10 +118,6 @@ def test_estimate_scene_bounds_and_plot_cameras(tmp_path):
     t_vis_cameras.plot_cameras(poses, bounds=np.array(cfg["mapping"]["bound"]),
                                gt_poses=poses, save_path=out)
     assert os.path.getsize(out) > 1000
-    out_cli = str(tmp_path / "cams_cli.png")
-    t_vis_cameras.main(["--config", cfg_path, "--out", out_cli,
-                        "--every", "2"])
-    assert os.path.getsize(out_cli) > 1000
 
 
 # -- render_view --------------------------------------------------------------
@@ -225,9 +220,10 @@ def fused_pair():
     depths, rgbs = [d for _, d in frames], [r for r, _ in frames]
     want = j_tsdf.fuse_frames(depths, poses, FX, FX, CX, CY, BOUNDS, VOX,
                               TRUNC, rgbs=rgbs)
-    got = t_tsdf.fuse_frames(depths, poses, FX, FX, CX, CY, BOUNDS, VOX,
-                             TRUNC, rgbs=rgbs, device="cpu",
-                             slab_cells=5 * 74 * 74)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_tsdf, "SLAB_CELLS", 5 * 74 * 74)
+        got = t_tsdf.fuse_frames(depths, poses, FX, FX, CX, CY, BOUNDS, VOX,
+                                 TRUNC, rgbs=rgbs, device="cpu")
     return scene, poses, frames, got, want
 
 
