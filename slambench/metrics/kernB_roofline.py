@@ -1,0 +1,8 @@
+"""kernB_roofline: kernel B's share of its roofline over the traced stretch
+(yardstick.encode_roofline), in %."""
+
+
+def read(run):
+    from slambench import yardstick
+
+    return yardstick.encode_roofline(run, "bwd")
