@@ -20,17 +20,22 @@ from ..ops import losses as L
 from ..ops import pose as P
 from ..parallel.sharding import dp_forward, shard_devices
 from .optim import detached, make_pose_optimizer
+from .spans import NO_SPANS
 
 
 def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam,
-                          devices=None):
+                          devices=None, spans=None):
     """Returns run(params, c2w [4, 4], frame_rays [H*W, 7], generator)
     -> (last loss, last psnr): ``mapping.first_iters`` map-only steps on
     one frame at a fixed pose, each on ``mapping.sample`` rays drawn with
     replacement. ``devices`` (two or more: ``parallel.dp``): each
     iteration's rays split over them (parallel/sharding.py), the
-    parameters on the first."""
+    parameters on the first. ``spans`` (runtime/spans.Spans): each
+    iteration's phases are spans ``first_frame.forward`` (the draws, the
+    forward and the loss), ``first_frame.backward`` and
+    ``first_frame.update`` (the map's Adam step)."""
     devices = shard_devices(devices)
+    span = (spans or NO_SPANS).span
     sample = int(config["mapping"]["sample"])
     n_iters = int(config["mapping"]["first_iters"])
     weights = config["training"]
@@ -41,17 +46,21 @@ def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam,
         loss = psnr = None
         map_opt.zero_grad(set_to_none=True)
         for _ in range(n_iters):
-            idx = torch.randint(0, frame_rays.shape[0], (sample,),
-                                generator=generator, device=dev)
-            rays = frame_rays[idx]
-            rays_d = rays[:, :3] @ Rm.T
-            t, u = model.ray_draws(generator, sample, dev)
-            ret = dp_forward(model, params, devices, tv.expand_as(rays_d),
-                             rays_d, rays[:, 3:6], rays[:, 6:7], t=t, u=u)
-            loss = L.total_loss(ret, weights)
-            loss.backward()
-            map_opt.step()
-            map_opt.zero_grad(set_to_none=True)
+            with span("first_frame.forward"):
+                idx = torch.randint(0, frame_rays.shape[0], (sample,),
+                                    generator=generator, device=dev)
+                rays = frame_rays[idx]
+                rays_d = rays[:, :3] @ Rm.T
+                t, u = model.ray_draws(generator, sample, dev)
+                ret = dp_forward(model, params, devices,
+                                 tv.expand_as(rays_d), rays_d, rays[:, 3:6],
+                                 rays[:, 6:7], t=t, u=u)
+                loss = L.total_loss(ret, weights)
+            with span("first_frame.backward"):
+                loss.backward()
+            with span("first_frame.update"):
+                map_opt.step()
+                map_opt.zero_grad(set_to_none=True)
             psnr = ret["psnr"]
         return loss.detach(), psnr.detach()
 
@@ -139,13 +148,19 @@ class BundleAdjust:
     keyframe sample, then the current-frame quota, split unevenly by
     torch.tensor_split where the quota does not divide: nothing is
     padded) over them, the parameters and the smoothness term on the
-    first (parallel/sharding.py)."""
+    first (parallel/sharding.py).
+
+    ``spans`` (runtime/spans.Spans): each iteration's phases are spans
+    ``mapping.forward`` (the keyframe and current-frame rays, the TV
+    lattice, the draws, the poses and the loss), ``mapping.backward`` and
+    ``mapping.update`` (the map's and the poses' optimizer steps)."""
 
     def __init__(self, model, config: Dict, map_opt: torch.optim.Adam,
-                 num_kf: int, devices=None):
+                 num_kf: int, devices=None, spans=None):
         mcfg = config["mapping"]
         self.model = model
         self.devices = shard_devices(devices)
+        self.span = (spans or NO_SPANS).span
         self.map_opt = map_opt
         self.num_kf = num_kf
         self.sample = int(mcfg["sample"])
@@ -222,29 +237,35 @@ class BundleAdjust:
         g = self.weights
         self.map_opt.zero_grad(set_to_none=True)
         loss = None
+        span = self.span
         for i in range(self.iters):
-            kf_ray, kf_ids = kf_db.sample_global_rays(self.sample, generator)
-            cur_idx = torch.randint(0, cur_rays.shape[0], (quota,),
-                                    generator=generator, device=dev)
-            ray_data = torch.cat([kf_ray, cur_rays[cur_idx]])
-            ray_ids = torch.cat([kf_ids, cur_ids])
-            smooth = (self.model.smoothness_sample(
-                generator, g["smooth_pts"], g["smooth_vox"],
-                g["smooth_margin"]) if self.smooth_weight > 0 else None)
-            t, u = self.model.ray_draws(generator, ray_data.shape[0], dev)
-            poses = build_poses(rot, trans, poses0, frozen,
-                                self.mat_from_tensor)
-            aligns = (torch.where(gauge, aligns0, align) if use_align
-                      else None)
-            loss = self.loss(params, poses, ray_data, ray_ids, smooth, t, u,
-                             aligns)
-            loss.backward()
-            if (i + 1) % self.map_accum == 0 and (i + 1) > self.map_wait:
-                self.map_opt.step()
-                self.map_opt.zero_grad(set_to_none=True)
-            if pose_enable and (i + 1) % self.pose_accum == 0:
-                pose_opt.step()
-                pose_opt.zero_grad(set_to_none=True)
+            with span("mapping.forward"):
+                kf_ray, kf_ids = kf_db.sample_global_rays(self.sample,
+                                                          generator)
+                cur_idx = torch.randint(0, cur_rays.shape[0], (quota,),
+                                        generator=generator, device=dev)
+                ray_data = torch.cat([kf_ray, cur_rays[cur_idx]])
+                ray_ids = torch.cat([kf_ids, cur_ids])
+                smooth = (self.model.smoothness_sample(
+                    generator, g["smooth_pts"], g["smooth_vox"],
+                    g["smooth_margin"]) if self.smooth_weight > 0 else None)
+                t, u = self.model.ray_draws(generator, ray_data.shape[0],
+                                            dev)
+                poses = build_poses(rot, trans, poses0, frozen,
+                                    self.mat_from_tensor)
+                aligns = (torch.where(gauge, aligns0, align) if use_align
+                          else None)
+                loss = self.loss(params, poses, ray_data, ray_ids, smooth, t,
+                                 u, aligns)
+            with span("mapping.backward"):
+                loss.backward()
+            with span("mapping.update"):
+                if (i + 1) % self.map_accum == 0 and (i + 1) > self.map_wait:
+                    self.map_opt.step()
+                    self.map_opt.zero_grad(set_to_none=True)
+                if pose_enable and (i + 1) % self.pose_accum == 0:
+                    pose_opt.step()
+                    pose_opt.zero_grad(set_to_none=True)
         if not pose_enable:
             return kf_poses, cur_pose, loss.detach(), kf_aligns, cur_align
         with torch.no_grad():

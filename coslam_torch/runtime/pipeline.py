@@ -71,6 +71,10 @@ CPU the devices are N times the CPU. Across cards:
   there and copies it to the reader's card; each thread's current device
   is its stream's.
 
+Both threads record their spans in the loop's one recorder
+(runtime/spans.py), each on its own stack: the tracker's steps and its
+wait for the next frame (``load_wait``), the mapper's BA.
+
 Not ported: the JAX pipeline's compile warm-up call, its device pose
 chain and deferred-readback FIFO (the port reads one packed pose a
 frame) and ``mapping.ba_chunks``.
@@ -205,11 +209,12 @@ class PipelinedCoSLAM(CoSLAM):
                     workers=cfg["data"].get("num_workers"))
                 while not self.mapping_first_frame and not self._stop:
                     time.sleep(0.005)
-                for i, batch in frames:
+                spans = self.spans
+                for i, batch in spans.each_after("load_wait", frames):
                     if self._stop:
                         return
                     if self.mapping_idx < i - lag:
-                        with self._event("throttle"):
+                        with spans.span("throttle", event=True):
                             while (self.mapping_idx < i - lag
                                    and not self._stop):
                                 time.sleep(0.002)
@@ -243,6 +248,7 @@ class PipelinedCoSLAM(CoSLAM):
                 map_every = cfg["mapping"]["map_every"]
                 kf_every = cfg["mapping"]["keyframe_every"]
                 vis = int(cfg["mesh"].get("vis", 0) or 0)
+                spans = self.spans
                 if start <= 1:
                     self.first_frame_mapping(self.dataset[0])
                     next_map = map_every
@@ -262,10 +268,10 @@ class PipelinedCoSLAM(CoSLAM):
                         batch = self._frames.pop(next_map, None)
                     if batch is None:
                         batch = self.dataset[next_map]
-                    with self._event("ba"):
+                    with spans.span("ba", event=True):
                         self.global_BA(batch, next_map)
                     if next_map % kf_every == 0:
-                        with self._event("keyframe"):
+                        with spans.span("keyframe", event=True):
                             self.add_keyframe(batch)
                     self._publish_params()
                     self.mapping_idx = next_map
@@ -274,13 +280,13 @@ class PipelinedCoSLAM(CoSLAM):
                             and next_map > start:
                         # Frames [0, next_map] are tracked, mapped and
                         # keyframed: a resume starts at next_map + 1.
-                        with self._event("checkpoint"):
+                        with spans.span("checkpoint", event=True):
                             self.save_checkpoint(
                                 os.path.join(out,
                                              f"checkpoint{next_map}.npz"),
                                 frame_cursor=next_map + 1, async_write=True)
                     if vis and next_map % vis == 0:
-                        with self._event("mesh_eval"):
+                        with spans.span("mesh_eval", event=True):
                             self._periodic_mesh_eval(next_map, eval_ate)
                     next_map += map_every
                 if not self._stop:

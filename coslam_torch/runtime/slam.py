@@ -17,7 +17,13 @@ Tracking's pixels are a uniform draw, or with
 (:meth:`CoSLAM._info_weights`), from a numpy stream keyed by (seed,
 frame id), the JAX package's draw. The loop records ``frame_walls`` (one
 time a frame) and ``frame_events`` (spans around the checkpoint, BA,
-keyframe and mesh steps) for runtime/latency.attribute_tails.
+keyframe and mesh steps) for runtime/latency.attribute_tails. Every span
+of the run goes through one recorder (:attr:`CoSLAM.spans`,
+runtime/spans.py), which also fills ``timings``: the wall of each call
+of the first-frame mapping, tracking, BA and the mesh, each step's
+forward, backward, update and wait on the card (``<step>.forward`` and
+so on: a call's sums over its iterations), and a frame's wait for the
+prefetcher (``load_wait``) and its frame blocks (``frame_block``).
 
 Frames come through a :class:`PrefetchIterator` (``data.num_workers``
 loader threads, frames handed over in order). The periodic mesh and ATE
@@ -53,7 +59,6 @@ JAX package, it does not hold the current-frame optimizer's moments.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import threading
 import time
@@ -73,6 +78,7 @@ from .keyframe import KeyFrameDatabase
 from .mapping import (BundleAdjust, make_current_frame_step,
                       make_first_frame_step)
 from .optim import make_cur_map_optimizer, make_map_optimizer
+from .spans import Spans, phases
 from .tracking import (make_tracking_pc_step, make_tracking_step,
                        predict_current_pose)
 
@@ -153,16 +159,23 @@ class CoSLAM:
             self.kf_aligns = init_frame_align(num_kf, self.device)
             self.cur_align = torch.tensor([1.0, 1.0, 1.0, 0.0],
                                           device=self.device)
+        # Each span of the run: the steps' walls and phases (timings), the
+        # loop's events (frame_events) and, under torch.profiler, ranges.
+        self.spans = Spans()
+        self.timings.update({"first_frame": [], "tracking": [],
+                             "mapping": [], "mesh": []})
         track, mapping = self.track_devices, self.map_devices
-        self._track_step = make_tracking_step(self.model, config, track)
+        self._track_step = make_tracking_step(self.model, config, track,
+                                              self.spans)
         self._track_pc_step = (make_tracking_pc_step(self.model, config,
                                                      track)
                                if config["tracking"]["iter_point"] > 0
                                else None)
         self._first_step = make_first_frame_step(self.model, config,
-                                                 self.map_opt, mapping)
+                                                 self.map_opt, mapping,
+                                                 self.spans)
         self._ba = BundleAdjust(self.model, config, self.map_opt, num_kf,
-                                mapping)
+                                mapping, self.spans)
         self.cur_map_opt = self._cur_step = None
         if config["mapping"]["cur_frame_iters"] > 0:
             self.cur_map_opt = make_cur_map_optimizer(config, self.params)
@@ -171,13 +184,12 @@ class CoSLAM:
                                                      mapping)
         self._ckpt_writer = AsyncCheckpointWriter()
         self._mesh_worker = SingleFlightWorker(name="mesh-eval")
-        self.timings = {"first_frame": [], "tracking": [], "mapping": [],
-                        "mesh": []}
         self.losses = {"first_frame": [], "tracking": [], "mapping": []}
         self.final_mesh = None
         # runtime/latency.py's inputs: a time at each frame's start and
-        # (t0, t1, tag) spans around the steps that make frames slow.
-        self.frame_walls, self.frame_events = [], []
+        # (t0, t1, tag) spans around the steps that make frames slow
+        # (frame_events, the recorder's events).
+        self.frame_walls = []
         # Guards the pose tables' writes against another thread's copy
         # (the pipelined tracker writes while the mapper checkpoints).
         self._pose_lock = threading.Lock()
@@ -200,26 +212,35 @@ class CoSLAM:
             check_divisible(config, dp)
         return devices, devices
 
-    @contextlib.contextmanager
-    def _event(self, tag: str):
-        """Record a (t0, t1, tag) span in frame_events (the host's time of
-        the step: its work on the card may land in a later frame, which
+    @property
+    def timings(self) -> Dict:
+        """The recorder's timings: name -> one wall (s) a call."""
+        return self.spans.timings
+
+    @property
+    def frame_events(self) -> list:
+        """The recorder's events: (t0, t1, tag), the host's time of a
+        step (its work on the card may land in a later frame, which
         latency.attribute_tails looks back for)."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.frame_events.append((t0, time.perf_counter(), tag))
+        return self.spans.events
+
+    @frame_events.setter
+    def frame_events(self, events: list) -> None:
+        self.spans.events = events
 
     # -- frames -----------------------------------------------------------------
 
     def _frame_block(self, batch: Dict) -> torch.Tensor:
-        """[H*W, 7] = [direction, rgb, depth] on the device."""
-        block = np.concatenate(
-            [np.asarray(batch["direction"]).reshape(-1, 3),
-             np.asarray(batch["rgb"]).reshape(-1, 3),
-             np.asarray(batch["depth"]).reshape(-1, 1)], axis=1)
-        return torch.from_numpy(block.astype(np.float32)).to(self.device)
+        """[H*W, 7] = [direction, rgb, depth] on the device (a span
+        ``frame_block``: the host's concatenation and cast, and the
+        upload)."""
+        with self.spans.span("frame_block"):
+            block = np.concatenate(
+                [np.asarray(batch["direction"]).reshape(-1, 3),
+                 np.asarray(batch["rgb"]).reshape(-1, 3),
+                 np.asarray(batch["depth"]).reshape(-1, 1)], axis=1)
+            return torch.from_numpy(block.astype(np.float32)).to(
+                self.device)
 
     def _frame_rays_flat(self, batch: Dict) -> np.ndarray:
         """[H*W, 7] = [direction, rgb, depth] on the host."""
@@ -294,17 +315,18 @@ class CoSLAM:
     # -- phases -----------------------------------------------------------------
 
     def first_frame_mapping(self, batch: Dict) -> float:
-        t0 = time.perf_counter()
-        c2w = np.asarray(batch["c2w"], np.float32)
-        self.est_c2w[0] = c2w
-        self.est_c2w_rel[0] = c2w
-        frame_rays = self._frame_block(batch)
-        loss, _ = self._first_step(self.params,
-                                   torch.from_numpy(c2w).to(self.device),
-                                   frame_rays, self.generator)
-        self.add_keyframe(batch, frame_rays)
-        loss = float(loss)  # waits for the device
-        self.timings["first_frame"].append(time.perf_counter() - t0)
+        with self.spans.span("first_frame", timed=True,
+                             sums=phases("first_frame")):
+            c2w = np.asarray(batch["c2w"], np.float32)
+            self.est_c2w[0] = c2w
+            self.est_c2w_rel[0] = c2w
+            frame_rays = self._frame_block(batch)
+            loss, _ = self._first_step(self.params,
+                                       torch.from_numpy(c2w).to(self.device),
+                                       frame_rays, self.generator)
+            self.add_keyframe(batch, frame_rays)
+            with self.spans.span("first_frame.wait"):
+                loss = float(loss)  # waits for the device
         self.losses["first_frame"].append(loss)
         return loss
 
@@ -336,7 +358,14 @@ class CoSLAM:
         passes its snapshot). ``c2w_init``: the start pose (default: the
         point-cloud tracking's pose, or the motion-model prediction;
         ActiveCoSLAM passes its own for frames out of sequence)."""
-        t0 = time.perf_counter()
+        with self.spans.span("tracking", timed=True, sums=phases("tracking")):
+            loss = self._tracking_render(batch, frame_id, params, c2w_init)
+        self.losses["tracking"].append(loss)
+        return loss
+
+    def _tracking_render(self, batch: Dict, frame_id: int,
+                         params: Optional[Dict],
+                         c2w_init: Optional[np.ndarray]) -> float:
         if c2w_init is None:
             # After point-cloud tracking the frame's pose is its start.
             c2w_init = (self.est_c2w[frame_id]
@@ -353,8 +382,9 @@ class CoSLAM:
         # A non-finite pose would poison every later frame through the
         # prediction and BA: keep the motion-model prediction instead.
         c2w = torch.where(finite, c2w, c2w_init)
-        packed = torch.cat([c2w.reshape(-1), losses[-1:], psnrs[-1:],
-                            finite.float()[None]]).cpu().numpy()
+        with self.spans.span("tracking.wait"):
+            packed = torch.cat([c2w.reshape(-1), losses[-1:], psnrs[-1:],
+                                finite.float()[None]]).cpu().numpy()
         c2w = packed[:16].reshape(4, 4)
         kf_every = self.config["mapping"]["keyframe_every"]
         with self._pose_lock:
@@ -375,8 +405,6 @@ class CoSLAM:
                if gt is not None and np.all(np.isfinite(gt))
                else float("nan"))
         self._last_track_info = (float(packed[16]), float(packed[17]), err)
-        self.timings["tracking"].append(time.perf_counter() - t0)
-        self.losses["tracking"].append(float(packed[16]))
         return float(packed[16])
 
     def current_frame_mapping(self, batch: Dict,
@@ -392,7 +420,12 @@ class CoSLAM:
         return float(loss)
 
     def global_BA(self, batch: Dict, cur_frame_id: int) -> float:
-        t0 = time.perf_counter()
+        with self.spans.span("mapping", timed=True, sums=phases("mapping")):
+            loss = self._global_BA(batch, cur_frame_id)
+        self.losses["mapping"].append(loss)
+        return loss
+
+    def _global_BA(self, batch: Dict, cur_frame_id: int) -> float:
         cur_pose = torch.from_numpy(self.est_c2w[cur_frame_id]).to(self.device)
         kf_poses, new_cur, loss, self.kf_aligns, self.cur_align = self._ba(
             self.params, self.kf_db, self.kf_poses, cur_pose,
@@ -400,8 +433,9 @@ class CoSLAM:
             self.cur_align)
         self.kf_poses = kf_poses
         count = self.kf_db.count
-        packed = torch.cat([kf_poses[:count].reshape(-1), new_cur.reshape(-1),
-                            loss[None]]).cpu().numpy()
+        with self.spans.span("mapping.wait"):
+            packed = torch.cat([kf_poses[:count].reshape(-1),
+                                new_cur.reshape(-1), loss[None]]).cpu().numpy()
         if count >= 2:
             kf_np = packed[:count * 16].reshape(count, 4, 4)
             with self._pose_lock:
@@ -411,8 +445,6 @@ class CoSLAM:
                 if self.config["mapping"]["optim_cur"]:
                     self.est_c2w[cur_frame_id] = \
                         packed[count * 16:count * 16 + 16].reshape(4, 4)
-        self.timings["mapping"].append(time.perf_counter() - t0)
-        self.losses["mapping"].append(float(packed[-1]))
         return float(packed[-1])
 
     def add_keyframe(self, batch: Dict,
@@ -433,15 +465,13 @@ class CoSLAM:
                   params: Optional[Dict] = None):
         """mesh_track{i}.ply of the map (``params``, or the current
         parameters)."""
-        t0 = time.perf_counter()
-        out = os.path.join(self.config["data"]["output"],
-                           self.config["data"]["exp_name"])
-        os.makedirs(out, exist_ok=True)
-        # Any thread (the mesh worker's too) launches on the map's card.
-        with on_device(self.device):
-            mesh = self._extract(i, out, voxel_size, params)
-        self.timings["mesh"].append(time.perf_counter() - t0)
-        return mesh
+        with self.spans.span("mesh", timed=True):
+            out = os.path.join(self.config["data"]["output"],
+                               self.config["data"]["exp_name"])
+            os.makedirs(out, exist_ok=True)
+            # Any thread (the mesh worker's too) launches on the map's card.
+            with on_device(self.device):
+                return self._extract(i, out, voxel_size, params)
 
     def _extract(self, i: int, out: str, voxel_size: float,
                  params: Optional[Dict]):
@@ -652,39 +682,47 @@ class CoSLAM:
         mesh_every = int(cfg["mesh"].get("vis", 0) or 0)
         visualise = bool(cfg["mesh"].get("visualisation"))
         self.frame_walls, self.frame_events = [], []
-        for i, batch in frames:
+        spans = self.spans
+        # Each frame's wall ends with the wait for the next frame.
+        for i, batch in spans.each_after("load_wait", frames):
             self.frame_walls.append(time.perf_counter())
-            if visualise:
-                self.visualise_frame(batch, i, out)
-            if ckpt_every and i > start_frame and i % ckpt_every == 0:
-                # The state covers frames [0, i): a resume starts at i.
-                with self._event("checkpoint"):
-                    self.save_checkpoint(
-                        os.path.join(out, f"checkpoint{i}.npz"),
-                        frame_cursor=i, async_write=True)
-            if i == 0:
-                loss = self.first_frame_mapping(batch)
-                if cfg["mapping"].get("first_mesh"):
-                    self.save_mesh(0, voxel_size=cfg["mesh"]["voxel_eval"])
+            # The frame's frame blocks, summed: one frame_block entry a frame.
+            with spans.span("frame", sums=("frame_block",)):
+                if visualise:
+                    self.visualise_frame(batch, i, out)
+                if ckpt_every and i > start_frame and i % ckpt_every == 0:
+                    # The state covers frames [0, i): a resume starts at i.
+                    with spans.span("checkpoint", event=True):
+                        self.save_checkpoint(
+                            os.path.join(out, f"checkpoint{i}.npz"),
+                            frame_cursor=i, async_write=True)
+                if i == 0:
+                    loss = self.first_frame_mapping(batch)
+                    if cfg["mapping"].get("first_mesh"):
+                        self.save_mesh(0,
+                                       voxel_size=cfg["mesh"]["voxel_eval"])
+                    if verbose:
+                        print(f"frame 0: first-frame mapping loss "
+                              f"{loss:.5f}")
+                    continue
+                if self._track_pc_step is not None:
+                    self.tracking_pc(batch, i)
+                loss = self.tracking_render(batch, i)
                 if verbose:
-                    print(f"frame 0: first-frame mapping loss {loss:.5f}")
-                continue
-            if self._track_pc_step is not None:
-                self.tracking_pc(batch, i)
-            loss = self.tracking_render(batch, i)
-            if verbose:
-                err = np.abs(self.est_c2w[i][:3] - self.pose_gt[i][:3]).mean()
-                print(f"it: {i}, loss: {loss:.5f}, pose L1 vs gt: {err:.5f}")
-            if i % map_every == 0:
-                with self._event("ba"):
-                    self.current_frame_mapping(batch, i)
-                    self.global_BA(batch, i)
-            if i % kf_every == 0:
-                with self._event("keyframe"):
-                    self.add_keyframe(batch)
-            if mesh_every and i % mesh_every == 0:
-                with self._event("mesh_eval"):
-                    self._periodic_mesh_eval(i, eval_ate)
+                    err = np.abs(self.est_c2w[i][:3]
+                                 - self.pose_gt[i][:3]).mean()
+                    print(f"it: {i}, loss: {loss:.5f}, "
+                          f"pose L1 vs gt: {err:.5f}")
+                if i % map_every == 0:
+                    with spans.span("ba", event=True):
+                        self.current_frame_mapping(batch, i)
+                        self.global_BA(batch, i)
+                if i % kf_every == 0:
+                    with spans.span("keyframe", event=True):
+                        self.add_keyframe(batch)
+                if mesh_every and i % mesh_every == 0:
+                    with spans.span("mesh_eval", event=True):
+                        self._periodic_mesh_eval(i, eval_ate)
         self.frame_walls.append(time.perf_counter())
         # The periodic jobs land before the final files (output.txt's
         # lines stay in frame order).
@@ -731,14 +769,22 @@ class CoSLAM:
 
     def print_timings(self) -> None:
         """Each phase's mean wall per call in ms (the first call, which
-        builds the kernels, left out of the mean), and the frame-time
+        builds the kernels, left out of the mean), a step's phases
+        (``<step>.forward`` and so on) under the step, and the frame-time
         report of latency.attribute_tails."""
         from .latency import attribute_tails
 
-        for phase, vals in self.timings.items():
-            if vals:
-                steady = vals[1:] if len(vals) > 1 else vals
-                print(f"[timing] {phase}: mean {1e3 * np.mean(steady):.2f} "
-                      f"ms ({len(vals)} calls, first {1e3 * vals[0]:.0f} ms)")
+        def line(name, vals, indent=""):
+            steady = vals[1:] if len(vals) > 1 else vals
+            print(f"[timing] {indent}{name}: mean "
+                  f"{1e3 * np.mean(steady):.2f} ms ({len(vals)} calls, "
+                  f"first {1e3 * vals[0]:.0f} ms)")
+
+        for step, vals in self.timings.items():
+            if vals and "." not in step:
+                line(step, vals)
+                for name, sub in self.timings.items():
+                    if sub and name.startswith(step + "."):
+                        line(name[len(step) + 1:], sub, "  ")
         print(f"[timing] frames: "
               f"{attribute_tails(self.frame_walls, self.frame_events)}")

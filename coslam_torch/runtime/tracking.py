@@ -19,9 +19,10 @@ from ..ops import pose as P
 from ..parallel.sharding import (add_stats, dp_forward, on_device, replicate,
                                  shard_devices, split_rays)
 from .optim import detached, make_pose_optimizer
+from .spans import NO_SPANS
 
 
-def make_tracking_step(model, config: Dict, devices=None):
+def make_tracking_step(model, config: Dict, devices=None, spans=None):
     """Returns step(params, c2w_init [4, 4], rays [S, 7], generator,
     align=None) -> (c2w [4, 4], losses [iter], psnrs [iter], align), all
     on the device. ``align`` [4] (training.frame_align: the frame's
@@ -38,8 +39,15 @@ def make_tracking_step(model, config: Dict, devices=None):
 
     ``devices`` (two or more: ``parallel.dp``): the rays are split over
     them (parallel/sharding.py); the frozen map is copied to each once a
-    call, the draws are made on the rays' device for the whole batch."""
+    call, the draws are made on the rays' device for the whole batch.
+
+    ``spans`` (runtime/spans.Spans): each iteration's phases are spans
+    ``tracking.forward`` (the draws, the pose, the forward and the loss),
+    ``tracking.backward`` (zero_grad and the backward) and
+    ``tracking.update`` (the best-pose selects, the Adam step and the
+    early-stop copy)."""
     devices = shard_devices(devices)
+    span = (spans or NO_SPANS).span
     tcfg = config["tracking"]
     n_iter = int(tcfg["iter"])
     use_best = bool(tcfg["best"])
@@ -77,39 +85,44 @@ def make_tracking_step(model, config: Dict, devices=None):
         done = torch.zeros((), dtype=torch.bool, device=dev)
         losses, psnrs = [], []
         for _ in range(n_iter):
-            t, u = model.ray_draws(generator, rays.shape[0], dev)
-            c2w = mat_from_tensor(rot, trans)[0]
-            rays_d = dirs @ c2w[:3, :3].T
-            rays_o = c2w[:3, 3].expand_as(rays_d)
-            ret = dp_forward(model, params, devices, rays_o, rays_d,
-                             target_rgb, target_d, replicas, t=t, u=u,
-                             rgb_kernel=robust, align=align)
-            loss = L.total_loss(ret, weights)
-            if prior_t > 0.0:
-                loss = loss + prior_t * ((trans - trans0) ** 2).sum()
-            if prior_r > 0.0:
-                loss = loss + prior_r * ((rot - rot0) ** 2).sum()
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
+            with span("tracking.forward"):
+                t, u = model.ray_draws(generator, rays.shape[0], dev)
+                c2w = mat_from_tensor(rot, trans)[0]
+                rays_d = dirs @ c2w[:3, :3].T
+                rays_o = c2w[:3, 3].expand_as(rays_d)
+                ret = dp_forward(model, params, devices, rays_o, rays_d,
+                                 target_rgb, target_d, replicas, t=t, u=u,
+                                 rgb_kernel=robust, align=align)
+                loss = L.total_loss(ret, weights)
+                if prior_t > 0.0:
+                    loss = loss + prior_t * ((trans - trans0) ** 2).sum()
+                if prior_r > 0.0:
+                    loss = loss + prior_r * ((rot - rot0) ** 2).sum()
+            with span("tracking.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
 
-            with torch.no_grad():
-                loss_d = loss.detach()
-                improved = loss_d < best_loss
-                take = improved & ~done
-                best = [torch.where(take, v, b) for v, b in zip(state, best)]
-                best_loss = torch.where(take, loss_d, best_loss)
-                stall = torch.where(done, stall,
-                                    torch.where(improved, 0, stall + 1))
-                last = [torch.where(done, b, v) for v, b in zip(state, last)]
-                old = [v.clone() for v in state]
-            opt.step()
-            with torch.no_grad():
-                # After the early stop the pose stays where it was.
-                for v, o in zip(state, old):
-                    v.copy_(torch.where(done, o, v))
-                done = done | (stall > wait_iters)
-            losses.append(loss_d)
-            psnrs.append(ret["psnr"].detach())
+            with span("tracking.update"):
+                with torch.no_grad():
+                    loss_d = loss.detach()
+                    improved = loss_d < best_loss
+                    take = improved & ~done
+                    best = [torch.where(take, v, b)
+                            for v, b in zip(state, best)]
+                    best_loss = torch.where(take, loss_d, best_loss)
+                    stall = torch.where(done, stall,
+                                        torch.where(improved, 0, stall + 1))
+                    last = [torch.where(done, b, v)
+                            for v, b in zip(state, last)]
+                    old = [v.clone() for v in state]
+                opt.step()
+                with torch.no_grad():
+                    # After the early stop the pose stays where it was.
+                    for v, o in zip(state, old):
+                        v.copy_(torch.where(done, o, v))
+                    done = done | (stall > wait_iters)
+                losses.append(loss_d)
+                psnrs.append(ret["psnr"].detach())
 
         with torch.no_grad():
             chosen = best if use_best else last

@@ -21,7 +21,10 @@ with 2 keyframes, then the final mesh. It reports
 - for one tracking step and one BA call under torch.profiler: the wall,
   the device busy time (the union of kernel, memcpy and memset intervals
   in the trace), its share of the wall, the kernel launch count and the
-  kernels that take the most device time.
+  kernels that take the most device time; and, under each of the
+  program's ranges (runtime/spans.py: ``coslam.tracking.forward`` and
+  so on), the ranges' count and host time, the launches and the device's
+  idle seconds (:func:`range_stats`).
 
 ``--pipelined`` instead profiles room0's whole 15-frame run twice under
 torch.profiler, the pipelined runtime (runtime/pipeline.py) and then the
@@ -70,6 +73,7 @@ from ..ops import serial_scatter as SS
 from ..ops import tensovm as VM
 from ..ops import triplane as TP
 from ..runtime.slam import CoSLAM
+from ..runtime.spans import RANGE_PREFIX
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -90,8 +94,9 @@ def _busy_us(intervals) -> float:
 
 
 def trace_stats(prof, path: str, top: int = 12) -> Dict:
-    """Device busy time, launch count and top kernels of a profile, read
-    from its exported chrome trace (removed afterwards)."""
+    """Device busy time, launch count and top kernels of a profile, and
+    what lies under each of the program's ranges (:func:`range_stats`),
+    read from its exported chrome trace (removed afterwards)."""
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -108,7 +113,71 @@ def trace_stats(prof, path: str, top: int = 12) -> Dict:
             "device_busy_us": _busy_us((e["ts"], e["ts"] + e["dur"])
                                        for e in dev),
             "kernel_us": sum(e["dur"] for e in kernels),
-            "top": [(k, n, us) for k, (n, us) in ranked]}
+            "top": [(k, n, us) for k, (n, us) in ranked],
+            "ranges": range_stats(events)}
+
+
+def range_stats(events, prefix: str = RANGE_PREFIX) -> Dict:
+    """What lies under each of the program's ranges in a chrome trace's
+    ``traceEvents`` (the ``user_annotation`` ranges whose names start
+    with ``prefix``; keys are the names without it, "none" for what
+    lies in no range): {"ranges": name -> [count, host us], "launches":
+    name -> kernels whose launch (the host call of the kernel's
+    correlation id) lies in the range, "idle_us": name -> the device's
+    idle us, each gap between the union of kernel, memcpy and memset
+    intervals within the ranges' extent put down to the range that holds
+    its midpoint}. A launch goes to the innermost range open on its own
+    thread, else (autograd launches the backward's kernels from a thread
+    of its own while the caller's range stays open) to the innermost on
+    any thread. An idle gap has no thread: it goes to the innermost
+    range on any thread, so the idle split holds for a profile whose
+    ranges come from one thread at a time, as the steps profiled here
+    do. {} without a range."""
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"][len(prefix):],
+                     e.get("tid"))
+                    for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith(prefix))
+    if not ranges:
+        return {}
+
+    def innermost(t, tid=None) -> str:
+        # Sorted by start, the last range that holds t is the innermost.
+        mine = anyone = "none"
+        for lo, hi, n, on in ranges:
+            if lo > t:
+                break
+            if t <= hi:
+                anyone = n
+                if on == tid:
+                    mine = n
+        return mine if mine != "none" else anyone
+
+    out: Dict = {"ranges": {}, "launches": {}, "idle_us": {}}
+    for lo, hi, n, _ in ranges:
+        row = out["ranges"].setdefault(n, [0, 0.0])
+        row[0] += 1
+        row[1] += hi - lo
+    launched = {e["args"]["correlation"]: (e["ts"], e.get("tid"))
+                for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    for e in events:
+        if e.get("cat") == "kernel":
+            at = launched.get(e.get("args", {}).get("correlation"))
+            n = "none" if at is None else innermost(*at)
+            out["launches"][n] = out["launches"].get(n, 0) + 1
+    busy = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") in _DEVICE_CATS)
+    cur, hi = ranges[0][0], max(r[1] for r in ranges)
+    for s, e in busy + [(hi, hi)]:
+        if s > cur:
+            gap_end = min(s, hi)
+            n = innermost(0.5 * (cur + gap_end))
+            out["idle_us"][n] = out["idle_us"].get(n, 0.0) + gap_end - cur
+        cur = max(cur, e)
+        if cur >= hi:
+            break
+    return out
 
 
 def main(argv=None) -> Dict:
