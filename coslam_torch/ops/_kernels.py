@@ -221,6 +221,16 @@ def stream(device: torch.device) -> int:
 
 
 _COUNT_LOCK = threading.Lock()
+_COUNTED: list = []
+
+
+def counted(*fns) -> None:
+    """Give each kernel wrapper its launch counters, ``fn.launches`` (on
+    every stream) and ``fn.by_stream`` ((stream, tag) -> launches), which
+    :func:`count_launch` adds to; the CPU path never adds to them."""
+    for fn in fns:
+        fn.launches, fn.by_stream = 0, {}
+        _COUNTED.append(fn)
 
 
 def count_launch(fn, stream: int, tag: str = "") -> None:
@@ -230,7 +240,28 @@ def count_launch(fn, stream: int, tag: str = "") -> None:
     run on a stream of their own, and autograd runs a backward on its
     forward's stream (from a thread of its own), so the stream tells
     which thread a launch came from. Under a lock: two threads launch."""
+    add_launches({(fn, tag): 1}, stream)
+
+
+def stream_launches(stream: int) -> dict:
+    """(fn, tag) -> the launches counted so far on the stream with the
+    raw handle ``stream``, over every wrapper of :func:`counted`."""
     with _COUNT_LOCK:
-        fn.launches += 1
-        key = (stream, tag)
-        fn.by_stream[key] = fn.by_stream.get(key, 0) + 1
+        return {(fn, tag): n for fn in _COUNTED
+                for (s, tag), n in fn.by_stream.items() if s == stream}
+
+
+def add_launches(counts: dict, stream: int, times: int = 1) -> None:
+    """Add ``counts`` ((fn, tag) -> launches) ``times`` times to the
+    wrappers' counters, on the stream ``stream``: a CUDA graph's replay
+    launches what its capture counted (a negative ``times`` takes counts
+    back)."""
+    with _COUNT_LOCK:
+        for (fn, tag), n in counts.items():
+            fn.launches += times * n
+            key = (stream, tag)
+            left = fn.by_stream.get(key, 0) + times * n
+            if left:
+                fn.by_stream[key] = left
+            else:
+                fn.by_stream.pop(key, None)

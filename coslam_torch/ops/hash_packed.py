@@ -369,9 +369,8 @@ def grid_encode_bwd_serial(spec: PackedGridSpec, table: torch.Tensor,
 
 
 # Launch counts of the kernels, in all and by (stream, "table" | "dx")
-# (_kernels.count_launch; the CPU path never adds to them).
-for _fn in (grid_encode_fwd, grid_encode_bwd, grid_encode_bwd_serial):
-    _fn.launches, _fn.by_stream = 0, {}
+# (_kernels.counted).
+_kernels.counted(grid_encode_fwd, grid_encode_bwd, grid_encode_bwd_serial)
 
 
 class GridEncode(torch.autograd.Function):

@@ -124,7 +124,7 @@ def xor_grid_encode_fwd(spec: E.HashGridSpec, table: torch.Tensor,
         spec.n_features, _kernels.level_table(spec, x.device).data_ptr(),
         spec.n_levels, 2 ** spec.log2_hashmap_size - 1,
         _kernels.stream(x.device)), "xor_grid_encode_fwd")
-    xor_grid_encode_fwd.launches += 1
+    _kernels.count_launch(xor_grid_encode_fwd, _kernels.stream(x.device))
     return out
 
 
@@ -156,13 +156,12 @@ def xor_grid_encode_bwd(spec: E.HashGridSpec, table: torch.Tensor,
         _kernels.level_table(spec, x.device).data_ptr(), spec.n_levels,
         2 ** spec.log2_hashmap_size - 1, _kernels.stream(x.device)),
         "xor_grid_encode_bwd")
-    xor_grid_encode_bwd.launches += 1
+    _kernels.count_launch(xor_grid_encode_bwd, _kernels.stream(x.device))
     return idx, vals, dx
 
 
-# Launch counts of the two kernels (the CPU path never adds to them).
-xor_grid_encode_fwd.launches = 0
-xor_grid_encode_bwd.launches = 0
+# Launch counts of the kernels (_kernels.counted).
+_kernels.counted(xor_grid_encode_fwd, xor_grid_encode_bwd)
 
 
 class XorGridEncode(torch.autograd.Function):

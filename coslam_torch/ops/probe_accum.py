@@ -319,7 +319,7 @@ def probe_accum(idx: torch.Tensor, vals: torch.Tensor, out_rows: int,
     _check_dtypes("probe_accum", torch.float32, vals=vals)
     out = launch_accum("probe_accum", idx, vals, width, m, out_rows, stride,
                        vec, upt, threads, False, rows)
-    probe_accum.launches += 1
+    _kernels.count_launch(probe_accum, _kernels.stream(vals.device))
     return out
 
 
@@ -336,7 +336,7 @@ def probe_accum_bf16x2(idx: torch.Tensor, words: torch.Tensor,
     _check_dtypes("probe_accum_bf16x2", torch.int32, words=words)
     out = launch_accum("probe_accum_bf16x2", idx, words, 2 * n_words, m,
                        out_rows, stride, vec, upt, threads, True, False)
-    probe_accum_bf16x2.launches += 1
+    _kernels.count_launch(probe_accum_bf16x2, _kernels.stream(words.device))
     return out
 
 
@@ -367,7 +367,7 @@ def probe_accum_pair_merged(idx1: torch.Tensor, take2: torch.Tensor,
         v2.data_ptr(), out.data_ptr(), n, width,
         _max_idx(out_rows, width, width), vec, _THREADS,
         _kernels.stream(v1.device)), what)
-    probe_accum_pair_merged.launches += 1
+    _kernels.count_launch(probe_accum_pair_merged, _kernels.stream(v1.device))
     return out
 
 
@@ -395,7 +395,8 @@ def probe_accum_cell_merged(idx: torch.Tensor, streams: torch.Tensor,
         idx.data_ptr(), streams.data_ptr(), out.data_ptr(), n, width,
         _max_idx(out_rows, width, width), vec, _THREADS,
         _kernels.stream(streams.device)), what)
-    probe_accum_cell_merged.launches += 1
+    _kernels.count_launch(probe_accum_cell_merged,
+                          _kernels.stream(streams.device))
     return out
 
 
@@ -413,7 +414,7 @@ def probe_accum_run_merge(idx: torch.Tensor, vals: torch.Tensor,
     out = launch_accum(what, idx, vals, width, m, out_rows, width,
                        widest_vec(width), 1, _THREADS, False, True,
                        clip=True)
-    probe_accum_run_merge.launches += 1
+    _kernels.count_launch(probe_accum_run_merge, _kernels.stream(vals.device))
     return out
 
 
@@ -444,14 +445,11 @@ def probe_accum_run_skip(idx: torch.Tensor, vals: torch.Tensor,
     _kernels.check(_kernels.library().probe_accum_run_skip(
         idx.data_ptr(), vals.data_ptr(), out.data_ptr(), m, width,
         out_rows - 1, vec, rounds, TILE, _kernels.stream(vals.device)), what)
-    probe_accum_run_skip.launches += 1
+    _kernels.count_launch(probe_accum_run_skip, _kernels.stream(vals.device))
     return out
 
 
-# Launch counts of the wrappers (the CPU path never adds to them).
-probe_accum.launches = 0
-probe_accum_bf16x2.launches = 0
-probe_accum_pair_merged.launches = 0
-probe_accum_cell_merged.launches = 0
-probe_accum_run_merge.launches = 0
-probe_accum_run_skip.launches = 0
+# Launch counts of the kernels (_kernels.counted).
+_kernels.counted(probe_accum, probe_accum_bf16x2, probe_accum_pair_merged,
+                 probe_accum_cell_merged, probe_accum_run_merge,
+                 probe_accum_run_skip)

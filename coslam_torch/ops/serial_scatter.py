@@ -402,10 +402,10 @@ def row_accum(idx: torch.Tensor, vals: torch.Tensor, rows: int,
         out = PA.launch_accum("row_accum_atomic", idx, vals, width, m,
                               rows + 1, width, PA.widest_vec(width), 1, 256,
                               False, True, clip=True)
-        row_accum_atomic.launches += 1
+        _kernels.count_launch(row_accum_atomic, _kernels.stream(vals.device))
         return out
     out = serial_sum(SegmentedPlan(idx, vals, rows))
-    row_accum_segmented.launches += 1
+    _kernels.count_launch(row_accum_segmented, _kernels.stream(vals.device))
     return out
 
 
@@ -421,6 +421,5 @@ def row_accum_segmented(idx: torch.Tensor, vals: torch.Tensor,
     return row_accum(idx, vals, rows, deterministic=True)
 
 
-# Launch counts of the two kernels (the CPU path never adds to them).
-row_accum_atomic.launches = 0
-row_accum_segmented.launches = 0
+# Launch counts of the kernels (_kernels.counted).
+_kernels.counted(row_accum_atomic, row_accum_segmented)

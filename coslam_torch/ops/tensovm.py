@@ -285,7 +285,7 @@ def tensovm_encode_fwd(spec: TriPlaneSpec, planes: torch.Tensor,
         x.data_ptr(), planes.data_ptr(), lines.data_ptr(), out.data_ptr(), n,
         spec.n_features, _level_table(spec, x.device).data_ptr(),
         spec.pyr_levels, _kernels.stream(x.device)), "tensovm_encode_fwd")
-    tensovm_encode_fwd.launches += 1
+    _kernels.count_launch(tensovm_encode_fwd, _kernels.stream(x.device))
     return out
 
 
@@ -323,7 +323,7 @@ def tensovm_encode_bwd(spec: TriPlaneSpec, planes: torch.Tensor,
         x.shape[0], spec.n_features, _level_table(spec, x.device).data_ptr(),
         spec.pyr_levels, lines.shape[0], _kernels.stream(x.device))
     _kernels.check(code, "tensovm_encode_bwd")
-    tensovm_encode_bwd.launches += 1
+    _kernels.count_launch(tensovm_encode_bwd, _kernels.stream(x.device))
     return dplanes, dlines, dx
 
 
@@ -362,14 +362,13 @@ def tensovm_encode_bwd_serial(spec: TriPlaneSpec, planes: torch.Tensor,
                      planes.data_ptr(), lines.data_ptr(), g.data_ptr(),
                      sorter.gt.data_ptr(), n, spec.n_features, levels,
                      spec.pyr_levels)
-    tensovm_encode_bwd_serial.launches += 1
+    _kernels.count_launch(tensovm_encode_bwd_serial, _kernels.stream(x.device))
     return out[:tp], out[tp:tp + tl], dx
 
 
-# Launch counts of the kernels (the CPU path never adds to them).
-tensovm_encode_fwd.launches = 0
-tensovm_encode_bwd.launches = 0
-tensovm_encode_bwd_serial.launches = 0
+# Launch counts of the kernels (_kernels.counted).
+_kernels.counted(tensovm_encode_fwd, tensovm_encode_bwd,
+                 tensovm_encode_bwd_serial)
 
 
 class TensoVMEncode(torch.autograd.Function):

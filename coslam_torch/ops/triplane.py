@@ -343,7 +343,7 @@ def triplane_encode_fwd(spec: TriPlaneSpec, table: torch.Tensor,
         x.data_ptr(), table.data_ptr(), out.data_ptr(), n, spec.n_features,
         _level_table(spec, x.device).data_ptr(), spec.pyr_levels,
         _kernels.stream(x.device)), "triplane_encode_fwd")
-    triplane_encode_fwd.launches += 1
+    _kernels.count_launch(triplane_encode_fwd, _kernels.stream(x.device))
     return out
 
 
@@ -373,7 +373,7 @@ def triplane_encode_bwd(spec: TriPlaneSpec, table: torch.Tensor,
         _kernels.ptr(dx), x.shape[0], spec.n_features,
         _level_table(spec, x.device).data_ptr(), spec.pyr_levels,
         _kernels.stream(x.device)), "triplane_encode_bwd")
-    triplane_encode_bwd.launches += 1
+    _kernels.count_launch(triplane_encode_bwd, _kernels.stream(x.device))
     return dtable, dx
 
 
@@ -406,14 +406,14 @@ def triplane_encode_bwd_serial(spec: TriPlaneSpec, table: torch.Tensor,
     dtable = sorter.run("triplane_encode_bwd_sort", x.data_ptr(),
                         table.data_ptr(), g.data_ptr(), sorter.gt.data_ptr(),
                         n, spec.n_features, levels, spec.pyr_levels)[:rows]
-    triplane_encode_bwd_serial.launches += 1
+    _kernels.count_launch(triplane_encode_bwd_serial,
+                          _kernels.stream(x.device))
     return dtable, dx
 
 
-# Launch counts of the kernels (the CPU path never adds to them).
-triplane_encode_fwd.launches = 0
-triplane_encode_bwd.launches = 0
-triplane_encode_bwd_serial.launches = 0
+# Launch counts of the kernels (_kernels.counted).
+_kernels.counted(triplane_encode_fwd, triplane_encode_bwd,
+                 triplane_encode_bwd_serial)
 
 
 class TriPlaneEncode(torch.autograd.Function):

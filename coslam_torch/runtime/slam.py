@@ -358,7 +358,8 @@ class CoSLAM:
         passes its snapshot). ``c2w_init``: the start pose (default: the
         point-cloud tracking's pose, or the motion-model prediction;
         ActiveCoSLAM passes its own for frames out of sequence)."""
-        with self.spans.span("tracking", timed=True, sums=phases("tracking")):
+        with self.spans.span("tracking", timed=True,
+                             sums=(*phases("tracking"), "tracking.replay")):
             loss = self._tracking_render(batch, frame_id, params, c2w_init)
         self.losses["tracking"].append(loss)
         return loss
