@@ -4,12 +4,14 @@ One closed orbit of the program's analytic room (its last pose leads
 smoothly into its first: every wander term turns a whole number of times
 an orbit) is rendered once into a cache directory inside the checkout,
 in the layout of the configuration's dataset, and listed as often as the
-sequence needs: Replica's ``results/`` by symbolic links to the orbit's
-files and a ``traj.txt`` of the whole sequence. The program's own loader
-reads them.
+sequence needs. The layout is written by ``slambench/frames/<dataset>.py``
+(``write(out, scene, cfg, seq, poses, device)``), found by the
+configuration's ``dataset``: a new dataset brings its writer as a file of
+its own. The program's own loader reads the frames.
 
 The cache is keyed by everything the frames depend on (the camera, the
-orbit, the layout and the sources of the renderer and of this file) and
+orbit, the layout and the sources of the renderer, of this file and of
+the dataset's writer) and
 filled in a directory of its own that is renamed into place when it is
 whole, so a run that is cut leaves nothing that a later run would read.
 """
@@ -17,6 +19,7 @@ whole, so a run that is cut leaves nothing that a later run would read.
 from __future__ import annotations
 
 import hashlib
+import importlib.util
 import json
 import os
 import shutil
@@ -26,6 +29,8 @@ import numpy as np
 
 # Bumped when what this file writes changes.
 _LAYOUT_VERSION = 1
+
+_FRAMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "frames")
 
 
 def orbit(n: int, radius: float = 1.15) -> np.ndarray:
@@ -52,19 +57,19 @@ def orbit(n: int, radius: float = 1.15) -> np.ndarray:
     return np.stack(poses).astype(np.float32)
 
 
-def _source_hash() -> str:
+def _source_hash(writer: str) -> str:
     from coslam_torch.data import synth
 
     h = hashlib.sha1()
-    for path in (synth.__file__, __file__):
+    for path in (synth.__file__, __file__, writer):
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:12]
 
 
-def cache_key(cfg: Dict, seq: Dict) -> str:
+def cache_key(cfg: Dict, seq: Dict, writer: str) -> str:
     what = {"dataset": cfg["dataset"], "cam": cfg["cam"], "seq": seq,
-            "version": _LAYOUT_VERSION, "sources": _source_hash()}
+            "version": _LAYOUT_VERSION, "sources": _source_hash(writer)}
     return hashlib.sha1(json.dumps(what, sort_keys=True).encode()
                         ).hexdigest()[:16]
 
@@ -73,47 +78,23 @@ def ensure_frames(root: str, name: str, cfg: Dict, seq: Dict,
                   device="cuda") -> str:
     """The directory of the sequence ``seq`` ({"period", "frames",
     "scene"}) for configuration ``name``, rendered on ``device`` if it is
-    not in the cache yet."""
+    not in the cache yet. A dataset without a writer fails on reading
+    the writer's file, naming it."""
+    from coslam_torch.data import synth
+
+    path = os.path.join(_FRAMES, f"{cfg['dataset']}.py")
     base = os.path.join(root, ".slambench_cache", "frames")
-    final = os.path.join(base, f"{name}-{cache_key(cfg, seq)}")
+    final = os.path.join(base, f"{name}-{cache_key(cfg, seq, path)}")
     if os.path.isdir(final):
         return final
+    spec = importlib.util.spec_from_file_location(
+        "slambench_frames_" + cfg["dataset"], path)
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
     work = final + ".partial"
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    poses = orbit(int(seq["period"]))
-    if cfg["dataset"] == "replica":
-        _write_replica(work, cfg, seq, poses, device)
-    else:
-        raise ValueError(f"no writer for dataset {cfg['dataset']!r}")
+    writer.write(work, synth.SCENES[seq.get("scene", "room")](), cfg, seq,
+                 orbit(int(seq["period"])), device)
     os.replace(work, final)
     return final
-
-
-def _scene(seq: Dict):
-    from coslam_torch.data import synth
-
-    return synth.SCENES[seq.get("scene", "room")]()
-
-
-def _write_replica(out: str, cfg: Dict, seq: Dict, poses: np.ndarray,
-                   device) -> None:
-    from coslam_torch.data import synth
-
-    cam = cfg["cam"]
-    synth.write_replica_format(out, _scene(seq), poses, cam["H"], cam["W"],
-                               cam["fx"], cam["fy"], cam["cx"], cam["cy"],
-                               png_depth_scale=cam["png_depth_scale"],
-                               device=device)
-    res = os.path.join(out, "results")
-    period, n = len(poses), int(seq["frames"])
-    for i in range(period, n):
-        for kind, ext in (("frame", "jpg"), ("depth", "png")):
-            os.symlink(f"{kind}{i % period:06d}.{ext}",
-                       os.path.join(res, f"{kind}{i:06d}.{ext}"))
-    with open(os.path.join(out, "traj.txt"), "w") as f:
-        for i in range(n):
-            cv = np.array(poses[i % period], np.float64)
-            cv[:3, 1] *= -1
-            cv[:3, 2] *= -1
-            f.write(" ".join(f"{v:.10f}" for v in cv.reshape(-1)) + "\n")

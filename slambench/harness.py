@@ -7,7 +7,10 @@ run, and the sequence it reads) and a traffic file
 (``slambench/traffic/<traffic>.json``: the loop, the window's phase, the
 traced stretch and the sampled answers). Each metric is a reader in
 ``slambench/metrics/<name>.py`` (``read(run) -> number or None``), found
-by the metric's name. Limits of the comparison are in
+by the metric's name (a name ``<metric>.<qualifier>`` without a file of
+its own is read by ``<metric>``'s reader: a cell added later names the
+metrics it reports in entries of its own, listing it under
+``workloads``). Limits of the comparison are in
 ``slambench/limits/<config>.json``.
 
 The window is a stretch of the program's own ``CoSLAM.run``: the loop
@@ -98,9 +101,20 @@ def window_start(cfg: Dict) -> int:
 
 
 def reader(name: str) -> Callable:
-    path = os.path.join(HERE, "metrics", name + ".py")
+    """The reader of metric ``name``: ``metrics/<name>.py``, or for a name
+    ``<base>.<qualifier>`` without a file of its own, the reader of
+    ``<base>``. So a cell that a later entry adds reports a quantity that
+    other cells report under a name of its own (``track_ms.tum``, whose
+    ``workloads`` list that cell), with no edit of the entries there."""
+    base = name
+    while (not os.path.isfile(os.path.join(HERE, "metrics", base + ".py"))
+           and "." in base):
+        base = base.rsplit(".", 1)[0]
+    path = os.path.join(HERE, "metrics", base + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no reader for metric {name!r}: {path}")
     spec = importlib.util.spec_from_file_location(
-        "slambench_metric_" + name.replace(".", "_"), path)
+        "slambench_metric_" + base.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read

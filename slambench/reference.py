@@ -4,7 +4,8 @@ one bundle adjustment call, in plain PyTorch.
 
 A frozen copy of the plain paths of the measured program, trimmed to what
 the cells run (the packed hash grid, OneBlob, the bias-free ReLU MLPs,
-the depth-guided stratified samples, the SDF losses, the axis-angle pose and torch's Adam). It imports nothing of
+the depth-guided stratified samples, the importance fine pass, the SDF
+losses, the axis-angle pose and torch's Adam). It imports nothing of
 the program. The hash encode is one ``index_select`` per corner pair,
 differentiated by autograd: the table gradient is ``index_select``'s
 backward (an ``index_add_``) and dx flows through the trilinear weights.
@@ -150,6 +151,23 @@ def mlp(ws: List[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return x @ ws[-1]
 
 
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Samples [N, n] by inverting the CDF of ``weights`` [N, M] (each
+    raised by 1e-5) over the bin edges ``bins`` [N, M + 1] at ``u``
+    [N, n]; a bin whose CDF step is under ``eps`` is read as one of 1."""
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[..., :1]), pdf.cumsum(-1)], -1)
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = (inds - 1).clamp(min=0)
+    above = inds.clamp(max=cdf.shape[-1] - 1)
+    c0, c1 = cdf.gather(-1, below), cdf.gather(-1, above)
+    b0, b1 = bins.gather(-1, below), bins.gather(-1, above)
+    denom = torch.where(c1 - c0 < eps, torch.ones_like(c0), c1 - c0)
+    return b0 + (u - c0) / denom * (b1 - b0)
+
+
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
@@ -170,11 +188,8 @@ class Model:
         self.spec = grid_spec(res, int(cfg["grid"]["hash_size"]))
         self.n_bins = int(cfg["pos"]["n_bins"])
         tr = cfg["training"]
-        if int(tr["n_importance"]) > 0:
-            raise ValueError("the reference renders the coarse pass alone: "
-                             "a configuration with an importance pass "
-                             "needs it added")
         self.n_z = tr["n_samples_d"] + tr["n_range_d"]
+        self.n_imp = int(tr["n_importance"])
         self._lin = {}
 
     def normalize(self, p: torch.Tensor) -> torch.Tensor:
@@ -230,10 +245,14 @@ class Model:
         return z
 
     def draws(self, gen: torch.Generator, n_rays: int):
+        """(t [n_rays, n_z], u [n_rays, n_imp] or None without a fine
+        pass), drawn in that order; (None, None) when perturb is 0."""
         if self.cfg["training"]["perturb"] <= 0:
-            return None
-        return torch.rand((n_rays, self.n_z), generator=gen,
-                          device=self.device)
+            return None, None
+        t = torch.rand((n_rays, self.n_z), generator=gen, device=self.device)
+        u = (torch.rand((n_rays, self.n_imp), generator=gen,
+                        device=self.device) if self.n_imp > 0 else None)
+        return t, u
 
     # -- rendering -------------------------------------------------------
 
@@ -250,19 +269,49 @@ class Model:
         w = w / (w.sum(-1, keepdim=True) + 1e-8)
         return (w[..., None] * rgb).sum(-2), (w * z).sum(-1), w
 
-    def render(self, params, rays_o, rays_d, target_d, t):
+    def render(self, params, rays_o, rays_d, target_d, t, u=None):
+        """The coarse pass; with n_importance > 0 also the fine pass,
+        whose maps replace the coarse ones (kept as rgb0, depth0) and
+        whose z and raw are the coarse and the new samples merged."""
         z = self.coarse_z(target_d, t)
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]
         raw = self.run_network(params, pts)
-        rgb, depth, _ = self.raw2outputs(raw, z)
-        return {"rgb": rgb, "depth": depth, "z": z, "raw": raw}
+        rgb, depth, w = self.raw2outputs(raw, z)
+        out = {}
+        if self.n_imp > 0:
+            out.update(rgb0=rgb, depth0=depth)
+            z, raw = self.fine(params, rays_o, rays_d, z, raw, w, u)
+            rgb, depth, _ = self.raw2outputs(raw, z)
+        out.update(rgb=rgb, depth=depth, z=z, raw=raw)
+        return out
+
+    def fine(self, params, rays_o, rays_d, z, raw, w, u):
+        """n_imp samples drawn from the coarse weights by CDF inversion
+        (``u``, or the strata's centres when it is None), the network
+        queried at those, then z and raw merged with the coarse pass's in
+        a stable order (a new sample equal to a coarse z comes second)."""
+        if u is None:
+            u = self.linspace(0.5 / self.n_imp, 1.0 - 0.5 / self.n_imp,
+                              self.n_imp)[None].expand(z.shape[0], -1)
+        mids = 0.5 * (z[..., 1:] + z[..., :-1])
+        z_new = sample_pdf(mids, w[..., 1:-1], u).detach()
+        pts = (rays_o[..., None, :]
+               + rays_d[..., None, :] * z_new[..., :, None])
+        raw_new = self.run_network(params, pts)
+        z_cat = torch.cat([z, z_new], -1)
+        raw_cat = torch.cat([raw, raw_new], -2)
+        order = torch.argsort(z_cat, dim=-1, stable=True)
+        return (torch.gather(z_cat, -1, order),
+                torch.gather(raw_cat, -2, order[..., None].expand(
+                    -1, -1, raw_cat.shape[-1])))
 
     def loss(self, params, rays_o, rays_d, target_rgb, target_d, t,
-             robust: Optional[float]) -> torch.Tensor:
+             robust: Optional[float], u=None) -> torch.Tensor:
         """total_loss of the render (rgb, depth, sdf and free-space terms,
-        without the smoothness term)."""
+        without the smoothness term; with a fine pass the coarse pass's
+        rgb and depth terms are added to the fine pass's)."""
         tr = self.cfg["training"]
-        rend = self.render(params, rays_o, rays_d, target_d, t)
+        rend = self.render(params, rays_o, rays_d, target_d, t, u)
         td = target_d[..., 0]
         valid = ((td > 0.0) & (td < self.cfg["cam"]["depth_trunc"])).to(
             td.dtype)
@@ -280,6 +329,10 @@ class Model:
         n_depth = valid.sum().clamp_min(1.0)
         rgb_loss = rgb_err(rend["rgb"]) / n_rgb
         depth_loss = (((rend["depth"] - td) ** 2) * valid).sum() / n_depth
+        if "rgb0" in rend:
+            rgb_loss = rgb_loss + rgb_err(rend["rgb0"]) / n_rgb
+            depth_loss = depth_loss + ((((rend["depth0"] - td) ** 2) * valid
+                                        ).sum() / n_depth)
         trunc = tr["trunc"] * self.cfg["data"]["sc_factor"]
         z, sdf = rend["z"], rend["raw"][..., -1]
         front = (z < (target_d - trunc)).to(z.dtype)
@@ -415,11 +468,11 @@ def track(model: Model, params: Dict, c2w_init: torch.Tensor,
         stall, done = 0, False
         losses = []
         for _ in range(int(tcfg["iter"])):
-            t = model.draws(gen, rays.shape[0])
+            t, u = model.draws(gen, rays.shape[0])
             c2w = se3(rot, trans)[0]
             rays_d = dirs @ c2w[:3, :3].T
             loss = model.loss(params, c2w[:3, 3].expand_as(rays_d), rays_d,
-                              trgb, td, t, robust)
+                              trgb, td, t, robust, u)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             lv = float(loss.detach())
@@ -487,14 +540,14 @@ def bundle_adjust(model: Model, params: Dict, opt_state: Dict,
             ray_ids = torch.cat([kf_ids, cur_ids])
             smooth_pts = (model.smoothness_points(gen)
                           if float(tr["smooth_weight"]) > 0 else None)
-            t = model.draws(gen, ray_data.shape[0])
+            t, u = model.draws(gen, ray_data.shape[0])
             poses = torch.where(frozen[:, None, None], poses0, se3(rot, trans))
             rows = poses[ray_ids]
             rays_d = (rows[:, :3, :3] @ ray_data[:, :3, None])[..., 0]
             p = {"grid": table, "decoder": {"sdf_net": dec[:n_sdf],
                                             "color_net": dec[n_sdf:]}}
             loss = model.loss(p, rows[:, :3, 3], rays_d, ray_data[:, 3:6],
-                              ray_data[:, 6:7], t, None)
+                              ray_data[:, 6:7], t, None, u)
             if smooth_pts is not None:
                 loss = loss + float(tr["smooth_weight"]) * model.smoothness(
                     table, smooth_pts)
@@ -561,11 +614,11 @@ def first_frame(model: Model, params: Dict, c2w: torch.Tensor,
                                 generator=gen, device=model.device)
             rays = frame_rays[idx]
             rays_d = rays[:, :3] @ Rm.T
-            t = model.draws(gen, sample)
+            t, u = model.draws(gen, sample)
             p = {"grid": table, "decoder": {"sdf_net": dec[:n_sdf],
                                             "color_net": dec[n_sdf:]}}
             loss = model.loss(p, tv.expand_as(rays_d), rays_d, rays[:, 3:6],
-                              rays[:, 6:7], t, None)
+                              rays[:, 6:7], t, None, u)
             loss.backward()
             map_opt.step()
             map_opt.zero_grad(set_to_none=True)

@@ -9,6 +9,13 @@ OVERRIDES = {
         "cam": {"H": 24, "W": 40, "fx": 20.0, "fy": 20.0, "cx": 19.5,
                 "cy": 11.5},
     },
+    "tum_fr1_desk": {
+        # fr1_desk's camera at a twentieth of its size (its lens
+        # distortion holds over the same field of view).
+        "cam": {"H": 24, "W": 32, "fx": 25.865, "fy": 25.825, "cx": 15.93,
+                "cy": 12.765, "crop_size": [24, 32], "crop_edge": 2},
+        "training": {"n_importance": 8},
+    },
 }
 COMMON = {
     "mapping": {"sample": 64, "first_iters": 30, "iters": 3,

@@ -142,20 +142,37 @@ def kf_count_at(cfg: Dict, k: int) -> int:
     return (k - 1) // int(cfg["mapping"]["keyframe_every"]) + 1
 
 
+def pass_points(cfg: Dict, rays: int) -> List[int]:
+    """The points of each encode call of a forward over ``rays`` rays:
+    the coarse pass's samples, and with an importance fine pass its new
+    samples, encoded by a call of their own (the coarse samples' outputs
+    are reused)."""
+    tr = cfg["training"]
+    calls = [rays * (int(tr["n_samples_d"]) + int(tr["n_range_d"]))]
+    if int(tr["n_importance"]) > 0:
+        calls.append(rays * int(tr["n_importance"]))
+    return calls
+
+
 def frame_encode_calls(cfg: Dict, k: int) -> List[Tuple]:
     """The encode calls of frame k's steps, as ("fwd", points) and
     ("bwd", points, table gradient?, dx?): each tracking iteration
-    encodes its rays' samples and takes dx alone (the map is frozen);
-    each iteration of a BA call (on frames map_every, 2 map_every, ...)
-    encodes its rays' samples, with the table gradient and dx (the poses
-    move from two keyframes on), and the smoothness lattice, whose
-    points are constants (the table gradient alone)."""
+    encodes its rays' samples (a call a pass, ``pass_points``) and takes
+    dx alone (the map is frozen); each iteration of a BA call (on frames
+    map_every, 2 map_every, ...) encodes its rays' samples, with the
+    table gradient and dx (the poses move from two keyframes on), and the
+    smoothness lattice, whose points are constants (the table gradient
+    alone)."""
     t, m = cfg["tracking"], cfg["mapping"]
-    n = int(t["sample"]) * samples_per_ray(cfg)
-    calls = [("fwd", n), ("bwd", n, False, True)] * int(t["iter"])
+    calls = []
+    for n in pass_points(cfg, int(t["sample"])):
+        calls += [("fwd", n), ("bwd", n, False, True)]
+    calls *= int(t["iter"])
     if k > 0 and k % int(m["map_every"]) == 0:
-        nb = ba_rays(cfg, kf_count_at(cfg, k)) * samples_per_ray(cfg)
-        it = [("fwd", nb), ("bwd", nb, True, kf_count_at(cfg, k) >= 2)]
+        kf = kf_count_at(cfg, k)
+        it = []
+        for nb in pass_points(cfg, ba_rays(cfg, kf)):
+            it += [("fwd", nb), ("bwd", nb, True, kf >= 2)]
         g3 = lattice_points(cfg)
         if g3:
             it += [("fwd", g3), ("bwd", g3, True, False)]
