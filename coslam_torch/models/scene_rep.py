@@ -32,6 +32,7 @@ from ..ops import losses as L
 from ..ops import render as R
 from ..ops import tensovm as VM
 from ..ops import triplane as TP
+from ..runtime.spans import in_forward
 from .decoder import ColorSDFDecoder
 
 
@@ -301,24 +302,27 @@ class JointEncoding:
         """The importance fine pass: n_importance samples drawn from the
         coarse weights (``u``, or the deterministic strata), the network
         queried at those only, and z and raw merged with the coarse pass's
-        by one stable argsort -> (z_vals, raw, z_std)."""
-        if u is None:
-            u = R.importance_u(rays_o.shape[0], self.n_importance,
-                               rays_o.device)
-        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = R.sample_pdf(z_mid, weights[..., 1:-1], u).detach()
-        z_std = z_samples.std(-1, correction=0)
-        pts_new = (rays_o[..., None, :]
-                   + rays_d[..., None, :] * z_samples[..., :, None])
-        raw_new = self.run_network(params, pts_new)
-        z_cat = torch.cat([z_vals, z_samples], -1)
-        raw_cat = torch.cat([raw, raw_new], -2)
-        # Stable, as jnp.argsort: a new sample equal to a coarse z keeps
-        # the coarse one first, and raw follows the same order.
-        order = torch.argsort(z_cat, dim=-1, stable=True)
-        z_vals = torch.gather(z_cat, -1, order)
-        raw = torch.gather(raw_cat, -2,
-                           order[..., None].expand(-1, -1, raw_cat.shape[-1]))
+        by one stable argsort -> (z_vals, raw, z_std). Inside a step's
+        forward it is that step's span ``<step>.fine``."""
+        with in_forward("fine"):
+            if u is None:
+                u = R.importance_u(rays_o.shape[0], self.n_importance,
+                                   rays_o.device)
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = R.sample_pdf(z_mid, weights[..., 1:-1], u).detach()
+            z_std = z_samples.std(-1, correction=0)
+            pts_new = (rays_o[..., None, :]
+                       + rays_d[..., None, :] * z_samples[..., :, None])
+            raw_new = self.run_network(params, pts_new)
+            z_cat = torch.cat([z_vals, z_samples], -1)
+            raw_cat = torch.cat([raw, raw_new], -2)
+            # Stable, as jnp.argsort: a new sample equal to a coarse z
+            # keeps the coarse one first, and raw follows the same order.
+            order = torch.argsort(z_cat, dim=-1, stable=True)
+            z_vals = torch.gather(z_cat, -1, order)
+            raw = torch.gather(
+                raw_cat, -2,
+                order[..., None].expand(-1, -1, raw_cat.shape[-1]))
         return z_vals, raw, z_std
 
     def forward(self, params: Dict, rays_o: torch.Tensor,

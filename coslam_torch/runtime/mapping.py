@@ -32,7 +32,8 @@ def make_first_frame_step(model, config: Dict, map_opt: torch.optim.Adam,
     iteration's rays split over them (parallel/sharding.py), the
     parameters on the first. ``spans`` (runtime/spans.Spans): each
     iteration's phases are spans ``first_frame.forward`` (the draws, the
-    forward and the loss), ``first_frame.backward`` and
+    forward and the loss; the importance fine pass inside it is a span
+    ``first_frame.fine``), ``first_frame.backward`` and
     ``first_frame.update`` (the map's Adam step)."""
     devices = shard_devices(devices)
     span = (spans or NO_SPANS).span
@@ -152,7 +153,8 @@ class BundleAdjust:
 
     ``spans`` (runtime/spans.Spans): each iteration's phases are spans
     ``mapping.forward`` (the keyframe and current-frame rays, the TV
-    lattice, the draws, the poses and the loss), ``mapping.backward`` and
+    lattice, the draws, the poses and the loss; the importance fine pass
+    inside it is a span ``mapping.fine``), ``mapping.backward`` and
     ``mapping.update`` (the map's and the poses' optimizer steps)."""
 
     def __init__(self, model, config: Dict, map_opt: torch.optim.Adam,

@@ -22,8 +22,13 @@ of the run goes through one recorder (:attr:`CoSLAM.spans`,
 runtime/spans.py), which also fills ``timings``: the wall of each call
 of the first-frame mapping, tracking, BA and the mesh, each step's
 forward, backward, update and wait on the card (``<step>.forward`` and
-so on: a call's sums over its iterations), and a frame's wait for the
-prefetcher (``load_wait``) and its frame blocks (``frame_block``).
+so on: a call's sums over its iterations; with an importance fine pass
+also ``<step>.fine``), a mesh's phases (``mesh.query``, ``.mcubes``,
+``.color``, ``.export``: a mesh's sums), each periodic mesh job's wall
+(``mesh_job``: the mesh.vis mesh with its ATE, ``ate``; one entry a
+job, in the order of the loop's ``mesh_eval`` events that submit them),
+and a frame's wait for the prefetcher (``load_wait``) and its frame
+blocks (``frame_block``).
 
 Frames come through a :class:`PrefetchIterator` (``data.num_workers``
 loader threads, frames handed over in order). The periodic mesh and ATE
@@ -78,7 +83,7 @@ from .keyframe import KeyFrameDatabase
 from .mapping import (BundleAdjust, make_current_frame_step,
                       make_first_frame_step)
 from .optim import make_cur_map_optimizer, make_map_optimizer
-from .spans import Spans, phases
+from .spans import MESH_PHASES, Spans, phases
 from .tracking import (make_tracking_pc_step, make_tracking_step,
                        predict_current_pose)
 
@@ -164,6 +169,8 @@ class CoSLAM:
         self.spans = Spans()
         self.timings.update({"first_frame": [], "tracking": [],
                              "mapping": [], "mesh": []})
+        # The steps' fine passes are phases of their own (<step>.fine).
+        self._fine = self.model.n_importance > 0
         track, mapping = self.track_devices, self.map_devices
         self._track_step = make_tracking_step(self.model, config, track,
                                               self.spans)
@@ -316,7 +323,7 @@ class CoSLAM:
 
     def first_frame_mapping(self, batch: Dict) -> float:
         with self.spans.span("first_frame", timed=True,
-                             sums=phases("first_frame")):
+                             sums=phases("first_frame", self._fine)):
             c2w = np.asarray(batch["c2w"], np.float32)
             self.est_c2w[0] = c2w
             self.est_c2w_rel[0] = c2w
@@ -359,7 +366,8 @@ class CoSLAM:
         point-cloud tracking's pose, or the motion-model prediction;
         ActiveCoSLAM passes its own for frames out of sequence)."""
         with self.spans.span("tracking", timed=True,
-                             sums=(*phases("tracking"), "tracking.replay")):
+                             sums=(*phases("tracking", self._fine),
+                                   "tracking.replay")):
             loss = self._tracking_render(batch, frame_id, params, c2w_init)
         self.losses["tracking"].append(loss)
         return loss
@@ -421,7 +429,8 @@ class CoSLAM:
         return float(loss)
 
     def global_BA(self, batch: Dict, cur_frame_id: int) -> float:
-        with self.spans.span("mapping", timed=True, sums=phases("mapping")):
+        with self.spans.span("mapping", timed=True,
+                             sums=phases("mapping", self._fine)):
             loss = self._global_BA(batch, cur_frame_id)
         self.losses["mapping"].append(loss)
         return loss
@@ -466,7 +475,7 @@ class CoSLAM:
                   params: Optional[Dict] = None):
         """mesh_track{i}.ply of the map (``params``, or the current
         parameters)."""
-        with self.spans.span("mesh", timed=True):
+        with self.spans.span("mesh", timed=True, sums=MESH_PHASES):
             out = os.path.join(self.config["data"]["output"],
                                self.config["data"]["exp_name"])
             os.makedirs(out, exist_ok=True)
@@ -489,7 +498,8 @@ class CoSLAM:
                                 else self.model.query_color),
                             voxel_size=voxel_size,
                             mesh_savepath=os.path.join(
-                                out, f"mesh_track{i}.ply"))
+                                out, f"mesh_track{i}.ply"),
+                            span=self.spans.span)
 
     def convert_relative_pose(self) -> Dict[int, np.ndarray]:
         """Every tracked frame's pose recomposed from its keyframe's and
@@ -553,10 +563,17 @@ class CoSLAM:
         step changes them in place, and the pose tables copied on the
         host; mesh.async_vis false runs them here, in the loop."""
         voxel = self.config["mesh"]["voxel_eval"]
-        if not self.config["mesh"].get("async_vis", True):
-            self.save_mesh(i, voxel_size=voxel)
+        span = self.spans.span
+
+        def mesh_and_ate(params=None, est=None, rel=None):
+            self.save_mesh(i, voxel_size=voxel, params=params)
             if eval_ate:
-                self._evaluate(i + 1)
+                with span("ate", timed=True):
+                    self._evaluate(i + 1, est, rel)
+
+        if not self.config["mesh"].get("async_vis", True):
+            with span("mesh_job", timed=True):
+                mesh_and_ate()
             return
         with torch.no_grad():
             params = _clone(self.params)
@@ -569,17 +586,16 @@ class CoSLAM:
                    for k, v in self.convert_relative_pose().items()}
 
         def job():
-            # The clones were made on the submitting thread's stream.
-            stream = _wait_event(self.device, ready)
-            try:
-                self.save_mesh(i, voxel_size=voxel, params=params)
-                if eval_ate:
-                    self._evaluate(i + 1, est, rel)
-            finally:
-                # Nothing of this stream reads the clones once they are
-                # freed (back to the submitting stream's pool).
-                if stream is not None:
-                    stream.synchronize()
+            with span("mesh_job", timed=True):
+                # The clones were made on the submitting thread's stream.
+                stream = _wait_event(self.device, ready)
+                try:
+                    mesh_and_ate(params, est, rel)
+                finally:
+                    # Nothing of this stream reads the clones once they
+                    # are freed (back to the submitting stream's pool).
+                    if stream is not None:
+                        stream.synchronize()
 
         self._mesh_worker.submit(job)
 

@@ -9,10 +9,14 @@ mesh worker each sum into their own steps. As it is asked to, a span:
 - ``event``: appends ``(start, end, name)`` to :attr:`Spans.events`
   (the loop's ``frame_events``, read by runtime/latency.attribute_tails);
 - ``sums``: sums the walls of the spans so named that run inside it
-  on the same thread (each adds to the innermost open span that sums
-  it), and on its exit appends each sum, 0 where none ran, to
-  ``timings[that name]``: one entry a call of this span, aligned with
-  its own entries.
+  on the same thread (each adds to the innermost open span of its
+  recorder that sums it), and on its exit appends each sum, 0 where
+  none ran, to ``timings[that name]``: one entry a call of this span,
+  aligned with its own entries.
+
+Code deep inside a step's forward, which is handed no recorder, opens a
+phase of that step with :func:`in_forward` (the importance fine pass:
+``<step>.fine``).
 
 A block that raises records its event but no timing and no sum: the
 call did not finish.
@@ -36,12 +40,17 @@ from torch.autograd.profiler import record_function
 
 RANGE_PREFIX = "coslam."
 STEP_PHASES = ("forward", "backward", "update", "wait")
+# A mesh's phases (mesh/extract.py): the SDF's queries up to the volume's
+# readback, marching cubes on the host, the vertex colors, the file.
+MESH_PHASES = ("mesh.query", "mesh.mcubes", "mesh.color", "mesh.export")
 
 
-def phases(step: str) -> Tuple[str, ...]:
+def phases(step: str, fine: bool = False) -> Tuple[str, ...]:
     """The phase spans of a step: ``<step>.forward``, ``.backward``,
-    ``.update`` and ``.wait``."""
-    return tuple(f"{step}.{p}" for p in STEP_PHASES)
+    ``.update`` and ``.wait``, then with ``fine`` (a model with an
+    importance fine pass) ``<step>.fine``, which nests in the forward."""
+    return tuple(f"{step}.{p}"
+                 for p in STEP_PHASES + (("fine",) if fine else ()))
 
 
 class Spans:
@@ -49,10 +58,12 @@ class Spans:
     ``events``: (start, end, tag) of the spans opened with ``event``
     (perf_counter seconds)."""
 
+    # Each thread's stack of open spans, of every recorder.
+    _local = threading.local()
+
     def __init__(self):
         self.timings: Dict[str, List[float]] = {}
         self.events: List[Tuple[float, float, str]] = []
-        self._local = threading.local()
 
     def span(self, name: str, timed: bool = False, event: bool = False,
              sums: Tuple[str, ...] = ()) -> "_Span":
@@ -112,10 +123,24 @@ class _Span:
             for key, total in self.acc.items():
                 timings.setdefault(key, []).append(total)
         for up in reversed(stack):
-            if up.acc is not None and name in up.acc:
+            if up.acc is not None and name in up.acc and up.spans is spans:
                 up.acc[name] += t1 - t0
                 break
         return False
+
+
+def in_forward(phase: str):
+    """A span ``<step>.<phase>`` where the span open innermost on this
+    thread is a step's forward, ``<step>.forward``, on that span's
+    recorder (the step's span sums it where it is asked to); elsewhere,
+    as in a replayed graph's capture, a block that records nothing."""
+    stack = getattr(Spans._local, "stack", None)
+    if stack:
+        top = stack[-1]
+        step, _, name = top.name.rpartition(".")
+        if name == "forward" and step:
+            return top.spans.span(f"{step}.{phase}")
+    return contextlib.nullcontext()
 
 
 class _NoSpans:

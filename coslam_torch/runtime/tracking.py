@@ -52,11 +52,12 @@ def make_tracking_step(model, config: Dict, devices=None, spans=None):
 
     ``spans`` (runtime/spans.Spans): each eager iteration's phases are
     spans ``tracking.forward`` (the draws, the pose, the forward and the
-    loss), ``tracking.backward`` (the backward) and ``tracking.update``
-    (the best-pose selects, the Adam step and the early-stop copy); a
-    replayed call is one span ``tracking.replay`` (the draws, the copy of
-    the inputs into the graph's, the replay and the copy of its
-    outputs)."""
+    loss; the importance fine pass inside it is a span
+    ``tracking.fine``), ``tracking.backward`` (the backward) and
+    ``tracking.update`` (the best-pose selects, the Adam step and the
+    early-stop copy); a replayed call is one span ``tracking.replay``
+    (the draws, the copy of the inputs into the graph's, the replay and
+    the copy of its outputs)."""
     devices = shard_devices(devices)
     span = (spans or NO_SPANS).span
     tcfg = config["tracking"]
